@@ -19,7 +19,23 @@ script exits non-zero without printing a result:
    ms per ring, host syncs per batch, and the kernel's launch count;
 5. one ring rerun from the same carry with the plain geofence: every
    output and the new carry must be identical;
-6. a small input run on the card and on the CPU: identical int outputs.
+6. the dispatcher's wire path (``dispatcher_wire``) on the same
+   deployment, written through ``RegistryMirror`` and ``RuleManager``:
+   NDJSON bytes -> journal -> columnar decode -> batcher -> step -> egress
+   -> offset commit.  Full-width payloads (131072 lines, 60/30/10
+   measurements/locations/alerts), 3 rings' worth, at the deployment's
+   5 ms batcher deadline with the ring at K=8 and with it off: events/s,
+   latency per plan from the payload's receipt (before its decode) to
+   egress, p50 and max, host ms per stage, host syncs per batch, and the
+   summed CUDA-event span of the card's steps.  Then a diagnostic run
+   with a 60 s deadline, where the ring forms, and a paced region at
+   width 4096 (deadline 3.5 ms, 50% of the measured capacity, latency
+   from each payload's scheduled arrival).  Checks: kernel launches ==
+   dispatcher steps, accepted rows == valid registered rows, committed
+   offset == journal records; in the diagnostic run, host syncs per batch
+   == 1/8 over the ring's steps and the last dispatched ring rerun with
+   the plain geofence from its carry, bitwise;
+7. a small input run on the card and on the CPU: identical int outputs.
 
 The line before the last is the card's ``nvidia-smi`` name and power
 limit; before it, the kernels' JSON record.  The last line is
@@ -29,11 +45,14 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -51,6 +70,22 @@ CAPACITY, N_ACTIVE, N_TENANTS = 1 << 20, 1_000_000, 8
 M_SLOTS, K_SCALES, N_RULES = 8, 3, 64
 RING_K, TIMED_RINGS = 8, 16
 SEED = 20261016
+# the wire path (phase dispatcher_wire)
+WIRE_PAYLOADS = 3 * RING_K        # full-width payloads: 3 rings at K=8
+WIRE_GHOSTS = 0.005               # share of lines from unregistered tokens
+# The deployment's batcher deadline (README.md:99-105).  A ring lingers
+# one deadline at most, and at the pure-Python decode's pace K payloads
+# take seconds, so at this deadline every ring drains single-step.
+WIRE_DEADLINE_MS = 5.0
+# Diagnostic only, not the deployment: a deadline long enough for K
+# payloads to decode, so the ring forms and its checks run.
+RING_DIAG_DEADLINE_MS = 60_000.0
+PACED_WIDTH, PACED_LINES, PACED_DEADLINE_MS = 4096, 1024, 3.5
+PACED_PAYLOADS, PACED_BURST, PACED_UTIL = 128, 32, 0.5
+# payloads of the profiled reruns (the card's kernel and copy time)
+PROFILED_PAYLOADS, PROFILED_PACED = RING_K, 32
+WIRE_TS0_MS = 1_700_000_000_000
+WIRE_STAGES = ("decode", "batch", "dispatch", "ring_dispatch", "egress")
 # instructions per edge test in the kernel: float32 - 2 compares
 # (straddle), sub, mul, add, 1 compare (px < x_cross); logic - the
 # straddle xor and the and-xor into the parity
@@ -410,6 +445,462 @@ def phase_main_path(device, geo_cuda):
     return launches
 
 
+# -- the wire path -------------------------------------------------------------
+
+
+class CountingStore:
+    """Event-store stand-in: counts accepted rows and reads the five
+    enrichment columns, as the segment store's append does."""
+
+    def __init__(self):
+        self.rows = 0
+
+    def append_columns(self, cols, mask=None):
+        for name in ("device_type_id", "assignment_id", "area_id",
+                     "customer_id", "asset_id"):
+            cols[name]
+        self.rows += int(mask.sum())
+
+    def flush(self):
+        pass
+
+
+def make_wire_world(device):
+    """The main-path deployment written through the port's services: 2^20
+    registry slots with 1,000,000 assigned devices (one tenant: wire rows
+    land in the default tenant), 64 rules and 512 zones of 16 vertices.
+    Rule thresholds and zones sit where real alerts are rare."""
+    import torch
+
+    from sitewhere_tpu_torch.ids import IdentityMap
+    from sitewhere_tpu_torch.pipeline.rules import RuleManager
+    from sitewhere_tpu_torch.schema import (
+        AssignmentStatus, ComparisonOp, RuleKind, ZoneCondition)
+    from sitewhere_tpu_torch.services.device_management import (
+        RegistryMirror)
+
+    identity = IdentityMap()
+    identity.tenant.mint("default")
+    for m in range(M_SLOTS):
+        identity.mtype.mint(f"m{m}")
+    mirror = RegistryMirror(CAPACITY, max_zones=FULL_Z, max_verts=FULL_V,
+                            device=device)
+    active = int(AssignmentStatus.ACTIVE)
+    for i in range(N_ACTIVE):
+        d = identity.device.mint(f"d-{i}")
+        mirror.set_device_row(
+            d, active=True, tenant_id=0, device_type_id=i % 16,
+            assignment_id=i, assignment_status=active, area_id=i % 64,
+            customer_id=i % 1000, asset_id=i % 5000)
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 5)
+    polys = random_polygons(gen, FULL_Z, FULL_V, -80, 80, 0.3, 2.0,
+                            "cpu").numpy()
+    for z in range(FULL_Z):
+        mirror.set_zone_row(
+            z, active=True, tenant_id=-1 if z % 2 else 0,
+            area_id=z % 64 if z % 4 == 3 else -1, verts_lonlat=polys[z],
+            condition=int(ZoneCondition.ALERT_IF_INSIDE),
+            alert_code=identity.alert_type.mint(f"zone-{z % 8}"),
+            alert_level=z % 4)
+    rules = RuleManager(identity, capacity=N_RULES, device=device)
+    for r in range(N_RULES):
+        kind = (RuleKind.INSTANT, RuleKind.WINDOW_MEAN,
+                RuleKind.RATE_PER_S)[r % 3]
+        if kind == RuleKind.INSTANT:
+            op, thr = ((ComparisonOp.GT, 99.9) if r % 2
+                       else (ComparisonOp.LT, 0.1))
+        elif kind == RuleKind.WINDOW_MEAN:
+            op, thr = ComparisonOp.GT, 99.0
+        else:
+            op, thr = ComparisonOp.GT, 95.0
+        rules.create_rule(f"m{r % M_SLOTS}", op, thr, f"rule-{r % 4}",
+                          alert_level=r % 4,
+                          tenant=None if r % 2 == 0 else "default",
+                          kind=kind, window_s=(60.0, 600.0, 3600.0)[r % 3])
+    return identity, mirror, rules
+
+
+_M_LINE = ('{"deviceToken":"%s","type":"DeviceMeasurements","request":'
+           '{"name":"m%d","value":%.3f,"eventDate":%d}}')
+_L_LINE = ('{"deviceToken":"%s","type":"DeviceLocation","request":'
+           '{"latitude":%.5f,"longitude":%.5f,"elevation":%.1f,'
+           '"eventDate":%d}}')
+_A_LINE = ('{"deviceToken":"%s","type":"DeviceAlert","request":'
+           '{"type":"device-%d","level":"warning","eventDate":%d}}')
+
+
+def wire_payloads(rng, n_payloads, lines, ts0_ms):
+    """NDJSON payloads of ``lines`` lines, 60/30/10 measurements,
+    locations and alerts, a share of unregistered tokens; one second of
+    event time per payload.  Returns ``[(bytes, registered_lines)]``."""
+    out = []
+    for p in range(n_payloads):
+        dev = rng.integers(0, N_ACTIVE, lines)
+        ghost = rng.random(lines) < WIRE_GHOSTS
+        kind = rng.choice(3, lines, p=[0.6, 0.3, 0.1])
+        value = rng.uniform(0, 100, lines)
+        lat = rng.uniform(-85, 85, lines)
+        lon = rng.uniform(-175, 175, lines)
+        ts = ts0_ms + 1000 * p + 250 * rng.integers(0, 4, lines)
+        body = []
+        for d, g, k, v, la, lo, t in zip(
+                dev.tolist(), ghost.tolist(), kind.tolist(), value.tolist(),
+                lat.tolist(), lon.tolist(), ts.tolist()):
+            tok = f"x-{d}" if g else f"d-{d}"
+            if k == 0:
+                body.append(_M_LINE % (tok, d % M_SLOTS, v, t))
+            elif k == 1:
+                body.append(_L_LINE % (tok, la, lo, v, t))
+            else:
+                body.append(_A_LINE % (tok, d % 4, t))
+        out.append(("\n".join(body).encode(), lines - int(ghost.sum())))
+    return out
+
+
+def make_wire_dispatcher(device, world, width, ring_depth, deadline_ms,
+                         journal_dir):
+    """A started dispatcher over the world's epochs, with its own state,
+    journal and store (start() runs the warm-up dispatch)."""
+    from sitewhere_tpu_torch.ingest.batcher import Batcher
+    from sitewhere_tpu_torch.ingest.journal import Journal, JournalReader
+    from sitewhere_tpu_torch.runtime.dispatcher import PipelineDispatcher
+    from sitewhere_tpu_torch.state.manager import DeviceStateManager
+
+    identity, mirror, rules = world
+    state = DeviceStateManager(
+        CAPACITY, identity, num_mtype_slots=M_SLOTS,
+        tenant_id_of_device=lambda ids: mirror.tenant_id[ids],
+        num_ewma_scales=K_SCALES, device=device)
+    batcher = Batcher(
+        width=width, n_shards=1, registry_capacity=CAPACITY,
+        resolve_device=identity.device.lookup,
+        resolve_mtype=identity.mtype.mint,
+        resolve_alert=identity.alert_type.mint,
+        invocations=identity.invocation, deadline_ms=deadline_ms,
+        emit_packed=True)
+    journal = Journal(journal_dir, "events", fsync_every=1 << 30,
+                      segment_bytes=1 << 30)
+    disp = PipelineDispatcher(
+        batcher=batcher, registry_provider=mirror.publish_registry,
+        state_manager=state, rules_provider=rules.publish,
+        zones_provider=mirror.publish_zones, event_store=CountingStore(),
+        journal=journal, journal_reader=JournalReader(journal, "pipeline"),
+        resolve_tenant=identity.tenant.mint, ring_depth=ring_depth,
+        egress_offload=True, device=device)
+    disp.start()
+    return disp
+
+
+def _stage_totals(disp):
+    return {s: (disp.metrics.timer(f"pipeline.stage_{s}_s").total,
+                disp.metrics.timer(f"pipeline.stage_{s}_s").count)
+            for s in WIRE_STAGES}
+
+
+def _stage_ms(disp, before):
+    out = {}
+    for s, (total0, count0) in before.items():
+        t = disp.metrics.timer(f"pipeline.stage_{s}_s")
+        if t.count > count0:
+            out[s] = (t.total - total0) / (t.count - count0) * 1e3
+    return out
+
+
+def _wait_egress_idle(disp, timeout_s=120.0):
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        with disp._step_lock:
+            if not disp._inflight and not disp._egress_busy:
+                return
+        time.sleep(0.001)
+    raise RuntimeError("chip_smoke: egress did not drain")
+
+
+class DeviceSpans:
+    """CUDA events around every step and chain a started dispatcher
+    launches.  Their summed span bounds the card's busy time from above:
+    a span also holds any gap in which the card waits for the host's next
+    launch.  None of it on the CPU."""
+
+    def __init__(self, disp):
+        import torch
+
+        self._torch = torch
+        self.pairs = []
+        self.on = disp.device.type == "cuda"
+        if self.on:
+            disp._packed_step = self.wrap(disp._packed_step)
+            for k, chain in list(disp._ring_chains.items()):
+                disp._ring_chains[k] = self.wrap(chain)
+
+    def wrap(self, fn):
+        torch = self._torch
+
+        def timed(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args)
+            end.record()
+            self.pairs.append((start, end))
+            return out
+
+        return timed
+
+    def total_ms(self):
+        if not self.on:
+            return None
+        self._torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.pairs)
+
+
+def _device_profile(on: bool):
+    """``torch.profiler`` over the card's activity only (kernels and
+    copies, from every thread), or nothing (and always on the CPU)."""
+    if not on:
+        return contextlib.nullcontext(None)
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CUDA])
+
+
+def _device_ms(prof):
+    """The card's kernel and copy time in a profile, in ms: one stream, so
+    the entries never overlap and their sum is the busy time."""
+    if prof is None:
+        return None
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0.0)
+
+    return sum(dev_us(e) for e in prof.key_averages()
+               if "CUDA" in str(e.device_type)) / 1e3
+
+
+def _busy(rec, span_ms, device_ms, elapsed, steps):
+    """The card's share of the wall time: the CUDA-event span's bound and,
+    in a profiled run, the measured kernel and copy time."""
+    rec["device_span_ms"] = span_ms
+    rec["device_busy_share_max"] = (
+        None if span_ms is None else span_ms / 1e3 / elapsed)
+    rec["device_span_ms_per_step"] = (
+        None if span_ms is None else span_ms / max(1, steps))
+    if device_ms is not None:
+        rec["device_ms"] = device_ms
+        rec["device_ms_per_step"] = device_ms / max(1, steps)
+        rec["device_busy_share"] = device_ms / 1e3 / elapsed
+    return rec
+
+
+def _latency(disp, tail: str):
+    """p50 and the tail of the dispatcher's per-plan latencies, in ms:
+    the max (``tail="max"``) or the p99 and the max."""
+    lat = np.asarray(list(disp.latencies_s)) * 1e3
+    rec = {"plans": int(lat.size),
+           "latency_p50_ms": float(np.percentile(lat, 50)),
+           "latency_max_ms": float(lat.max())}
+    if tail == "p99":
+        rec["latency_p99_ms"] = float(np.percentile(lat, 99))
+    return rec
+
+
+def wire_throughput(device, geo_cuda, world, payloads, ring_depth,
+                    deadline_ms, root, run, profile=False):
+    """ingest_wire_lines over every payload, then flush(), timed from the
+    first byte to the flush's return.  With ``deadline_ms`` at
+    RING_DIAG_DEADLINE_MS the ring forms: its sync count is read once the
+    ring's plans have egressed, before the flush's partial, and the last
+    dispatched ring is rerun with the plain geofence.  ``profile`` runs
+    the region under the profiler (its numbers then carry its cost)."""
+    import torch
+
+    from sitewhere_tpu_torch.pipeline.packed import build_packed_chain
+
+    diag = deadline_ms == RING_DIAG_DEADLINE_MS
+    disp = make_wire_dispatcher(device, world, FULL_B, ring_depth,
+                                deadline_ms, os.path.join(root, "j"))
+    recorded = {}
+    if diag:
+        real_chain = disp._ring_chain(ring_depth)
+
+        def recording_chain(tables, ps, *slots):
+            out = real_chain(tables, ps, *slots)
+            recorded.update(tables=tables, ps=ps, slots=slots, out=out)
+            return out
+
+        disp._ring_chains[ring_depth] = recording_chain
+    spans = DeviceSpans(disp)
+    try:
+        torch.cuda.synchronize()
+        snap0 = disp.metrics_snapshot()
+        stages0 = _stage_totals(disp)
+        disp.latencies_s.clear()
+        geo_cuda.reset_launch_counts()
+        with _device_profile(profile and device.type == "cuda") as prof:
+            t0 = time.perf_counter()
+            for payload, _ in payloads:
+                disp.ingest_wire_lines(payload)
+            _wait_egress_idle(disp)
+            mid = disp.metrics_snapshot()
+            disp.flush()
+            elapsed = time.perf_counter() - t0
+        launches = geo_cuda.launch_counts["pip_parity"]
+        snap = disp.metrics_snapshot()
+        stage_ms = _stage_ms(disp, stages0)
+        committed = disp.journal_reader.committed
+        records = disp.journal.end_offset
+        latency = _latency(disp, "max")
+        span_ms = spans.total_ms()
+    finally:
+        disp.stop()
+        disp.journal.close()
+    delta = {k: snap[k] - snap0[k] for k in (
+        "steps", "host_syncs", "ring_chains", "ring_flushed_plans",
+        "processed", "accepted", "unregistered", "derived_alerts")}
+    lines = sum(p.count(b"\n") + 1 for p, _ in payloads)
+    registered = sum(r for _, r in payloads)
+    ring_steps = mid["steps"] - snap0["steps"]
+    ring_syncs = mid["host_syncs"] - snap0["host_syncs"]
+    rec = {"phase": "dispatcher_wire", "run": run,
+           "ring_depth": ring_depth, "deadline_ms": deadline_ms,
+           "payloads": len(payloads), "lines": lines, "elapsed_s": elapsed,
+           "events_per_s": lines / elapsed,
+           "rows_per_s_with_derived": delta["processed"] / elapsed,
+           **latency, "stage_ms": stage_ms,
+           "host_syncs_per_batch": delta["host_syncs"] / delta["steps"],
+           "ring_region_steps": ring_steps,
+           "ring_region_host_syncs_per_batch": ring_syncs / ring_steps,
+           "pip_launches": launches, "committed": committed,
+           "journal_records": records, **delta}
+    emit(_busy(rec, span_ms, _device_ms(prof), elapsed, delta["steps"]))
+    check(launches == delta["steps"],
+          f"kernel launched {launches}x in {delta['steps']} dispatcher steps")
+    check(delta["accepted"] == registered + delta["derived_alerts"],
+          f"accepted {delta['accepted']} != registered {registered} + "
+          f"derived {delta['derived_alerts']}")
+    check(delta["processed"] == lines + delta["derived_alerts"],
+          "processed rows")
+    check(delta["unregistered"] == lines - registered, "unregistered rows")
+    check(committed == records == len(payloads),
+          f"committed offset {committed}, journal records {records}")
+    if diag:
+        check(delta["ring_chains"] == len(payloads) // ring_depth,
+              f"{delta['ring_chains']} ring chains")
+        check(ring_syncs * ring_depth == ring_steps,
+              f"ring host syncs {ring_syncs} over {ring_steps} steps")
+        # the last dispatched ring again, from its carry, plain geofence
+        plain = build_packed_chain(ring_depth, geofence=plain_chunked)
+        ps, ois, mets, present = plain(recorded["tables"], recorded["ps"],
+                                       *recorded["slots"])
+        kps, kois, kmets, kpresent = recorded["out"]
+        same = (torch.equal(ois, kois) and torch.equal(mets, kmets)
+                and torch.equal(ps.si, kps.si) and torch.equal(ps.sf, kps.sf)
+                and torch.equal(present, kpresent))
+        emit({"phase": "dispatcher_wire", "run": "plain_rerun",
+              "identical": same})
+        check(same, "dispatcher ring != plain-geofence rerun")
+        check(geo_cuda.launch_counts["pip_parity"] == launches,
+              "plain rerun launched the kernel")
+    return rec
+
+
+def wire_paced(device, world, payloads, root, run="paced_ring0",
+               profile=False):
+    """A latency region as the reference's bench runs one: width 4096,
+    deadline 3.5 ms, ring off; a burst measures this dispatcher's
+    capacity, then payloads are offered at PACED_UTIL of it on a
+    drift-free schedule.  Each payload's latency counts from its scheduled
+    arrival, so time the host spends behind schedule is inside it.
+    ``profile`` runs the offered region under the profiler."""
+    import torch
+
+    disp = make_wire_dispatcher(device, world, PACED_WIDTH, 0,
+                                PACED_DEADLINE_MS, os.path.join(root, "p"))
+    spans = DeviceSpans(disp)
+    try:
+        rows = PACED_LINES
+        tb = time.perf_counter()
+        for payload, _ in payloads[:PACED_BURST]:
+            disp.ingest_wire_lines(payload)
+        disp.flush()
+        capacity = rows * PACED_BURST / (time.perf_counter() - tb)
+        gap_s = rows / (capacity * PACED_UTIL)
+        torch.cuda.synchronize()
+        spans.pairs.clear()
+        disp.latencies_s.clear()
+        snap0 = disp.metrics_snapshot()
+        with _device_profile(profile and device.type == "cuda") as prof:
+            t0 = time.perf_counter()
+            m0 = time.monotonic()
+            for i, (payload, _) in enumerate(payloads[PACED_BURST:]):
+                due = m0 + i * gap_s
+                delay = due - time.monotonic()
+                if delay > 0:
+                    time.sleep(delay)
+                disp.ingest_wire_lines(payload, received_at=due)
+            disp.flush()
+            elapsed = time.perf_counter() - t0
+        snap = disp.metrics_snapshot()
+        latency = _latency(disp, "p99")
+        span_ms = spans.total_ms()
+    finally:
+        disp.stop()
+        disp.journal.close()
+    n = rows * (len(payloads) - PACED_BURST)
+    steps = snap["steps"] - snap0["steps"]
+    rec = {"phase": "dispatcher_wire", "run": run,
+           "ring_depth": 0, "width": PACED_WIDTH,
+           "deadline_ms": PACED_DEADLINE_MS,
+           "capacity_events_per_s": capacity, "offered_util": PACED_UTIL,
+           "events_per_s": n / elapsed, **latency,
+           "steps": steps,
+           "host_syncs_per_batch":
+           (snap["host_syncs"] - snap0["host_syncs"]) / max(1, steps)}
+    emit(_busy(rec, span_ms, _device_ms(prof), elapsed, steps))
+    return rec
+
+
+def phase_dispatcher_wire(device, geo_cuda):
+    """The wire path through the port's dispatcher; returns the kernel's
+    launches in each throughput run, by run name."""
+    t0 = time.perf_counter()
+    world = make_wire_world(device)
+    rng = np.random.default_rng(SEED + 6)
+    payloads = wire_payloads(rng, WIRE_PAYLOADS, FULL_B, WIRE_TS0_MS)
+    paced = wire_payloads(rng, PACED_PAYLOADS + PACED_BURST, PACED_LINES,
+                          WIRE_TS0_MS + 10_000_000)
+    emit({"phase": "dispatcher_wire", "run": "setup", "capacity": CAPACITY,
+          "active": N_ACTIVE, "rules": N_RULES, "zones": FULL_Z,
+          "verts": FULL_V, "width": FULL_B,
+          "setup_s": time.perf_counter() - t0})
+    root = tempfile.mkdtemp(prefix="wire-", dir=geo_cuda.BUILD_DIR)
+    launches = {}
+    try:
+        for ring, deadline_ms, run in (
+                (RING_K, WIRE_DEADLINE_MS, f"throughput_ring{RING_K}"),
+                (0, WIRE_DEADLINE_MS, "throughput_ring0"),
+                (RING_K, RING_DIAG_DEADLINE_MS,
+                 f"diagnostic_ring{RING_K}_deadline60s")):
+            rec = wire_throughput(device, geo_cuda, world, payloads, ring,
+                                  deadline_ms, os.path.join(root, run), run)
+            launches[run] = rec["pip_launches"]
+        wire_paced(device, world, paced, os.path.join(root, "paced"))
+        # the card's busy time, measured apart from the timed regions
+        wire_throughput(device, geo_cuda, world,
+                        payloads[:PROFILED_PAYLOADS], 0, WIRE_DEADLINE_MS,
+                        os.path.join(root, "prof"), "profiled_ring0",
+                        profile=True)
+        wire_paced(device, world, paced[:PACED_BURST + PROFILED_PACED],
+                   os.path.join(root, "prof_paced"), "profiled_paced_ring0",
+                   profile=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "dispatcher_wire", "run": "done",
+          "seconds": time.perf_counter() - t0})
+    return launches
+
+
 def phase_small_reference(device):
     """A small deployment stepped on the card (kernel) and on the CPU
     (plain versions): int outputs and metrics identical, EWMAs close."""
@@ -478,7 +969,13 @@ def main() -> int:
           "ptxas": ptxas})
 
     rec = phase_kernel(device, geo_cuda)
-    rec["launches"] = phase_main_path(device, geo_cuda)
+    main_launches = phase_main_path(device, geo_cuda)
+    wire_launches = phase_dispatcher_wire(device, geo_cuda)
+    # the port's default configuration: ring off, the deployment's deadline
+    rec["launches"] = wire_launches["throughput_ring0"]
+    rec["launches_by_path"] = {"main_path": main_launches,
+                               **{f"dispatcher_wire.{k}": v
+                                  for k, v in wire_launches.items()}}
     phase_small_reference(device)
 
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

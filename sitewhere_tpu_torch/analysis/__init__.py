@@ -1,0 +1,1 @@
+"""analysis of the PyTorch port (see the package docstring)."""

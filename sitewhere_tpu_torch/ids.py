@@ -1,16 +1,17 @@
 """Host-edge identity: string tokens -> dense int32 handles.
 
 Counterpart of ``sitewhere_tpu/ids.py``, carried as far as the state
-manager's lookups need it: the ``NULL_ID`` sentinel, :class:`HandleSpace`
-(mint / lookup / reverse lookup) and :class:`IdentityMap`.  Freeing
-handles, the native wire-scanner mirror and checkpoint serialization
-wait for the slices that port the services, ingest and checkpoints.
+manager, the batcher and the columnar decode need it: the ``NULL_ID``
+sentinel, :class:`HandleSpace` (mint / lookup / bulk lookup / reverse
+lookup) and :class:`IdentityMap`.  Freeing handles, the native
+wire-scanner mirror and checkpoint serialization wait for the slices
+that port the services, the native wire tier and checkpoints.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict, List, Optional
+from typing import Dict, Iterable, List, Optional
 
 NULL_ID = -1
 
@@ -28,6 +29,11 @@ class HandleSpace:
     def lookup(self, token: str) -> int:
         """The handle for ``token``, or ``NULL_ID`` if unknown."""
         return self._token_to_id.get(token, NULL_ID)
+
+    def lookup_many(self, tokens: Iterable[str]) -> List[int]:
+        """:meth:`lookup` over many tokens in one comprehension."""
+        get = self._token_to_id.get
+        return [get(t, NULL_ID) for t in tokens]
 
     def mint(self, token: str) -> int:
         """The handle for ``token``, minting a new one if needed."""

@@ -1,0 +1,1 @@
+"""ingest of the PyTorch port (see the package docstring)."""

@@ -15,14 +15,23 @@ interface transform only.
 
 On the host: :func:`pack_batch_host` packs decoded numpy columns,
 :func:`stage_packed_batch` copies them to the card from pinned buffers
-without blocking, :class:`RingFetch` starts the ring's device-to-host
-copy at dispatch and waits for it once, and :class:`RingStepView` reads
-one slot from that shared copy.
+without blocking, :func:`start_host_copy` starts a step's device-to-host
+copy at dispatch (a :class:`HostCopy`, waited for once, on its own CUDA
+event), :class:`PackedView` reads one step's outputs from it,
+:class:`RingFetch` is the one copy a K-step ring shares, and
+:class:`RingStepView` reads one slot from that shared copy.
+
+The ring depth the reference chooses with ``jax.default_backend()``
+follows its non-TPU branch on the card until an H100 measurement
+chooses: :func:`ring_depth_default` is 0 (``SW_TPU_RING_DEPTH``
+overrides).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
+import os
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -45,6 +54,8 @@ from sitewhere_tpu_torch.schema import (
     RuleTable,
     ZoneTable,
 )
+
+logger = logging.getLogger("sitewhere_tpu_torch.packed")
 
 # -- column orders (load-bearing: pack and unpack must agree) ---------------
 
@@ -274,6 +285,23 @@ def build_packed_chain(k: int,
     return chain
 
 
+def ring_depth_default() -> int:
+    """Ring depth of the dispatcher when none is configured.
+
+    The reference chains 8 steps per dispatch on a TPU and none
+    elsewhere; the port takes the non-TPU branch, 0, until an H100
+    measurement of the ring on and off chooses.  ``SW_TPU_RING_DEPTH``
+    overrides the default (an explicit ``ring_depth`` still wins).
+    """
+    env = os.environ.get("SW_TPU_RING_DEPTH")
+    if env is not None:
+        try:
+            return max(0, int(env))
+        except ValueError:
+            logger.warning("ignoring non-integer SW_TPU_RING_DEPTH=%r", env)
+    return 0
+
+
 # -- host side --------------------------------------------------------------
 
 
@@ -306,25 +334,70 @@ def stage_packed_batch(bi: np.ndarray, bf: np.ndarray,
             hf.pin_memory().to(device, non_blocking=True))
 
 
+class HostCopy:
+    """Device-to-host copy of some tensors, started at construction and
+    waited for once.
+
+    On a card each tensor is copied into a pinned host buffer with
+    ``non_blocking=True`` on its device's current stream, and a CUDA
+    event is recorded after the copies; :meth:`fetch` waits on that event
+    alone, never on the whole card (``torch.cuda.synchronize`` would also
+    wait for the steps dispatched after this one).  On the CPU the
+    tensors are their own host copy.  ``on_fetch`` is called once, at the
+    first :meth:`fetch` (the dispatcher counts its host syncs there).
+    """
+
+    def __init__(self, *tensors: torch.Tensor, on_fetch=None):
+        self._on_fetch = on_fetch
+        self._host: Optional[Tuple[np.ndarray, ...]] = None
+        if tensors and tensors[0].is_cuda:
+            self._bufs = tuple(torch.empty(t.shape, dtype=t.dtype,
+                                           pin_memory=True) for t in tensors)
+            for buf, t in zip(self._bufs, tensors):
+                buf.copy_(t, non_blocking=True)
+            self._done = torch.cuda.Event()
+            self._done.record(torch.cuda.current_stream(tensors[0].device))
+        else:
+            self._bufs = tensors
+            self._done = None
+
+    def fetch(self) -> Tuple[np.ndarray, ...]:
+        if self._host is None:
+            if self._on_fetch is not None:
+                self._on_fetch()
+            if self._done is not None:
+                self._done.synchronize()
+            self._host = tuple(b.numpy() for b in self._bufs)
+            self._bufs = ()
+        return self._host
+
+
+def start_host_copy(*tensors: torch.Tensor, on_fetch=None) -> HostCopy:
+    """Start the device-to-host copy of a dispatched step's outputs, so
+    that by the time egress reads them the bytes are on the host."""
+    return HostCopy(*tensors, on_fetch=on_fetch)
+
+
 class PackedView:
-    """Host view of one packed step's outputs: the ``[10, B]`` block and
-    the metrics vector are fetched once, on first use, and columns are
-    numpy rows of it.  ``present_now`` stays on the device."""
+    """Host view of one packed step's outputs.
+
+    The ``[10, B]`` block and the metrics vector are copied to the host
+    once (a :class:`HostCopy` started at construction, waited for at
+    first use) and columns are numpy rows of that copy.  ``present_now``
+    stays on the device: it feeds the commit, never the host.
+    """
 
     def __init__(self, oi, metrics, present_now, on_fetch=None):
-        self._oi_dev = oi
-        self._metrics_dev = metrics
         self.present_now = present_now
+        self._copy = (HostCopy(oi, metrics, on_fetch=on_fetch)
+                      if oi is not None else None)
         self._oi: Optional[np.ndarray] = None
         self._metrics_host: Optional[np.ndarray] = None
         self._metrics: Optional[StepMetrics] = None
-        self._on_fetch = on_fetch
+        self._accepted: Optional[np.ndarray] = None
 
     def _fetch(self) -> None:
-        if self._on_fetch is not None:
-            self._on_fetch()
-        self._oi = self._oi_dev.cpu().numpy()
-        self._metrics_host = self._metrics_dev.cpu().numpy()
+        self._oi, self._metrics_host = self._copy.fetch()
 
     @property
     def oi(self) -> np.ndarray:
@@ -346,7 +419,10 @@ class PackedView:
 
     @property
     def accepted(self) -> np.ndarray:
-        return self._flag(F_ACCEPTED)
+        # memoized: egress consults the mask several times per plan
+        if self._accepted is None:
+            self._accepted = self._flag(F_ACCEPTED)
+        return self._accepted
 
     @property
     def unregistered(self) -> np.ndarray:
@@ -408,41 +484,12 @@ class PackedView:
         )
 
 
-class RingFetch:
-    """One device-to-host fetch shared by every step view of a chain.
-
-    The copies of the stacked ``ois [K, 10, B]`` and ``metrics [K, n]``
-    start at construction (into pinned buffers, on the current stream,
-    without blocking); the first :meth:`fetch` waits for them once and
-    every slot reads its slice from the same host copy: K steps, one
-    host sync.
-    """
-
-    def __init__(self, ois: torch.Tensor, metrics: torch.Tensor,
-                 on_fetch=None):
-        self._on_fetch = on_fetch
-        self._host: Optional[Tuple[np.ndarray, np.ndarray]] = None
-        if ois.is_cuda:
-            self._bufs = (torch.empty(ois.shape, dtype=ois.dtype,
-                                      pin_memory=True),
-                          torch.empty(metrics.shape, dtype=metrics.dtype,
-                                      pin_memory=True))
-            self._bufs[0].copy_(ois, non_blocking=True)
-            self._bufs[1].copy_(metrics, non_blocking=True)
-            self._done = torch.cuda.Event()
-            self._done.record()
-        else:
-            self._bufs = (ois, metrics)
-            self._done = None
-
-    def fetch(self) -> Tuple[np.ndarray, np.ndarray]:
-        if self._host is None:
-            if self._on_fetch is not None:
-                self._on_fetch()
-            if self._done is not None:
-                self._done.synchronize()
-            self._host = (self._bufs[0].numpy(), self._bufs[1].numpy())
-        return self._host
+class RingFetch(HostCopy):
+    """The one device-to-host copy every step view of a K-step chain
+    shares: the stacked ``ois [K, 10, B]`` and ``metrics [K, n]`` copy at
+    construction and the first :meth:`fetch` waits for them once; every
+    slot reads its slice from the same host copy: K steps, one host
+    sync.  Construct it as ``RingFetch(ois, metrics, on_fetch=...)``."""
 
 
 class RingStepView(PackedView):

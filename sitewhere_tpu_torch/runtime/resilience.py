@@ -1,0 +1,237 @@
+"""Resilience primitives the dispatcher uses: supervisor and dead letters.
+
+Counterpart of the part of ``sitewhere_tpu/runtime/resilience.py`` this
+slice runs, reporting through one metrics surface
+(:func:`sitewhere_tpu_torch.runtime.metrics.global_registry`):
+
+- :class:`RetryPolicy` — immutable exponential-backoff schedule with
+  symmetric jitter, attempt- and deadline-capped.
+- :class:`Supervisor` — restart-with-backoff for worker threads (the
+  dispatcher's egress worker), escalating to a terminal failure after N
+  consecutive restarts instead of spinning forever.
+- :class:`DeadLetterSink` — the protocol every dead-letter target speaks
+  (``Journal.append_json`` already satisfies it); :func:`dead_letter`
+  records one.
+
+The retry cursor and circuit breaker the connectors use come with the
+slices that port them.
+
+Metric names (counters):
+
+- ``resilience.supervisor.<name>.restarts`` — worker restarts
+- ``resilience.supervisor.<name>.escalated`` — terminal give-ups
+- ``resilience.dead_letters.<kind>`` — dead-lettered records
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import random
+import threading
+import time
+from typing import Callable, List, Optional, Protocol, runtime_checkable
+
+from sitewhere_tpu_torch.runtime.metrics import MetricsRegistry, global_registry
+
+logger = logging.getLogger("sitewhere_tpu_torch.resilience")
+
+__all__ = [
+    "RetryPolicy",
+    "Supervisor",
+    "DeadLetterSink",
+    "dead_letter",
+]
+
+
+# ---------------------------------------------------------------------------
+# retry
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class RetryPolicy:
+    """Exponential backoff schedule: ``initial_s * factor**attempt``,
+    capped at ``max_s`` per delay, ``max_attempts`` retries total, and
+    (optionally) a wall-clock ``deadline_s`` across the whole sequence.
+    ``jitter`` is a symmetric fraction (0.2 → ±20%) drawn from the rng
+    the CALLER owns, so schedules stay reproducible under a seeded rng.
+    """
+
+    initial_s: float = 0.1
+    max_s: float = 60.0
+    factor: float = 2.0
+    jitter: float = 0.0
+    max_attempts: Optional[int] = None   # None = unbounded attempts
+    deadline_s: Optional[float] = None   # None = no wall-clock cap
+
+    def delay(self, attempt: int, rng: Optional[random.Random] = None) -> float:
+        """Delay before retry ``attempt`` (0-based)."""
+        try:
+            d = min(self.initial_s * (self.factor ** attempt), self.max_s)
+        except OverflowError:
+            # factor**attempt exceeds float range (attempt ~1024 on a
+            # long outage with an unbounded cursor): the schedule is
+            # saturated at the cap, not an error
+            d = self.max_s
+        if self.jitter and rng is not None:
+            d *= 1.0 + self.jitter * (2.0 * rng.random() - 1.0)
+        return max(0.0, d)
+
+    def exhausted(self, attempt: int, started_at: Optional[float] = None,
+                  now: Optional[float] = None) -> bool:
+        """True when retry ``attempt`` (0-based) may no longer run."""
+        if self.max_attempts is not None and attempt >= self.max_attempts:
+            return True
+        if self.deadline_s is not None and started_at is not None:
+            if (now if now is not None else time.monotonic()) \
+                    - started_at >= self.deadline_s:
+                return True
+        return False
+
+
+# ---------------------------------------------------------------------------
+# supervisor
+# ---------------------------------------------------------------------------
+
+class Supervisor:
+    """Restart-with-backoff for a worker thread.
+
+    ``run`` is the worker body: returning normally is a clean exit (no
+    restart); raising restarts it after the policy's backoff.  A worker
+    that stays up at least ``min_uptime_s`` resets the consecutive-failure
+    count, so a long-lived receiver that hiccups twice a day never
+    escalates.  After ``max_restarts`` CONSECUTIVE failures the supervisor
+    gives up: a terminal log line + ``escalated`` metric +
+    ``on_escalate(exc)`` — it must stop, not spin forever.
+    """
+
+    def __init__(self, name: str, run: Callable[[], None],
+                 policy: Optional[RetryPolicy] = None,
+                 max_restarts: int = 8,
+                 min_uptime_s: float = 5.0,
+                 on_escalate: Optional[Callable[[BaseException], None]] = None,
+                 on_restart: Optional[Callable[[BaseException], None]] = None,
+                 seed: Optional[int] = None,
+                 metrics: Optional[MetricsRegistry] = None):
+        self.name = name
+        self.run = run
+        # observability hook: called (with the exception) on every crash
+        # that leads to a restart — the flight recorder's
+        # supervisor-restart anomaly trigger rides this
+        self.on_restart = on_restart
+        self.policy = policy if policy is not None else RetryPolicy(
+            initial_s=0.1, max_s=30.0)
+        self.max_restarts = int(max_restarts)
+        self.min_uptime_s = float(min_uptime_s)
+        self.on_escalate = on_escalate
+        self._rng = random.Random(seed) if seed is not None else None
+        self._metrics = metrics if metrics is not None else global_registry()
+        self.stopping = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self.restarts = 0
+        self.escalated = False
+        self.last_error: Optional[BaseException] = None
+        # restart delays actually slept — observability for backoff tests
+        self.restart_delays: List[float] = []
+
+    def start(self) -> None:
+        self.stopping.clear()
+        self._thread = threading.Thread(
+            target=self._supervise, daemon=True,
+            name=f"supervised-{self.name}")
+        self._thread.start()
+
+    def stop(self, timeout_s: float = 5.0) -> None:
+        self.stopping.set()
+        t = self._thread
+        if t is not None:
+            t.join(timeout=timeout_s)
+            self._thread = None
+
+    @property
+    def alive(self) -> bool:
+        t = self._thread
+        return t is not None and t.is_alive()
+
+    def _supervise(self) -> None:
+        consecutive = 0
+        while not self.stopping.is_set():
+            t0 = time.monotonic()
+            try:
+                self.run()
+                return   # clean exit
+            except Exception as e:   # noqa: BLE001 — supervision boundary
+                if self.stopping.is_set():
+                    return
+                self.last_error = e
+                if time.monotonic() - t0 >= self.min_uptime_s:
+                    consecutive = 0   # it WAS healthy; fresh schedule
+                consecutive += 1
+                if consecutive > self.max_restarts:
+                    self.escalated = True
+                    self._metrics.counter(
+                        f"resilience.supervisor.{self.name}.escalated").inc()
+                    logger.error(
+                        "supervisor %s: giving up after %d consecutive "
+                        "failures (terminal): %s",
+                        self.name, consecutive, e)
+                    if self.on_escalate is not None:
+                        try:
+                            self.on_escalate(e)
+                        except Exception:
+                            logger.exception(
+                                "supervisor %s escalation hook failed",
+                                self.name)
+                    return
+                self.restarts += 1
+                self._metrics.counter(
+                    f"resilience.supervisor.{self.name}.restarts").inc()
+                if self.on_restart is not None:
+                    try:
+                        self.on_restart(e)
+                    except Exception:
+                        logger.exception(
+                            "supervisor %s restart hook failed", self.name)
+                delay = self.policy.delay(consecutive - 1, self._rng)
+                self.restart_delays.append(delay)
+                logger.warning(
+                    "supervisor %s: worker died (%s); restart %d/%d in "
+                    "%.3fs", self.name, e, consecutive, self.max_restarts,
+                    delay)
+                self.stopping.wait(delay)
+
+
+# ---------------------------------------------------------------------------
+# dead letters
+# ---------------------------------------------------------------------------
+
+@runtime_checkable
+class DeadLetterSink(Protocol):
+    """What every dead-letter target speaks —
+    :class:`sitewhere_tpu_torch.ingest.journal.Journal` satisfies it natively."""
+
+    def append_json(self, doc: dict) -> int: ...
+
+
+def dead_letter(sink: Optional[DeadLetterSink], doc: dict,
+                metrics: Optional[MetricsRegistry] = None) -> bool:
+    """Record one dead-letter (best-effort: a broken sink is logged, never
+    raised into the caller's data path) and tick the unified counters.
+
+    The counters report records actually RECORDED: with no sink
+    configured the counter is the only trace and ticks anyway, but a
+    configured sink that fails ticks ``sink_errors`` instead — the
+    dead-letter totals must never claim records that exist nowhere.
+    """
+    reg = metrics if metrics is not None else global_registry()
+    kind = str(doc.get("kind", "unknown"))
+    if sink is not None:
+        try:
+            sink.append_json(doc)
+        except Exception:
+            logger.exception("dead-letter sink failed for kind %s", kind)
+            reg.counter("resilience.dead_letters.sink_errors").inc()
+            return False
+    reg.counter("resilience.dead_letters").inc()
+    reg.counter(f"resilience.dead_letters.{kind}").inc()
+    return sink is not None

@@ -1,0 +1,1 @@
+"""services of the PyTorch port (see the package docstring)."""

@@ -4,7 +4,7 @@ Counterpart of the epoch plumbing of ``sitewhere_tpu/state/manager.py``:
 ``current`` / ``current_packed``, the lease and commit of the packed
 carry that the K-deep ring threads through its steps, the presence
 reconciliation on commit (``_merge_presence`` :198), the presence sweep
-and the single-device and summary queries.  ``TenantPartitions`` and the
+with its tenant lookup and the single-device and summary queries.  ``TenantPartitions`` and the
 migration import/export wait for later slices.
 
 Epochs are immutable: a commit or a sweep replaces the held tensors and
@@ -15,7 +15,7 @@ after the lock is released.
 from __future__ import annotations
 
 import threading
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,13 +48,21 @@ class DeviceStateManager:
 
     Exactly one of the unpacked epoch and its packed twin may be stale
     (None); each is rebuilt from the other on demand.
+    ``tenant_id_of_device`` maps device ids (an int32 numpy array) to
+    their tenants for the presence STATE_CHANGE rows; the registry
+    mirror's tenant column is the source of truth.  Without it those
+    rows carry tenant 0.
     """
 
     def __init__(self, capacity: int, identity: Optional[IdentityMap] = None,
-                 num_mtype_slots: int = 8, num_ewma_scales: int = 3,
+                 num_mtype_slots: int = 8,
+                 tenant_id_of_device: Optional[
+                     Callable[[np.ndarray], np.ndarray]] = None,
+                 num_ewma_scales: int = 3,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
         self.identity = identity if identity is not None else IdentityMap()
+        self._tenant_id_of_device = tenant_id_of_device
         self._lock = threading.RLock()
         self._state: Optional[DeviceState] = DeviceState.empty(
             capacity, num_mtype_slots, num_ewma_scales, device=self.device)
@@ -100,14 +108,23 @@ class DeviceStateManager:
 
     def commit_packed(self, new_packed: PackedState,
                       present_now: torch.Tensor,
-                      lease_token: DeviceState) -> None:
-        """Adopt a chain's output carry, re-applying the ``presence_missing``
-        flags a concurrent sweep set for devices the chain did not merge
-        (``present_now``: the chain's OR'd presence map).  When the epoch
-        is still the one the chain leased (``lease_token``), nothing
-        intervened and the merge is skipped."""
+                      read_epoch: Optional[PackedState] = None,
+                      lease_token: Optional[DeviceState] = None) -> None:
+        """Adopt a packed step's (or chain's) output carry, re-applying the
+        ``presence_missing`` flags a concurrent sweep set for devices the
+        step did not merge (``present_now``: its presence map, OR'd over
+        a chain).
+
+        Pass ``read_epoch`` (the packed epoch a single step read, from
+        :attr:`current_packed`) or ``lease_token`` (from
+        :meth:`lease_packed`, for a chain): when the epoch is still the one
+        the step started from, nothing intervened and the merge is
+        skipped."""
         with self._lock:
-            if self._state is not lease_token:
+            unchanged = (
+                (read_epoch is not None and self._packed is read_epoch)
+                or (lease_token is not None and self._state is lease_token))
+            if not unchanged:
                 cur = self.current_packed
                 new_packed = new_packed.replace(
                     si=_merge_presence(new_packed.si, cur.si, present_now))
@@ -116,24 +133,33 @@ class DeviceStateManager:
 
     def commit(self, new_state: DeviceState,
                batch: Optional[EventBatch] = None,
-               accepted: Optional[torch.Tensor] = None) -> None:
+               accepted: Optional[torch.Tensor] = None,
+               present_now: Optional[torch.Tensor] = None) -> None:
         """Adopt an unpacked step's output state, keeping a concurrent
-        sweep's missing flags for devices the step did not merge (derived
-        from ``batch`` and ``accepted``; without ``batch`` no merge)."""
+        sweep's missing flags for devices the step did not merge: pass the
+        step's ``present_now`` (``bool[capacity]``), or the ``batch`` it
+        consumed plus its ``accepted`` mask to re-derive it; with neither,
+        no merge."""
         with self._lock:
             current = self.current
-            if current is not new_state and batch is not None:
+            if current is not new_state and (
+                    present_now is not None or batch is not None):
                 cap = new_state.capacity
-                merged_rows = (batch.valid & (batch.device_id >= 0)
-                               & batch.update_state)
-                if accepted is not None:
-                    merged_rows = merged_rows & accepted
-                ids = torch.where(merged_rows & (batch.device_id < cap),
-                                  batch.device_id, cap)
-                touched = torch.zeros(cap + 1, dtype=torch.bool,
-                                      device=ids.device)
-                touched[ids.to(torch.int64)] = True
-                touched = touched[:cap]
+                if present_now is not None:
+                    touched = present_now
+                else:
+                    # the step's merge mask: rejected and update_state=False
+                    # rows never cleared presence in the step
+                    merged_rows = (batch.valid & (batch.device_id >= 0)
+                                   & batch.update_state)
+                    if accepted is not None:
+                        merged_rows = merged_rows & accepted
+                    ids = torch.where(merged_rows & (batch.device_id < cap),
+                                      batch.device_id, cap)
+                    touched = torch.zeros(cap + 1, dtype=torch.bool,
+                                          device=ids.device)
+                    touched[ids.to(torch.int64)] = True
+                    touched = touched[:cap]
                 merged = new_state.presence_missing | (
                     current.presence_missing & ~touched)
                 new_state = new_state.replace(presence_missing=merged)
@@ -145,8 +171,8 @@ class DeviceStateManager:
     def apply_presence_sweep(self, now_s: int,
                              missing_after_s: int) -> Optional[EventBatch]:
         """Run the sweep, adopt the flagged state, and build the
-        STATE_CHANGE batch for newly-missing devices (None if none).  Their
-        tenant is 0: the tenant lookup comes with the dispatcher wiring."""
+        STATE_CHANGE batch for newly-missing devices (None if none), each
+        row carrying its device's tenant."""
         with self._lock:
             new_state, newly_missing = presence_sweep(
                 self.current, now_s, missing_after_s)
@@ -156,7 +182,10 @@ class DeviceStateManager:
         if idx.size == 0:
             return None
         idx = idx.astype(np.int32)
-        tenant_ids = np.zeros(idx.size, np.int32)
+        if self._tenant_id_of_device is not None:
+            tenant_ids = np.asarray(self._tenant_id_of_device(idx), np.int32)
+        else:
+            tenant_ids = np.zeros(idx.size, np.int32)
         return state_changes_for(idx, tenant_ids, now_s, device=self.device)
 
     # -- queries -----------------------------------------------------------

@@ -1,0 +1,1 @@
+"""store of the PyTorch port (see the package docstring)."""

@@ -7,9 +7,13 @@ R=8, Z=8, V=8, M=4, K=3) and hit the cases where the two could part:
 duplicate device rows with equal ``(ts_s, ts_ns)``, unregistered,
 unassigned and tenant-mismatch rows, ``NULL_ID`` tenants, NaN/Inf rows,
 rate rules with dt == 0, and several rules or zones firing on one row.
+The wire-path section composes one deployment in each package for the
+dispatcher, ingest and registry tests.
 """
 
 from __future__ import annotations
+
+import json
 
 import jax.numpy as jnp
 import numpy as np
@@ -246,3 +250,205 @@ def assert_ewma_close(ref, got) -> None:
     assert (err <= bound).all(), (
         f"EWMA off by {float((err / bound).max()) * EWMA_MAX_ULP:.2f} "
         f"ULP of the value scale")
+
+
+# -- the wire path: one deployment composed in both packages ----------------
+#
+# Width 64, registry capacity 128 (100 registered devices, every 10th in a
+# second tenant, every 13th unassigned), 4 measurement slots, 3 rules of
+# each kind (instant, EWMA window, rate), 4 zones.  Names, tenants and
+# alert types are minted up front in one order, so both packages hold the
+# same handles whichever lane decodes a payload.
+
+WIRE_WIDTH, WIRE_CAP, WIRE_M, WIRE_DEVICES = 64, 128, 4, 100
+WIRE_MTYPES = ("temp", "hum", "pres", "volt")
+WIRE_ALERTS = ("overheat", "door", "tamper")
+WIRE_TS0_MS = 1_700_000_000_000
+
+
+class FakeClock:
+    """The batchers' clock: time moves only when a test says so."""
+
+    def __init__(self, t: float = 1000.0):
+        self.t = t
+
+    def __call__(self) -> float:
+        return self.t
+
+
+class RecordingStore:
+    """Event store stand-in: keeps each append's egress columns and mask
+    as numpy copies, and counts flushes."""
+
+    def __init__(self):
+        self.appends = []
+        self.flushes = 0
+
+    def append_columns(self, cols, mask=None):
+        self.appends.append(({n: np.array(cols[n]) for n in cols},
+                             np.array(mask)))
+
+    def flush(self):
+        self.flushes += 1
+
+
+def _wire_rules(mgr, enums) -> None:
+    op, kind = enums.ComparisonOp, enums.RuleKind
+    spec = [
+        ("temp", op.GT, 80.0, kind.INSTANT, None, None),
+        (None, op.LT, 2.0, kind.INSTANT, None, "default"),
+        ("hum", op.GTE, 90.0, kind.INSTANT, None, None),
+        ("temp", op.GT, 60.0, kind.WINDOW_MEAN, 60.0, None),
+        ("pres", op.LT, 20.0, kind.WINDOW_MEAN, 700.0, None),
+        ("volt", op.NEQ, 50.0, kind.WINDOW_MEAN, 3000.0, "acme"),
+        ("temp", op.GT, 5.0, kind.RATE_PER_S, None, None),
+        ("hum", op.LT, -5.0, kind.RATE_PER_S, None, None),
+        ("volt", op.GT, 1.0, kind.RATE_PER_S, None, "default"),
+    ]
+    for i, (mtype, o, thr, k, window, tenant) in enumerate(spec):
+        mgr.create_rule(mtype, o, thr, WIRE_ALERTS[i % 3],
+                        alert_level=i % 4, tenant=tenant, token=f"rule-{i}",
+                        kind=k, window_s=window)
+
+
+def wire_world(pkg: str, journal_root, ring_depth: int,
+               emit_packed: bool = True, group: str = "pipeline",
+               **dispatcher_kw):
+    """The deployment in package ``pkg`` ("jax" or "torch"): a bare
+    dispatcher over the real RegistryMirror, RuleManager,
+    DeviceStateManager and Batcher, a Journal under ``journal_root``
+    read by consumer ``group``, and a RecordingStore.  Returns a
+    namespace of its parts."""
+    import types
+
+    if pkg == "jax":
+        from sitewhere_tpu import schema as enums
+        from sitewhere_tpu.ids import IdentityMap
+        from sitewhere_tpu.ingest.batcher import Batcher
+        from sitewhere_tpu.ingest.journal import Journal, JournalReader
+        from sitewhere_tpu.pipeline.rules import RuleManager
+        from sitewhere_tpu.runtime.dispatcher import PipelineDispatcher
+        from sitewhere_tpu.services.device_management import RegistryMirror
+        from sitewhere_tpu.state.manager import DeviceStateManager
+        dev = {}
+    else:
+        from sitewhere_tpu_torch import schema as enums
+        from sitewhere_tpu_torch.ids import IdentityMap
+        from sitewhere_tpu_torch.ingest.batcher import Batcher
+        from sitewhere_tpu_torch.ingest.journal import Journal, JournalReader
+        from sitewhere_tpu_torch.pipeline.rules import RuleManager
+        from sitewhere_tpu_torch.runtime.dispatcher import PipelineDispatcher
+        from sitewhere_tpu_torch.services.device_management import (
+            RegistryMirror,
+        )
+        from sitewhere_tpu_torch.state.manager import DeviceStateManager
+        dev = {"device": "cpu"}
+
+    identity = IdentityMap()
+    identity.tenant.mint("default")
+    identity.tenant.mint("acme")
+    for name in WIRE_MTYPES:
+        identity.mtype.mint(name)
+    for name in WIRE_ALERTS + tuple(f"zone-{z}" for z in range(4)):
+        identity.alert_type.mint(name)
+    mirror = RegistryMirror(WIRE_CAP, max_zones=4, max_verts=8, **dev)
+    for i in range(WIRE_DEVICES):
+        d = identity.device.mint(f"dev-{i}")
+        mirror.set_device_row(
+            d, active=True, tenant_id=1 if i % 10 == 7 else 0,
+            device_type_id=i % 3, assignment_id=i,
+            assignment_status=int(enums.AssignmentStatus.MISSING
+                                  if i % 13 == 5
+                                  else enums.AssignmentStatus.ACTIVE),
+            area_id=i % 4, customer_id=i % 5, asset_id=i % 7)
+    squares = [[[0, 0], [10, 0], [10, 10], [0, 10]],
+               [[-5, -5], [3, -5], [3, 3], [-5, 3]],
+               [[20, 20], [30, 22], [25, 30]],
+               [[-30, -30], [30, -30], [30, 30], [-30, 30]]]
+    for z, poly in enumerate(squares):
+        mirror.set_zone_row(
+            z, active=True, tenant_id=-1 if z != 2 else 0,
+            area_id=-1 if z != 1 else 1,
+            verts_lonlat=np.asarray(poly, np.float32),
+            condition=int(enums.ZoneCondition.ALERT_IF_OUTSIDE if z == 3
+                          else enums.ZoneCondition.ALERT_IF_INSIDE),
+            alert_code=identity.alert_type.lookup(f"zone-{z}"),
+            alert_level=z % 4)
+    rules = RuleManager(identity, capacity=16, **dev)
+    _wire_rules(rules, enums)
+    state = DeviceStateManager(
+        WIRE_CAP, identity, num_mtype_slots=WIRE_M,
+        tenant_id_of_device=lambda ids: mirror.tenant_id[ids],
+        num_ewma_scales=3, **dev)
+    clock = FakeClock()
+    batcher = Batcher(
+        width=WIRE_WIDTH, n_shards=1, registry_capacity=WIRE_CAP,
+        resolve_device=identity.device.lookup,
+        resolve_mtype=identity.mtype.mint,
+        resolve_alert=identity.alert_type.mint,
+        invocations=identity.invocation, deadline_ms=60_000.0,
+        clock=clock, emit_packed=emit_packed)
+    journal = Journal(str(journal_root), "events", fsync_every=1 << 30)
+    reader = JournalReader(journal, group)
+    store = RecordingStore()
+    disp = PipelineDispatcher(
+        batcher=batcher,
+        registry_provider=mirror.publish_registry,
+        state_manager=state,
+        rules_provider=rules.publish,
+        zones_provider=mirror.publish_zones,
+        event_store=store,
+        journal=journal,
+        journal_reader=reader,
+        resolve_tenant=identity.tenant.mint,
+        ring_depth=ring_depth,
+        **dispatcher_kw, **dev)
+    return types.SimpleNamespace(
+        disp=disp, identity=identity, mirror=mirror, rules=rules,
+        state=state, batcher=batcher, journal=journal, reader=reader,
+        store=store, clock=clock)
+
+
+def wire_payload(rng, n: int, t_ms: int, kinds=("m", "l", "a"),
+                 p=(0.6, 0.3, 0.1), ghosts: float = 0.05,
+                 nan: bool = False) -> bytes:
+    """``n`` NDJSON lines in the measurement/location/alert mix: a few
+    unregistered tokens, few distinct timestamps (ties on one device),
+    and with ``nan`` one measurement whose value is NaN."""
+    lines = []
+    for i in range(n):
+        kind = kinds[int(rng.choice(len(kinds), p=p))]
+        dev = (f"ghost-{int(rng.integers(0, 5))}" if rng.random() < ghosts
+               else f"dev-{int(rng.integers(0, WIRE_DEVICES + 0))}")
+        ts = t_ms + 250 * int(rng.integers(0, 3))
+        if kind == "m":
+            req = {"name": WIRE_MTYPES[int(rng.integers(0, WIRE_M))],
+                   "value": round(float(rng.uniform(-10, 110)), 2),
+                   "eventDate": ts}
+            if nan and i == 0:
+                req["value"] = float("nan")
+            doc = {"deviceToken": dev, "type": "DeviceMeasurements",
+                   "request": req}
+        elif kind == "l":
+            doc = {"deviceToken": dev, "type": "DeviceLocation",
+                   "request": {"latitude": round(float(rng.uniform(-35, 35)), 3),
+                               "longitude": round(float(rng.uniform(-35, 35)), 3),
+                               "elevation": round(float(rng.uniform(0, 50)), 1),
+                               "eventDate": ts}}
+        else:
+            doc = {"deviceToken": dev, "type": "DeviceAlert",
+                   "request": {"type": WIRE_ALERTS[int(rng.integers(0, 3))],
+                               "level": ("info", "warning", "error")[
+                                   int(rng.integers(0, 3))],
+                               "eventDate": ts}}
+        lines.append(json.dumps(doc, separators=(",", ":")))
+    return "\n".join(lines).encode()
+
+
+def journal_files(journal):
+    """Every file of a journal's directory, name -> bytes (flushed)."""
+    import os
+
+    journal.flush()
+    return {name: open(os.path.join(journal.dir, name), "rb").read()
+            for name in sorted(os.listdir(journal.dir))}

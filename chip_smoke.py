@@ -9,7 +9,9 @@ Phases, each printing one JSON line; any failed check raises and the
 script exits non-zero without printing a result:
 
 1. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. build the geofence kernel (``csrc/pip_kernel.cu``) with ``nvcc``;
+2. build the geofence kernel (``csrc/pip_kernel.cu``) with ``nvcc`` and,
+   at the same time, the native wire tier's C scanners
+   (``native/swwire.c``) with ``cc``;
 3. hold the kernel against its plain PyTorch version, bitwise, at the main
    path's shape (B=131072 points, Z=512 zones, V=16) and at edge shapes,
    and time both with CUDA events;
@@ -21,20 +23,31 @@ script exits non-zero without printing a result:
    output and the new carry must be identical;
 6. the dispatcher's wire path (``dispatcher_wire``) on the same
    deployment, written through ``RegistryMirror`` and ``RuleManager``:
-   NDJSON bytes -> journal -> columnar decode -> batcher -> step -> egress
-   -> offset commit.  Full-width payloads (131072 lines, 60/30/10
+   NDJSON bytes -> journal -> native decode -> batcher -> step -> egress
+   -> offset commit.  First the proof that the native tier is on the
+   path (run ``native``): the scanner library's path and build seconds,
+   ``native.build_fallbacks`` 0, and on one full-size payload of each
+   kind the C lane (fill-direct into a reservation for measurements,
+   the event-family scanner for the 60/30/10 mix) equal, column for
+   column, to the pure-Python decode of the same bytes, with each lane's
+   ms per payload.  Then full-width payloads (131072 lines, 60/30/10
    measurements/locations/alerts), 3 rings' worth, at the deployment's
    5 ms batcher deadline with the ring at K=8 and with it off: events/s,
    latency per plan from the payload's receipt (before its decode) to
-   egress, p50 and max, host ms per stage, host syncs per batch, and the
-   summed CUDA-event span of the card's steps.  Then a diagnostic run
-   with a 60 s deadline, where the ring forms, and a paced region at
-   width 4096 (deadline 3.5 ms, 50% of the measured capacity, latency
-   from each payload's scheduled arrival).  Checks: kernel launches ==
-   dispatcher steps, accepted rows == valid registered rows, committed
-   offset == journal records; in the diagnostic run, host syncs per batch
-   == 1/8 over the ring's steps and the last dispatched ring rerun with
-   the plain geofence from its carry, bitwise;
+   egress, p50 and max, host ms per stage, bytes copied per event by
+   decode and batch, host syncs per batch, and the summed CUDA-event
+   span of the card's steps.  Then a diagnostic run with a 60 s deadline,
+   where the ring forms; the same 5 ms ring-off run over measurement-only
+   payloads (fill-direct, every plan adopted); a paced region at width
+   4096 (deadline 3.5 ms, 50% of the measured capacity, latency from each
+   payload's scheduled arrival); and short profiled reruns for the card's
+   busy share.  Checks: kernel launches == dispatcher steps, accepted
+   rows == registered lines + derived alerts, committed offset == journal
+   records; in the diagnostic run, host syncs per batch == 1/8 over the
+   ring's steps and the last dispatched ring rerun with the plain
+   geofence from its carry, bitwise; in the measurement-only run, adopted
+   plans == full-width measurement plans and 0 bytes copied per event by
+   decode and batch;
 7. a small input run on the card and on the CPU: identical int outputs.
 
 The line before the last is the card's ``nvidia-smi`` name and power
@@ -45,6 +58,7 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import json
 import math
@@ -74,8 +88,9 @@ SEED = 20261016
 WIRE_PAYLOADS = 3 * RING_K        # full-width payloads: 3 rings at K=8
 WIRE_GHOSTS = 0.005               # share of lines from unregistered tokens
 # The deployment's batcher deadline (README.md:99-105).  A ring lingers
-# one deadline at most, and at the pure-Python decode's pace K payloads
-# take seconds, so at this deadline every ring drains single-step.
+# one deadline at most, and even the native decode takes far longer than
+# that for K full payloads, so at this deadline every ring drains
+# single-step.
 WIRE_DEADLINE_MS = 5.0
 # Diagnostic only, not the deployment: a deadline long enough for K
 # payloads to decode, so the ring forms and its checks run.
@@ -86,6 +101,12 @@ PACED_PAYLOADS, PACED_BURST, PACED_UTIL = 128, 32, 0.5
 PROFILED_PAYLOADS, PROFILED_PACED = RING_K, 32
 WIRE_TS0_MS = 1_700_000_000_000
 WIRE_STAGES = ("decode", "batch", "dispatch", "ring_dispatch", "egress")
+# Measurement values of the measurement-only run: a band where no rule of
+# the world fires (instant rules sit below 0.1 and above 99.9, window
+# means above 99, rates above 95/s; a 20-wide band over >= 0.25 s gaps
+# stays under 80/s), so no derived-alert rows join the batcher between
+# the payloads and every full-width payload can be adopted as its plan.
+MEAS_VALUE_BAND = (20.0, 40.0)
 # instructions per edge test in the kernel: float32 - 2 compares
 # (straddle), sub, mul, add, 1 compare (px < x_cross); logic - the
 # straddle xor and the and-xor into the parity
@@ -557,6 +578,25 @@ def wire_payloads(rng, n_payloads, lines, ts0_ms):
     return out
 
 
+def measurement_payloads(rng, n_payloads, lines, ts0_ms):
+    """Measurement-only NDJSON payloads of ``lines`` lines (the fleet's
+    dominant shape), values in MEAS_VALUE_BAND, the same share of
+    unregistered tokens; one second of event time per payload.  Returns
+    ``[(bytes, registered_lines)]``."""
+    out = []
+    lo, hi = MEAS_VALUE_BAND
+    for p in range(n_payloads):
+        dev = rng.integers(0, N_ACTIVE, lines)
+        ghost = rng.random(lines) < WIRE_GHOSTS
+        value = rng.uniform(lo, hi, lines)
+        ts = ts0_ms + 1000 * p + 250 * rng.integers(0, 4, lines)
+        body = [_M_LINE % (f"x-{d}" if g else f"d-{d}", d % M_SLOTS, v, t)
+                for d, g, v, t in zip(dev.tolist(), ghost.tolist(),
+                                      value.tolist(), ts.tolist())]
+        out.append(("\n".join(body).encode(), lines - int(ghost.sum())))
+    return out
+
+
 def make_wire_dispatcher(device, world, width, ring_depth, deadline_ms,
                          journal_dir):
     """A started dispatcher over the world's epochs, with its own state,
@@ -705,21 +745,60 @@ def _latency(disp, tail: str):
     return rec
 
 
+def _time_into(fn, acc):
+    """``fn`` with its host seconds added to ``acc[0]``."""
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            acc[0] += time.perf_counter() - t0
+
+    return timed
+
+
+def count_adopted(batcher):
+    """Record the sequence number of every plan the batcher emits by
+    adopting a full-width reservation (zero-copy)."""
+    adopted = []
+    emit_adopted = batcher._emit_adopted
+
+    def counted(reason):
+        plan = emit_adopted(reason)
+        adopted.append(plan.seq)
+        return plan
+
+    batcher._emit_adopted = counted
+    return adopted
+
+
 def wire_throughput(device, geo_cuda, world, payloads, ring_depth,
-                    deadline_ms, root, run, profile=False):
+                    deadline_ms, root, run, profile=False, meas=False):
     """ingest_wire_lines over every payload, then flush(), timed from the
     first byte to the flush's return.  With ``deadline_ms`` at
     RING_DIAG_DEADLINE_MS the ring forms: its sync count is read once the
     ring's plans have egressed, before the flush's partial, and the last
-    dispatched ring is rerun with the plain geofence.  ``profile`` runs
-    the region under the profiler (its numbers then carry its cost)."""
+    dispatched ring is rerun with the plain geofence.  ``meas``: the
+    payloads are full-width measurement-only ones, each of which must
+    decode fill-direct and be adopted as its plan.  ``profile`` runs the
+    region under the profiler (its numbers then carry its cost)."""
     import torch
 
+    import sitewhere_tpu_torch.runtime.dispatcher as dispatcher_mod
     from sitewhere_tpu_torch.pipeline.packed import build_packed_chain
 
     diag = deadline_ms == RING_DIAG_DEADLINE_MS
     disp = make_wire_dispatcher(device, world, FULL_B, ring_depth,
                                 deadline_ms, os.path.join(root, "j"))
+    adopted = count_adopted(disp.batcher)
+    decode_copied = disp.metrics.counter("pipeline.bytes_copied.decode")
+    # two host steps no stage timer covers: the token and name resolution
+    # of decoded columns, and the journal append
+    resolve_s, journal_s = [0.0], [0.0]
+    resolve_columns = dispatcher_mod.resolve_columns
+    dispatcher_mod.resolve_columns = _time_into(resolve_columns, resolve_s)
+    disp.journal.append = _time_into(disp.journal.append, journal_s)
     recorded = {}
     if diag:
         real_chain = disp._ring_chain(ring_depth)
@@ -735,6 +814,9 @@ def wire_throughput(device, geo_cuda, world, payloads, ring_depth,
         torch.cuda.synchronize()
         snap0 = disp.metrics_snapshot()
         stages0 = _stage_totals(disp)
+        copied0 = (decode_copied.value, disp.batcher.copied_bytes)
+        adopted.clear()
+        resolve_s[0] = journal_s[0] = 0.0
         disp.latencies_s.clear()
         geo_cuda.reset_launch_counts()
         with _device_profile(profile and device.type == "cuda") as prof:
@@ -748,13 +830,19 @@ def wire_throughput(device, geo_cuda, world, payloads, ring_depth,
         launches = geo_cuda.launch_counts["pip_parity"]
         snap = disp.metrics_snapshot()
         stage_ms = _stage_ms(disp, stages0)
+        copied = (decode_copied.value - copied0[0],
+                  disp.batcher.copied_bytes - copied0[1])
+        build_fallbacks = disp.metrics.gauge("native.build_fallbacks").value
         committed = disp.journal_reader.committed
         records = disp.journal.end_offset
         latency = _latency(disp, "max")
         span_ms = spans.total_ms()
     finally:
+        dispatcher_mod.resolve_columns = resolve_columns
         disp.stop()
         disp.journal.close()
+    stage_ms["resolve_per_payload"] = resolve_s[0] * 1e3 / len(payloads)
+    stage_ms["journal_per_payload"] = journal_s[0] * 1e3 / len(payloads)
     delta = {k: snap[k] - snap0[k] for k in (
         "steps", "host_syncs", "ring_chains", "ring_flushed_plans",
         "processed", "accepted", "unregistered", "derived_alerts")}
@@ -763,11 +851,16 @@ def wire_throughput(device, geo_cuda, world, payloads, ring_depth,
     ring_steps = mid["steps"] - snap0["steps"]
     ring_syncs = mid["host_syncs"] - snap0["host_syncs"]
     rec = {"phase": "dispatcher_wire", "run": run,
+           "traffic": "measurements" if meas else "60/30/10",
            "ring_depth": ring_depth, "deadline_ms": deadline_ms,
            "payloads": len(payloads), "lines": lines, "elapsed_s": elapsed,
            "events_per_s": lines / elapsed,
            "rows_per_s_with_derived": delta["processed"] / elapsed,
            **latency, "stage_ms": stage_ms,
+           "decode_bytes_copied_per_event": copied[0] / lines,
+           "batch_bytes_copied_per_event": copied[1] / lines,
+           "adopted_plans": len(adopted),
+           "native_build_fallbacks": build_fallbacks,
            "host_syncs_per_batch": delta["host_syncs"] / delta["steps"],
            "ring_region_steps": ring_steps,
            "ring_region_host_syncs_per_batch": ring_syncs / ring_steps,
@@ -784,6 +877,15 @@ def wire_throughput(device, geo_cuda, world, payloads, ring_depth,
     check(delta["unregistered"] == lines - registered, "unregistered rows")
     check(committed == records == len(payloads),
           f"committed offset {committed}, journal records {records}")
+    check(build_fallbacks == 0, f"native.build_fallbacks {build_fallbacks}")
+    if meas:
+        # every payload is one full-width measurement plan, decoded
+        # fill-direct and adopted: nothing copied by decode or batch
+        check(delta["steps"] == len(payloads) and delta["derived_alerts"] == 0,
+              f"{delta['steps']} steps, {delta['derived_alerts']} derived")
+        check(len(adopted) == len(payloads),
+              f"{len(adopted)} adopted plans of {len(payloads)}")
+        check(copied == (0, 0), f"bytes copied (decode, batch) {copied}")
     if diag:
         check(delta["ring_chains"] == len(payloads) // ring_depth,
               f"{delta['ring_chains']} ring chains")
@@ -861,6 +963,108 @@ def wire_paced(device, world, payloads, root, run="paced_ring0",
     return rec
 
 
+def _columns_equal(a, b):
+    """Column dicts equal key for key: lists exactly, arrays by dtype and
+    raw bytes (float32 bitwise)."""
+    if sorted(a) != sorted(b):
+        return False
+    for k in a:
+        x, y = a[k], b[k]
+        if isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+            x, y = np.asarray(x), np.asarray(y)
+            if x.dtype != y.dtype or x.tobytes() != y.tobytes():
+                return False
+        elif list(x) != list(y):
+            return False
+    return True
+
+
+def _best_ms(fn, reps):
+    best = None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        dt = (time.perf_counter() - t0) * 1e3
+        best = dt if best is None else min(best, dt)
+    return best, out
+
+
+def native_proof(world, meas_payload, mixed_payload):
+    """The native tier on this machine: where the library was built and
+    how long it took, ``native.build_fallbacks``, and one full-size
+    payload of each kind through its C lane and through the pure-Python
+    lane (column for column equal), with each lane's ms per payload
+    (best of 3 for the C lanes, one pure-Python run)."""
+    from sitewhere_tpu_torch import native
+    from sitewhere_tpu_torch.ingest import columnar
+    from sitewhere_tpu_torch.ingest.batcher import Batcher
+    from sitewhere_tpu_torch.ingest.decoders import parse_envelopes
+
+    identity = world[0]
+    library = native.library_path
+    check(library is not None and library.parent == native.BUILD_DIR
+          and library.name.startswith("_swwire_torch-"),
+          f"scanner library {library}")
+    t0 = time.perf_counter()
+    identity.device.native_table()
+    table_s = time.perf_counter() - t0
+    batcher = Batcher(width=FULL_B, n_shards=1, registry_capacity=CAPACITY,
+                      resolve_device=identity.device.lookup,
+                      resolve_mtype=identity.mtype.mint,
+                      resolve_alert=identity.alert_type.mint,
+                      emit_packed=True)
+
+    def fill():
+        res = batcher.reserve(meas_payload.count(b"\n") + 1)
+        n = columnar.decode_fill_direct(meas_payload, identity.device, res,
+                                        identity.mtype.mint)
+        return n, res
+
+    def python(payload):
+        return columnar._decode_lines_inner(parse_envelopes(payload))
+
+    fill_ms, (n, res) = _best_ms(fill, 3)
+    check(n == FULL_B, f"fill-direct returned {n} for {FULL_B} lines")
+    py_meas_ms, (py_cols, _) = _best_ms(lambda: python(meas_payload), 1)
+    ref = columnar.resolve_columns(
+        py_cols, identity.device.lookup, identity.mtype.mint,
+        identity.alert_type.mint)
+    got = {f: getattr(res, f)[:n] for f in ("device_id", "mtype_id", "ts_s",
+                                            "ts_ns", "value")}
+    got["update_state"] = res.update_state[:n] != 0
+    fill_equal = _columns_equal(got, {f: ref[f] for f in got})
+    check(fill_equal, "fill-direct decode != pure-Python decode")
+    family_ms, family = _best_ms(
+        lambda: columnar._native_decode(mixed_payload), 3)
+    check(family is not None, "the event-family scanner bailed")
+    py_mixed_ms, py_mixed = _best_ms(lambda: python(mixed_payload), 1)
+    family_equal = (_columns_equal(family[0], py_mixed[0])
+                    and family[1] == py_mixed[1] == [])
+    check(family_equal, "event-family decode != pure-Python decode")
+    check(native.build_fallbacks == 0,
+          f"native.build_fallbacks {native.build_fallbacks}")
+    lines = FULL_B
+    rec = {"phase": "dispatcher_wire", "run": "native",
+           "library": str(library.relative_to(native.PKG_DIR.parent)),
+           "build_s": native.build_seconds,
+           "build_fallbacks": native.build_fallbacks,
+           "token_table_s": table_s, "lines": lines,
+           "fill_direct_rows": n, "fill_direct_equal_python": fill_equal,
+           "family_rows": columnar.n_rows(family[0]),
+           "family_equal_python": family_equal,
+           "decode_ms": {"fill_direct": fill_ms,
+                         "python_measurements": py_meas_ms,
+                         "event_family": family_ms,
+                         "python_60_30_10": py_mixed_ms},
+           "decode_us_per_line": {
+               "fill_direct": fill_ms * 1e3 / lines,
+               "python_measurements": py_meas_ms * 1e3 / lines,
+               "event_family": family_ms * 1e3 / lines,
+               "python_60_30_10": py_mixed_ms * 1e3 / lines}}
+    emit(rec)
+    return rec
+
+
 def phase_dispatcher_wire(device, geo_cuda):
     """The wire path through the port's dispatcher; returns the kernel's
     launches in each throughput run, by run name."""
@@ -870,10 +1074,13 @@ def phase_dispatcher_wire(device, geo_cuda):
     payloads = wire_payloads(rng, WIRE_PAYLOADS, FULL_B, WIRE_TS0_MS)
     paced = wire_payloads(rng, PACED_PAYLOADS + PACED_BURST, PACED_LINES,
                           WIRE_TS0_MS + 10_000_000)
+    meas = measurement_payloads(rng, WIRE_PAYLOADS, FULL_B,
+                                WIRE_TS0_MS + 20_000_000)
     emit({"phase": "dispatcher_wire", "run": "setup", "capacity": CAPACITY,
           "active": N_ACTIVE, "rules": N_RULES, "zones": FULL_Z,
           "verts": FULL_V, "width": FULL_B,
           "setup_s": time.perf_counter() - t0})
+    native_proof(world, meas[0][0], payloads[0][0])
     root = tempfile.mkdtemp(prefix="wire-", dir=geo_cuda.BUILD_DIR)
     launches = {}
     try:
@@ -885,12 +1092,21 @@ def phase_dispatcher_wire(device, geo_cuda):
             rec = wire_throughput(device, geo_cuda, world, payloads, ring,
                                   deadline_ms, os.path.join(root, run), run)
             launches[run] = rec["pip_launches"]
+        run = "measurements_ring0"
+        rec = wire_throughput(device, geo_cuda, world, meas, 0,
+                              WIRE_DEADLINE_MS, os.path.join(root, run), run,
+                              meas=True)
+        launches[run] = rec["pip_launches"]
         wire_paced(device, world, paced, os.path.join(root, "paced"))
         # the card's busy time, measured apart from the timed regions
         wire_throughput(device, geo_cuda, world,
                         payloads[:PROFILED_PAYLOADS], 0, WIRE_DEADLINE_MS,
                         os.path.join(root, "prof"), "profiled_ring0",
                         profile=True)
+        wire_throughput(device, geo_cuda, world, meas[:PROFILED_PAYLOADS], 0,
+                        WIRE_DEADLINE_MS, os.path.join(root, "prof_meas"),
+                        "profiled_measurements_ring0", profile=True,
+                        meas=True)
         wire_paced(device, world, paced[:PACED_BURST + PROFILED_PACED],
                    os.path.join(root, "prof_paced"), "profiled_paced_ring0",
                    profile=True)
@@ -961,12 +1177,20 @@ def main() -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
+    from sitewhere_tpu_torch import native
+
     t0 = time.perf_counter()
-    geo_cuda.library()
+    # the kernel (nvcc) and the wire scanners (cc), built side by side
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        builds = [pool.submit(geo_cuda.library), pool.submit(
+            native.load_swwire)]
+        for b in builds:
+            b.result()
     ptxas = [ln.strip() for ln in geo_cuda.build_log.get("pip_kernel", "")
              .splitlines() if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "ptxas": ptxas})
+          "ptxas": ptxas, "native_library": str(native.library_path),
+          "native_build_s": native.build_seconds})
 
     rec = phase_kernel(device, geo_cuda)
     main_launches = phase_main_path(device, geo_cuda)

@@ -6,7 +6,8 @@ mirrors its module names (``schema``, ``ops.geo``, ``pipeline.step``,
 find.  It imports ``torch``, numpy and the standard library only.
 
 Importing the package does nothing else: submodules are imported by the
-caller, and the one hand-written kernel (``csrc/pip_kernel.cu``) is built
-at its first launch, never at import.  Entry points run on ``cuda:0``
+caller, the one hand-written kernel (``csrc/pip_kernel.cu``) is built at
+its first launch and the native wire scanners (``native/swwire.c``) at
+their first use, never at import.  Entry points run on ``cuda:0``
 unless the caller passes ``device="cpu"`` (see :mod:`.device`).
 """

@@ -18,8 +18,11 @@ With ``emit_packed`` a plan carries the packed ``[12, B]`` / ``[4, B]``
 host buffers the packed step takes (``pipeline/packed.py``); otherwise
 :meth:`BatchPlan.materialize_batch` builds the torch
 :class:`~sitewhere_tpu_torch.schema.EventBatch` on the dispatcher's
-device.  One shard only: the sharded batcher comes with the sharded
-slice, and the fill-direct reservations with the native wire tier.
+device.  :meth:`Batcher.reserve` hands the fill-direct wire scanner a
+:class:`Reservation`: packed rows it writes in place, adopted as the
+plan's packed buffers when they fill a batch alone.  One shard only: the
+sharded batcher and the sharded reservation commit come with the
+sharded slice.
 """
 
 from __future__ import annotations
@@ -69,6 +72,12 @@ _FILL_0D = {name: np.full((), fill, dt) for name, dt, fill in _FIELDS}
 # Bytes one emitted row occupies across every batch column (the unit of
 # the pipeline.bytes_copied.batch accounting).
 _ROW_BYTES = sum(np.dtype(dt).itemsize for _, dt, _ in _FIELDS)
+# Row of each column in the packed buffers
+_BI = {f: i for i, f in enumerate(BATCH_I)}
+_BF = {f: i for i, f in enumerate(BATCH_F)}
+# The columns the fill-direct scanner writes (mtype_id through its
+# name-index scratch)
+_SCANNED_I = ("device_id", "mtype_id", "ts_s", "ts_ns", "update_state")
 
 
 def shard_for_device(device_id: int, capacity: int, n_shards: int) -> int:
@@ -90,7 +99,10 @@ class _Chunk:
     ``start`` = rows already emitted; ``length`` = rows written.  A chunk
     whose backing arrays are longer than ``length`` is a *staging* chunk:
     the scalar ``add`` appends into it in place; vectorized chunks
-    arrive full (``length == capacity``).
+    arrive full (``length == capacity``).  A chunk with a ``reserved``
+    back-reference was filled in place by the fill-direct scanner; when
+    it is the sole content of a full-width packed emission, ``_emit``
+    adopts its buffers as the batch instead of copying.
     """
 
     cols: Dict[str, np.ndarray]
@@ -100,10 +112,148 @@ class _Chunk:
     # when the rows' payload was received, before its decode (latency
     # only; the deadline counts from ``arrival``); None = ``arrival``
     received: Optional[float] = None
+    reserved: Optional["Reservation"] = None
 
     @property
     def capacity(self) -> int:
         return len(self.cols["device_id"])
+
+
+class Reservation:
+    """A writable, packed-layout column segment for the fill-direct scan.
+
+    :meth:`Batcher.reserve` hands the C scanner
+    (``decode_measurement_lines_resolved_into``) int32/float32 views into
+    a fresh packed buffer pair, the same ``[C, B]`` rows the emitted plan
+    ships to the card.
+
+    - The buffers are private to this reservation until :meth:`commit`
+      enqueues them under the dispatcher's intake lock; a mid-payload
+      bail never commits, so it leaves no torn rows (:meth:`abort` only
+      drops it).
+    - The scanner writes ``device_id``, ``mtype_id`` (through the
+      ``name_idx`` scratch and one remap), ``value``, ``ts_s``, ``ts_ns``
+      and ``update_state``; every other column is a 0-stride fill template
+      or a per-payload constant (:meth:`set_const`).
+    - A full-width reservation that is the sole pending content when the
+      batch emits is ADOPTED: its buffers become the packed plan and the
+      batch-assembly copy disappears.  Adopted ``host_cols`` expose
+      ``valid`` and ``update_state`` as int32 rows (not bool).
+    """
+
+    __slots__ = ("_batcher", "ibuf", "fbuf", "name_idx", "cap", "n",
+                 "tenant_id", "payload_ref", "_open")
+
+    def __init__(self, batcher: "Batcher", cap: int):
+        self._batcher = batcher
+        self.cap = cap
+        self.n = 0
+        self.tenant_id = 0
+        self.payload_ref = NULL_ID
+        self._open = True
+        self.ibuf = np.empty((len(BATCH_I), cap), np.int32)
+        self.fbuf = np.empty((len(BATCH_F), cap), np.float32)
+        self.name_idx = np.empty(cap, np.int32)
+        if cap == batcher.width:
+            # adoption candidate: fill the columns the scanner never
+            # writes here, off the intake lock, so commit stays O(1)
+            for f in ("event_type", "alert_code", "alert_level",
+                      "command_id"):
+                self.ibuf[_BI[f]].fill(_FILL[f])
+            for f in ("lat", "lon", "elevation"):
+                self.fbuf[_BF[f]].fill(_FILL[f])
+
+    # -- scanner-facing views (full capacity, contiguous) -------------------
+
+    @property
+    def device_id(self) -> np.ndarray:
+        return self.ibuf[_BI["device_id"]]
+
+    @property
+    def mtype_id(self) -> np.ndarray:
+        return self.ibuf[_BI["mtype_id"]]
+
+    @property
+    def ts_s(self) -> np.ndarray:
+        return self.ibuf[_BI["ts_s"]]
+
+    @property
+    def ts_ns(self) -> np.ndarray:
+        return self.ibuf[_BI["ts_ns"]]
+
+    @property
+    def update_state(self) -> np.ndarray:
+        return self.ibuf[_BI["update_state"]]
+
+    @property
+    def value(self) -> np.ndarray:
+        return self.fbuf[_BF["value"]]
+
+    def set_const(self, *, tenant_id: int, payload_ref: int) -> None:
+        """Per-payload constants, applied as 0-stride broadcasts at commit
+        (and written into their rows only on adoption)."""
+        self.tenant_id = int(tenant_id)
+        self.payload_ref = int(payload_ref)
+
+    def abort(self) -> None:
+        """Discard: nothing was shared, so nothing needs undoing."""
+        self._open = False
+
+    def commit(self, received_at: Optional[float] = None) -> List[BatchPlan]:
+        """Enqueue the ``self.n`` scanned rows (call under the intake
+        lock, i.e. through the dispatcher's ``_take``); ``received_at`` as
+        in :meth:`Batcher.add_arrays`.  Returns every plan that became
+        ready."""
+        b = self._batcher
+        if not self._open:
+            raise RuntimeError("reservation already committed/aborted")
+        self._open = False
+        n = self.n
+        if n <= 0:
+            return []
+        # in-place NULL_ID rewrite (the add_arrays contract): the table
+        # can hold ids at or past the registry capacity; the buffers are
+        # ours, so no defensive copy
+        d = self.device_id[:n]
+        bad = (d < 0) | (d >= b.capacity)
+        if bad.any():
+            d[bad] = NULL_ID
+        cols: Dict[str, np.ndarray] = {
+            f: self.ibuf[_BI[f]][:n] for f in _SCANNED_I}
+        cols["value"] = self.value[:n]
+        cols["tenant_id"] = np.broadcast_to(np.int32(self.tenant_id), n)
+        cols["payload_ref"] = np.broadcast_to(np.int32(self.payload_ref), n)
+        for f in _COL_FIELDS:
+            if f not in cols:
+                cols[f] = np.broadcast_to(_FILL_0D[f], n)
+        now = b.clock()
+        b._pending.append(_Chunk(cols=cols, length=n, arrival=now,
+                                 received=received_at, reserved=self))
+        b._count += n
+        if b._oldest is None:
+            b._oldest = now
+        plans: List[BatchPlan] = []
+        while b._count >= b.seg:
+            plans.append(b._emit())
+        return plans
+
+    def finalize_adopted(self, n: int) -> Dict[str, np.ndarray]:
+        """Emission-time completion of an adopted buffer: write validity,
+        the per-payload constants and the padding fills into their rows,
+        and return the host-column views."""
+        ibuf, fbuf = self.ibuf, self.fbuf
+        valid = ibuf[_BI["valid"]]
+        valid[:n] = 1
+        valid[n:] = 0
+        ibuf[_BI["tenant_id"]][:n] = self.tenant_id
+        ibuf[_BI["payload_ref"]][:n] = self.payload_ref
+        if n < self.cap:
+            for f in ("tenant_id", "payload_ref") + _SCANNED_I:
+                ibuf[_BI[f]][n:] = _FILL[f]
+            fbuf[_BF["value"]][n:] = _FILL["value"]
+        host_cols = {f: ibuf[i] for i, f in enumerate(BATCH_I)}
+        host_cols.update({f: fbuf[i] for i, f in enumerate(BATCH_F)})
+        return host_cols
 
 
 class BatchPlan:
@@ -469,6 +619,15 @@ class Batcher:
             plans.append(self._emit())
         return plans
 
+    def reserve(self, cap: int) -> Optional[Reservation]:
+        """A :class:`Reservation` of up to ``cap`` rows for the fill-direct
+        scanner, or None when ``cap`` is out of range (a payload wider than
+        one batch cannot land in one emission).  The buffers are private
+        until ``commit``: reserve is safe from any thread."""
+        if not 0 < cap <= self.width:
+            return None
+        return Reservation(self, cap)
+
     def _count_copied(self, nbytes: int) -> None:
         if nbytes:
             self.copied_bytes += nbytes
@@ -589,11 +748,33 @@ class Batcher:
         return ibuf, fbuf, out
 
     @hot_path
+    def _emit_adopted(self, reason: str) -> BatchPlan:
+        """Zero-copy emission: the sole pending chunk is a full-width
+        reserved segment, and its packed buffers become the batch.  Only
+        validity, the per-payload constants and any padding are written;
+        no row data moves."""
+        ch = self._pending.popleft()
+        res, n = ch.reserved, ch.length
+        self._count -= n
+        host_cols = res.finalize_adopted(n)
+        now, wait = self._emit_tail(n, reason)
+        return BatchPlan(
+            batch=None, n_events=n, width=self.width, created_at=now,
+            max_wait_s=wait, host_cols=host_cols,
+            packed_i=res.ibuf, packed_f=res.fbuf,
+            seq=self.emitted_batches - 1, reason=reason,
+            received_at=ch.arrival if ch.received is None else ch.received,
+        )
+
+    @hot_path
     def _emit(self, reason: str = "fill") -> BatchPlan:
+        q = self._pending
+        if self.emit_packed and len(q) == 1 and q[0].reserved is not None \
+                and q[0].start == 0 and q[0].reserved.cap == self.width:
+            return self._emit_adopted(reason)
         ibuf, fbuf, out = self._assemble_buffers()
         filled = 0
         received = None
-        q = self._pending
         while filled < self.seg and q:
             ch = q[0]
             got = ch.arrival if ch.received is None else ch.received

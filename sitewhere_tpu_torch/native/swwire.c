@@ -1,0 +1,2269 @@
+/* _swwire_torch — native NDJSON wire decoder for the measurement fast path.
+ *
+ * The TPU framework's ingest ceiling is the host edge: CPython tops out
+ * around 0.4M envelope lines/s even with columnar sweeps (one C-level
+ * json.loads still materializes a dict per line).  This module scans the
+ * dominant wire shape directly into column buffers with zero per-line
+ * Python objects beyond the token/name strings:
+ *
+ *   {"deviceToken":"...","type":"Measurement",
+ *    "request":{"name":"...","value":N,"eventDate":N[,"updateState":B]}}
+ *
+ * one envelope per newline-delimited line, keys in any order, arbitrary
+ * inter-token whitespace.  STRICTNESS CONTRACT: anything outside this
+ * shape — escape sequences in strings, unknown keys, non-measurement
+ * types, nested extras — makes the function return None and the caller
+ * falls back to the pure-Python columnar decoder, so behavior NEVER
+ * diverges from the Python path; the native layer is purely an
+ * accelerator for the common case.
+ *
+ * Returns (tokens: list[str], names: list[str], values: bytes[f64],
+ *          ts: bytes[f64], update_state: bytes[u8]) or None.
+ *
+ * Reference justification: SURVEY.md §0 — "the native/performance tier
+ * of the new framework is the TPU kernels themselves plus any C++
+ * host-side ingest shim we choose to write — justified by capability
+ * (decode+route 1M events/sec/chip)".
+ */
+
+#define PY_SSIZE_T_CLEAN
+#include <Python.h>
+#include <math.h>
+#include <pthread.h>
+#include <stdint.h>
+#include <stdlib.h>
+#include <string.h>
+
+typedef struct {
+    const char *p;
+    const char *end;
+} cursor;
+
+static inline void skip_ws(cursor *c) {
+    while (c->p < c->end) {
+        char ch = *c->p;
+        if (ch == ' ' || ch == '\t' || ch == '\r') c->p++;
+        else break;
+    }
+}
+
+/* Parse a JSON string WITHOUT escapes; returns 0 on success and sets
+ * [start, len).  A backslash (or any control char) fails the parse. */
+static int parse_plain_string(cursor *c, const char **start, Py_ssize_t *len) {
+    if (c->p >= c->end || *c->p != '"') return -1;
+    c->p++;
+    *start = c->p;
+    while (c->p < c->end) {
+        unsigned char ch = (unsigned char)*c->p;
+        if (ch == '"') {
+            *len = c->p - *start;
+            c->p++;
+            return 0;
+        }
+        if (ch == '\\' || ch < 0x20) return -1; /* escapes → Python path */
+        c->p++;
+    }
+    return -1;
+}
+
+static int parse_number(cursor *c, double *out) {
+    /* Strict JSON number grammar FIRST (strtod alone would also accept
+     * hex, leading '+', '.5', inf/nan — payloads the Python path
+     * dead-letters; the native tier must never accept more). */
+    const char *q = c->p, *end = c->end;
+    if (q < end && *q == '-') q++;
+    if (q >= end || *q < '0' || *q > '9') return -1;
+    if (*q == '0') q++;
+    else while (q < end && *q >= '0' && *q <= '9') q++;
+    if (q < end && *q == '.') {
+        q++;
+        if (q >= end || *q < '0' || *q > '9') return -1;
+        while (q < end && *q >= '0' && *q <= '9') q++;
+    }
+    if (q < end && (*q == 'e' || *q == 'E')) {
+        q++;
+        if (q < end && (*q == '+' || *q == '-')) q++;
+        if (q >= end || *q < '0' || *q > '9') return -1;
+        while (q < end && *q >= '0' && *q <= '9') q++;
+    }
+    char *endp;
+    *out = strtod(c->p, &endp);
+    if (endp != q) return -1; /* also guards a comma-decimal locale */
+    /* grammatical but overflowing literals ("1e999") parse to inf,
+     * which the Python scalar path dead-letters (int(inf) is a decode
+     * error) — bail so every tier rejects non-finite numbers alike
+     * (fuzz-found divergence) */
+    if (*out - *out != 0.0) return -1; /* inf/nan without math.h */
+    c->p = q;
+    return 0;
+}
+
+static int expect(cursor *c, char ch) {
+    skip_ws(c);
+    if (c->p >= c->end || *c->p != ch) return -1;
+    c->p++;
+    return 0;
+}
+
+static int key_is(const char *k, Py_ssize_t klen, const char *lit) {
+    size_t n = strlen(lit);
+    return (Py_ssize_t)n == klen && memcmp(k, lit, n) == 0;
+}
+
+/* growable double buffer */
+typedef struct {
+    double *data;
+    Py_ssize_t len, cap;
+} dbuf;
+
+static int dbuf_push(dbuf *b, double v) {
+    if (b->len == b->cap) {
+        Py_ssize_t ncap = b->cap ? b->cap * 2 : 1024;
+        double *nd = (double *)realloc(b->data, (size_t)ncap * sizeof(double));
+        if (!nd) return -1;
+        b->data = nd;
+        b->cap = ncap;
+    }
+    b->data[b->len++] = v;
+    return 0;
+}
+
+typedef struct {
+    uint8_t *data;
+    Py_ssize_t len, cap;
+} bbuf;
+
+static int bbuf_push(bbuf *b, uint8_t v) {
+    if (b->len == b->cap) {
+        Py_ssize_t ncap = b->cap ? b->cap * 2 : 1024;
+        uint8_t *nd = (uint8_t *)realloc(b->data, (size_t)ncap);
+        if (!nd) return -1;
+        b->data = nd;
+        b->cap = ncap;
+    }
+    b->data[b->len++] = v;
+    return 0;
+}
+
+/* string slice into the payload buffer (valid while the buffer lives) */
+typedef struct {
+    const char *p;
+    Py_ssize_t len;
+} slice;
+
+typedef struct {
+    slice *data;
+    Py_ssize_t len, cap;
+} sbuf;
+
+static int sbuf_push(sbuf *b, const char *p, Py_ssize_t len) {
+    if (b->len == b->cap) {
+        Py_ssize_t ncap = b->cap ? b->cap * 2 : 1024;
+        slice *nd = (slice *)realloc(b->data, (size_t)ncap * sizeof(slice));
+        if (!nd) return -1;
+        b->data = nd;
+        b->cap = ncap;
+    }
+    b->data[b->len].p = p;
+    b->data[b->len].len = len;
+    b->len++;
+    return 0;
+}
+
+/* Strict UTF-8 gate for the GIL-free scan: the "undecodable token/name
+ * -> bail to the Python path" contract must be enforced without the
+ * Python API.  Delegates to utf8_valid() (defined with the owner-split
+ * path below) so the CPython-equivalent rejection rules live once. */
+static int utf8_valid(const unsigned char *s, Py_ssize_t n);
+
+static int utf8_ok(const char *s, Py_ssize_t len) {
+    return utf8_valid((const unsigned char *)s, len);
+}
+
+/* result codes for one line: 0 ok, 1 bail (shape mismatch), -1 error */
+static int parse_line(cursor *c,
+                      const char **token, Py_ssize_t *token_len,
+                      const char **name, Py_ssize_t *name_len,
+                      double *value, int *has_value,
+                      double *ts, uint8_t *update_state) {
+    /* Alias precedence must MATCH the Python decoder exactly
+     * (columnar.py / decoders.py): deviceToken over hardwareId,
+     * name over measurementId (falsy falls through), eventDate over
+     * timestamp (0 falls through) — independent of key order. */
+    const char *tok1 = NULL, *tok2 = NULL, *nm1 = NULL, *nm2 = NULL;
+    Py_ssize_t tok1_len = 0, tok2_len = 0, nm1_len = 0, nm2_len = 0;
+    int has_tok1 = 0, has_type = 0, has_request = 0;
+    double ed1 = 0.0, ed2 = 0.0;
+    *has_value = 0;
+    *update_state = 1;
+
+    if (expect(c, '{') != 0) return 1;
+    skip_ws(c);
+    if (c->p < c->end && *c->p == '}') { return 1; } /* empty envelope */
+    for (;;) {
+        const char *k; Py_ssize_t klen;
+        skip_ws(c);
+        if (parse_plain_string(c, &k, &klen) != 0) return 1;
+        if (expect(c, ':') != 0) return 1;
+        skip_ws(c);
+        if (key_is(k, klen, "deviceToken")) {
+            if (parse_plain_string(c, &tok1, &tok1_len) != 0) return 1;
+            has_tok1 = 1;
+        } else if (key_is(k, klen, "hardwareId")) {
+            if (parse_plain_string(c, &tok2, &tok2_len) != 0) return 1;
+        } else if (key_is(k, klen, "type")) {
+            const char *t; Py_ssize_t tlen;
+            if (parse_plain_string(c, &t, &tlen) != 0) return 1;
+            if (!(key_is(t, tlen, "Measurement") ||
+                  key_is(t, tlen, "Measurements") ||
+                  key_is(t, tlen, "DeviceMeasurements") ||
+                  key_is(t, tlen, "measurement") ||
+                  key_is(t, tlen, "measurements")))
+                return 1; /* non-measurement payload → Python path */
+            has_type = 1;
+        } else if (key_is(k, klen, "request")) {
+            /* a duplicate "request" key would MERGE fields here while
+             * json.loads keeps only the last object — bail to Python */
+            if (has_request) return 1;
+            if (expect(c, '{') != 0) return 1;
+            skip_ws(c);
+            if (c->p < c->end && *c->p == '}') { c->p++; }
+            else {
+                for (;;) {
+                    const char *rk; Py_ssize_t rklen;
+                    skip_ws(c);
+                    if (parse_plain_string(c, &rk, &rklen) != 0) return 1;
+                    if (expect(c, ':') != 0) return 1;
+                    skip_ws(c);
+                    if (key_is(rk, rklen, "name")) {
+                        if (parse_plain_string(c, &nm1, &nm1_len) != 0)
+                            return 1;
+                    } else if (key_is(rk, rklen, "measurementId")) {
+                        if (parse_plain_string(c, &nm2, &nm2_len) != 0)
+                            return 1;
+                    } else if (key_is(rk, rklen, "value")) {
+                        if (parse_number(c, value) != 0) return 1;
+                        *has_value = 1;
+                    } else if (key_is(rk, rklen, "eventDate")) {
+                        if (parse_number(c, &ed1) != 0) return 1;
+                    } else if (key_is(rk, rklen, "timestamp")) {
+                        if (parse_number(c, &ed2) != 0) return 1;
+                    } else if (key_is(rk, rklen, "updateState")) {
+                        if (c->end - c->p >= 4 &&
+                            memcmp(c->p, "true", 4) == 0) {
+                            *update_state = 1; c->p += 4;
+                        } else if (c->end - c->p >= 5 &&
+                                   memcmp(c->p, "false", 5) == 0) {
+                            *update_state = 0; c->p += 5;
+                        } else return 1;
+                    } else {
+                        return 1; /* unknown request key → Python path */
+                    }
+                    skip_ws(c);
+                    if (c->p < c->end && *c->p == ',') { c->p++; continue; }
+                    if (c->p < c->end && *c->p == '}') { c->p++; break; }
+                    return 1;
+                }
+            }
+            has_request = 1;
+        } else {
+            return 1; /* unknown top-level key → Python path */
+        }
+        skip_ws(c);
+        if (c->p < c->end && *c->p == ',') { c->p++; continue; }
+        if (c->p < c->end && *c->p == '}') { c->p++; break; }
+        return 1;
+    }
+    skip_ws(c);
+    if (c->p < c->end) return 1; /* trailing garbage on the line */
+    if (!has_type || !has_request) return 1;
+    /* Python: doc.get("deviceToken", doc.get("hardwareId")) — present
+     * deviceToken wins even when empty (empty → error; bail). */
+    if (has_tok1) { *token = tok1; *token_len = tok1_len; }
+    else { *token = tok2; *token_len = tok2_len; }
+    if (*token == NULL || *token_len == 0) return 1;
+    /* Python: r.get("name") or r.get("measurementId") — falsy "" falls
+     * through to the alias. */
+    if (nm1 != NULL && nm1_len > 0) { *name = nm1; *name_len = nm1_len; }
+    else if (nm2 != NULL) { *name = nm2; *name_len = nm2_len; }
+    else { *name = NULL; *name_len = 0; }
+    /* Python: r.get("eventDate") or r.get("timestamp") or 0. */
+    *ts = (ed1 != 0.0) ? ed1 : ed2;
+    if (*name == NULL || *name_len == 0 || !*has_value) return 1;
+    return 0;
+}
+
+/* GIL-free scan of the whole payload into C buffers.
+ * Returns 0 ok, 1 bail (fall back to Python), -1 out-of-memory. */
+static int scan_lines(const char *buf, Py_ssize_t n,
+                      sbuf *toks, sbuf *nms,
+                      dbuf *values, dbuf *tss, bbuf *us) {
+    const char *p = buf, *end = buf + n;
+    while (p < end) {
+        const char *nl = memchr(p, '\n', (size_t)(end - p));
+        const char *line_end = nl ? nl : end;
+        /* skip blank lines */
+        const char *q = p;
+        while (q < line_end &&
+               (*q == ' ' || *q == '\t' || *q == '\r')) q++;
+        if (q == line_end) { p = nl ? nl + 1 : end; continue; }
+
+        /* json.loads(bytes) decodes the WHOLE line as UTF-8 before
+         * parsing, so invalid bytes ANYWHERE — including inside keys
+         * or values this scanner would skip — must bail exactly like
+         * the Python path's decode error (fuzz-found divergence).
+         * This whole-line gate subsumes the per-field token/name
+         * checks the scanner used to do. */
+        if (!utf8_ok(q, line_end - q)) return 1;
+
+        cursor c = { q, line_end };
+        const char *token, *name;
+        Py_ssize_t token_len, name_len;
+        double value, ts;
+        int has_value;
+        uint8_t update_state;
+        int rc = parse_line(&c, &token, &token_len, &name, &name_len,
+                            &value, &has_value, &ts, &update_state);
+        if (rc != 0) return 1;
+        if (sbuf_push(toks, token, token_len) != 0 ||
+            sbuf_push(nms, name, name_len) != 0 ||
+            dbuf_push(values, value) != 0 || dbuf_push(tss, ts) != 0 ||
+            bbuf_push(us, update_state) != 0)
+            return -1;
+        p = nl ? nl + 1 : end;
+    }
+    return 0;
+}
+
+/* Small content-keyed memo for the build phase: payloads carry a handful
+ * of distinct measurement names, so most lines reuse a cached str. */
+#define NAME_MEMO 32
+
+static PyObject *decode_measurement_lines(PyObject *self, PyObject *arg) {
+    /* bytes only: strtod relies on the NUL terminator PyBytes guarantees */
+    if (!PyBytes_Check(arg)) {
+        PyErr_SetString(PyExc_TypeError, "payload must be bytes");
+        return NULL;
+    }
+    Py_buffer view;
+    if (PyObject_GetBuffer(arg, &view, PyBUF_SIMPLE) != 0) return NULL;
+    const char *buf = (const char *)view.buf;
+    Py_ssize_t n = view.len;
+
+    sbuf toks = {0}, nms = {0};
+    dbuf values = {0}, tss = {0};
+    bbuf us = {0};
+    PyObject *tokens = NULL, *names = NULL;
+    int rc;
+
+    /* Phase 1: pure C scan — no Python API, GIL released so sibling
+     * intake threads decode concurrently. */
+    Py_BEGIN_ALLOW_THREADS
+    rc = scan_lines(buf, n, &toks, &nms, &values, &tss, &us);
+    Py_END_ALLOW_THREADS
+    if (rc == 1) goto bail;
+    if (rc == -1) { PyErr_NoMemory(); goto fail; }
+
+    /* Phase 2: materialize Python objects (GIL held). */
+    {
+        Py_ssize_t count = toks.len;
+        slice memo_sl[NAME_MEMO];
+        PyObject *memo_obj[NAME_MEMO];
+        int memo_n = 0;
+        tokens = PyList_New(count);
+        names = PyList_New(count);
+        if (!tokens || !names) goto fail;
+        for (Py_ssize_t i = 0; i < count; i++) {
+            PyObject *t = PyUnicode_DecodeUTF8(
+                toks.data[i].p, toks.data[i].len, NULL);
+            if (!t) goto fail; /* utf8_ok passed; real errors propagate */
+            PyList_SET_ITEM(tokens, i, t);
+
+            slice s = nms.data[i];
+            PyObject *nm = NULL;
+            for (int m = 0; m < memo_n; m++) {
+                if (memo_sl[m].len == s.len &&
+                    memcmp(memo_sl[m].p, s.p, (size_t)s.len) == 0) {
+                    nm = memo_obj[m];
+                    Py_INCREF(nm);
+                    break;
+                }
+            }
+            if (!nm) {
+                nm = PyUnicode_DecodeUTF8(s.p, s.len, NULL);
+                if (!nm) goto fail;
+                if (memo_n < NAME_MEMO) {
+                    memo_sl[memo_n] = s;
+                    memo_obj[memo_n] = nm; /* borrowed from the list slot */
+                    memo_n++;
+                }
+            }
+            PyList_SET_ITEM(names, i, nm);
+        }
+
+        PyObject *v = PyBytes_FromStringAndSize(
+            (const char *)values.data, values.len * (Py_ssize_t)sizeof(double));
+        PyObject *t = PyBytes_FromStringAndSize(
+            (const char *)tss.data, tss.len * (Py_ssize_t)sizeof(double));
+        PyObject *u = PyBytes_FromStringAndSize(
+            (const char *)us.data, us.len);
+        PyObject *out = NULL;
+        if (v && t && u)
+            out = PyTuple_Pack(5, tokens, names, v, t, u);
+        Py_XDECREF(v); Py_XDECREF(t); Py_XDECREF(u);
+        Py_DECREF(tokens); Py_DECREF(names);
+        free(toks.data); free(nms.data);
+        free(values.data); free(tss.data); free(us.data);
+        PyBuffer_Release(&view);
+        return out; /* NULL propagates the MemoryError */
+    }
+
+bail:
+    free(toks.data); free(nms.data);
+    free(values.data); free(tss.data); free(us.data);
+    PyBuffer_Release(&view);
+    Py_RETURN_NONE;
+
+fail:
+    Py_XDECREF(tokens); Py_XDECREF(names);
+    free(toks.data); free(nms.data);
+    free(values.data); free(tss.data); free(us.data);
+    PyBuffer_Release(&view);
+    return NULL;
+}
+
+/* ---- split_owner_lines: the multi-host routing edge ------------------
+ *
+ * rpc/forward.py routes every NDJSON line to the host owning its device
+ * (crc32(token) % n_processes, the Kafka partition-key analog).  The
+ * Python path pays one json.loads per line just to read the token; this
+ * scanner extracts the top-level deviceToken/hardwareId value without
+ * building any objects.
+ *
+ * STRICTNESS CONTRACT (stronger than the decoder's, because ownership
+ * must agree BYTE-FOR-BYTE with the Python path cluster-wide — two
+ * frontends disagreeing on an owner would split one device's stream
+ * across hosts): any construct whose token Python could read
+ * differently bails the WHOLE payload (return None → Python path):
+ *   - escape sequences in any top-level key (an escaped key can decode
+ *     to "deviceToken") or in the token value itself,
+ *   - a deviceToken/hardwareId value that is not a plain string.
+ * Malformed lines and token-less lines get owner -1 (local intake
+ * dead-letters them with diagnostics), matching split_lines().
+ * Line enumeration matches payload.split(b"\n") with whitespace-only
+ * lines skipped.
+ */
+
+static uint32_t crc_table[256];
+static int crc_table_ready = 0;
+
+static void crc_init(void) {
+    for (uint32_t i = 0; i < 256; i++) {
+        uint32_t c = i;
+        for (int k = 0; k < 8; k++)
+            c = (c & 1) ? 0xEDB88320u ^ (c >> 1) : c >> 1;
+        crc_table[i] = c;
+    }
+    crc_table_ready = 1;
+}
+
+/* zlib-compatible crc32 (poly 0xEDB88320, reflected, init/final xor);
+ * the chained form matches zlib.crc32(buf, prev). */
+static uint32_t crc32_chain(uint32_t prev, const char *buf, Py_ssize_t len) {
+    uint32_t c = prev ^ 0xFFFFFFFFu;
+    for (Py_ssize_t i = 0; i < len; i++)
+        c = crc_table[(c ^ (unsigned char)buf[i]) & 0xFF] ^ (c >> 8);
+    return c ^ 0xFFFFFFFFu;
+}
+
+static uint32_t crc32_bytes(const char *buf, Py_ssize_t len) {
+    return crc32_chain(0, buf, len);
+}
+
+/* murmur3 32-bit finalizer: the non-linear mixer rendezvous weights
+ * need (raw CRC32 is linear — equal-length suffixes give weights that
+ * differ by constant XORs, so the argmax would ignore the token). */
+static inline uint32_t fmix32(uint32_t h) {
+    h ^= h >> 16;
+    h *= 0x85EBCA6Bu;
+    h ^= h >> 13;
+    h *= 0xC2B2AE35u;
+    h ^= h >> 16;
+    return h;
+}
+
+/* Rendezvous (HRW) owner — MUST match rpc/forward.owning_process:
+ * argmax_p fmix32(crc32(token) ^ crc32("|p")), ties to the smallest p.
+ * The per-process suffix CRCs are computed ONCE per payload (hrw_ctx).
+ */
+typedef struct {
+    uint32_t nproc;
+    uint32_t *suffix_crc;
+} hrw_ctx;
+
+static int hrw_ctx_init(hrw_ctx *ctx, uint32_t nproc) {
+    ctx->nproc = nproc;
+    ctx->suffix_crc = malloc((size_t)nproc * sizeof *ctx->suffix_crc);
+    if (!ctx->suffix_crc) return -1;
+    char suffix[16];
+    for (uint32_t p = 0; p < nproc; p++) {
+        int slen = snprintf(suffix, sizeof suffix, "|%u", p);
+        ctx->suffix_crc[p] = crc32_bytes(suffix, slen);
+    }
+    return 0;
+}
+
+static void hrw_ctx_free(hrw_ctx *ctx) {
+    free(ctx->suffix_crc);
+}
+
+static int hrw_owner(const hrw_ctx *ctx, const char *token, Py_ssize_t len) {
+    if (ctx->nproc <= 1) return 0;
+    uint32_t base = crc32_bytes(token, len);
+    int best = 0;
+    uint32_t best_h = 0;
+    int have = 0;
+    for (uint32_t p = 0; p < ctx->nproc; p++) {
+        uint32_t h = fmix32(base ^ ctx->suffix_crc[p]);
+        if (!have || h > best_h) {
+            best = (int)p;
+            best_h = h;
+            have = 1;
+        }
+    }
+    return best;
+}
+
+/* String parse distinguishing escape (bail-worthy) from malformed:
+ * 0 = ok, 1 = malformed, 2 = contains escape. */
+static int parse_string_classify(cursor *c, const char **start,
+                                 Py_ssize_t *len) {
+    if (c->p >= c->end || *c->p != '"') return 1;
+    c->p++;
+    *start = c->p;
+    while (c->p < c->end) {
+        unsigned char ch = (unsigned char)*c->p;
+        if (ch == '"') {
+            *len = c->p - *start;
+            c->p++;
+            return 0;
+        }
+        if (ch == '\\') return 2;
+        if (ch < 0x20) return 1;
+        c->p++;
+    }
+    return 1;
+}
+
+/* Skip one JSON value with FULL json.loads-equivalent validation —
+ * skipped content is never hashed, but whether the LINE is valid decides
+ * its owner (-1 for lines json.loads rejects), so the skipper must
+ * accept exactly what json.loads accepts: validated escape sequences,
+ * proper object/array structure, strict number grammar plus the
+ * NaN/Infinity/-Infinity constants the Python parser allows.
+ * Returns 0 ok, 1 malformed (→ owner -1), 2 bail whole payload. */
+
+#define SKIP_MAX_DEPTH 128
+
+static int skip_string_valid(cursor *c) {
+    if (c->p >= c->end || *c->p != '"') return 1;
+    c->p++;
+    while (c->p < c->end) {
+        unsigned char ch = (unsigned char)*c->p;
+        if (ch == '"') { c->p++; return 0; }
+        if (ch < 0x20) return 1;      /* raw control char: strict mode */
+        if (ch == '\\') {
+            c->p++;
+            if (c->p >= c->end) return 1;
+            char e = *c->p;
+            if (e == '"' || e == '\\' || e == '/' || e == 'b' ||
+                e == 'f' || e == 'n' || e == 'r' || e == 't') {
+                c->p++;
+                continue;
+            }
+            if (e == 'u') {
+                c->p++;
+                for (int i = 0; i < 4; i++) {
+                    if (c->p >= c->end) return 1;
+                    char h = *c->p;
+                    if (!((h >= '0' && h <= '9') ||
+                          (h >= 'a' && h <= 'f') ||
+                          (h >= 'A' && h <= 'F'))) return 1;
+                    c->p++;
+                }
+                continue;
+            }
+            return 1;                  /* \q etc: json.loads raises */
+        }
+        c->p++;
+    }
+    return 1;
+}
+
+static int skip_value_depth(cursor *c, int depth) {
+    if (depth > SKIP_MAX_DEPTH) return 2;  /* deeper than we validate:
+                                            * bail, let json.loads rule */
+    skip_ws(c);
+    if (c->p >= c->end) return 1;
+    char ch = *c->p;
+    if (ch == '"') return skip_string_valid(c);
+    if (ch == '{') {
+        c->p++;
+        skip_ws(c);
+        if (c->p < c->end && *c->p == '}') { c->p++; return 0; }
+        for (;;) {
+            skip_ws(c);
+            int rc = skip_string_valid(c);     /* keys must be strings */
+            if (rc) return rc;
+            skip_ws(c);
+            if (c->p >= c->end || *c->p != ':') return 1;
+            c->p++;
+            rc = skip_value_depth(c, depth + 1);
+            if (rc) return rc;
+            skip_ws(c);
+            if (c->p < c->end && *c->p == ',') { c->p++; continue; }
+            if (c->p < c->end && *c->p == '}') { c->p++; return 0; }
+            return 1;
+        }
+    }
+    if (ch == '[') {
+        c->p++;
+        skip_ws(c);
+        if (c->p < c->end && *c->p == ']') { c->p++; return 0; }
+        for (;;) {
+            int rc = skip_value_depth(c, depth + 1);
+            if (rc) return rc;
+            skip_ws(c);
+            if (c->p < c->end && *c->p == ',') { c->p++; continue; }
+            if (c->p < c->end && *c->p == ']') { c->p++; return 0; }
+            return 1;
+        }
+    }
+    /* literals json.loads accepts — including its non-standard float
+     * constants (check -Infinity before the number grammar eats '-') */
+    if (c->end - c->p >= 4 && memcmp(c->p, "true", 4) == 0) {
+        c->p += 4; return 0;
+    }
+    if (c->end - c->p >= 5 && memcmp(c->p, "false", 5) == 0) {
+        c->p += 5; return 0;
+    }
+    if (c->end - c->p >= 4 && memcmp(c->p, "null", 4) == 0) {
+        c->p += 4; return 0;
+    }
+    if (c->end - c->p >= 3 && memcmp(c->p, "NaN", 3) == 0) {
+        c->p += 3; return 0;
+    }
+    if (c->end - c->p >= 8 && memcmp(c->p, "Infinity", 8) == 0) {
+        c->p += 8; return 0;
+    }
+    if (c->end - c->p >= 9 && memcmp(c->p, "-Infinity", 9) == 0) {
+        c->p += 9; return 0;
+    }
+    double ignored;
+    return parse_number(c, &ignored) == 0 ? 0 : 1;
+}
+
+static int skip_value(cursor *c) { return skip_value_depth(c, 0); }
+
+/* CPython-equivalent UTF-8 validation (rejects overlongs, surrogates,
+ * > U+10FFFF): json.loads(bytes) refuses a line with ANY invalid UTF-8,
+ * so such a line must get owner -1 natively too. */
+static int utf8_valid(const unsigned char *s, Py_ssize_t n) {
+    Py_ssize_t i = 0;
+    while (i < n) {
+        /* word-at-a-time ASCII prefilter: fleet payloads are almost
+         * entirely ASCII, and the whole-line gate now runs this over
+         * every byte of the hot wire path — skip 8 clean bytes per
+         * iteration instead of one (memcpy avoids alignment UB and
+         * compiles to a single load). */
+        while (i + 8 <= n) {
+            uint64_t w;
+            memcpy(&w, s + i, 8);
+            if (w & UINT64_C(0x8080808080808080)) break;
+            i += 8;
+        }
+        if (i >= n) break;
+        unsigned char c = s[i];
+        if (c < 0x80) { i++; continue; }
+        if (c < 0xC2) return 0;               /* stray continuation / overlong */
+        if (c < 0xE0) {
+            if (i + 1 >= n || (s[i + 1] & 0xC0) != 0x80) return 0;
+            i += 2; continue;
+        }
+        if (c < 0xF0) {
+            if (i + 2 >= n) return 0;
+            unsigned char c1 = s[i + 1], c2 = s[i + 2];
+            if ((c1 & 0xC0) != 0x80 || (c2 & 0xC0) != 0x80) return 0;
+            if (c == 0xE0 && c1 < 0xA0) return 0;   /* overlong */
+            if (c == 0xED && c1 >= 0xA0) return 0;  /* surrogate */
+            i += 3; continue;
+        }
+        if (c < 0xF5) {
+            if (i + 3 >= n) return 0;
+            unsigned char c1 = s[i + 1], c2 = s[i + 2], c3 = s[i + 3];
+            if ((c1 & 0xC0) != 0x80 || (c2 & 0xC0) != 0x80 ||
+                (c3 & 0xC0) != 0x80) return 0;
+            if (c == 0xF0 && c1 < 0x90) return 0;   /* overlong */
+            if (c == 0xF4 && c1 >= 0x90) return 0;  /* > U+10FFFF */
+            i += 4; continue;
+        }
+        return 0;
+    }
+    return 1;
+}
+
+/* Owner of one line: >= 0 owner, -1 local (malformed/token-less),
+ * -2 bail whole payload. */
+static int owner_of_line(cursor c, const hrw_ctx *ctx) {
+    const char *tok = NULL, *hw = NULL;
+    Py_ssize_t tok_len = 0, hw_len = 0;
+    int have_tok = 0, have_hw = 0;
+
+    if (!utf8_valid((const unsigned char *)c.p, c.end - c.p))
+        return -1;   /* json.loads would raise → local dead-letter */
+    skip_ws(&c);
+    if (c.p >= c.end || *c.p != '{') return -1;
+    c.p++;
+    skip_ws(&c);
+    if (c.p < c.end && *c.p == '}') { c.p++; goto close; }
+    for (;;) {
+        const char *k; Py_ssize_t klen;
+        skip_ws(&c);
+        int krc = parse_string_classify(&c, &k, &klen);
+        if (krc == 2) return -2;   /* escaped key could BE deviceToken */
+        if (krc == 1) return -1;
+        skip_ws(&c);
+        if (c.p >= c.end || *c.p != ':') return -1;
+        c.p++;
+        skip_ws(&c);
+        if (key_is(k, klen, "deviceToken")) {
+            if (c.p >= c.end || *c.p != '"') return -2; /* non-string */
+            int vrc = parse_string_classify(&c, &tok, &tok_len);
+            if (vrc == 2) return -2;
+            if (vrc == 1) return -1;
+            have_tok = 1;          /* duplicate keys: last wins, like dict */
+        } else if (key_is(k, klen, "hardwareId")) {
+            if (c.p >= c.end || *c.p != '"') return -2;
+            int vrc = parse_string_classify(&c, &hw, &hw_len);
+            if (vrc == 2) return -2;
+            if (vrc == 1) return -1;
+            have_hw = 1;
+        } else {
+            int src = skip_value(&c);
+            if (src == 2) return -2;
+            if (src != 0) return -1;
+        }
+        skip_ws(&c);
+        if (c.p < c.end && *c.p == ',') { c.p++; continue; }
+        if (c.p < c.end && *c.p == '}') { c.p++; break; }
+        return -1;
+    }
+close:
+    skip_ws(&c);
+    if (c.p < c.end) return -1;   /* trailing garbage: json.loads fails */
+    /* Python: env.get("deviceToken") or env.get("hardwareId") — a falsy
+     * (empty) deviceToken falls through to hardwareId. */
+    const char *use = NULL; Py_ssize_t use_len = 0;
+    if (have_tok && tok_len > 0) { use = tok; use_len = tok_len; }
+    else if (have_hw && hw_len > 0) { use = hw; use_len = hw_len; }
+    if (use == NULL) return -1;
+    return hrw_owner(ctx, use, use_len);
+}
+
+static PyObject *split_owner_lines(PyObject *self, PyObject *args) {
+    PyObject *payload;
+    unsigned int nproc;
+    if (!PyArg_ParseTuple(args, "SI", &payload, &nproc)) return NULL;
+    if (nproc == 0) {
+        PyErr_SetString(PyExc_ValueError, "n_processes must be > 0");
+        return NULL;
+    }
+    if (!crc_table_ready) crc_init();
+    hrw_ctx ctx;
+    if (hrw_ctx_init(&ctx, (uint32_t)nproc) != 0) {
+        hrw_ctx_free(&ctx);
+        return PyErr_NoMemory();
+    }
+    const char *buf = PyBytes_AS_STRING(payload);
+    Py_ssize_t n = PyBytes_GET_SIZE(payload);
+    PyObject *owners = PyList_New(0);
+    if (!owners) { hrw_ctx_free(&ctx); return NULL; }
+
+    const char *p = buf, *end = buf + n;
+    while (p < end) {
+        const char *nl = memchr(p, '\n', (size_t)(end - p));
+        const char *line_end = nl ? nl : end;
+        const char *q = p;
+        while (q < line_end &&
+               (*q == ' ' || *q == '\t' || *q == '\r')) q++;
+        if (q == line_end) { p = nl ? nl + 1 : end; continue; }
+
+        cursor c = { p, line_end };
+        int owner = owner_of_line(c, &ctx);
+        if (owner == -2) {
+            Py_DECREF(owners);
+            hrw_ctx_free(&ctx);
+            Py_RETURN_NONE;   /* whole payload → Python path */
+        }
+        PyObject *o = PyLong_FromLong(owner);
+        if (!o || PyList_Append(owners, o) != 0) {
+            Py_XDECREF(o);
+            Py_DECREF(owners);
+            hrw_ctx_free(&ctx);
+            return NULL;
+        }
+        Py_DECREF(o);
+        p = nl ? nl + 1 : end;
+    }
+    hrw_ctx_free(&ctx);
+    return owners;
+}
+
+/* ---- decode_event_lines: the full wire family ------------------------
+ *
+ * Extends the measurement fast path to the whole EVENT family —
+ * Measurement / Location / Alert lines in any mix — plus Registration
+ * lines, which are SPLIT OUT as raw line bytes for the (rare) Python
+ * host-plane path instead of bailing the whole payload.  Shape per line:
+ *
+ *   {"deviceToken"|"hardwareId":"...","type":"...","request":{...}}
+ *
+ * keys in any order (the request span is recorded and parsed after the
+ * kind is known).  Unknown ENVELOPE and REQUEST keys are skipped with
+ * full json.loads-equivalent validation (the Python decoder ignores
+ * extras, so skipping matches it); known fields must be plain (escape
+ * sequences anywhere load-bearing bail to Python).  Alias precedence
+ * mirrors ingest/columnar.py exactly:
+ *   token:  deviceToken, empty falls through to hardwareId
+ *   meas:   name or measurementId (falsy falls through); value required
+ *   loc:    latitude+longitude required; elevation default 0
+ *   alert:  type PRESENT wins (get-with-default, even empty) else
+ *           alertType else "alert"; level default info, lowercase alias
+ *           strings only (other casings bail); lat/lon applied only as
+ *           a pair
+ *   ts:     eventDate or timestamp or 0 (nonzero eventDate wins)
+ * Kind ints MATCH RequestKind (decoders.py): 0/1/2, registration 10.
+ *
+ * Returns (tokens, kinds u8, names, alert_types, values f64, ts f64,
+ *          lat f64, lon f64, elev f64, levels i32, update u8,
+ *          host_lines list[bytes]) or None (bail → Python path).
+ */
+
+#define K_MEAS 0
+#define K_LOC 1
+#define K_ALERT 2
+#define K_REG 10
+
+static int type_to_kind(const char *t, Py_ssize_t n) {
+    if (key_is(t, n, "Measurement") || key_is(t, n, "Measurements") ||
+        key_is(t, n, "DeviceMeasurements") || key_is(t, n, "measurement") ||
+        key_is(t, n, "measurements") || key_is(t, n, "devicemeasurements"))
+        return K_MEAS;
+    if (key_is(t, n, "Location") || key_is(t, n, "DeviceLocation") ||
+        key_is(t, n, "location") || key_is(t, n, "devicelocation"))
+        return K_LOC;
+    if (key_is(t, n, "Alert") || key_is(t, n, "DeviceAlert") ||
+        key_is(t, n, "alert") || key_is(t, n, "devicealert"))
+        return K_ALERT;
+    if (key_is(t, n, "RegisterDevice") || key_is(t, n, "Registration") ||
+        key_is(t, n, "registerdevice") || key_is(t, n, "registration"))
+        return K_REG;
+    return -1; /* other kinds (stream/command/...) → Python path */
+}
+
+typedef struct {
+    const char *token; Py_ssize_t token_len;
+    int kind;
+    const char *name; Py_ssize_t name_len;   /* NULL = absent */
+    const char *atype; Py_ssize_t atype_len; /* NULL = absent */
+    double value, ts, lat, lon, elev;
+    int32_t level;
+    uint8_t update_state;
+} evrow;
+
+/* Parse one request object span for an event kind.  0 ok, 1 bail. */
+static int parse_request_fields(cursor *c, int kind, evrow *r) {
+    const char *nm1 = NULL, *nm2 = NULL, *ty = NULL, *aty = NULL;
+    Py_ssize_t nm1_len = 0, nm2_len = 0, ty_len = 0, aty_len = 0;
+    int has_ty = 0, has_aty = 0, has_value = 0, has_lat = 0, has_lon = 0;
+    double ed1 = 0.0, ed2 = 0.0, lat = 0.0, lon = 0.0, elev = 0.0;
+    double value = 0.0;
+    r->level = 0; /* AlertLevel.INFO */
+    r->update_state = 1;
+
+    if (expect(c, '{') != 0) return 1;
+    skip_ws(c);
+    if (c->p < c->end && *c->p == '}') { c->p++; goto done; }
+    for (;;) {
+        const char *k; Py_ssize_t klen;
+        skip_ws(c);
+        if (parse_plain_string(c, &k, &klen) != 0) return 1;
+        if (expect(c, ':') != 0) return 1;
+        skip_ws(c);
+        if (key_is(k, klen, "name")) {
+            if (parse_plain_string(c, &nm1, &nm1_len) != 0) return 1;
+        } else if (key_is(k, klen, "measurementId")) {
+            if (parse_plain_string(c, &nm2, &nm2_len) != 0) return 1;
+        } else if (key_is(k, klen, "value")) {
+            if (parse_number(c, &value) != 0) return 1;
+            has_value = 1;
+        } else if (key_is(k, klen, "eventDate")) {
+            if (parse_number(c, &ed1) != 0) return 1;
+        } else if (key_is(k, klen, "timestamp")) {
+            if (parse_number(c, &ed2) != 0) return 1;
+        } else if (key_is(k, klen, "latitude")) {
+            if (parse_number(c, &lat) != 0) return 1;
+            has_lat = 1;
+        } else if (key_is(k, klen, "longitude")) {
+            if (parse_number(c, &lon) != 0) return 1;
+            has_lon = 1;
+        } else if (key_is(k, klen, "elevation")) {
+            if (parse_number(c, &elev) != 0) return 1;
+        } else if (key_is(k, klen, "type")) {
+            if (parse_plain_string(c, &ty, &ty_len) != 0) return 1;
+            has_ty = 1;
+        } else if (key_is(k, klen, "alertType")) {
+            if (parse_plain_string(c, &aty, &aty_len) != 0) return 1;
+            has_aty = 1;
+        } else if (key_is(k, klen, "level")) {
+            if (c->p < c->end && *c->p == '"') {
+                const char *lv; Py_ssize_t lvlen;
+                if (parse_plain_string(c, &lv, &lvlen) != 0) return 1;
+                /* lowercase aliases only — other casings bail so the
+                 * Python .lower() normalization stays authoritative */
+                if (key_is(lv, lvlen, "info")) r->level = 0;
+                else if (key_is(lv, lvlen, "warning")) r->level = 1;
+                else if (key_is(lv, lvlen, "error")) r->level = 2;
+                else if (key_is(lv, lvlen, "critical")) r->level = 3;
+                else return 1;
+            } else {
+                double lv;
+                if (parse_number(c, &lv) != 0) return 1;
+                if (lv < -2147483648.0 || lv > 2147483647.0) return 1;
+                r->level = (int32_t)lv; /* int() truncation, like Python */
+            }
+        } else if (key_is(k, klen, "updateState")) {
+            if (c->end - c->p >= 4 && memcmp(c->p, "true", 4) == 0) {
+                r->update_state = 1; c->p += 4;
+            } else if (c->end - c->p >= 5 && memcmp(c->p, "false", 5) == 0) {
+                r->update_state = 0; c->p += 5;
+            } else return 1;
+        } else {
+            /* unknown request key: Python ignores it — skip with full
+             * validation (escapes inside skipped values are fine) */
+            int src = skip_value(c);
+            if (src != 0) return 1;
+        }
+        skip_ws(c);
+        if (c->p < c->end && *c->p == ',') { c->p++; continue; }
+        if (c->p < c->end && *c->p == '}') { c->p++; break; }
+        return 1;
+    }
+done:
+    /* cursor sits just past the closing '}' — the caller's envelope
+     * loop (or span exactness, for the re-parse case) takes over */
+    r->ts = (ed1 != 0.0) ? ed1 : ed2;
+    r->name = NULL; r->name_len = 0;
+    r->atype = NULL; r->atype_len = 0;
+    r->value = 0.0; r->lat = 0.0; r->lon = 0.0; r->elev = 0.0;
+    if (kind == K_MEAS) {
+        if (nm1 != NULL && nm1_len > 0) { r->name = nm1; r->name_len = nm1_len; }
+        else if (nm2 != NULL) { r->name = nm2; r->name_len = nm2_len; }
+        if (r->name == NULL || r->name_len == 0 || !has_value) return 1;
+        r->value = value;
+    } else if (kind == K_LOC) {
+        if (!has_lat || !has_lon) return 1;
+        r->lat = lat; r->lon = lon; r->elev = elev;
+    } else { /* K_ALERT */
+        /* get-with-default precedence: a PRESENT "type" wins even when
+         * empty (columnar.py: r.get("type", r.get("alertType", "alert"))) */
+        if (has_ty) { r->atype = ty; r->atype_len = ty_len; }
+        else if (has_aty) { r->atype = aty; r->atype_len = aty_len; }
+        else { r->atype = "alert"; r->atype_len = 5; }
+        if (has_lat && has_lon) { r->lat = lat; r->lon = lon; }
+    }
+    return 0;
+}
+
+/* One line: 0 event row, 2 registration (host line), 1 bail. */
+static int parse_event_line(cursor *c, evrow *r) {
+    const char *tok1 = NULL, *tok2 = NULL, *req = NULL;
+    Py_ssize_t tok1_len = 0, tok2_len = 0, req_len = 0;
+    int has_tok1 = 0, kind = -2, parsed_req = 0, parsed_kind = -2;
+
+    if (expect(c, '{') != 0) return 1;
+    skip_ws(c);
+    if (c->p < c->end && *c->p == '}') return 1; /* empty envelope */
+    for (;;) {
+        const char *k; Py_ssize_t klen;
+        skip_ws(c);
+        if (parse_plain_string(c, &k, &klen) != 0) return 1;
+        if (expect(c, ':') != 0) return 1;
+        skip_ws(c);
+        if (key_is(k, klen, "deviceToken")) {
+            if (parse_plain_string(c, &tok1, &tok1_len) != 0) return 1;
+            has_tok1 = 1;
+        } else if (key_is(k, klen, "hardwareId")) {
+            if (parse_plain_string(c, &tok2, &tok2_len) != 0) return 1;
+        } else if (key_is(k, klen, "type")) {
+            const char *t; Py_ssize_t tlen;
+            if (parse_plain_string(c, &t, &tlen) != 0) return 1;
+            kind = type_to_kind(t, tlen);
+            if (kind < 0) return 1;
+        } else if (key_is(k, klen, "request")) {
+            /* a duplicate "request" key (last-wins under json.loads)
+             * would need a merge-free re-parse — bail, it's pathological */
+            if (req != NULL || parsed_req) return 1;
+            if (c->p >= c->end || *c->p != '{') return 1;
+            if (kind >= 0 && kind != K_REG) {
+                /* kind already known (the common key order): single-pass
+                 * parse, no span + re-scan */
+                if (parse_request_fields(c, kind, r) != 0) return 1;
+                parsed_req = 1;
+                parsed_kind = kind;
+            } else {
+                req = c->p;
+                int src = skip_value(c);
+                if (src != 0) return 1;
+                req_len = c->p - req;
+            }
+        } else {
+            int src = skip_value(c); /* extras: Python ignores them */
+            if (src != 0) return 1;
+        }
+        skip_ws(c);
+        if (c->p < c->end && *c->p == ',') { c->p++; continue; }
+        if (c->p < c->end && *c->p == '}') { c->p++; break; }
+        return 1;
+    }
+    skip_ws(c);
+    if (c->p < c->end) return 1;
+    if (kind == -2 || (req == NULL && !parsed_req)) return 1;
+    /* envelope_fields: doc.get("deviceToken", doc.get("hardwareId")) —
+     * a PRESENT deviceToken wins even when empty (empty → error; bail),
+     * it does NOT fall through to hardwareId. */
+    if (has_tok1) { r->token = tok1; r->token_len = tok1_len; }
+    else { r->token = tok2; r->token_len = tok2_len; }
+    if (r->token == NULL || r->token_len == 0) return 1;
+    r->kind = kind;
+    if (kind == K_REG) {
+        /* request parsed by the Python path; if it was single-pass
+         * parsed the kind was known then, so this is the span case */
+        return parsed_req ? 1 : 2;
+    }
+    if (parsed_req) {
+        /* a duplicate "type" key after the request could have CHANGED
+         * the kind (json.loads last-wins) — the parse must match it */
+        return parsed_kind == kind ? 0 : 1;
+    }
+    cursor rc = { req, req + req_len };
+    if (parse_request_fields(&rc, kind, r) != 0) return 1;
+    skip_ws(&rc);
+    return rc.p < rc.end ? 1 : 0; /* span must be exactly the object */
+}
+
+typedef struct {
+    int32_t *data;
+    Py_ssize_t len, cap;
+} ibuf32;
+
+static int ibuf32_push(ibuf32 *b, int32_t v) {
+    if (b->len == b->cap) {
+        Py_ssize_t ncap = b->cap ? b->cap * 2 : 1024;
+        int32_t *nd = (int32_t *)realloc(b->data, (size_t)ncap * sizeof(int32_t));
+        if (!nd) return -1;
+        b->data = nd;
+        b->cap = ncap;
+    }
+    b->data[b->len++] = v;
+    return 0;
+}
+
+typedef struct {
+    sbuf toks, nms, atys, hosts;
+    bbuf kinds, us;
+    dbuf values, tss, lats, lons, elevs;
+    ibuf32 lvls;
+} evcols;
+
+static void evcols_free(evcols *e) {
+    free(e->toks.data); free(e->nms.data); free(e->atys.data);
+    free(e->hosts.data); free(e->kinds.data); free(e->us.data);
+    free(e->values.data); free(e->tss.data); free(e->lats.data);
+    free(e->lons.data); free(e->elevs.data); free(e->lvls.data);
+}
+
+/* GIL-free scan: 0 ok, 1 bail, -1 oom. */
+static int scan_event_lines(const char *buf, Py_ssize_t n, evcols *e) {
+    const char *p = buf, *end = buf + n;
+    while (p < end) {
+        const char *nl = memchr(p, '\n', (size_t)(end - p));
+        const char *line_end = nl ? nl : end;
+        const char *q = p;
+        while (q < line_end &&
+               (*q == ' ' || *q == '\t' || *q == '\r')) q++;
+        if (q == line_end) { p = nl ? nl + 1 : end; continue; }
+
+        /* whole-line UTF-8 gate: json.loads(bytes) decodes the line
+         * before parsing, so invalid bytes in SKIPPED keys/values must
+         * bail too (fuzz-found divergence); subsumes the per-field
+         * token/name/atype checks. */
+        if (!utf8_ok(q, line_end - q)) return 1;
+
+        cursor c = { q, line_end };
+        evrow r;
+        int rc = parse_event_line(&c, &r);
+        if (rc == 1) return 1;
+        if (rc == 2) { /* registration → raw line for the Python path */
+            if (sbuf_push(&e->hosts, q, line_end - q) != 0) return -1;
+            p = nl ? nl + 1 : end;
+            continue;
+        }
+        if (sbuf_push(&e->toks, r.token, r.token_len) != 0 ||
+            sbuf_push(&e->nms, r.name, r.name ? r.name_len : -1) != 0 ||
+            sbuf_push(&e->atys, r.atype, r.atype ? r.atype_len : -1) != 0 ||
+            bbuf_push(&e->kinds, (uint8_t)r.kind) != 0 ||
+            bbuf_push(&e->us, r.update_state) != 0 ||
+            dbuf_push(&e->values, r.value) != 0 ||
+            dbuf_push(&e->tss, r.ts) != 0 ||
+            dbuf_push(&e->lats, r.lat) != 0 ||
+            dbuf_push(&e->lons, r.lon) != 0 ||
+            dbuf_push(&e->elevs, r.elev) != 0 ||
+            ibuf32_push(&e->lvls, r.level) != 0)
+            return -1;
+        p = nl ? nl + 1 : end;
+    }
+    return 0;
+}
+
+/* Materialize a list of str-or-None from slices with a small memo
+ * (payloads carry a handful of distinct names/alert types). */
+static PyObject *slices_to_list(sbuf *b) {
+    slice memo_sl[NAME_MEMO];
+    PyObject *memo_obj[NAME_MEMO];
+    int memo_n = 0;
+    PyObject *list = PyList_New(b->len);
+    if (!list) return NULL;
+    for (Py_ssize_t i = 0; i < b->len; i++) {
+        slice s = b->data[i];
+        if (s.len < 0) {
+            Py_INCREF(Py_None);
+            PyList_SET_ITEM(list, i, Py_None);
+            continue;
+        }
+        PyObject *o = NULL;
+        for (int m = 0; m < memo_n; m++) {
+            if (memo_sl[m].len == s.len &&
+                memcmp(memo_sl[m].p, s.p, (size_t)s.len) == 0) {
+                o = memo_obj[m];
+                Py_INCREF(o);
+                break;
+            }
+        }
+        if (!o) {
+            o = PyUnicode_DecodeUTF8(s.p, s.len, NULL);
+            if (!o) { Py_DECREF(list); return NULL; }
+            if (memo_n < NAME_MEMO) {
+                memo_sl[memo_n] = s;
+                memo_obj[memo_n] = o; /* borrowed from the list slot */
+                memo_n++;
+            }
+        }
+        PyList_SET_ITEM(list, i, o);
+    }
+    return list;
+}
+
+static PyObject *decode_event_lines(PyObject *self, PyObject *arg) {
+    if (!PyBytes_Check(arg)) {
+        PyErr_SetString(PyExc_TypeError, "payload must be bytes");
+        return NULL;
+    }
+    Py_buffer view;
+    if (PyObject_GetBuffer(arg, &view, PyBUF_SIMPLE) != 0) return NULL;
+    const char *buf = (const char *)view.buf;
+    Py_ssize_t n = view.len;
+
+    evcols e;
+    memset(&e, 0, sizeof e);
+    int rc;
+    Py_BEGIN_ALLOW_THREADS
+    rc = scan_event_lines(buf, n, &e);
+    Py_END_ALLOW_THREADS
+    if (rc == 1) {
+        evcols_free(&e);
+        PyBuffer_Release(&view);
+        Py_RETURN_NONE;
+    }
+    if (rc == -1) {
+        evcols_free(&e);
+        PyBuffer_Release(&view);
+        return PyErr_NoMemory();
+    }
+
+    PyObject *tokens = NULL, *names = NULL, *atys = NULL, *hosts = NULL;
+    PyObject *out = NULL;
+    tokens = slices_to_list(&e.toks);
+    names = slices_to_list(&e.nms);
+    atys = slices_to_list(&e.atys);
+    if (!tokens || !names || !atys) goto fail;
+    hosts = PyList_New(e.hosts.len);
+    if (!hosts) goto fail;
+    for (Py_ssize_t i = 0; i < e.hosts.len; i++) {
+        PyObject *b = PyBytes_FromStringAndSize(e.hosts.data[i].p,
+                                                e.hosts.data[i].len);
+        if (!b) goto fail;
+        PyList_SET_ITEM(hosts, i, b);
+    }
+    {
+        PyObject *kinds = PyBytes_FromStringAndSize(
+            (const char *)e.kinds.data, e.kinds.len);
+        PyObject *v = PyBytes_FromStringAndSize(
+            (const char *)e.values.data,
+            e.values.len * (Py_ssize_t)sizeof(double));
+        PyObject *t = PyBytes_FromStringAndSize(
+            (const char *)e.tss.data, e.tss.len * (Py_ssize_t)sizeof(double));
+        PyObject *la = PyBytes_FromStringAndSize(
+            (const char *)e.lats.data, e.lats.len * (Py_ssize_t)sizeof(double));
+        PyObject *lo = PyBytes_FromStringAndSize(
+            (const char *)e.lons.data, e.lons.len * (Py_ssize_t)sizeof(double));
+        PyObject *el = PyBytes_FromStringAndSize(
+            (const char *)e.elevs.data,
+            e.elevs.len * (Py_ssize_t)sizeof(double));
+        PyObject *lv = PyBytes_FromStringAndSize(
+            (const char *)e.lvls.data,
+            e.lvls.len * (Py_ssize_t)sizeof(int32_t));
+        PyObject *u = PyBytes_FromStringAndSize(
+            (const char *)e.us.data, e.us.len);
+        if (kinds && v && t && la && lo && el && lv && u)
+            out = PyTuple_Pack(12, tokens, kinds, names, atys, v, t,
+                               la, lo, el, lv, u, hosts);
+        Py_XDECREF(kinds); Py_XDECREF(v); Py_XDECREF(t); Py_XDECREF(la);
+        Py_XDECREF(lo); Py_XDECREF(el); Py_XDECREF(lv); Py_XDECREF(u);
+    }
+fail:
+    Py_XDECREF(tokens); Py_XDECREF(names); Py_XDECREF(atys);
+    Py_XDECREF(hosts);
+    evcols_free(&e);
+    PyBuffer_Release(&view);
+    return out; /* NULL propagates the error */
+}
+
+/* ---- TokenTable: byte-keyed token -> dense-id hash ------------------
+ *
+ * The wire scanner's per-line cost after the C scan was Python object
+ * churn: one PyUnicode per device token plus one dict.get against the
+ * HandleSpace map (~0.45 ms per 512-line payload, ~35% of intake).
+ * This table mirrors one HandleSpace (ids.py) as raw byte keys so the
+ * resolved scanner below maps token slices straight to int32 handles —
+ * token strings are never materialized for registered devices.
+ *
+ * Concurrency contract: every mutator is a Python method (GIL held) and
+ * every reader runs GIL-held too (the resolved scanner looks up in its
+ * phase-2 materialization, never inside Py_BEGIN_ALLOW_THREADS), so no
+ * C-side lock is needed and a reader can never see a torn entry.
+ */
+
+typedef struct {
+    char *key;        /* owned copy; NULL = empty, TT_TOMB = tombstone */
+    Py_ssize_t len;
+    uint32_t hash;
+    int32_t id;
+} tt_entry;
+
+static char tt_tomb_sentinel;
+#define TT_TOMB (&tt_tomb_sentinel)
+
+typedef struct {
+    PyObject_HEAD
+    tt_entry *slots;
+    Py_ssize_t nslots;  /* power of two */
+    Py_ssize_t used;    /* live entries */
+    Py_ssize_t fill;    /* live + tombstones */
+    /* GIL-held readers/mutators need no locking (the original
+     * contract); the fill-direct scanner looks up DURING its GIL-free
+     * scan, so mutators additionally take the write side of this lock
+     * and the scanner holds the read side for the payload scan.  No
+     * deadlock is possible: the scanner only holds rdlock inside
+     * Py_BEGIN_ALLOW_THREADS (never while wanting the GIL), and
+     * mutators hold the GIL while wanting wrlock. */
+    pthread_rwlock_t rwlock;
+} TokenTableObject;
+
+static uint32_t tt_hash(const char *p, Py_ssize_t n) {
+    uint32_t h = 2166136261u; /* FNV-1a */
+    for (Py_ssize_t i = 0; i < n; i++) {
+        h ^= (unsigned char)p[i];
+        h *= 16777619u;
+    }
+    return h;
+}
+
+/* Find the slot for (p,len,h): returns a live match, or the first
+ * insertable slot (empty or tombstone) seen on the probe path. */
+static tt_entry *tt_probe(TokenTableObject *t, const char *p,
+                          Py_ssize_t len, uint32_t h) {
+    Py_ssize_t mask = t->nslots - 1;
+    size_t perturb = h;
+    Py_ssize_t i = (Py_ssize_t)(h & (uint32_t)mask);
+    tt_entry *avail = NULL;
+    for (;;) {
+        tt_entry *e = &t->slots[i];
+        if (e->key == NULL)
+            return avail ? avail : e;
+        if (e->key == TT_TOMB) {
+            if (!avail) avail = e;
+        } else if (e->hash == h && e->len == len &&
+                   memcmp(e->key, p, (size_t)len) == 0) {
+            return e;
+        }
+        perturb >>= 5;
+        i = (Py_ssize_t)((i * 5 + 1 + perturb) & (size_t)mask);
+    }
+}
+
+static int32_t tt_find(TokenTableObject *t, const char *p, Py_ssize_t len) {
+    tt_entry *e = tt_probe(t, p, len, tt_hash(p, len));
+    return (e->key != NULL && e->key != TT_TOMB) ? e->id : -1;
+}
+
+static int tt_grow(TokenTableObject *t) {
+    /* Size from LIVE entries, not current slots: pure tombstone churn
+     * (free+mint cycles at a stable fleet size) then rebuilds at the
+     * same — or smaller — size instead of doubling without bound.
+     * Post-rebuild load (used/nn) stays under 2/3, so the insert that
+     * triggered the grow proceeds without an immediate re-grow. */
+    Py_ssize_t nn = 1024;
+    tt_entry *old = t->slots, *ns;
+    Py_ssize_t on = t->nslots;
+    while (nn * 2 < (t->used + 1) * 3) nn *= 2;
+    ns = (tt_entry *)calloc((size_t)nn, sizeof(tt_entry));
+    if (!ns) return -1;
+    t->slots = ns;
+    t->nslots = nn;
+    t->fill = t->used;
+    for (Py_ssize_t i = 0; i < on; i++) {
+        tt_entry *e = &old[i];
+        if (e->key == NULL || e->key == TT_TOMB) continue;
+        tt_entry *dst = tt_probe(t, e->key, e->len, e->hash);
+        *dst = *e;
+    }
+    free(old);
+    return 0;
+}
+
+static int tt_set(TokenTableObject *t, const char *p, Py_ssize_t len,
+                  int32_t id) {
+    if ((t->fill + 1) * 3 >= t->nslots * 2 && tt_grow(t) != 0)
+        return -1;
+    uint32_t h = tt_hash(p, len);
+    tt_entry *e = tt_probe(t, p, len, h);
+    if (e->key != NULL && e->key != TT_TOMB) {
+        e->id = id; /* re-set: update in place */
+        return 0;
+    }
+    char *copy = (char *)malloc(len ? (size_t)len : 1);
+    if (!copy) return -1;
+    memcpy(copy, p, (size_t)len);
+    if (e->key == NULL) t->fill++;
+    e->key = copy;
+    e->len = len;
+    e->hash = h;
+    e->id = id;
+    t->used++;
+    return 0;
+}
+
+static void tt_discard(TokenTableObject *t, const char *p, Py_ssize_t len) {
+    tt_entry *e = tt_probe(t, p, len, tt_hash(p, len));
+    if (e->key != NULL && e->key != TT_TOMB) {
+        free(e->key);
+        e->key = TT_TOMB;
+        e->len = 0;
+        t->used--;
+    }
+}
+
+/* Accept str (UTF-8) or bytes keys. 0 ok, -1 error (exception set). */
+static int tt_key_arg(PyObject *obj, const char **p, Py_ssize_t *len) {
+    if (PyUnicode_Check(obj)) {
+        *p = PyUnicode_AsUTF8AndSize(obj, len);
+        return *p ? 0 : -1;
+    }
+    if (PyBytes_Check(obj))
+        return PyBytes_AsStringAndSize(obj, (char **)p, len);
+    PyErr_SetString(PyExc_TypeError, "token must be str or bytes");
+    return -1;
+}
+
+static PyObject *TokenTable_new(PyTypeObject *type, PyObject *args,
+                                PyObject *kwds) {
+    TokenTableObject *t = (TokenTableObject *)type->tp_alloc(type, 0);
+    if (!t) return NULL;
+    t->nslots = 1024;
+    t->used = t->fill = 0;
+    t->slots = (tt_entry *)calloc((size_t)t->nslots, sizeof(tt_entry));
+    if (!t->slots) {
+        Py_DECREF(t);
+        return PyErr_NoMemory();
+    }
+    if (pthread_rwlock_init(&t->rwlock, NULL) != 0) {
+        free(t->slots);
+        t->slots = NULL;
+        t->nslots = 0;  /* dealloc key: lock was never initialized */
+        Py_DECREF(t);
+        PyErr_SetString(PyExc_RuntimeError, "rwlock init failed");
+        return NULL;
+    }
+    return (PyObject *)t;
+}
+
+static void TokenTable_dealloc(TokenTableObject *t) {
+    for (Py_ssize_t i = 0; i < t->nslots; i++) {
+        char *k = t->slots[i].key;
+        if (k != NULL && k != TT_TOMB) free(k);
+    }
+    free(t->slots);
+    if (t->nslots)
+        pthread_rwlock_destroy(&t->rwlock);
+    Py_TYPE(t)->tp_free((PyObject *)t);
+}
+
+static PyObject *TokenTable_set(TokenTableObject *t, PyObject *args) {
+    PyObject *key;
+    int id;
+    if (!PyArg_ParseTuple(args, "Oi", &key, &id)) return NULL;
+    const char *p; Py_ssize_t len;
+    if (tt_key_arg(key, &p, &len) != 0) return NULL;
+    pthread_rwlock_wrlock(&t->rwlock);
+    int rc = tt_set(t, p, len, (int32_t)id);
+    pthread_rwlock_unlock(&t->rwlock);
+    if (rc != 0) return PyErr_NoMemory();
+    Py_RETURN_NONE;
+}
+
+static PyObject *TokenTable_discard(TokenTableObject *t, PyObject *key) {
+    const char *p; Py_ssize_t len;
+    if (tt_key_arg(key, &p, &len) != 0) return NULL;
+    pthread_rwlock_wrlock(&t->rwlock);
+    tt_discard(t, p, len);
+    pthread_rwlock_unlock(&t->rwlock);
+    Py_RETURN_NONE;
+}
+
+static PyObject *TokenTable_get(TokenTableObject *t, PyObject *key) {
+    const char *p; Py_ssize_t len;
+    if (tt_key_arg(key, &p, &len) != 0) return NULL;
+    return PyLong_FromLong((long)tt_find(t, p, len));
+}
+
+static PyObject *TokenTable_clear(TokenTableObject *t, PyObject *ignored) {
+    pthread_rwlock_wrlock(&t->rwlock);
+    for (Py_ssize_t i = 0; i < t->nslots; i++) {
+        char *k = t->slots[i].key;
+        if (k != NULL && k != TT_TOMB) free(k);
+        t->slots[i].key = NULL;
+        t->slots[i].len = 0;
+    }
+    t->used = t->fill = 0;
+    pthread_rwlock_unlock(&t->rwlock);
+    Py_RETURN_NONE;
+}
+
+static Py_ssize_t TokenTable_len(TokenTableObject *t) { return t->used; }
+
+static PyMethodDef TokenTable_methods[] = {
+    {"set", (PyCFunction)TokenTable_set, METH_VARARGS,
+     "set(token, id) — insert or update one mapping."},
+    {"discard", (PyCFunction)TokenTable_discard, METH_O,
+     "discard(token) — remove a mapping if present."},
+    {"get", (PyCFunction)TokenTable_get, METH_O,
+     "get(token) -> id, or -1 (NULL_ID) when absent."},
+    {"clear", (PyCFunction)TokenTable_clear, METH_NOARGS,
+     "Remove every mapping."},
+    {NULL, NULL, 0, NULL},
+};
+
+static PySequenceMethods TokenTable_as_sequence = {
+    .sq_length = (lenfunc)TokenTable_len,
+};
+
+static PyTypeObject TokenTableType = {
+    PyVarObject_HEAD_INIT(NULL, 0)
+    .tp_name = "_swwire_torch.TokenTable",
+    .tp_basicsize = sizeof(TokenTableObject),
+    .tp_dealloc = (destructor)TokenTable_dealloc,
+    .tp_as_sequence = &TokenTable_as_sequence,
+    .tp_flags = Py_TPFLAGS_DEFAULT,
+    .tp_doc = "Byte-keyed token -> int32 handle map for the resolved "
+              "wire scanner (HandleSpace mirror).",
+    .tp_methods = TokenTable_methods,
+    .tp_new = TokenTable_new,
+};
+
+/* ---- decode_measurement_lines_resolved ------------------------------
+ *
+ * Same strictness contract as decode_measurement_lines (shared
+ * scan_lines), but returns device ids resolved through a TokenTable
+ * (unknown token -> -1 == NULL_ID: the jitted step flags the row
+ * unregistered and egress replays it from the journal by payload_ref,
+ * so the token string is never needed) and measurement names deduped to
+ * (uniques, int32 index) — the only Python strings created are the few
+ * distinct names a fleet payload carries.
+ *
+ * Returns (ids i32, uniq_names list[str], name_idx i32, values f64,
+ *          ts f64, update u8) or None (bail -> caller falls back).
+ */
+
+#define UNIQ_CAP 256
+
+static PyObject *decode_measurement_lines_resolved(PyObject *self,
+                                                   PyObject *args) {
+    PyObject *payload;
+    TokenTableObject *table;
+    if (!PyArg_ParseTuple(args, "SO!", &payload, &TokenTableType, &table))
+        return NULL;
+    Py_buffer view;
+    if (PyObject_GetBuffer(payload, &view, PyBUF_SIMPLE) != 0) return NULL;
+    const char *buf = (const char *)view.buf;
+    Py_ssize_t n = view.len;
+
+    sbuf toks = {0}, nms = {0};
+    dbuf values = {0}, tss = {0};
+    bbuf us = {0};
+    int rc;
+    int32_t *ids = NULL, *nidx = NULL;
+    PyObject *uniq = NULL, *out = NULL;
+
+    Py_BEGIN_ALLOW_THREADS
+    rc = scan_lines(buf, n, &toks, &nms, &values, &tss, &us);
+    Py_END_ALLOW_THREADS
+    if (rc == 1) goto bail;
+    if (rc == -1) { PyErr_NoMemory(); goto fail; }
+    if (toks.len == 0) goto bail; /* preserve the empty-payload error */
+
+    {
+        Py_ssize_t count = toks.len;
+        slice uq_sl[UNIQ_CAP];
+        int uq_n = 0;
+        ids = (int32_t *)malloc((size_t)count * sizeof(int32_t));
+        nidx = (int32_t *)malloc((size_t)count * sizeof(int32_t));
+        if (!ids || !nidx) { PyErr_NoMemory(); goto fail; }
+        /* GIL held: table mutators (HandleSpace mint/free) also hold it,
+         * so lookups can't race a resize. */
+        for (Py_ssize_t i = 0; i < count; i++) {
+            ids[i] = tt_find(table, toks.data[i].p, toks.data[i].len);
+            slice s = nms.data[i];
+            int m = 0;
+            for (; m < uq_n; m++)
+                if (uq_sl[m].len == s.len &&
+                    memcmp(uq_sl[m].p, s.p, (size_t)s.len) == 0)
+                    break;
+            if (m == uq_n) {
+                if (uq_n == UNIQ_CAP) goto bail; /* wild payload: fall back */
+                uq_sl[uq_n++] = s;
+            }
+            nidx[i] = m;
+        }
+        uniq = PyList_New(uq_n);
+        if (!uniq) goto fail;
+        for (int m = 0; m < uq_n; m++) {
+            PyObject *o = PyUnicode_DecodeUTF8(uq_sl[m].p, uq_sl[m].len, NULL);
+            if (!o) goto fail;
+            PyList_SET_ITEM(uniq, m, o);
+        }
+        {
+            /* ids come back as a WRITABLE bytearray: the batcher rewrites
+             * out-of-range device ids to NULL_ID in place, and a bytes
+             * return would force np.frombuffer(...).copy() on every
+             * payload just to regain writability. */
+            PyObject *ib = PyByteArray_FromStringAndSize(
+                (const char *)ids, count * (Py_ssize_t)sizeof(int32_t));
+            PyObject *xb = PyBytes_FromStringAndSize(
+                (const char *)nidx, count * (Py_ssize_t)sizeof(int32_t));
+            PyObject *v = PyBytes_FromStringAndSize(
+                (const char *)values.data,
+                values.len * (Py_ssize_t)sizeof(double));
+            PyObject *t = PyBytes_FromStringAndSize(
+                (const char *)tss.data, tss.len * (Py_ssize_t)sizeof(double));
+            PyObject *u = PyBytes_FromStringAndSize(
+                (const char *)us.data, us.len);
+            if (ib && xb && v && t && u)
+                out = PyTuple_Pack(6, ib, uniq, xb, v, t, u);
+            Py_XDECREF(ib); Py_XDECREF(xb); Py_XDECREF(v);
+            Py_XDECREF(t); Py_XDECREF(u);
+        }
+        Py_DECREF(uniq);
+        free(ids); free(nidx);
+        free(toks.data); free(nms.data);
+        free(values.data); free(tss.data); free(us.data);
+        PyBuffer_Release(&view);
+        return out; /* NULL propagates the MemoryError */
+    }
+
+bail:
+    free(ids); free(nidx);
+    free(toks.data); free(nms.data);
+    free(values.data); free(tss.data); free(us.data);
+    PyBuffer_Release(&view);
+    Py_RETURN_NONE;
+
+fail:
+    Py_XDECREF(uniq);
+    free(ids); free(nidx);
+    free(toks.data); free(nms.data);
+    free(values.data); free(tss.data); free(us.data);
+    PyBuffer_Release(&view);
+    return NULL;
+}
+
+/* ---- fill-direct scanners -------------------------------------------
+ *
+ * The zero-copy ingest tier: scan the wire payload STRAIGHT INTO the
+ * batcher's preallocated int32/float32 column buffers (via the buffer
+ * protocol) instead of materializing intermediate bytes objects that
+ * Python re-columnarizes.  Two layers:
+ *
+ * 1. A LINE TEMPLATE built from the first accepted line: fleet senders
+ *    emit one JSON shape per stream, so after line 1 the literal
+ *    byte spans between the variable fields (token, name, value,
+ *    eventDate/timestamp, updateState) are memcmp'd in one shot and only
+ *    the fields themselves are parsed.  Any deviation falls back to the
+ *    full per-line parser (parse_line) for THAT line — never a semantic
+ *    change, only a slow path — and the template path's field validation
+ *    uses the same primitives (plain-string scan, strict number grammar,
+ *    per-field UTF-8 gate), so a template-matched line is byte-isomorphic
+ *    to line 1 modulo field contents and parse_line would accept it with
+ *    identical semantics.
+ *
+ * 2. fill_push converts each accepted line's fields to their FINAL batch
+ *    representation in place: token -> int32 id (TokenTable, read under
+ *    the table rwlock so the scan stays GIL-free), name -> uniq index,
+ *    value -> float32, eventDate -> (ts_s, ts_ns) int32 pair via a
+ *    bit-exact mirror of columnar._split_epoch (llrint == np.round:
+ *    round-half-even).  Timestamps the Python path would REJECT
+ *    (non-finite / out of int32 epoch range) bail the payload so the
+ *    error surfaces through the existing path identically.
+ */
+
+typedef struct {
+    const char *token; Py_ssize_t token_len;
+    const char *name; Py_ssize_t name_len;
+    double value, ts;
+    uint8_t update;
+} mline;
+
+#define TF_LIT 0
+#define TF_TOKEN 1
+#define TF_NAME 2
+#define TF_VALUE 3
+#define TF_EVENTDATE 4
+#define TF_TIMESTAMP 5
+#define TF_UPDATE 6
+
+typedef struct {
+    int kind;
+    const char *lit;       /* TF_LIT: bytes of the template line */
+    Py_ssize_t lit_len;
+} tmpl_seg;
+
+#define TMPL_MAX 16
+#define TMPL_FLD_MAX 6
+
+typedef struct {
+    tmpl_seg segs[TMPL_MAX];
+    int nsegs;
+    int valid;
+} line_tmpl;
+
+typedef struct { int kind; const char *start; const char *end; } fldrec;
+
+/* Build the template from an ALREADY-ACCEPTED first line (parse_line
+ * returned 0 on it): re-scan the simple shape and record the variable
+ * field spans.  Returns 0 and sets t->valid on success; any structure
+ * outside the simple single-occurrence shape just leaves the template
+ * invalid (every line then takes the full parser — slower, never
+ * wrong). */
+static int tmpl_build(const char *q, const char *line_end, line_tmpl *t) {
+    fldrec flds[TMPL_FLD_MAX];
+    int nf = 0;
+    int seen_tok = 0, seen_type = 0, seen_req = 0;
+    int seen_name = 0, seen_val = 0, seen_ed = 0, seen_ts = 0, seen_up = 0;
+    cursor c = { q, line_end };
+    t->valid = 0;
+    if (expect(&c, '{') != 0) return -1;
+    for (;;) {
+        const char *k; Py_ssize_t klen;
+        skip_ws(&c);
+        if (parse_plain_string(&c, &k, &klen) != 0) return -1;
+        if (expect(&c, ':') != 0) return -1;
+        skip_ws(&c);
+        if (key_is(k, klen, "deviceToken")) {
+            const char *s; Py_ssize_t sl;
+            if (seen_tok || nf == TMPL_FLD_MAX) return -1;
+            if (parse_plain_string(&c, &s, &sl) != 0) return -1;
+            flds[nf].kind = TF_TOKEN;
+            flds[nf].start = s; flds[nf].end = s + sl; nf++;
+            seen_tok = 1;
+        } else if (key_is(k, klen, "type")) {
+            const char *s; Py_ssize_t sl;
+            if (seen_type) return -1;
+            /* the type VALUE stays inside a literal segment: a line
+             * with a different (even equivalent-alias) type string
+             * simply misses the template and takes the full parser */
+            if (parse_plain_string(&c, &s, &sl) != 0) return -1;
+            seen_type = 1;
+        } else if (key_is(k, klen, "request")) {
+            if (seen_req) return -1;
+            if (expect(&c, '{') != 0) return -1;
+            skip_ws(&c);
+            if (c.p < c.end && *c.p == '}') { c.p++; goto req_done; }
+            for (;;) {
+                const char *rk; Py_ssize_t rklen;
+                skip_ws(&c);
+                if (parse_plain_string(&c, &rk, &rklen) != 0) return -1;
+                if (expect(&c, ':') != 0) return -1;
+                skip_ws(&c);
+                if (key_is(rk, rklen, "name")) {
+                    const char *s; Py_ssize_t sl;
+                    if (seen_name || nf == TMPL_FLD_MAX) return -1;
+                    if (parse_plain_string(&c, &s, &sl) != 0) return -1;
+                    flds[nf].kind = TF_NAME;
+                    flds[nf].start = s; flds[nf].end = s + sl; nf++;
+                    seen_name = 1;
+                } else if (key_is(rk, rklen, "value") ||
+                           key_is(rk, rklen, "eventDate") ||
+                           key_is(rk, rklen, "timestamp")) {
+                    double v;
+                    int kind = key_is(rk, rklen, "value") ? TF_VALUE
+                        : key_is(rk, rklen, "eventDate") ? TF_EVENTDATE
+                        : TF_TIMESTAMP;
+                    int *seen = kind == TF_VALUE ? &seen_val
+                        : kind == TF_EVENTDATE ? &seen_ed : &seen_ts;
+                    const char *s = c.p;
+                    if (*seen || nf == TMPL_FLD_MAX) return -1;
+                    if (parse_number(&c, &v) != 0) return -1;
+                    flds[nf].kind = kind;
+                    flds[nf].start = s; flds[nf].end = c.p; nf++;
+                    *seen = 1;
+                } else if (key_is(rk, rklen, "updateState")) {
+                    const char *s = c.p;
+                    if (seen_up || nf == TMPL_FLD_MAX) return -1;
+                    if (c.end - c.p >= 4 && memcmp(c.p, "true", 4) == 0)
+                        c.p += 4;
+                    else if (c.end - c.p >= 5 &&
+                             memcmp(c.p, "false", 5) == 0)
+                        c.p += 5;
+                    else return -1;
+                    flds[nf].kind = TF_UPDATE;
+                    flds[nf].start = s; flds[nf].end = c.p; nf++;
+                    seen_up = 1;
+                } else {
+                    return -1; /* unknown request key: no template */
+                }
+                skip_ws(&c);
+                if (c.p < c.end && *c.p == ',') { c.p++; continue; }
+                if (c.p < c.end && *c.p == '}') { c.p++; break; }
+                return -1;
+            }
+req_done:
+            seen_req = 1;
+        } else {
+            return -1; /* hardwareId/measurementId/unknown: no template */
+        }
+        skip_ws(&c);
+        if (c.p < c.end && *c.p == ',') { c.p++; continue; }
+        if (c.p < c.end && *c.p == '}') { c.p++; break; }
+        return -1;
+    }
+    skip_ws(&c);
+    if (c.p < c.end) return -1;
+    if (!seen_tok || !seen_type || !seen_req || !seen_name || !seen_val)
+        return -1;
+    /* convert field spans (strictly increasing by construction) into
+     * alternating literal/field segments over [q, line_end) */
+    {
+        int ns = 0;
+        const char *prev = q;
+        for (int i = 0; i < nf; i++) {
+            if (flds[i].start > prev) {
+                if (ns == TMPL_MAX) return -1;
+                t->segs[ns].kind = TF_LIT;
+                t->segs[ns].lit = prev;
+                t->segs[ns].lit_len = flds[i].start - prev;
+                ns++;
+            }
+            if (ns == TMPL_MAX) return -1;
+            t->segs[ns].kind = flds[i].kind;
+            t->segs[ns].lit = NULL;
+            t->segs[ns].lit_len = 0;
+            ns++;
+            prev = flds[i].end;
+        }
+        if (line_end > prev) {
+            if (ns == TMPL_MAX) return -1;
+            t->segs[ns].kind = TF_LIT;
+            t->segs[ns].lit = prev;
+            t->segs[ns].lit_len = line_end - prev;
+            ns++;
+        }
+        t->nsegs = ns;
+    }
+    t->valid = 1;
+    return 0;
+}
+
+/* Exact fast-path number parse for template-matched lines: literals
+ * with <= 15 significant digits, no exponent, and <= 22 fractional
+ * digits compute m / 10^f in integer arithmetic plus ONE correctly-
+ * rounded IEEE division — bit-identical to (glibc's correctly-rounded)
+ * strtod, because m and 10^f are both exactly representable and the
+ * division result is the correctly-rounded decimal value.  Everything
+ * else (exponents, long mantissas) falls back to parse_number/strtod.
+ * Grammar acceptance is IDENTICAL to parse_number. */
+static const double pow10_tab[23] = {
+    1e0, 1e1, 1e2, 1e3, 1e4, 1e5, 1e6, 1e7, 1e8, 1e9, 1e10, 1e11,
+    1e12, 1e13, 1e14, 1e15, 1e16, 1e17, 1e18, 1e19, 1e20, 1e21, 1e22,
+};
+
+static int parse_number_fast(cursor *c, double *out) {
+    const char *q = c->p, *end = c->end;
+    int neg = 0;
+    if (q < end && *q == '-') { neg = 1; q++; }
+    const char *digs = q;
+    uint64_t m = 0;
+    int nd = 0, ni = 0, nf = 0;
+    while (q < end && *q >= '0' && *q <= '9') {
+        if (nd < 16) m = m * 10 + (uint64_t)(*q - '0');
+        nd++; ni++; q++;
+    }
+    if (ni == 0) return -1;
+    if (ni > 1 && digs[0] == '0') return -1;  /* "01": grammar error */
+    if (q < end && *q == '.') {
+        q++;
+        if (q >= end || *q < '0' || *q > '9') return -1;
+        while (q < end && *q >= '0' && *q <= '9') {
+            if (nd < 16) m = m * 10 + (uint64_t)(*q - '0');
+            nd++; nf++; q++;
+        }
+    }
+    if ((q < end && (*q == 'e' || *q == 'E')) || nd > 15 || nf > 22)
+        return parse_number(c, out);  /* exactness not guaranteed: strtod */
+    {
+        double v = (double)m;         /* nd <= 15: m < 2^53, exact */
+        if (nf) v /= pow10_tab[nf];
+        *out = neg ? -v : v;
+    }
+    c->p = q;
+    return 0;
+}
+
+/* Match one line against the template.  0 = matched (fields in *out),
+ * 1 = mismatch (caller runs the full parser on the line).  Field
+ * validation matches parse_line's primitives exactly; token/name get a
+ * per-field UTF-8 gate (the template path skips the whole-line gate —
+ * literal segments were validated once with the first line, and
+ * number/bool fields are ASCII by grammar). */
+static int tmpl_match(const line_tmpl *t, const char *p, const char *end,
+                      mline *out) {
+    double ed = 0.0, ts2 = 0.0;
+    out->token = NULL; out->token_len = 0;
+    out->name = NULL; out->name_len = 0;
+    out->value = 0.0; out->update = 1;
+    for (int i = 0; i < t->nsegs; i++) {
+        const tmpl_seg *s = &t->segs[i];
+        switch (s->kind) {
+        case TF_LIT:
+            if (end - p < s->lit_len ||
+                memcmp(p, s->lit, (size_t)s->lit_len) != 0)
+                return 1;
+            p += s->lit_len;
+            break;
+        case TF_TOKEN:
+        case TF_NAME: {
+            const char *st = p;
+            while (p < end) {
+                unsigned char ch = (unsigned char)*p;
+                if (ch == '"') break;
+                if (ch == '\\' || ch < 0x20) return 1;
+                p++;
+            }
+            if (p >= end) return 1; /* the closing quote opens the next lit */
+            if (!utf8_ok(st, p - st)) return 1;
+            if (s->kind == TF_TOKEN) { out->token = st; out->token_len = p - st; }
+            else { out->name = st; out->name_len = p - st; }
+            break;
+        }
+        case TF_VALUE:
+        case TF_EVENTDATE:
+        case TF_TIMESTAMP: {
+            cursor nc = { p, end };
+            double v;
+            if (parse_number_fast(&nc, &v) != 0) return 1;
+            p = nc.p;
+            if (s->kind == TF_VALUE) out->value = v;
+            else if (s->kind == TF_EVENTDATE) ed = v;
+            else ts2 = v;
+            break;
+        }
+        default: /* TF_UPDATE */
+            if (end - p >= 4 && memcmp(p, "true", 4) == 0) {
+                out->update = 1; p += 4;
+            } else if (end - p >= 5 && memcmp(p, "false", 5) == 0) {
+                out->update = 0; p += 5;
+            } else {
+                return 1;
+            }
+            break;
+        }
+    }
+    if (p != end) return 1;
+    /* semantic tail, mirroring parse_line: empty token/name bail — fall
+     * back so the full parser (then the Python path) owns the error */
+    if (out->token_len == 0 || out->name == NULL || out->name_len == 0)
+        return 1;
+    out->ts = (ed != 0.0) ? ed : ts2;
+    return 0;
+}
+
+typedef struct {
+    int32_t *ids, *nidx, *ts_s, *ts_ns, *us;
+    float *values;
+    Py_ssize_t cap, count;
+    slice uq[UNIQ_CAP];
+    int uq_n;
+} fillctx;
+
+/* Convert one accepted line's fields to final batch representation,
+ * writing DIRECTLY into the caller's column buffers.  0 ok, 1 bail
+ * (buffer overflow / timestamp the Python path rejects / wild payload).
+ */
+static int fill_push(fillctx *f, TokenTableObject *table,
+                     const mline *ml) {
+    if (f->count >= f->cap) return 1;
+    /* _split_epoch mirror (columnar.py): millis heuristic, int32 epoch
+     * range, trunc-toward-zero seconds, round-half-even nanos */
+    double raw = ml->ts;
+    if (raw - raw != 0.0) return 1;                    /* inf/nan */
+    if (raw > 1e11) raw /= 1e3;                        /* epoch millis */
+    if (raw >= 2147483648.0 || raw <= -2147483649.0) return 1;
+    long long sec = (long long)raw;
+    int m = 0;
+    for (; m < f->uq_n; m++)
+        if (f->uq[m].len == ml->name_len &&
+            memcmp(f->uq[m].p, ml->name, (size_t)ml->name_len) == 0)
+            break;
+    if (m == f->uq_n) {
+        if (f->uq_n == UNIQ_CAP) return 1;             /* wild payload */
+        f->uq[f->uq_n].p = ml->name;
+        f->uq[f->uq_n].len = ml->name_len;
+        f->uq_n++;
+    }
+    {
+        Py_ssize_t i = f->count++;
+        f->ids[i] = tt_find(table, ml->token, ml->token_len);
+        f->nidx[i] = (int32_t)m;
+        f->values[i] = (float)ml->value;
+        f->ts_s[i] = (int32_t)sec;
+        f->ts_ns[i] = (int32_t)llrint((raw - (double)sec) * 1e9);
+        f->us[i] = (int32_t)ml->update;
+    }
+    return 0;
+}
+
+/* GIL-free one-pass scan+convert+resolve.  0 ok, 1 bail. */
+static int fill_scan(const char *buf, Py_ssize_t n,
+                     TokenTableObject *table, fillctx *f) {
+    line_tmpl tmpl;
+    int have_first = 0;
+    tmpl.valid = 0;
+    const char *p = buf, *end = buf + n;
+    while (p < end) {
+        const char *nl = memchr(p, '\n', (size_t)(end - p));
+        const char *line_end = nl ? nl : end;
+        const char *q = p;
+        while (q < line_end &&
+               (*q == ' ' || *q == '\t' || *q == '\r')) q++;
+        if (q == line_end) { p = nl ? nl + 1 : end; continue; }
+
+        mline ml;
+        int matched = 0;
+        if (tmpl.valid && tmpl_match(&tmpl, q, line_end, &ml) == 0)
+            matched = 1;
+        if (!matched) {
+            /* full parser path: whole-line UTF-8 gate first, exactly
+             * like scan_lines (json.loads decodes the line up front) */
+            int hv;
+            if (!utf8_ok(q, line_end - q)) return 1;
+            cursor c = { q, line_end };
+            if (parse_line(&c, &ml.token, &ml.token_len,
+                           &ml.name, &ml.name_len,
+                           &ml.value, &hv, &ml.ts, &ml.update) != 0)
+                return 1;
+            if (!have_first)
+                tmpl_build(q, line_end, &tmpl);
+        }
+        have_first = 1;
+        if (fill_push(f, table, &ml) != 0) return 1;
+        p = nl ? nl + 1 : end;
+    }
+    return 0;
+}
+
+/* Acquire one writable 4-byte-item buffer; returns capacity (items) or
+ * -1 with the exception set. */
+static Py_ssize_t fill_buf(PyObject *obj, Py_buffer *view, void **data) {
+    if (PyObject_GetBuffer(obj, view, PyBUF_WRITABLE) != 0) return -1;
+    if (view->len % 4 != 0) {
+        PyBuffer_Release(view);
+        PyErr_SetString(PyExc_ValueError,
+                        "column buffer length not a multiple of 4");
+        return -1;
+    }
+    *data = view->buf;
+    return view->len / 4;
+}
+
+static PyObject *decode_measurement_lines_resolved_into(PyObject *self,
+                                                        PyObject *args) {
+    PyObject *payload, *bids, *bnidx, *bvals, *bts_s, *bts_ns, *bus;
+    TokenTableObject *table;
+    if (!PyArg_ParseTuple(args, "SO!OOOOOO", &payload,
+                          &TokenTableType, &table,
+                          &bids, &bnidx, &bvals, &bts_s, &bts_ns, &bus))
+        return NULL;
+    Py_buffer views[6];
+    PyObject *bufs[6] = { bids, bnidx, bvals, bts_s, bts_ns, bus };
+    void *data[6];
+    Py_ssize_t cap = PY_SSIZE_T_MAX;
+    int nv = 0;
+    for (; nv < 6; nv++) {
+        Py_ssize_t c = fill_buf(bufs[nv], &views[nv], &data[nv]);
+        if (c < 0) {
+            for (int j = 0; j < nv; j++) PyBuffer_Release(&views[j]);
+            return NULL;
+        }
+        if (c < cap) cap = c;
+    }
+    const char *buf = PyBytes_AS_STRING(payload);
+    Py_ssize_t n = PyBytes_GET_SIZE(payload);
+
+    fillctx f;
+    f.ids = (int32_t *)data[0];
+    f.nidx = (int32_t *)data[1];
+    f.values = (float *)data[2];
+    f.ts_s = (int32_t *)data[3];
+    f.ts_ns = (int32_t *)data[4];
+    f.us = (int32_t *)data[5];
+    f.cap = cap;
+    f.count = 0;
+    f.uq_n = 0;
+
+    int rc;
+    Py_BEGIN_ALLOW_THREADS
+    pthread_rwlock_rdlock(&table->rwlock);
+    rc = fill_scan(buf, n, table, &f);
+    pthread_rwlock_unlock(&table->rwlock);
+    Py_END_ALLOW_THREADS
+
+    if (rc != 0 || f.count == 0) {
+        /* bail — including the empty payload, whose error the Python
+         * path owns.  Nothing committed: the caller aborts its
+         * reservation, so a mid-payload bail can never leave torn rows. */
+        for (int j = 0; j < 6; j++) PyBuffer_Release(&views[j]);
+        Py_RETURN_NONE;
+    }
+    {
+        PyObject *uniq = PyList_New(f.uq_n);
+        PyObject *out = NULL;
+        if (uniq) {
+            for (int m = 0; m < f.uq_n; m++) {
+                PyObject *o = PyUnicode_DecodeUTF8(f.uq[m].p, f.uq[m].len,
+                                                   NULL);
+                if (!o) { Py_DECREF(uniq); uniq = NULL; break; }
+                PyList_SET_ITEM(uniq, m, o);
+            }
+        }
+        if (uniq) {
+            PyObject *count = PyLong_FromSsize_t(f.count);
+            if (count) {
+                out = PyTuple_Pack(2, count, uniq);
+                Py_DECREF(count);
+            }
+            Py_DECREF(uniq);
+        }
+        for (int j = 0; j < 6; j++) PyBuffer_Release(&views[j]);
+        return out; /* NULL propagates the error */
+    }
+}
+
+/* ---- decode_event_lines_into: generic family, fill-direct ------------
+ *
+ * Same acceptance contract as decode_event_lines (shared
+ * scan_event_lines), but the numeric columns are written DIRECTLY into
+ * caller-provided buffers in their FINAL dtypes (int32/float32/uint8 —
+ * no intermediate bytes objects, no frombuffer/astype re-materialization
+ * in Python).  Timestamps the Python path would reject (non-finite /
+ * out-of-int32-epoch) bail so the existing path surfaces the error.
+ *
+ * Buffers: kinds i32, ts_s i32, ts_ns i32, value f32, lat f32, lon f32,
+ * elevation f32, alert_level i32, update u8 (bool).
+ * Returns (n, tokens, names, alert_types, host_lines) or None.
+ */
+static PyObject *decode_event_lines_into(PyObject *self, PyObject *args) {
+    PyObject *payload;
+    PyObject *bufs4[8]; /* 4-byte columns */
+    PyObject *bus;      /* 1-byte update column */
+    if (!PyArg_ParseTuple(args, "SOOOOOOOOO", &payload,
+                          &bufs4[0], &bufs4[1], &bufs4[2], &bufs4[3],
+                          &bufs4[4], &bufs4[5], &bufs4[6], &bufs4[7],
+                          &bus))
+        return NULL;
+    Py_buffer views[9];
+    void *data[9];
+    Py_ssize_t cap = PY_SSIZE_T_MAX;
+    int nv = 0;
+    for (; nv < 8; nv++) {
+        Py_ssize_t c = fill_buf(bufs4[nv], &views[nv], &data[nv]);
+        if (c < 0) {
+            for (int j = 0; j < nv; j++) PyBuffer_Release(&views[j]);
+            return NULL;
+        }
+        if (c < cap) cap = c;
+    }
+    if (PyObject_GetBuffer(bus, &views[8], PyBUF_WRITABLE) != 0) {
+        for (int j = 0; j < 8; j++) PyBuffer_Release(&views[j]);
+        return NULL;
+    }
+    data[8] = views[8].buf;
+    if (views[8].len < cap) cap = views[8].len;
+
+    const char *buf = PyBytes_AS_STRING(payload);
+    Py_ssize_t n = PyBytes_GET_SIZE(payload);
+    evcols e;
+    memset(&e, 0, sizeof e);
+    int rc;
+    Py_BEGIN_ALLOW_THREADS
+    rc = scan_event_lines(buf, n, &e);
+    Py_END_ALLOW_THREADS
+    if (rc == -1) {
+        evcols_free(&e);
+        for (int j = 0; j < 9; j++) PyBuffer_Release(&views[j]);
+        return PyErr_NoMemory();
+    }
+    if (rc == 1 || e.toks.len > cap ||
+        (e.toks.len == 0 && e.hosts.len == 0)) {
+        evcols_free(&e);
+        for (int j = 0; j < 9; j++) PyBuffer_Release(&views[j]);
+        Py_RETURN_NONE;
+    }
+    {
+        int32_t *kinds = (int32_t *)data[0];
+        int32_t *ts_s = (int32_t *)data[1];
+        int32_t *ts_ns = (int32_t *)data[2];
+        float *value = (float *)data[3];
+        float *lat = (float *)data[4];
+        float *lon = (float *)data[5];
+        float *elev = (float *)data[6];
+        int32_t *level = (int32_t *)data[7];
+        uint8_t *us = (uint8_t *)data[8];
+        for (Py_ssize_t i = 0; i < e.toks.len; i++) {
+            double raw = e.tss.data[i];
+            if (raw - raw != 0.0) goto ts_bail;          /* inf/nan */
+            if (raw > 1e11) raw /= 1e3;
+            if (raw >= 2147483648.0 || raw <= -2147483649.0) goto ts_bail;
+            {
+                long long sec = (long long)raw;
+                ts_s[i] = (int32_t)sec;
+                ts_ns[i] = (int32_t)llrint((raw - (double)sec) * 1e9);
+            }
+            kinds[i] = (int32_t)e.kinds.data[i];
+            value[i] = (float)e.values.data[i];
+            lat[i] = (float)e.lats.data[i];
+            lon[i] = (float)e.lons.data[i];
+            elev[i] = (float)e.elevs.data[i];
+            level[i] = e.lvls.data[i];
+            us[i] = e.us.data[i];
+        }
+    }
+    {
+        PyObject *tokens = NULL, *names = NULL, *atys = NULL;
+        PyObject *hosts = NULL, *out = NULL, *count = NULL;
+        tokens = slices_to_list(&e.toks);
+        names = slices_to_list(&e.nms);
+        atys = slices_to_list(&e.atys);
+        if (!tokens || !names || !atys) goto ev_fail;
+        hosts = PyList_New(e.hosts.len);
+        if (!hosts) goto ev_fail;
+        for (Py_ssize_t i = 0; i < e.hosts.len; i++) {
+            PyObject *b = PyBytes_FromStringAndSize(e.hosts.data[i].p,
+                                                    e.hosts.data[i].len);
+            if (!b) goto ev_fail;
+            PyList_SET_ITEM(hosts, i, b);
+        }
+        count = PyLong_FromSsize_t(e.toks.len);
+        if (count)
+            out = PyTuple_Pack(5, count, tokens, names, atys, hosts);
+ev_fail:
+        Py_XDECREF(count);
+        Py_XDECREF(tokens); Py_XDECREF(names); Py_XDECREF(atys);
+        Py_XDECREF(hosts);
+        evcols_free(&e);
+        for (int j = 0; j < 9; j++) PyBuffer_Release(&views[j]);
+        return out; /* NULL propagates the error */
+    }
+ts_bail:
+    evcols_free(&e);
+    for (int j = 0; j < 9; j++) PyBuffer_Release(&views[j]);
+    Py_RETURN_NONE;
+}
+
+static PyMethodDef methods[] = {
+    {"decode_measurement_lines", decode_measurement_lines, METH_O,
+     "Scan NDJSON measurement envelopes into column buffers; None = "
+     "shape mismatch, caller must fall back to the Python decoder."},
+    {"decode_measurement_lines_resolved",
+     decode_measurement_lines_resolved, METH_VARARGS,
+     "Scan NDJSON measurement envelopes with device tokens resolved "
+     "through a TokenTable (unknown -> -1) and names deduped to "
+     "(uniques, index); None = shape mismatch, caller falls back."},
+    {"decode_measurement_lines_resolved_into",
+     decode_measurement_lines_resolved_into, METH_VARARGS,
+     "Fill-direct scan: NDJSON measurement envelopes written straight "
+     "into caller-provided writable int32/float32 column buffers (ids, "
+     "name_idx, values, ts_s, ts_ns, update_state) with tokens resolved "
+     "through a TokenTable.  Returns (n, uniq_names); None = shape "
+     "mismatch/overflow, nothing written is committed."},
+    {"decode_event_lines", decode_event_lines, METH_O,
+     "Scan NDJSON measurement/location/alert envelopes into column "
+     "buffers, splitting registration lines out as raw bytes; None = "
+     "shape mismatch, caller must fall back to the Python decoder."},
+    {"decode_event_lines_into", decode_event_lines_into, METH_VARARGS,
+     "Fill-direct event-family scan: numeric columns written straight "
+     "into caller-provided buffers (kinds, ts_s, ts_ns, value, lat, lon, "
+     "elevation, alert_level i32/f32 + update u8) in their final dtypes; "
+     "returns (n, tokens, names, alert_types, host_lines) or None."},
+    {"split_owner_lines", split_owner_lines, METH_VARARGS,
+     "Rendezvous-hash owner per non-blank NDJSON line; -1 = "
+     "local/malformed; None = bail, caller must use the Python splitter."},
+    {NULL, NULL, 0, NULL},
+};
+
+static struct PyModuleDef module = {
+    PyModuleDef_HEAD_INIT, "_swwire_torch",
+    "Native NDJSON wire decoder (measurement fast path).", -1, methods,
+};
+
+PyMODINIT_FUNC PyInit__swwire_torch(void) {
+    if (PyType_Ready(&TokenTableType) < 0) return NULL;
+    PyObject *m = PyModule_Create(&module);
+    if (!m) return NULL;
+    Py_INCREF(&TokenTableType);
+    if (PyModule_AddObject(m, "TokenTable",
+                           (PyObject *)&TokenTableType) < 0) {
+        Py_DECREF(&TokenTableType);
+        Py_DECREF(m);
+        return NULL;
+    }
+    return m;
+}

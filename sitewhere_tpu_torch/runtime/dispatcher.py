@@ -10,9 +10,13 @@ to the registration manager (and replay), derived alerts re-injected as
 first-class events, and the new state committed to the
 :class:`~sitewhere_tpu_torch.state.manager.DeviceStateManager`.
 
-- DECODE is the pure-Python columnar lane (:meth:`decode_wire_lines`);
-  the native scanners and fill-direct reservations come with the native
-  wire tier.
+- DECODE runs the C scanners of the native wire tier
+  (:meth:`decode_wire_lines`): a homogeneous measurement payload scans
+  straight into a batcher :class:`~..ingest.batcher.Reservation`
+  (fill-direct), which a full-width payload's plan adopts as its packed
+  buffers; other payloads take the C event-family scanners, and shapes
+  no scanner takes the pure-Python lane.  ``start()`` builds the scanner
+  library (and raises if it cannot).
 - H2D: a plan's packed buffers go to the card through pinned buffers
   without blocking (``_stage_plan``), so a plan's copy overlaps the
   previous step.
@@ -49,14 +53,25 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from sitewhere_tpu_torch import native
 from sitewhere_tpu_torch.analysis.markers import hot_path
 from sitewhere_tpu_torch.device import DeviceLike, resolve_device
 from sitewhere_tpu_torch.ids import NULL_ID
-from sitewhere_tpu_torch.ingest.batcher import _COL_FIELDS, Batcher, BatchPlan
+from sitewhere_tpu_torch.ingest.batcher import (
+    _COL_FIELDS,
+    Batcher,
+    BatchPlan,
+    Reservation,
+)
 from sitewhere_tpu_torch.ingest.columnar import (
+    CopyTally,
+    _native_decode_resolved,
+    decode_fill_direct,
     decode_json_lines,
+    fill_direct_ready,
     n_rows,
     resolve_columns,
+    space_of,
 )
 from sitewhere_tpu_torch.ingest.decoders import (
     DecodedRequest,
@@ -88,7 +103,7 @@ from sitewhere_tpu_torch.runtime.resilience import (
     dead_letter,
 )
 from sitewhere_tpu_torch.runtime.tracing import _NOOP_TRACE, Tracer
-from sitewhere_tpu_torch.schema import EventBatch, EventType
+from sitewhere_tpu_torch.schema import EventBatch
 from sitewhere_tpu_torch.state.presence import (
     STATE_CHANGE_QUARANTINED,
     state_changes_for,
@@ -303,7 +318,17 @@ class PipelineDispatcher(LifecycleComponent):
         # path: a view's first read (single step) or a ring's shared
         # fetch.  With the ring on, host_syncs / steps is 1/K.
         self._m_host_syncs = metrics.counter("pipeline.host_syncs")
+        # Bytes copied per host stage: the fill-direct decode adds nothing
+        # to decode (the C scan writes once, into the batcher's packed
+        # rows), an adopted reservation nothing to the batcher's batch
+        # count; h2d counts the staged transfer bytes.
+        self._m_decode_bytes = metrics.counter(
+            "pipeline.bytes_copied.decode")
         self._m_h2d_bytes = metrics.counter("pipeline.bytes_copied.h2d")
+        # decodes that took the pure-Python lane for want of the native
+        # tier (``native.build_fallbacks``; 0 in the port, whose build
+        # blocks), sampled by the loop thread
+        self._m_native_fb = metrics.gauge("native.build_fallbacks")
         self._m_ring_chains = metrics.counter("pipeline.ring_chains")
         self._m_ring_flushes = metrics.counter("pipeline.ring_flushes")
         self._m_egress_fail = metrics.counter("pipeline.egress_failures")
@@ -465,16 +490,37 @@ class PipelineDispatcher(LifecycleComponent):
     def decode_wire_lines(self, payload: bytes):
         """The pure DECODE stage of :meth:`ingest_wire_lines`: no journal
         append, no state mutation.  Raises :class:`DecodeError`; returns
-        ``(columns, host_requests)``."""
+        ``(columns, host_requests)``.
+
+        Fill-direct: a measurement payload that fits one batch scans
+        straight into a private batcher reservation, which rides the
+        ``columns`` slot and commits at :meth:`ingest_wire_decoded`.  Any
+        shape deviation takes :func:`decode_json_lines`, with the same
+        result, errors included."""
         with self._m_stage["decode"].time():
-            return decode_json_lines(payload)
+            space = space_of(self.batcher.resolve_device)
+            if space is not None and fill_direct_ready(payload):
+                res = self.batcher.reserve(payload.count(b"\n") + 1)
+                if res is not None and decode_fill_direct(
+                        payload, space, res,
+                        self.batcher.resolve_mtype) is not None:
+                    return res, []
+            tally = CopyTally()
+            out = decode_json_lines(payload, device_space=space,
+                                    copied=tally)
+            if tally.n:
+                self._m_decode_bytes.inc(tally.n)
+            return out
 
     def ingest_wire_decoded(self, payload: bytes, columns,
                             host_reqs, source_id: str = "wire",
                             received_at: Optional[float] = None) -> int:
         """The ordered INGEST tail of :meth:`ingest_wire_lines`: journal
         once, route host-plane lines, resolve + batch the event rows
-        (``received_at``: when the payload arrived, before its decode)."""
+        (``received_at``: when the payload arrived, before its decode).
+        ``columns`` may be the fill-direct :class:`Reservation`."""
+        if isinstance(columns, Reservation):
+            return self._ingest_reserved(payload, columns, received_at)
         ref = NULL_ID
         if self.journal is not None and payload:
             ref = self.journal.append(payload)
@@ -495,6 +541,24 @@ class PipelineDispatcher(LifecycleComponent):
         if not columns:
             return 0
         return self._ingest_resolved_columns(columns, ref, received_at)
+
+    def _ingest_reserved(self, payload: bytes, res: Reservation,
+                         received_at: Optional[float] = None) -> int:
+        """The ordered ingest tail of the fill-direct lane: one journal
+        append, the per-payload constants, then the commit under the
+        intake lock.  (Overload admission, a whole-payload TELEMETRY
+        decision in the reference, comes here, before the journal append,
+        with the ``Instance`` slice.)"""
+        n = res.n
+        ref = NULL_ID
+        if self.journal is not None and payload:
+            ref = self.journal.append(payload)
+            faults.crosspoint("crash.post_journal")
+        res.set_const(tenant_id=self.resolve_tenant("default"),
+                      payload_ref=ref)
+        self._run_plans(self._take(
+            lambda: res.commit(received_at=received_at)))
+        return n
 
     def _ingest_resolved_columns(self, columns, ref: int,
                                  received_at: Optional[float] = None) -> int:
@@ -551,12 +615,17 @@ class PipelineDispatcher(LifecycleComponent):
         self._thread.start()
 
     def _warm_up(self) -> None:
-        """Run one all-invalid dispatch at boot (a semantic no-op: zero
-        valid rows touch no state): the K-step chain when the ring is on,
-        else one packed step.  Its first launch builds the geofence
-        kernel, so no live plan pays the ``nvcc`` build.  A failure
-        raises here, with the state manager still holding the pre-boot
-        epoch."""
+        """Build the native wire tier's scanners (and the device space's
+        ``TokenTable`` mirror), then run one all-invalid dispatch (a
+        semantic no-op: zero valid rows touch no state): the K-step chain
+        when the ring is on, else one packed step.  Its first launch
+        builds the geofence kernel.  So no live payload pays the ``cc``
+        or ``nvcc`` build, and a failure of either raises here, with the
+        state manager still holding the pre-boot epoch."""
+        native.load_swwire()
+        space = space_of(self.batcher.resolve_device)
+        if space is not None:
+            space.native_table()
         width = self.batcher.width
         bi, bf = stage_packed_batch(
             np.zeros((len(BATCH_I), width), np.int32),
@@ -615,6 +684,7 @@ class PipelineDispatcher(LifecycleComponent):
         # poll at half the deadline, floored at 2 ms
         while not self._stop.wait(max(self.batcher.deadline_s / 2, 0.002)):
             try:
+                self._m_native_fb.set(native.build_fallbacks)
                 # Backpressure: with the in-flight window full, drain one
                 # slot instead of emitting a partial plan behind it.
                 # Never block this thread on the step lock.
@@ -730,23 +800,27 @@ class PipelineDispatcher(LifecycleComponent):
         return n
 
     def _replay_columnar(self, payload: bytes, offset: int) -> Optional[int]:
-        """Replay one journal record through the columnar lane, or None
-        when the record is not a plain measurement payload and the caller
-        must take the scalar decoder.  The lane takes what the reference's
-        strict measurement scanner takes (homogeneous measurement lines,
-        no ``metadata``, no JSON array): there the columnar rows equal
-        the scalar decoder's, per-request tenants included (none).  Rows
-        keep ``offset`` as payload_ref; nothing is re-journaled."""
-        if payload[:1] == b"[" or b'"metadata"' in payload:
+        """Replay one journal record through the C resolved measurement
+        scanner, or None when it does not take the record and the caller
+        must take the scalar decoder.  Only that scanner qualifies: it
+        bails on any unknown request key, so a record it takes carries no
+        ``metadata`` and the scalar decoder would give the same rows
+        (default tenant).  The event-family scanner skips unknown keys and
+        would drop a per-request tenant.  Rows keep ``offset`` as
+        payload_ref; nothing is re-journaled."""
+        space = space_of(self.batcher.resolve_device)
+        if space is None:
             return None
+        # the scan bails (None) on shapes it does not take, but the epoch
+        # split raises DecodeError for a finite out-of-int32 eventDate:
+        # the scalar decoder then owns the dead-lettering
         try:
-            columns, host = decode_json_lines(payload)
+            out = _native_decode_resolved(payload, space)
         except DecodeError:
-            return None   # the scalar decoder owns dead-lettering
-        et = columns.get("event_type")
-        if host or et is None or len(et) == 0 \
-                or (et != int(EventType.MEASUREMENT)).any():
             return None
+        if out is None:
+            return None
+        columns, _host = out
         return self._ingest_resolved_columns(columns, offset)
 
     # -- one step -----------------------------------------------------------

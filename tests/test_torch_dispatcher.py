@@ -3,16 +3,21 @@
 The same seeded NDJSON payloads go through a bare ``sitewhere_tpu``
 dispatcher and the port's (the composition of ``torch_parity.wire_world``:
 real RegistryMirror, RuleManager, DeviceStateManager, packed Batcher, a
-Journal and a recording store), with the ring at depth 2 and off.  The
-traffic mixes measurements, locations and alerts, unregistered tokens, a
-NaN value, tenant-mismatched and unassigned devices, rows that fire
-derived alerts, timestamp ties, and a deadline partial that drains a
-ring-held plan through the single-step path between two rings.  Compared:
-every egress append (host columns and the five enrichment columns exact),
-the metrics totals with ``steps``, ``ring_chains`` and ``host_syncs``,
-every device's state (ints exact, EWMAs within 4 ULPs of the value
-scale), the committed offset, the journal files byte for byte, and each
-package's replay of the other's journal.
+Journal and a recording store), with the ring at depth 2 and off, and
+the native wire tier on in both.  Two traffics: the mixed one carries
+measurements, locations and alerts (the C event-family scanners),
+unregistered tokens, a NaN value, tenant-mismatched and unassigned
+devices, rows that fire derived alerts, timestamp ties, and a deadline
+partial that drains a ring-held plan through the single-step path
+between two rings; the measurement-only one (``meas``) carries
+full-width payloads that decode fill-direct into batcher reservations
+and are adopted as plans, and a partial one.  Compared: every egress
+append (host columns and the five enrichment columns exact), the metrics
+totals with ``steps``, ``ring_chains`` and ``host_syncs``, the bytes
+copied by decode and batch, every device's state (ints exact, EWMAs
+within 4 ULPs of the value scale), the committed offset, the journal
+files byte for byte, and each package's replay of the other's journal
+(through the C resolved scanner where it takes the record).
 
 The single-chip cases of the reference's ``TestDeviceResidentRing`` and
 ``TestEgressOffload`` (``tests/test_host_pipeline.py:329-565``) run
@@ -40,6 +45,7 @@ from sitewhere_tpu_torch.runtime.metrics import MetricsRegistry
 from torch_parity import (
     WIRE_CAP,
     WIRE_TS0_MS,
+    WIRE_WIDTH,
     assert_packed_state_equal,
     journal_files,
     wire_payload,
@@ -64,18 +70,48 @@ def make_payloads():
     }
 
 
-def drive(world, payloads):
+def make_meas_payloads():
+    """Measurement-only traffic: full-width payloads (fill-direct,
+    adopted while nothing else is pending) around a 20-line one."""
+    rng = np.random.default_rng(SEED + 1)
+    t = WIRE_TS0_MS
+    meas = {"kinds": ("m",), "p": (1.0,)}
+    sizes = (WIRE_WIDTH, WIRE_WIDTH, WIRE_WIDTH, 20, WIRE_WIDTH, WIRE_WIDTH)
+    return {f"m{i}": wire_payload(rng, n, t + 1_000 * i, **meas)
+            for i, n in enumerate(sizes)}
+
+
+# the order each traffic ingests its payloads in; POLL: the pending rows
+# pass the deadline and the batcher is polled
+POLL = "poll"
+ORDER = {"mixed": ("p0", "p1", "p2", POLL, "p3", "p4"),
+         "meas": ("m0", "m1", "m2", "m3", POLL, "m4", "m5")}
+
+
+def drive(world, payloads, order=ORDER["mixed"]):
     """Two rings (at depth 2), a ring-held plan drained by a deadline
     partial between them, then a flush."""
     d = world.disp
-    d.ingest_wire_lines(payloads["p0"])
-    d.ingest_wire_lines(payloads["p1"])
-    d.ingest_wire_lines(payloads["p2"])
-    world.clock.t += 61.0          # the pending rows pass the deadline
-    d._run_plans(d._take(d.batcher.poll))
-    d.ingest_wire_lines(payloads["p3"])
-    d.ingest_wire_lines(payloads["p4"])
+    for key in order:
+        if key == POLL:
+            world.clock.t += 61.0
+            d._run_plans(d._take(d.batcher.poll))
+        else:
+            d.ingest_wire_lines(payloads[key])
     d.flush()
+
+
+def count_adopted(world):
+    """Count the batcher's zero-copy (adopted) emissions."""
+    b = world.batcher
+    emit_adopted = b._emit_adopted
+    world.adopted = 0
+
+    def counted(*args, **kw):
+        world.adopted += 1
+        return emit_adopted(*args, **kw)
+
+    b._emit_adopted = counted
 
 
 def snapshot(world):
@@ -112,13 +148,20 @@ def payloads():
     return make_payloads()
 
 
-@pytest.fixture(scope="module", params=[2, 0], ids=["ring2", "ring0"])
+@pytest.fixture(scope="module",
+                params=[("mixed", 2), ("mixed", 0), ("meas", 2), ("meas", 0)],
+                ids=["ring2", "ring0", "meas-ring2", "meas-ring0"])
 def runs(request, payloads, tmp_path_factory):
-    root = tmp_path_factory.mktemp(f"wire{request.param}")
-    out = {}
+    traffic, depth = request.param
+    if traffic == "meas":
+        payloads = make_meas_payloads()
+    root = tmp_path_factory.mktemp(f"wire-{traffic}{depth}")
+    out = {"traffic": traffic,
+           "records": sum(k != POLL for k in ORDER[traffic])}
     for pkg in ("jax", "torch"):
-        world = wire_world(pkg, root / pkg, request.param)
-        drive(world, payloads)
+        world = wire_world(pkg, root / pkg, depth)
+        count_adopted(world)
+        drive(world, payloads, ORDER[traffic])
         out[pkg] = world
     out["root"] = root
     return out
@@ -148,17 +191,38 @@ def test_device_state_rows(runs):
     assert_states_equal(runs["jax"], runs["torch"])
 
 
+def test_bytes_copied_and_adoptions(runs):
+    """The decode and batch stages copy the same bytes in both packages,
+    and adopt the same plans.  Both traffics decode through fill lanes
+    (fill-direct, the event-family fill scanner), which copy nothing;
+    full-width measurement payloads are adopted."""
+    ref, got = runs["jax"], runs["torch"]
+
+    def copied(world):
+        return (world.disp.metrics.counter(
+            "pipeline.bytes_copied.decode").value,
+            world.batcher.copied_bytes, world.adopted)
+
+    assert copied(got) == copied(ref)
+    decode_bytes, batch_bytes, adopted = copied(got)
+    assert decode_bytes == 0 and batch_bytes > 0
+    assert (adopted >= 2) == (runs["traffic"] == "meas")
+
+
 def test_committed_offset_and_journal_bytes(runs):
     ref, got = runs["jax"], runs["torch"]
-    assert got.reader.committed == ref.reader.committed == 5
-    assert got.journal.end_offset == 5
+    records = runs["records"]
+    assert got.reader.committed == ref.reader.committed == records
+    assert got.journal.end_offset == records
     assert got.store.flushes == ref.store.flushes >= 1
     assert journal_files(got.journal) == journal_files(ref.journal)
 
 
 def test_replay_across_packages(runs, tmp_path):
     """The JAX dispatcher replays the port's journal and the port replays
-    the JAX journal: the same rows, plans and state come out."""
+    the JAX journal: the same rows, plans and state come out, and the
+    same records replay through the C resolved scanner
+    (``_replay_columnar``): all of them in measurement-only traffic."""
     ring = runs["torch"].disp.ring_depth
     out = {}
     for pkg, other in (("jax", "torch"), ("torch", "jax")):
@@ -167,12 +231,27 @@ def test_replay_across_packages(runs, tmp_path):
         dst = tmp_path / f"{pkg}-replays-{other}"
         shutil.copytree(src.dir, dst / "events")
         world = wire_world(pkg, dst, ring, group="replay")
+        columnar = world.disp._replay_columnar
+        world.fast = []
+
+        def counted(payload, offset, _columnar=columnar, _world=world):
+            n = _columnar(payload, offset)
+            if n is not None:
+                _world.fast.append(offset)
+            return n
+
+        world.disp._replay_columnar = counted
         assert world.disp.replay_journal() == 340
         out[pkg] = world
     assert_appends_equal(out["jax"].store, out["torch"].store)
     assert snapshot(out["jax"]) == snapshot(out["torch"])
     assert_states_equal(out["jax"], out["torch"])
-    assert out["torch"].reader.committed == out["jax"].reader.committed == 5
+    records = runs["records"]
+    assert out["torch"].reader.committed == out["jax"].reader.committed \
+        == records
+    assert out["torch"].fast == out["jax"].fast
+    assert len(out["torch"].fast) == (records if runs["traffic"] == "meas"
+                                      else 1)
 
 
 def test_unpacked_plans_match_the_reference(payloads, tmp_path):
@@ -450,9 +529,9 @@ def test_latency_counts_from_the_payload_receipt(monkeypatch, ring_depth,
     if how == "slow_decode":
         real = tdisp.decode_json_lines
 
-        def slow(payload):
+        def slow(payload, **kw):
             time.sleep(floor_s)
-            return real(payload)
+            return real(payload, **kw)
 
         monkeypatch.setattr(tdisp, "decode_json_lines", slow)
     for base in (0, WIDTH):

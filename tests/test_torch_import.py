@@ -45,6 +45,36 @@ def test_port_imports_no_jax_and_no_reference():
     assert int(count) == len(expected) >= 30
 
 
+_NATIVE_PROBE = """
+import json, sys
+sys.modules["jax"] = None
+sys.modules["sitewhere_tpu"] = None
+from sitewhere_tpu_torch import native
+mod = native.load_swwire()
+bad = sorted(m for m, v in sys.modules.items() if v is not None
+             and (m == "sitewhere_tpu" or m.startswith(("sitewhere_tpu.",
+                                                        "jax"))))
+print(json.dumps([str(native.SOURCE), str(native.library_path),
+                  mod.__name__, bad]))
+"""
+
+
+def test_native_tier_builds_under_the_port_and_imports_no_reference():
+    """The port's scanner library builds from its own ``swwire.c`` into
+    ``sitewhere_tpu_torch/_build/``, never next to the reference's
+    extension, and loading it imports nothing of ``sitewhere_tpu``."""
+    import json
+
+    proc = subprocess.run([sys.executable, "-c", _NATIVE_PROBE], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    source, library, name, bad = json.loads(proc.stdout.strip())
+    assert Path(source) == REPO / "sitewhere_tpu_torch" / "native" / "swwire.c"
+    assert Path(library).parent == REPO / "sitewhere_tpu_torch" / "_build"
+    assert Path(library).name.startswith("_swwire_torch-")
+    assert name == "_swwire_torch" and bad == []
+
+
 def test_resolve_device_raises_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -48,7 +48,30 @@ script exits non-zero without printing a result:
    geofence from its carry, bitwise; in the measurement-only run, adopted
    plans == full-width measurement plans and 0 bytes copied per event by
    decode and batch;
-7. a small input run on the card and on the CPU: identical int outputs.
+7. persistence and restart through the port ``Instance`` (phase
+   ``persist_recover``), its segment store and journal at the Config
+   defaults, under a temporary directory that is removed afterwards.
+   ``persist_throughput``: the same two kinds of full-width payloads,
+   ring off at 5 ms, with the real store: events/s, latency, persist ms
+   per plan, ``flush`` ms per commit, segments sealed, bytes on disk and
+   the step span; checks: rows stored == rows accepted (registered lines
+   + derived alerts), committed offset == journal records, and after
+   ``stop()`` the stored rows equal the accepted rows exactly once (an
+   order-independent checksum).  ``checkpoint_full``: one save of the
+   loaded instance and a restore into a fresh one, seconds and bytes per
+   section; check: the restored state bitwise equal to the saved.
+   ``kill_recover``: golden children and one child per crash point
+   (``crash.mid_egress`` at full size; ``crash.mid_ring``,
+   ``crash.post_journal``, ``crash.mid_seal`` and ``crash.pre_manifest``
+   at 2^16 slots, 50,000 devices, width 4096) run measurement payloads
+   with a checkpoint every 8, the killed ones under
+   ``SW_CRASHPOINT=<point>:<n>``; a fresh process restarts on each
+   survivor's directory and completes the workload; checks: no journaled
+   row lost, rows below the committed offset at the kill stored once,
+   the device state equal to the golden run's (ints exact, EWMA within 4
+   ULPs of the value scale, other floats bitwise), kernel launches ==
+   steps; reports the boot, restore, warm-up and replay seconds;
+8. a small input run on the card and on the CPU: identical int outputs.
 
 The line before the last is the card's ``nvidia-smi`` name and power
 limit; before it, the kernels' JSON record.  The last line is
@@ -64,6 +87,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -491,23 +515,32 @@ def make_wire_world(device):
     registry slots with 1,000,000 assigned devices (one tenant: wire rows
     land in the default tenant), 64 rules and 512 zones of 16 vertices.
     Rule thresholds and zones sit where real alerts are rare."""
-    import torch
-
     from sitewhere_tpu_torch.ids import IdentityMap
     from sitewhere_tpu_torch.pipeline.rules import RuleManager
-    from sitewhere_tpu_torch.schema import (
-        AssignmentStatus, ComparisonOp, RuleKind, ZoneCondition)
     from sitewhere_tpu_torch.services.device_management import (
         RegistryMirror)
 
     identity = IdentityMap()
+    mirror = RegistryMirror(CAPACITY, max_zones=FULL_Z, max_verts=FULL_V,
+                            device=device)
+    rules = RuleManager(identity, capacity=N_RULES, device=device)
+    populate_world(identity, mirror, rules, N_ACTIVE)
+    return identity, mirror, rules
+
+
+def populate_world(identity, mirror, rules, n_active):
+    """Write the deployment's devices (``n_active`` of them), zones and
+    rules into the given identity map, registry mirror and rule manager."""
+    import torch
+
+    from sitewhere_tpu_torch.schema import (
+        AssignmentStatus, ComparisonOp, RuleKind, ZoneCondition)
+
     identity.tenant.mint("default")
     for m in range(M_SLOTS):
         identity.mtype.mint(f"m{m}")
-    mirror = RegistryMirror(CAPACITY, max_zones=FULL_Z, max_verts=FULL_V,
-                            device=device)
     active = int(AssignmentStatus.ACTIVE)
-    for i in range(N_ACTIVE):
+    for i in range(n_active):
         d = identity.device.mint(f"d-{i}")
         mirror.set_device_row(
             d, active=True, tenant_id=0, device_type_id=i % 16,
@@ -523,7 +556,6 @@ def make_wire_world(device):
             condition=int(ZoneCondition.ALERT_IF_INSIDE),
             alert_code=identity.alert_type.mint(f"zone-{z % 8}"),
             alert_level=z % 4)
-    rules = RuleManager(identity, capacity=N_RULES, device=device)
     for r in range(N_RULES):
         kind = (RuleKind.INSTANT, RuleKind.WINDOW_MEAN,
                 RuleKind.RATE_PER_S)[r % 3]
@@ -538,7 +570,6 @@ def make_wire_world(device):
                           alert_level=r % 4,
                           tenant=None if r % 2 == 0 else "default",
                           kind=kind, window_s=(60.0, 600.0, 3600.0)[r % 3])
-    return identity, mirror, rules
 
 
 _M_LINE = ('{"deviceToken":"%s","type":"DeviceMeasurements","request":'
@@ -1067,7 +1098,8 @@ def native_proof(world, meas_payload, mixed_payload):
 
 def phase_dispatcher_wire(device, geo_cuda):
     """The wire path through the port's dispatcher; returns the kernel's
-    launches in each throughput run, by run name."""
+    launches in each throughput run, by run name, and the full-width
+    payloads (60/30/10, measurement-only) for the persistence phase."""
     t0 = time.perf_counter()
     world = make_wire_world(device)
     rng = np.random.default_rng(SEED + 6)
@@ -1113,6 +1145,581 @@ def phase_dispatcher_wire(device, geo_cuda):
     finally:
         shutil.rmtree(root, ignore_errors=True)
     emit({"phase": "dispatcher_wire", "run": "done",
+          "seconds": time.perf_counter() - t0})
+    return launches, payloads, meas
+
+
+# -- persistence and restart ---------------------------------------------------
+
+# The kill runs other than crash.mid_egress run at a reduced size so the
+# phase stays within a few minutes: 2^16 registry slots, 50,000 devices,
+# width 4096, 24 payloads of 4096 lines (same rules and zones).
+SMALL_CAPACITY, SMALL_ACTIVE, SMALL_WIDTH = 1 << 16, 50_000, 4096
+KILL_PAYLOADS, KILL_SAVE_EVERY = 24, 8
+KILL_TS0_MS = WIRE_TS0_MS + 30_000_000
+# (point, hit, size, ring depth, deadline ms): where each child dies
+KILLS = (
+    ("crash.mid_egress", 13, "full", 0, WIRE_DEADLINE_MS),
+    ("crash.mid_ring", 2, "small", RING_K, RING_DIAG_DEADLINE_MS),
+    ("crash.post_journal", 13, "small", 0, WIRE_DEADLINE_MS),
+    ("crash.mid_seal", 12, "small", 0, WIRE_DEADLINE_MS),
+    ("crash.pre_manifest", 3, "small", 0, WIRE_DEADLINE_MS),
+)
+SIZES = {"full": (CAPACITY, N_ACTIVE, FULL_B),
+         "small": (SMALL_CAPACITY, SMALL_ACTIVE, SMALL_WIDTH)}
+EWMA_MAX_ULP, EWMA_SCALE = 4.0, 128.0
+
+
+def instance_config(data_dir, capacity, width, ring_depth, deadline_ms):
+    """The deployment as an ``Instance`` config: the reference's keys; the
+    journal and the segment store at the Config defaults."""
+    from sitewhere_tpu_torch.runtime.config import Config
+
+    return Config({
+        "instance": {"id": "chip-smoke", "data_dir": data_dir},
+        "pipeline": {"width": width, "registry_capacity": capacity,
+                     "mtype_slots": M_SLOTS, "deadline_ms": deadline_ms,
+                     "adaptive_deadline": False, "ring_depth": ring_depth,
+                     "max_zones": FULL_Z, "max_zone_verts": FULL_V},
+        "checkpoint": {"interval_s": 0},
+    }, apply_env=False)
+
+
+def world_checkpoint(device, root, size):
+    """Write the deployment through an ``Instance``'s own identity, mirror
+    and rules, save it as checkpoint generation 0 (empty device state) and
+    return its directory: every later instance restores the world from a
+    copy of it."""
+    from sitewhere_tpu_torch.instance import Instance
+
+    capacity, n_active, width = SIZES[size]
+    data_dir = os.path.join(root, f"world-{size}")
+    inst = Instance(instance_config(data_dir, capacity, width, 0,
+                                    WIRE_DEADLINE_MS), device=device)
+    populate_world(inst.identity, inst.mirror, inst.rules, n_active)
+    inst.checkpointer.save()
+    inst.terminate()
+    return os.path.join(data_dir, "checkpoint")
+
+
+def instance_from_world(device, world_ckpt, data_dir, capacity, width,
+                        ring_depth, deadline_ms):
+    """A fresh instance whose checkpoint directory is a copy of the
+    world's: construction restores the deployment."""
+    from sitewhere_tpu_torch.instance import Instance
+
+    shutil.copytree(world_ckpt, os.path.join(data_dir, "checkpoint"))
+    inst = Instance(instance_config(data_dir, capacity, width, ring_depth,
+                                    deadline_ms), device=device)
+    check(inst.restored, f"world checkpoint not restored in {data_dir}")
+    return inst
+
+
+_MIX = (np.uint64(0x9E3779B97F4A7C15), np.uint64(0xC2B2AE3D27D4EB4F),
+        np.uint64(0x165667B19E3779F9), np.uint64(0x27D4EB2F165667C5))
+
+
+def row_checksum(cols, mask=None):
+    """(rows, order-independent uint64 checksum) of the stored identity of
+    each row: device, type, time, measurement and value bits."""
+    def col(name):
+        a = np.asarray(cols[name])
+        return a if mask is None else a[mask]
+
+    dev = col("device_id").astype(np.uint64)
+    with np.errstate(over="ignore"):
+        h = (dev * _MIX[0]
+             ^ col("event_type").astype(np.uint64) * _MIX[1]
+             ^ (col("ts_s").astype(np.uint64) << np.uint64(30))
+             ^ col("ts_ns").astype(np.uint64) * _MIX[2]
+             ^ col("mtype_id").astype(np.uint64) * _MIX[3]
+             ^ col("value").view(np.uint32).astype(np.uint64))
+        return int(dev.size), int(h.sum(dtype=np.uint64))
+
+
+def persist_throughput(device, geo_cuda, world_ckpt, payloads, root, run,
+                       meas=False):
+    """The wire path through the port ``Instance``: its ``SegmentStore``
+    and journal at the Config defaults, ring off, the deployment's 5 ms
+    deadline.  Timed from the first byte to the return of the
+    dispatcher's flush (every row egressed, sealed and committed)."""
+    import torch
+
+    data_dir = os.path.join(root, run)
+    inst = instance_from_world(device, world_ckpt, data_dir, CAPACITY,
+                               FULL_B, 0, WIRE_DEADLINE_MS)
+    store, disp = inst.event_store, inst.dispatcher
+    persist_s, commits = [0.0], []
+    appended = {"rows": 0, "sum": 0}
+    real_append, real_flush = store.append_columns, store.flush
+
+    def append(cols, mask=None):
+        t0 = time.perf_counter()
+        out = real_append(cols, mask=mask)
+        persist_s[0] += time.perf_counter() - t0
+        n, h = row_checksum(cols, None if mask is None else np.asarray(mask))
+        appended["rows"] += n
+        appended["sum"] = (appended["sum"] + h) % (1 << 64)
+        return out
+
+    def flush(sync=True):
+        t0 = time.perf_counter()
+        try:
+            return real_flush(sync=sync)
+        finally:
+            if sync:
+                commits.append(time.perf_counter() - t0)
+
+    store.append_columns, store.flush = append, flush
+    inst.start()
+    spans = DeviceSpans(disp)
+    try:
+        torch.cuda.synchronize()
+        snap0 = disp.metrics_snapshot()
+        sealed0 = store.sealer.sealed_segments
+        commits.clear()
+        persist_s[0] = 0.0
+        disp.latencies_s.clear()
+        geo_cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        for payload, _ in payloads:
+            disp.ingest_wire_lines(payload)
+        disp.flush()
+        elapsed = time.perf_counter() - t0
+        launches = geo_cuda.launch_counts["pip_parity"]
+        snap = disp.metrics_snapshot()
+        committed = disp.journal_reader.committed
+        records = inst.ingest_journal.end_offset
+        latency = _latency(disp, "max")
+        span_ms = spans.total_ms()
+        commit_ms = [c * 1e3 for c in commits]
+        store.append_columns, store.flush = real_append, real_flush
+        # checkpoint_full: one save of the loaded instance, then a fresh
+        # instance restores it; the state must come back bitwise
+        if not meas:
+            saved_state = inst.device_state.snapshot_host()
+            inst.checkpointer.save()
+            save_stats = dict(inst.checkpointer.last_save_stats)
+        inst.stop()
+        sealed = store.sealer.sealed_segments - sealed0
+        stats = store.store_stats()
+        disk = sum(os.path.getsize(os.path.join(store.dir, f))
+                   for f in os.listdir(store.dir))
+        stored = {"rows": 0, "sum": 0}
+        for cols in store.iter_chunks():
+            n, h = row_checksum(cols)
+            stored["rows"] += n
+            stored["sum"] = (stored["sum"] + h) % (1 << 64)
+        parked = store.sealer.parked_count()
+        dead = store.sealed_dead_lettered
+    finally:
+        inst.terminate()
+    delta = {k: snap[k] - snap0[k] for k in (
+        "steps", "processed", "accepted", "unregistered", "derived_alerts")}
+    lines = sum(p.count(b"\n") + 1 for p, _ in payloads)
+    registered = sum(r for _, r in payloads)
+    plans = len(disp.latencies_s)
+    rec = {"phase": "persist_recover", "run": f"persist_throughput.{run}",
+           "traffic": "measurements" if meas else "60/30/10",
+           "ring_depth": 0, "deadline_ms": WIRE_DEADLINE_MS,
+           "payloads": len(payloads), "lines": lines, "elapsed_s": elapsed,
+           "events_per_s": lines / elapsed, **latency,
+           "persist_ms_per_plan": persist_s[0] * 1e3 / max(1, plans),
+           "flush_ms_per_commit": (float(np.mean(commit_ms))
+                                   if commit_ms else None),
+           "flush_ms_max": max(commit_ms) if commit_ms else None,
+           "commits": len(commit_ms), "segments_sealed": sealed,
+           "segments_on_disk": stats["segments"], "bytes_on_disk": disk,
+           "rows_stored": stored["rows"], "store_shards": store.n_shards,
+           "seal_workers": store.sealer.n_workers,
+           "pip_launches": launches, "committed": committed,
+           "journal_records": records, **delta}
+    emit(_busy(rec, span_ms, None, elapsed, delta["steps"]))
+    check(launches == delta["steps"],
+          f"kernel launched {launches}x in {delta['steps']} dispatcher steps")
+    check(delta["accepted"] == registered + delta["derived_alerts"],
+          f"accepted {delta['accepted']} != registered {registered} + "
+          f"derived {delta['derived_alerts']}")
+    check(appended["rows"] == delta["accepted"],
+          f"rows appended {appended['rows']} != accepted {delta['accepted']}")
+    check(committed == records == len(payloads),
+          f"committed offset {committed}, journal records {records}")
+    check(parked == 0 and dead == 0,
+          f"{parked} seal jobs parked, {dead} rows dead-lettered")
+    check(stored == appended,
+          f"stored rows {stored} != accepted rows {appended}: a row lost "
+          "or stored twice")
+    if not meas:
+        restore_full(device, data_dir, saved_state, save_stats)
+    shutil.rmtree(data_dir, ignore_errors=True)
+    return rec
+
+
+def restore_full(device, data_dir, saved_state, save_stats):
+    """checkpoint_full: a fresh instance restores the saved instance's
+    newest generation; the state must equal the saved one bitwise."""
+    from sitewhere_tpu_torch.instance import Instance
+
+    ckpt = os.path.join(data_dir, "checkpoint")
+    t0 = time.perf_counter()
+    inst = Instance(instance_config(data_dir, CAPACITY, FULL_B, 0,
+                                    WIRE_DEADLINE_MS), device=device)
+    construct_s = time.perf_counter() - t0
+    try:
+        check(inst.restored, "checkpoint_full: nothing restored")
+        got = inst.device_state.snapshot_host()
+        unequal = sorted(k for k in saved_state
+                         if got[k].dtype != saved_state[k].dtype
+                         or got[k].tobytes() != saved_state[k].tobytes())
+        restore = dict(inst.checkpointer.restore_stats)
+        restore_s = inst.checkpointer.restore_s
+    finally:
+        inst.terminate()
+    gen = max(int(f.split("-")[1].split(".")[0]) for f in os.listdir(ckpt)
+              if f.startswith("manifest-"))
+    emit({"phase": "persist_recover", "run": "checkpoint_full",
+          "capacity": CAPACITY, "devices": N_ACTIVE,
+          "state_fields": len(saved_state),
+          "state_bytes_in_memory": int(sum(a.nbytes
+                                           for a in saved_state.values())),
+          "save": save_stats, "restore_s": restore_s,
+          "restore": restore, "instance_construct_s": construct_s,
+          "generation": gen, "unequal_fields": unequal})
+    check(not unequal, f"restored state differs from the saved: {unequal}")
+
+
+# -- kill -9 and restart --------------------------------------------------------
+
+
+def keyed_payloads(n_payloads, lines, n_active, ts0_ms, seed):
+    """Measurement-only NDJSON payloads in which every line has its own
+    eventDate (one second apart: its second is the row's key), values
+    where no rule fires (so no derived alerts, and every payload is one
+    plan whatever the timing) and the share of unregistered tokens.
+    Returns ``(payloads, registered keys per payload)``."""
+    rng = np.random.default_rng(seed)
+    lo, hi = MEAS_VALUE_BAND
+    out, keys = [], []
+    for p in range(n_payloads):
+        dev = rng.integers(0, n_active, lines)
+        ghost = rng.random(lines) < WIRE_GHOSTS
+        value = rng.uniform(lo, hi, lines)
+        ts = ts0_ms + 1000 * (p * lines + np.arange(lines))
+        out.append("\n".join(
+            _M_LINE % (f"x-{d}" if g else f"d-{d}", d % M_SLOTS, v, t)
+            for d, g, v, t in zip(dev.tolist(), ghost.tolist(),
+                                  value.tolist(), ts.tolist())).encode())
+        keys.append(ts[~ghost] // 1000)
+    return out, keys
+
+
+def stored_key_counts(store):
+    """(unique keys, their counts) of the stored rows, and how many of
+    them are not measurements."""
+    parts, others = [], 0
+    for c in store.iter_chunks():
+        meas = np.asarray(c["event_type"]) == 0
+        others += int((~meas).sum())
+        parts.append(np.asarray(c["ts_s"], np.int64)[meas])
+    keys = np.concatenate(parts) if parts else np.zeros(0, np.int64)
+    uniq, counts = np.unique(keys, return_counts=True)
+    return uniq, counts, others
+
+
+def kill_child(spec):
+    """One instance life in its own process (``--kill-child``).
+
+    ``role`` golden / kill: restore the world, start, save an anchor
+    checkpoint, ingest the payloads with a quiesced checkpoint every
+    KILL_SAVE_EVERY, flush; the golden one writes its final state and
+    stops.  Under ``SW_CRASHPOINT`` a kill child dies on the way.
+    ``role`` verify: restart on the survivor's directory (restore in the
+    constructor, replay in ``start``), ingest the payloads that never
+    reached the journal, and check the recovery contract."""
+    import torch
+
+    from sitewhere_tpu_torch.device import resolve_device
+    from sitewhere_tpu_torch.ingest.journal import Journal
+    from sitewhere_tpu_torch.instance import Instance
+    from sitewhere_tpu_torch.ops import geo_cuda
+
+    device = resolve_device(spec["device"])
+    torch.set_num_threads(2)
+    if device.type == "cuda":
+        torch.ones(1, device=device)
+        torch.cuda.synchronize()
+    boot_s = time.time() - spec["spawned_at"]
+    data_dir = spec["data_dir"]
+    capacity, n_active, width = spec["capacity"], spec["n_active"], \
+        spec["width"]
+    ring, deadline = spec["ring_depth"], spec["deadline_ms"]
+    payloads, keys = keyed_payloads(KILL_PAYLOADS, width, n_active,
+                                    KILL_TS0_MS, SEED + 7)
+    out = {"role": spec["role"], "point": spec.get("point"),
+           "boot_s": boot_s}
+    if spec["role"] in ("golden", "kill"):
+        inst = instance_from_world(device, spec["world_ckpt"], data_dir,
+                                   capacity, width, ring, deadline)
+        inst.start()
+        disp = inst.dispatcher
+        disp.flush()
+        inst.checkpointer.save()
+        for k, payload in enumerate(payloads):
+            disp.ingest_wire_lines(payload)
+            if (k + 1) % KILL_SAVE_EVERY == 0:
+                disp.flush()
+                inst.checkpointer.save()
+        disp.flush()
+        np.savez(spec["state_out"], **inst.device_state.snapshot_host())
+        inst.stop()
+        inst.terminate()
+        with open(spec["result_out"], "w") as f:
+            json.dump(out, f)
+        return
+    # verify: what survived, read before the restart opens it
+    journal = Journal(data_dir, name="ingest")
+    journaled = set()
+    for _, p in journal.scan(0):
+        first = p[:p.index(b"\n")] if b"\n" in p else p
+        t = json.loads(first)["request"]["eventDate"]
+        journaled.add((t - KILL_TS0_MS) // 1000 // width)
+    journal.close()
+    committed_at_kill = spec["committed_at_kill"]
+    t0 = time.perf_counter()
+    inst = Instance(instance_config(data_dir, capacity, width, ring,
+                                    deadline), device=device)
+    construct_s = time.perf_counter() - t0
+    check(inst.restored, "restart restored no checkpoint")
+    launches0 = geo_cuda.launch_counts["pip_parity"]
+    t0 = time.perf_counter()
+    inst.start()
+    start_s = time.perf_counter() - t0
+    disp = inst.dispatcher
+    gauges = inst.metrics.snapshot()["gauges"]
+    missing = [k for k in range(KILL_PAYLOADS) if k not in journaled]
+    for k in missing:
+        disp.ingest_wire_lines(payloads[k])
+    disp.flush()
+    launches = geo_cuda.launch_counts["pip_parity"] - launches0
+    warm = ring if ring else 1
+    uniq, counts, not_measurements = stored_key_counts(inst.event_store)
+    expected = np.unique(np.concatenate(keys))
+    below = np.unique(np.concatenate(keys[:committed_at_kill])) \
+        if committed_at_kill else np.zeros(0, np.int64)
+    lost = np.setdiff1d(expected, uniq)
+    extra = np.setdiff1d(uniq, expected)
+    twice = np.intersect1d(below, uniq[counts > 1])
+    out.update({
+        "restored_generation": inst.checkpointer.restored_generation,
+        "replay_floor": inst.checkpointer.replay_floor,
+        "committed_at_kill": committed_at_kill,
+        "journaled_payloads": len(journaled),
+        "resumed_payloads": len(missing),
+        "instance_construct_s": construct_s,
+        "restore_s": float(gauges["recovery.restore_s"]),
+        "restore": dict(inst.checkpointer.restore_stats),
+        "start_s": start_s,
+        "warm_up_s": start_s - float(gauges["recovery.replay_s"]),
+        "replay_s": float(gauges["recovery.replay_s"]),
+        "replay_events": int(gauges["recovery.replay_events"]),
+        "steps": disp.steps, "pip_launches": launches - warm,
+        "rows_expected": int(expected.size), "rows_stored": int(counts.sum()),
+        "lost": int(lost.size), "extra": int(extra.size),
+        "below_committed_twice": int(twice.size),
+        "rows_not_measurements": not_measurements,
+        "stored_twice_above": int((counts > 1).sum()) - int(twice.size),
+        "catalog_problems": inst.event_store.verify_catalog(),
+        "dedup_floor_after": disp.store_dedup_floor,
+    })
+    np.savez(spec["state_out"], **inst.device_state.snapshot_host())
+    inst.stop()
+    inst.terminate()
+    with open(spec["result_out"], "w") as f:
+        json.dump(out, f)
+
+
+def _spawn(spec, env_extra=None):
+    """Start one ``--kill-child`` process; its stderr goes to a file next
+    to its result (a pipe nobody reads could fill and stall it)."""
+    spec = dict(spec, spawned_at=time.time())
+    env = dict(os.environ)
+    env.pop("SW_CRASHPOINT", None)
+    env.update(env_extra or {})
+    with open(spec["result_out"] + ".err", "wb") as err:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--kill-child",
+             json.dumps(spec)], env=env, stdout=subprocess.DEVNULL,
+            stderr=err, cwd=os.path.dirname(os.path.abspath(__file__)))
+    proc.err_path = spec["result_out"] + ".err"
+    return proc
+
+
+def _wait_all(procs, timeout_s):
+    """Wait for every child; on a timeout kill every one still running.
+    Returns ``{name: (returncode, stderr tail)}``."""
+    deadline = time.monotonic() + timeout_s
+    out = {}
+    try:
+        for name, proc in procs.items():
+            proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            with open(proc.err_path, "rb") as f:
+                err = f.read()[-3000:].decode(errors="replace")
+            out[name] = (proc.returncode, err)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
+def _read_result(path):
+    with open(path) as f:
+        return json.load(f)
+
+
+def _state_close(golden_npz, got_npz):
+    """Device state against the golden run's: ints exact, EWMA within
+    EWMA_MAX_ULP of the value scale, other floats bitwise.  Returns the
+    unequal fields and the EWMA's largest error in ULPs of the scale."""
+    a, b = np.load(golden_npz), np.load(got_npz)
+    unequal, worst = [], 0.0
+    for k in a.files:
+        x, y = a[k], b[k]
+        if x.dtype != y.dtype or x.shape != y.shape:
+            unequal.append(k)
+        elif k == "ewma_values":
+            err = np.abs(x.astype(np.float64) - y.astype(np.float64))
+            scale = np.maximum(np.abs(x), EWMA_SCALE) * 2.0 ** -23
+            fin = np.isfinite(x)
+            if not np.array_equal(x[~fin], y[~fin], equal_nan=True):
+                unequal.append(k)
+            worst = max(worst, float((err[fin] / scale[fin]).max()))
+            if worst > EWMA_MAX_ULP:
+                unequal.append(k)
+        elif x.tobytes() != y.tobytes():
+            unequal.append(k)
+    return unequal, worst
+
+
+def committed_offset(data_dir):
+    try:
+        with open(os.path.join(data_dir, "ingest", "pipeline.offset")) as f:
+            return int(f.read().strip() or 0)
+    except OSError:
+        return 0
+
+
+def kill_recover(device, worlds, root):
+    """Golden children and one killed child per crash point, then one
+    restart per kill on the survivor's directory (crashrec's protocol).
+    The small children run side by side; the full-size restart runs
+    alone, so its recovery times are those users would see."""
+    def spec(role, name, size, ring, deadline, **kw):
+        d = os.path.join(root, name)
+        capacity, n_active, width = SIZES[size]
+        return dict(role=role, size=size, capacity=capacity,
+                    n_active=n_active, width=width, ring_depth=ring,
+                    deadline_ms=deadline, data_dir=d,
+                    world_ckpt=worlds[size], device=str(device),
+                    state_out=os.path.join(root, f"{name}-state.npz"),
+                    result_out=os.path.join(root, f"{name}.json"), **kw)
+
+    os.makedirs(root, exist_ok=True)
+    specs, procs = {}, {}
+    for size in ("full", "small"):
+        name = f"golden-{size}"
+        specs[name] = spec("golden", name, size, 0, WIRE_DEADLINE_MS)
+        procs[name] = _spawn(specs[name])
+    for point, hit, size, ring, deadline in KILLS:
+        name = f"kill-{point.split('.')[1]}"
+        specs[name] = spec("kill", name, size, ring, deadline, point=point)
+        procs[name] = _spawn(specs[name],
+                             {"SW_CRASHPOINT": f"{point}:{hit}"})
+    t0 = time.perf_counter()
+    done = _wait_all(procs, 600)
+    children_s = time.perf_counter() - t0
+    for name, (rc, err) in done.items():
+        if name.startswith("golden"):
+            check(rc == 0, f"{name} failed (rc {rc}): {err}")
+        else:
+            check(rc == -signal.SIGKILL,
+                  f"{name} was not killed at its point (rc {rc}): {err}")
+    # restarts: the small ones side by side, then the full-size one alone
+    verify = {}
+    for point, hit, size, ring, deadline in KILLS:
+        kname = f"kill-{point.split('.')[1]}"
+        d = specs[kname]["data_dir"]
+        verify[kname] = spec("verify", f"verify-{kname}", size, ring,
+                             deadline, point=point,
+                             committed_at_kill=committed_offset(d))
+        verify[kname]["data_dir"] = d
+    order = ([k for k in verify if specs[k]["size"] == "small"],
+             [k for k in verify if specs[k]["size"] == "full"])
+    for group in order:
+        procs = {k: _spawn(verify[k]) for k in group}
+        for name, (rc, err) in _wait_all(procs, 600).items():
+            check(rc == 0, f"restart after {name} failed (rc {rc}): {err}")
+    runs = []
+    for point, hit, size, ring, deadline in KILLS:
+        kname = f"kill-{point.split('.')[1]}"
+        res = _read_result(verify[kname]["result_out"])
+        unequal, ulp = _state_close(specs[f"golden-{size}"]["state_out"],
+                                    verify[kname]["state_out"])
+        capacity, n_active, width = SIZES[size]
+        res.update({"kill_hit": hit, "size": size, "capacity": capacity,
+                    "devices": n_active, "width": width,
+                    "payloads": KILL_PAYLOADS, "ring_depth": ring,
+                    "deadline_ms": deadline,
+                    "state_unequal_fields": unequal,
+                    "ewma_max_ulp_of_scale": ulp})
+        emit({"phase": "persist_recover", "run": f"kill_recover.{point}",
+              **res})
+        runs.append(res)
+        check(res["lost"] == 0, f"{point}: {res['lost']} committed rows lost")
+        check(res["extra"] == 0 and res["rows_not_measurements"] == 0,
+              f"{point}: {res['extra']} unknown rows, "
+              f"{res['rows_not_measurements']} not measurements")
+        check(res["below_committed_twice"] == 0,
+              f"{point}: {res['below_committed_twice']} rows below the "
+              "committed offset stored twice")
+        check(res["catalog_problems"] == [],
+              f"{point}: catalog {res['catalog_problems']}")
+        check(res["dedup_floor_after"] == 0, f"{point}: dedup floor kept")
+        check(res["pip_launches"] == res["steps"],
+              f"{point}: kernel launched {res['pip_launches']}x in "
+              f"{res['steps']} steps")
+        check(not unequal, f"{point}: state differs from golden: {unequal}")
+    emit({"phase": "persist_recover", "run": "kill_recover.done",
+          "children_s": children_s, "kills": len(runs)})
+    return runs
+
+
+def phase_persist_recover(device, geo_cuda, mixed, meas):
+    """Persistence and restart on the wire path: the throughput runs with
+    the real segment store over the payloads of ``dispatcher_wire``
+    (``mixed``, ``meas``), one full-size checkpoint save and restore, and
+    kill -9 recovery at five crash points.  Returns the kernel's launches
+    in each throughput run, by run name."""
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="persist-", dir=geo_cuda.BUILD_DIR)
+    launches = {}
+    try:
+        worlds = {size: world_checkpoint(device, root, size)
+                  for size in ("full", "small")}
+        emit({"phase": "persist_recover", "run": "setup",
+              "world_s": time.perf_counter() - t0})
+        rec = persist_throughput(device, geo_cuda, worlds["full"], mixed,
+                                 root, "ring0")
+        launches["persist_throughput.ring0"] = rec["pip_launches"]
+        rec = persist_throughput(device, geo_cuda, worlds["full"], meas,
+                                 root, "measurements_ring0", meas=True)
+        launches["persist_throughput.measurements_ring0"] = \
+            rec["pip_launches"]
+        kill_recover(device, worlds, os.path.join(root, "kills"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "persist_recover", "run": "done",
           "seconds": time.perf_counter() - t0})
     return launches
 
@@ -1194,12 +1801,17 @@ def main() -> int:
 
     rec = phase_kernel(device, geo_cuda)
     main_launches = phase_main_path(device, geo_cuda)
-    wire_launches = phase_dispatcher_wire(device, geo_cuda)
-    # the port's default configuration: ring off, the deployment's deadline
-    rec["launches"] = wire_launches["throughput_ring0"]
+    wire_launches, mixed, meas = phase_dispatcher_wire(device, geo_cuda)
+    persist_launches = phase_persist_recover(device, geo_cuda, mixed, meas)
+    del mixed, meas
+    # this slice's path: the Instance with its segment store, ring off,
+    # the deployment's deadline
+    rec["launches"] = persist_launches["persist_throughput.ring0"]
     rec["launches_by_path"] = {"main_path": main_launches,
                                **{f"dispatcher_wire.{k}": v
-                                  for k, v in wire_launches.items()}}
+                                  for k, v in wire_launches.items()},
+                               **{f"persist_recover.{k}": v
+                                  for k, v in persist_launches.items()}}
     phase_small_reference(device)
 
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
@@ -1211,5 +1823,14 @@ def main() -> int:
     return 0
 
 
+def child_main(spec_json: str) -> int:
+    """``--kill-child``: one instance life of the kill_recover runs."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    kill_child(json.loads(spec_json))
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--kill-child"]:
+        sys.exit(child_main(sys.argv[2]))
     sys.exit(main())

@@ -4,12 +4,15 @@ Counterpart of ``sitewhere_tpu/ids.py``, carried as far as the state
 manager, the batcher and the wire decode need it: the ``NULL_ID``
 sentinel, :class:`HandleSpace` (mint / free / lookup / bulk lookup /
 reverse lookup / in-place restore, and the ``TokenTable`` mirror the
-native resolved scanners read) and :class:`IdentityMap`.  Checkpoint
-serialization waits for the checkpoint slice.
+native resolved scanners read) and :class:`IdentityMap` with its
+checkpoint serialization (:meth:`IdentityMap.save` /
+:meth:`IdentityMap.load_into`), which writes the reference's JSON.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import threading
 from typing import Dict, Iterable, List, Optional
 
@@ -122,6 +125,25 @@ class HandleSpace:
             return self._id_to_token[hid]
         return None
 
+    def tokens(self) -> List[str]:
+        return list(self._token_to_id)
+
+    # -- serialization (checkpoint / restore) -------------------------------
+
+    def to_dict(self) -> dict:
+        with self._lock:
+            return {
+                "name": self.name,
+                "capacity": self.capacity,
+                "id_to_token": list(self._id_to_token),
+            }
+
+    @classmethod
+    def from_dict(cls, data: dict) -> "HandleSpace":
+        space = cls(data["name"], data["capacity"])
+        space.load_state(data["id_to_token"])
+        return space
+
     def load_state(self, id_to_token) -> None:
         """Restore IN PLACE from a handle-ordered token list (``None`` =
         a freed handle): components hold bound ``lookup``/``mint`` methods,
@@ -162,3 +184,28 @@ class IdentityMap:
             return self.__dict__["spaces"][name]
         except KeyError:
             raise AttributeError(name) from None
+
+    def save(self, path: str) -> None:
+        """Write every space as JSON, durably and atomically: fsync'd
+        before the rename, so a checkpoint manifest written after it
+        never points at identity data still in the page cache."""
+        payload = {name: space.to_dict() for name, space in self.spaces.items()}
+        tmp = f"{path}.tmp.{os.getpid()}"
+        with open(tmp, "w") as f:
+            json.dump(payload, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+
+    def load_into(self, path: str) -> None:
+        """Restore every space IN PLACE (see :meth:`HandleSpace.load_state`):
+        components hold the spaces' bound methods."""
+        with open(path) as f:
+            payload = json.load(f)
+        for name, data in payload.items():
+            space = self.spaces.get(name)
+            if space is None:
+                self.spaces[name] = HandleSpace.from_dict(data)
+            else:
+                space.capacity = data["capacity"]
+                space.load_state(data["id_to_token"])

@@ -29,8 +29,16 @@ first-class events, and the new state committed to the
 - EGRESS runs on a supervised offload worker (:meth:`_egress_worker`)
   when the dispatcher runs on a card (the reference's rule: off on the
   CPU); it reads each step's outputs from a copy started at dispatch and
-  waits on that copy's CUDA event only.  The journal offset commits only
-  past plans whose egress completed (:meth:`_maybe_commit_offset`).
+  waits on that copy's CUDA event only.  Egress appends the accepted rows
+  to the event store, the segment store
+  (:class:`~sitewhere_tpu_torch.store.segmented.SegmentStore`) in an
+  ``Instance``.  The journal offset commits only past plans whose egress
+  completed, and only after the store's ``flush()`` has sealed every
+  buffered row to disk (:meth:`_maybe_commit_offset`).
+- RECOVERY: :meth:`replay_journal` re-ingests journal records from the
+  committed offset, or from a checkpoint's replay floor below it; rows
+  below the committed offset re-run their state effects but are not
+  stored twice (``store_dedup_floor``).
 
 A device fault propagates: the plan stays outstanding, the commit gate
 stays closed, and journal replay recovers the plan.  There is no CPU
@@ -193,7 +201,10 @@ class PipelineDispatcher(LifecycleComponent):
     - ``registry_provider()`` / ``zones_provider()`` / ``rules_provider()``
       -> current device-resident epochs (RegistryMirror / RuleManager)
     - ``state_manager`` -> DeviceStateManager (commit + sweeps)
-    - ``event_store`` -> accepted-row persistence (append_columns, flush)
+    - ``event_store`` -> accepted-row persistence:
+      ``append_columns(cols, mask=)`` at egress and ``flush()`` (sealing
+      every buffered row durably, raising if it cannot) before each
+      offset commit; a ``SegmentStore`` in an ``Instance``
     - ``registration`` -> registration manager (process_unregistered);
       None = unregistered rows only dead-letter
 
@@ -245,6 +256,13 @@ class PipelineDispatcher(LifecycleComponent):
         # points (no pending rows, no in-flight step).
         self.journal_reader = journal_reader
         self._max_egressed_ref = -1
+        # Crash-recovery store dedup: rows whose journal offset is below
+        # this floor are durably in the event store already (the commit
+        # gate seals BEFORE the offset commits), so a replay that starts
+        # below the committed offset, rebuilding state from an older
+        # checkpoint, re-runs their state effects without storing them
+        # twice.  0 = inactive; set by replay_journal.
+        self.store_dedup_floor = 0
         # Plans emitted by the batcher whose egress has not completed
         # (guarded by _lock): the commit gate requires it to be zero.
         self._plans_outstanding = 0
@@ -751,26 +769,46 @@ class PipelineDispatcher(LifecycleComponent):
                         self.event_store.flush()
                     reader.commit(upto)
 
-    def replay_journal(self, decoder=None, max_records: int = 4096) -> int:
+    def replay_journal(self, decoder=None, max_records: int = 4096,
+                       upto: Optional[int] = None,
+                       from_offset: Optional[int] = None) -> int:
         """Re-ingest journal records past the committed offset (crash
         recovery, at-least-once).
 
-        Records replay through ``decoder`` (default JSON) without
-        re-journaling, keeping their offsets as ``payload_ref``;
-        undecodable records dead-letter.  Returns replayed event rows.
+        Records replay through ``decoder`` (default JSON, with the C
+        resolved scanner first) without re-journaling, keeping their
+        offsets as ``payload_ref``; undecodable records dead-letter.
+        ``upto`` (exclusive) bounds the replay: pass the journal end
+        captured before live intake starts, so a racing fresh append is
+        never ingested twice.  ``from_offset`` starts the replay BELOW
+        the committed offset (a checkpoint's replay floor): those records
+        re-run their state effects but skip the event store, where they
+        are durably stored already (``store_dedup_floor``).  Returns
+        replayed event rows.
         """
         reader = self.journal_reader
         if reader is None:
             return 0
         use_columnar = decoder is None
         decoder = decoder or JsonLinesDecoder()
-        reader.seek(reader.committed)
+        start = reader.committed
+        if from_offset is not None:
+            start = min(start, max(0, int(from_offset)))
+        # rows below the committed offset sealed before that offset
+        # committed: replaying them must not store them twice
+        self.store_dedup_floor = max(self.store_dedup_floor,
+                                     reader.committed)
+        reader.seek(start)
         n = 0
-        while True:
+        done = False
+        while not done:
             records = reader.poll(max_records)
             if not records:
                 break
             for offset, payload in records:
+                if upto is not None and offset >= upto:
+                    done = True
+                    break
                 if use_columnar:
                     fast = self._replay_columnar(payload, offset)
                     if fast is not None:
@@ -794,9 +832,18 @@ class PipelineDispatcher(LifecycleComponent):
                         events, tenants, [offset] * len(events))))
                 n += len(events)
         if n:
-            logger.info("replayed %d journaled events past offset %d",
-                        n, reader.committed)
+            logger.info("replayed %d journaled events from offset %d",
+                        n, start)
         self.flush()
+        with self._lock:
+            quiesced = (self._plans_outstanding == 0
+                        and self.batcher.pending == 0
+                        and not self._egress_busy)
+        if quiesced:
+            # every replayed sub-committed row has egressed: retire the
+            # dedup mask so live egress stops paying for it (a timed-out
+            # flush keeps the floor)
+            self.store_dedup_floor = 0
         return n
 
     def _replay_columnar(self, payload: bytes, offset: int) -> Optional[int]:
@@ -1151,11 +1198,17 @@ class PipelineDispatcher(LifecycleComponent):
             self._max_egressed_ref = max(
                 self._max_egressed_ref, int(refs[journaled].max()))
 
-        # 1. persistence
-        if self.event_store is not None and accepted.any():
+        # 1. persistence.  Replay below the committed offset (a
+        # checkpoint's replay floor) skips rows already durably stored;
+        # their state effects still re-run.
+        store_mask = accepted
+        if self.store_dedup_floor > 0:
+            store_mask = accepted & ((refs == NULL_ID)
+                                     | (refs >= self.store_dedup_floor))
+        if self.event_store is not None and store_mask.any():
             with trace.span("egress.persist").tag(
-                    "rows", int(accepted.sum())):
-                self.event_store.append_columns(cols, mask=accepted)
+                    "rows", int(store_mask.sum())):
+                self.event_store.append_columns(cols, mask=store_mask)
             self._m_seal.set(time.monotonic() - ingest_t0)
         # chaos kill point: stored but the offset commit never runs
         faults.crosspoint("crash.mid_egress")

@@ -4,8 +4,10 @@ Counterpart of the epoch plumbing of ``sitewhere_tpu/state/manager.py``:
 ``current`` / ``current_packed``, the lease and commit of the packed
 carry that the K-deep ring threads through its steps, the presence
 reconciliation on commit (``_merge_presence`` :198), the presence sweep
-with its tenant lookup and the single-device and summary queries.  ``TenantPartitions`` and the
-migration import/export wait for later slices.
+with its tenant lookup, the single-device and summary queries, and the
+checkpoint's host snapshot of the epoch (:meth:`snapshot_host`).
+``TenantPartitions`` and the migration import/export wait for later
+slices.
 
 Epochs are immutable: a commit or a sweep replaces the held tensors and
 never writes into them, so a snapshot taken under the lock stays valid
@@ -14,6 +16,7 @@ after the lock is released.
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 from typing import Callable, Dict, Optional, Tuple
 
@@ -43,6 +46,14 @@ def _merge_presence(new_si: torch.Tensor, cur_si: torch.Tensor,
     return out
 
 
+def _host_fields(packed: PackedState, si: torch.Tensor,
+                 sf: torch.Tensor) -> Dict[str, np.ndarray]:
+    """Split host copies of a packed carry into DeviceState fields."""
+    host = unpack_state(packed.replace(si=si, sf=sf))
+    return {f.name: np.ascontiguousarray(getattr(host, f.name).numpy())
+            for f in dataclasses.fields(host)}
+
+
 class DeviceStateManager:
     """Holds the authoritative :class:`DeviceState` epoch.
 
@@ -67,8 +78,16 @@ class DeviceStateManager:
         self._state: Optional[DeviceState] = DeviceState.empty(
             capacity, num_mtype_slots, num_ewma_scales, device=self.device)
         self._packed: Optional[PackedState] = None
+        # the CUDA stream the held epoch was committed from (None on the
+        # CPU): a host snapshot copies on it, ordered after the work that
+        # produced the epoch
+        self._stream = None
         # count of lease_packed() calls
         self.lease_generation = 0
+
+    def _note_stream(self) -> None:
+        if self.device.type == "cuda":
+            self._stream = torch.cuda.current_stream(self.device)
 
     # -- epoch plumbing ----------------------------------------------------
 
@@ -130,6 +149,7 @@ class DeviceStateManager:
                     si=_merge_presence(new_packed.si, cur.si, present_now))
             self._packed = new_packed
             self._state = None
+            self._note_stream()
 
     def commit(self, new_state: DeviceState,
                batch: Optional[EventBatch] = None,
@@ -165,6 +185,38 @@ class DeviceStateManager:
                 new_state = new_state.replace(presence_missing=merged)
             self._state = new_state
             self._packed = None
+            self._note_stream()
+
+    def snapshot_host(self) -> Dict[str, np.ndarray]:
+        """The held epoch as host arrays, one per :class:`DeviceState`
+        field (the checkpoint's ``state`` section).
+
+        The epoch reference is taken under the lock; the copy runs
+        outside it.  The two packed carry buffers (packed here first when
+        only the unpacked twin is held) are copied once each into pinned
+        memory on the stream the epoch was committed from, waited for with
+        one event, and split into fields on the host.  The local reference
+        keeps the epoch's blocks allocated until the copy is done."""
+        with self._lock:
+            packed, state, stream = self._packed, self._state, self._stream
+        if self.device.type != "cuda":
+            if packed is None:
+                packed = pack_state(state)
+            return _host_fields(packed, packed.si, packed.sf)
+        with torch.cuda.stream(stream or torch.cuda.current_stream(
+                self.device)):
+            if packed is None:
+                packed = pack_state(state)
+            si = torch.empty(packed.si.shape, dtype=packed.si.dtype,
+                             pin_memory=True)
+            sf = torch.empty(packed.sf.shape, dtype=packed.sf.dtype,
+                             pin_memory=True)
+            si.copy_(packed.si, non_blocking=True)
+            sf.copy_(packed.sf, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+        done.synchronize()
+        return _host_fields(packed, si, sf)
 
     # -- presence ----------------------------------------------------------
 

@@ -1,0 +1,233 @@
+"""Background segment compaction: merge small segments, crash-safely.
+
+Counterpart of ``sitewhere_tpu/store/compaction.py``.  Runs of small
+segments adjacent in one shard's scan order merge into one, row order
+preserved.  No write-ahead log: the merged file describes itself.
+
+1. the merged segment is written and fsync'd under a fresh seq with a
+   ``_meta_replaces`` member naming every input ``(src_seq, row_base,
+   rows)``;
+2. ``crash.mid_compact`` crosspoint: a kill here leaves both the merged
+   output and its inputs on disk, and boot's tombstone resolution
+   (:func:`~sitewhere_tpu_torch.store.segment.resolve_tombstones`) drops
+   the inputs, so no row is doubled;
+3. the catalog swap publishes the merged segment at the minimum input
+   order key and re-points the id remap, then the inputs are unlinked.
+
+Compaction is idempotent, and ids minted against input segments keep
+resolving through the catalog remap and, across restarts, through the
+recorded provenance.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import threading
+import time
+from typing import List, Optional
+
+import numpy as np
+
+from sitewhere_tpu_torch.runtime import faults
+from sitewhere_tpu_torch.runtime.resilience import RetryPolicy, Supervisor
+from sitewhere_tpu_torch.store.segment import (
+    COLUMN_NAMES,
+    Segment,
+    SegmentPruned,
+    write_segment_file,
+)
+
+logger = logging.getLogger("sitewhere_tpu_torch.store.compaction")
+
+
+class Compactor:
+    """Per-shard merge of small adjacent segments, on an interval."""
+
+    def __init__(self, store, min_rows: int = 4096,
+                 target_rows: int = 1 << 20,
+                 interval_s: float = 30.0):
+        self._store = store
+        self.min_rows = int(min_rows)
+        self.target_rows = min(int(target_rows), (1 << 24) - 1)
+        self.interval_s = float(interval_s)
+        self._stop = threading.Event()
+        self._sup: Optional[Supervisor] = None
+        self.compactions = 0
+        self.rows_compacted = 0
+
+    def start(self) -> None:
+        if self.interval_s <= 0 or self._sup is not None:
+            return
+        self._stop.clear()
+        self._sup = Supervisor(
+            "store-compact", self._loop,
+            policy=RetryPolicy(initial_s=0.5, max_s=30.0),
+            max_restarts=16, min_uptime_s=10.0)
+        self._sup.start()
+
+    def stop(self, timeout_s: float = 10.0) -> None:
+        self._stop.set()
+        if self._sup is not None:
+            self._sup.stop(timeout_s=timeout_s)
+            self._sup = None
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self.interval_s):
+            self.run_once()
+
+    # -- one compaction round ------------------------------------------------
+
+    def _candidates(self) -> List[Segment]:
+        """The first run of ≥2 small, file-backed segments adjacent in
+        their SHARD's scan order (snapshot under the store lock).
+        Adjacency is per (shard, shard_count-at-seal): a device's rows
+        route to exactly one shard WITHIN one shard-count generation,
+        so merging inside a generation cannot reorder any device's
+        history — but after an ``events.shards`` resize the same
+        device may hash to a different shard, and a cross-generation
+        merge (whose order_key jumps to the run's minimum) could move
+        its newer rows ahead of older ones in scan order."""
+        store = self._store
+        with store._lock:
+            chunks = [c for c in store._chunks]
+        by_shard: dict = {}
+        for c in chunks:
+            by_shard.setdefault((c.shard, c.shard_count), []).append(c)
+        for shard_chunks in by_shard.values():
+            run: List[Segment] = []
+            for c in shard_chunks:
+                eligible = (c._path is not None and c.n
+                            and c.n < self.min_rows)
+                if eligible and (not run
+                                 or sum(s.n for s in run) + c.n
+                                 <= self.target_rows):
+                    run.append(c)
+                    continue
+                if len(run) >= 2:
+                    return run
+                run = [c] if eligible else []
+            if len(run) >= 2:
+                return run
+        return []
+
+    def run_once(self) -> int:
+        """Compact one candidate run; returns segments merged (0 = no
+        work)."""
+        store = self._store
+        run = self._candidates()
+        if not run:
+            return 0
+        # mark the run as in-flight so retention skips its inputs
+        # until the swap lands or aborts: without the marker, a prune
+        # between the durable merged write and the swap — followed by
+        # a crash (crash.mid_compact) — would resurrect the pruned
+        # rows through the merged file's provenance at boot
+        with store._lock:
+            listed = {id(c) for c in store._chunks}
+            if any(id(c) not in listed for c in run):
+                return 0  # retention already delisted an input
+            if any(id(c) in store._compacting for c in run):
+                # another run_once (interval loop vs explicit caller)
+                # already claimed part of this run: merging it twice
+                # would leave two live merged files tombstoning the
+                # same inputs if a crash beats the loser's swap abort
+                return 0
+            store._compacting.update(id(c) for c in run)
+        try:
+            return self._merge_marked(run)
+        finally:
+            with store._lock:
+                store._compacting.difference_update(id(c) for c in run)
+
+    def _merge_marked(self, run: List[Segment]) -> int:
+        store = self._store
+        # materialize OUTSIDE the lock (file IO); a retention race
+        # pruning an input mid-read simply aborts this round
+        try:
+            parts = [c.materialize() for c in run]
+        except SegmentPruned:
+            return 0
+        merged = {
+            name: np.concatenate([p[name] for p in parts])
+            for name in COLUMN_NAMES
+        }
+        # provenance: direct inputs, plus the transitive sources of any
+        # input that was itself a compacted segment — boot-time
+        # tombstone resolution and the id remap both need the ORIGINAL
+        # seqs to keep resolving after a restart
+        replaces = []
+        base = 0
+        for c in run:
+            replaces.append((int(c.seq), base, int(c.n)))
+            if c.replaces:
+                for src_seq, src_base, src_rows in c.replaces:
+                    replaces.append((int(src_seq), base + int(src_base),
+                                     int(src_rows)))
+            base += int(c.n)
+        with store._lock:
+            seq = store._next_seq
+            store._next_seq += 1
+        seg = Segment(seq, merged, shard=run[0].shard,
+                      shard_count=run[0].shard_count)
+        seg.replaces = tuple(replaces)
+        seg.order_key = min(c.order_key for c in run)
+        path = store._segment_path(seq)
+        t0 = time.perf_counter()
+        # the merged file must be DURABLE before any input is unlinked:
+        # the inputs may already be the durable trace of a committed
+        # journal offset, and a deferred-fsync merged copy could vanish
+        # in a power loss after the originals are gone
+        write_segment_file(path, merged, seg, sync=True,
+                           fsync_dir=store._fsync_dir)
+        # chaos kill point: merged file on disk, inputs still listed +
+        # on disk — boot must resolve the tombstones, not double rows
+        faults.crosspoint("crash.mid_compact")
+        with store._lock:
+            store._write_marker(sync=False)
+            if not store.catalog.swap_compacted_locked(run, seg):
+                # retention delisted an input while we merged: discard
+                # the merged file — resurrecting pruned rows would
+                # violate the retention contract
+                swap_ok = False
+            else:
+                swap_ok = True
+                seg.detach(path, store._cache)
+                for c in run:
+                    store._cache.drop_seq(c.seq)
+                    store._unsynced_paths.discard(c._path)
+        if not swap_ok:
+            try:
+                os.unlink(path)
+            except OSError:
+                pass
+            return 0
+        for c in run:
+            store.hot.drop(c.seq)
+            try:
+                os.unlink(c._path)
+            except OSError:
+                pass
+        dt = time.perf_counter() - t0
+        self.compactions += 1
+        self.rows_compacted += seg.n
+        store.metrics.counter("store.rows_compacted").inc(seg.n)
+        store.metrics.counter("store.segments_compacted").inc(len(run))
+        store.metrics.histogram("store.compact_s").observe(dt)
+        store._update_gauges()
+        logger.info("compacted %d segments (%d rows, shard %d) -> "
+                    "segment %d in %.3fs", len(run), seg.n,
+                    seg.shard, seq, dt)
+        return len(run)
+
+    def drain(self) -> int:
+        """Compact until quiescent (tests/tools)."""
+        total = 0
+        while True:
+            n = self.run_once()
+            if not n:
+                return total
+            total += n
+
+
+__all__ = ["Compactor"]

@@ -1,0 +1,329 @@
+"""Supervised, fail-closed background seal workers.
+
+Counterpart of ``sitewhere_tpu/store/sealer.py``: N supervised workers
+drain a seal queue, so the egress worker's whole seal cost is a packed
+row copy plus an O(1) enqueue, and the npz builds and writes run in
+parallel across tenant/device shards.
+
+- **fail-closed**: a job is retained (queued, in flight, committed or
+  parked for retry) until its segment is durably published; the commit
+  gate's ``flush(sync=True)`` raises while anything is parked, so a
+  journal offset never claims rows that exist nowhere;
+- **bounded retry, then dead-letter**: a job failing past
+  ``max_seal_retries`` attempts AND ``seal_retry_window_s`` of wall
+  clock dead-letters its rows (kind ``event-flush-failed``) unless the
+  dead-letter sink fails too, in which case it stays parked;
+- **supervision**: each worker runs under a
+  :class:`~sitewhere_tpu_torch.runtime.resilience.Supervisor`; with
+  every worker escalated, ``drain()`` seals inline on the caller's
+  thread.
+
+The write path fires the ``event_store.seal`` fault point and the
+``crash.mid_seal`` SIGKILL crosspoint: a worker killed mid-write leaves
+a torn temporary file that boot ignores, and journal replay re-derives
+the job's rows.
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+import time
+from collections import deque
+from typing import List, Optional
+
+import numpy as np
+
+from sitewhere_tpu_torch.runtime import faults
+from sitewhere_tpu_torch.runtime.resilience import RetryPolicy, Supervisor, dead_letter
+from sitewhere_tpu_torch.store.segment import (
+    INT_COLUMNS,
+    Segment,
+    unpack_cols,
+    write_segment_file,
+)
+
+logger = logging.getLogger("sitewhere_tpu_torch.store.sealer")
+
+_TS_ROW = INT_COLUMNS.index("ts_s")  # packed-block row carrying ts_s
+
+
+class SealJob:
+    """One shard buffer's worth of rows on its way to disk.
+
+    ``ints``/``flts`` are the packed ``[Ci, n]``/``[Cf, n]`` column
+    blocks (views into the shard buffer until the job completes — the
+    buffer is only recycled after the write); ``seq`` was assigned when
+    the buffer opened, so event ids handed out against buffered rows
+    stay valid across the seal.
+    """
+
+    __slots__ = ("seq", "shard", "ints", "flts", "n", "buffer",
+                 "attempts", "first_failure_t", "committed", "enqueued_t")
+
+    def __init__(self, seq: int, shard: int, ints: np.ndarray,
+                 flts: np.ndarray, n: int, buffer=None):
+        self.seq = seq
+        self.shard = shard
+        self.ints = ints
+        self.flts = flts
+        self.n = n
+        self.buffer = buffer
+        self.attempts = 0
+        self.first_failure_t: Optional[float] = None
+        self.committed = False
+        self.enqueued_t = time.monotonic()
+
+
+class SealerPool:
+    """The background seal worker pool bound to one SegmentStore.
+
+    Lock order (shared with the store): ``store._lock`` may be held
+    while taking ``self._cond`` (queue snapshots for readers, enqueue
+    from the append path); the reverse nesting never happens — workers
+    release the queue lock before committing under the store lock.
+    """
+
+    def __init__(self, store, workers: int = 2,
+                 policy: Optional[RetryPolicy] = None):
+        self._store = store
+        self.n_workers = max(1, int(workers))
+        self._cond = threading.Condition()
+        self._queue: "deque[SealJob]" = deque()
+        self._inflight: List[SealJob] = []
+        self._parked: List[SealJob] = []
+        self._supervisors: List[Supervisor] = []
+        self._stopping = threading.Event()
+        self.running = False
+        self.sealed_segments = 0
+        self._policy = policy or RetryPolicy(initial_s=0.05, max_s=2.0)
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def start(self) -> None:
+        if self.running:
+            return
+        self._stopping.clear()
+        self.running = True
+        self._supervisors = [
+            Supervisor(f"store-seal-{i}", self._worker_loop,
+                       policy=self._policy, max_restarts=64,
+                       min_uptime_s=5.0)
+            for i in range(self.n_workers)
+        ]
+        for sup in self._supervisors:
+            sup.start()
+
+    def stop(self, timeout_s: float = 10.0) -> None:
+        self._stopping.set()
+        self.running = False
+        with self._cond:
+            self._cond.notify_all()
+        for sup in self._supervisors:
+            sup.stop(timeout_s=timeout_s)
+        self._supervisors = []
+
+    def _workers_alive(self) -> bool:
+        return any(sup.alive and not sup.escalated
+                   for sup in self._supervisors)
+
+    # -- producer side -------------------------------------------------------
+
+    def enqueue_many(self, jobs) -> None:
+        """O(1) hand-off from the append hot path (may run under the
+        store lock — consistent with the documented lock order)."""
+        if not jobs:
+            return
+        with self._cond:
+            self._queue.extend(jobs)
+            self._cond.notify_all()
+
+    def retry_parked(self) -> None:
+        """Re-queue parked (failed) jobs — called from flush ticks so a
+        transient disk fault heals on the next interval."""
+        with self._cond:
+            if self._parked:
+                self._queue.extend(self._parked)
+                del self._parked[:]
+                self._cond.notify_all()
+
+    # -- introspection (callable under the store lock) -----------------------
+
+    def snapshot_jobs(self) -> List[SealJob]:
+        """Every job whose rows are not yet published to the catalog —
+        the read paths' virtual-segment source.  Deduped by identity:
+        a failing job sits on BOTH _inflight and _parked for a moment
+        (_on_seal_failure parks it before _run_job delists it), and a
+        double-listed job would double-count its rows in queries."""
+        with self._cond:
+            jobs = list(self._queue) + list(self._inflight) \
+                + list(self._parked)
+        seen: set = set()
+        out: List[SealJob] = []
+        for j in jobs:
+            if not j.committed and id(j) not in seen:
+                seen.add(id(j))
+                out.append(j)
+        return out
+
+    def pending_rows(self) -> int:
+        return sum(j.n for j in self.snapshot_jobs())
+
+    def parked_count(self) -> int:
+        with self._cond:
+            return len(self._parked)
+
+    def queue_depth(self) -> int:
+        with self._cond:
+            return len(self._queue) + len(self._inflight)
+
+    # -- drain (the commit gate's durability point) --------------------------
+
+    def drain(self, pump_inline: bool = True) -> None:
+        """Block until every queued/in-flight job committed or parked.
+
+        With no live workers (unstarted store, or every supervisor
+        escalated) the caller's thread seals the queue inline — the
+        sync-flush contract must hold even when the pool is down."""
+        while True:
+            if pump_inline and not self._workers_alive():
+                self._pump_inline()
+            with self._cond:
+                if not self._queue and not self._inflight:
+                    return
+                if self._workers_alive() or not pump_inline:
+                    # with live workers (or inline pumping disabled)
+                    # there is nothing to do but wait — never busy-spin
+                    self._cond.wait(timeout=0.05)
+
+    def _pump_inline(self) -> None:
+        while self.pump_one():
+            pass
+
+    def pump_one(self) -> bool:
+        """Seal ONE queued job on the caller's thread.  Returns False
+        when the queue is empty.  Used by the drain fallback (no live
+        workers) and by the writer's backpressure valve (see
+        ``SegmentStore.append_columns``)."""
+        with self._cond:
+            if not self._queue:
+                return False
+            job = self._queue.popleft()
+            self._inflight.append(job)
+        self._run_job(job)
+        return True
+
+    def _run_job(self, job: SealJob) -> None:
+        """Process one claimed job, fail-closed: whatever raises, an
+        uncommitted job is PARKED (never dropped) before the exception
+        propagates — a lost job would let a later sync flush report
+        durable-success for rows that exist nowhere."""
+        try:
+            self._process(job)
+        except BaseException:
+            with self._cond:
+                if job in self._inflight:
+                    self._inflight.remove(job)
+                if not job.committed and job not in self._parked:
+                    self._parked.append(job)
+                self._cond.notify_all()
+            raise
+        with self._cond:
+            if job in self._inflight:
+                self._inflight.remove(job)
+            self._cond.notify_all()
+
+    # -- worker side ---------------------------------------------------------
+
+    def _worker_loop(self) -> None:
+        while not self._stopping.is_set():
+            with self._cond:
+                while not self._queue and not self._stopping.is_set():
+                    self._cond.wait(timeout=0.2)
+                if self._stopping.is_set() and not self._queue:
+                    return
+                job = self._queue.popleft()
+                self._inflight.append(job)
+            # a raise parks the job (fail-closed), then the Supervisor
+            # restarts this loop
+            self._run_job(job)
+
+    def _process(self, job: SealJob) -> None:
+        """Seal one job: build the segment (zone maps + Blooms), write
+        the file, publish to the catalog, hand the packed block to the
+        hot tier, recycle the buffer.  Failure semantics mirror the
+        legacy phase-2 seal loop."""
+        store = self._store
+        if job.committed:
+            return
+        cols = unpack_cols(job.ints, job.flts)
+        t0 = time.perf_counter()
+        try:
+            seg = Segment(job.seq, cols, shard=job.shard,
+                          shard_count=store.n_shards)
+            path = store._segment_path(job.seq)
+            faults.fire("event_store.seal")
+            # chaos kill point: death mid-seal leaves a partial segment
+            # file; boot quarantines it and journal replay re-derives
+            # the rows (they are below no committed offset — the commit
+            # gate's sync flush had not passed this job)
+            faults.crosspoint("crash.mid_seal")
+            write_segment_file(path, cols, seg, sync=False)
+        except OSError as e:
+            self._on_seal_failure(job, e)
+            return
+        store._commit_sealed(job, seg, path,
+                             seal_s=time.perf_counter() - t0)
+        self.sealed_segments += 1
+
+    def _on_seal_failure(self, job: SealJob, exc: OSError) -> None:
+        store = self._store
+        now = time.monotonic()
+        job.attempts += 1
+        if job.first_failure_t is None:
+            job.first_failure_t = now
+        store.metrics.counter("store.seal_failures").inc()
+        from sitewhere_tpu_torch.runtime.metrics import global_registry
+        global_registry().counter(
+            "resilience.retries.event_store.seal").inc()
+        terminal = (job.attempts > store.max_seal_retries
+                    and now - job.first_failure_t
+                    >= store.seal_retry_window_s)
+        if terminal:
+            logger.error(
+                "segment %d seal failed %d times; dead-lettering %d "
+                "rows: %s", job.seq, job.attempts, job.n, exc)
+            recorded = dead_letter(store.dead_letters, {
+                "kind": "event-flush-failed",
+                "seq": int(job.seq),
+                "rows": int(job.n),
+                "ts_min": int(job.ints[_TS_ROW, :job.n].min())
+                if job.n else 0,
+                "ts_max": int(job.ints[_TS_ROW, :job.n].max())
+                if job.n else 0,
+                "error": str(exc),
+            })
+            if store.dead_letters is None or recorded:
+                # the dead-letter record IS the durable trace now.
+                # committed flips under the store lock BEFORE the
+                # buffer recycles — the reverse order would let a
+                # reader snapshot the still-"pending" job while a
+                # writer refills its recycled buffer (garbage rows)
+                with store._lock:
+                    store.sealed_dead_lettered += int(job.n)
+                    job.committed = True  # terminal: no longer pending
+                store._recycle_buffer(job)
+                return
+            # the durable trace could not be written (often the same
+            # dead disk): dropping now would be SILENT loss — keep the
+            # job parked and keep the sync flush failing instead
+        else:
+            logger.warning("segment %d seal failed (attempt %d); will "
+                           "retry: %s", job.seq, job.attempts, exc)
+        with self._cond:
+            if job not in self._parked:
+                self._parked.append(job)
+            self._cond.notify_all()
+
+
+__all__ = ["SealJob", "SealerPool"]

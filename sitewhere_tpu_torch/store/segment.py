@@ -1,18 +1,40 @@
-"""The stored event row's column schema.
+"""Columnar segment format: the one on-disk and in-memory event unit.
 
-Counterpart of the schema half of ``sitewhere_tpu/store/segment.py``
-(``COLUMNS`` / ``COLUMN_NAMES``, :46-68), from which the dispatcher's
-``EgressColumns`` derives its split into host and enrichment columns.
-The segment store itself waits for a later slice.
+Counterpart of ``sitewhere_tpu/store/segment.py``: an immutable
+struct-of-arrays segment persisted as one ``.npz`` file whose members
+carry the column arrays plus ~33 KB of prune metadata (zone-map bounds,
+Bloom filters, row count and ts range), so a restart or a catalog
+rebuild reads only the metadata.  The file's content is the reference's
+member for member: a segment one package writes, the other opens.
+
+- ``_meta_shard``: the tenant/device shard the segment belongs to
+  (``NULL_SHARD`` for unsharded segments) and the shard count at seal;
+- ``_meta_replaces``: compaction provenance, ``[src_seq, row_base,
+  rows]`` triplets naming the input segments a merged segment replaces,
+  so a boot that finds both the merged output and its inputs drops the
+  inputs (:func:`resolve_tombstones`) and old event ids remap through
+  the recorded row bases.
+
+:data:`INT_COLUMNS` / :data:`FLOAT_COLUMNS` define the packed ``[Ci, n]
+int32`` + ``[Cf, n] float32`` pair (:func:`pack_cols` /
+:func:`unpack_cols`) the hot tier keeps resident and the scan lane
+streams, the same struct-of-arrays shape the packed step stages.
 """
 
 from __future__ import annotations
 
+import os
+from collections import OrderedDict, deque
+import threading
+from typing import Dict, Iterable, List, Optional, Tuple
+
 import numpy as np
 
+from sitewhere_tpu_torch.ids import NULL_ID
+
 # Column schema of one stored event row: the EventBatch columns that
-# matter post-pipeline, plus the enrichment context and the server-side
-# receive time.
+# matter post-pipeline, plus the enrichment context (IDeviceEventContext
+# analog) and the server-side receive time.
 COLUMNS = (
     ("device_id", np.int32),
     ("tenant_id", np.int32),
@@ -37,3 +59,447 @@ COLUMNS = (
 )
 COLUMN_NAMES = tuple(name for name, _ in COLUMNS)
 COLUMN_DTYPES = dict(COLUMNS)
+
+# packed-column layout: every int32 column stacked [Ci, n], every
+# float32 column stacked [Cf, n] — the same struct-of-arrays shape the
+# packed pipeline stages to the device, so a hot segment is H2D-ready
+# without a pivot.
+INT_COLUMNS = tuple(n for n, d in COLUMNS if d is np.int32)
+FLOAT_COLUMNS = tuple(n for n, d in COLUMNS if d is np.float32)
+_INT_INDEX = {n: i for i, n in enumerate(INT_COLUMNS)}
+_FLOAT_INDEX = {n: i for i, n in enumerate(FLOAT_COLUMNS)}
+
+ROW_BITS = 24  # up to 16M rows per segment
+NULL_SHARD = -1
+
+
+def event_id(seq: int, row: int) -> int:
+    return (seq << ROW_BITS) | row
+
+
+def split_event_id(eid: int) -> tuple:
+    return eid >> ROW_BITS, eid & ((1 << ROW_BITS) - 1)
+
+
+def pack_cols(cols: Dict[str, np.ndarray]) -> Tuple[np.ndarray, np.ndarray]:
+    """Column dict → packed ``([Ci, n] int32, [Cf, n] float32)`` pair."""
+    n = len(cols["ts_s"])
+    ints = np.empty((len(INT_COLUMNS), n), np.int32)
+    flts = np.empty((len(FLOAT_COLUMNS), n), np.float32)
+    for i, name in enumerate(INT_COLUMNS):
+        ints[i] = cols[name]
+    for i, name in enumerate(FLOAT_COLUMNS):
+        flts[i] = cols[name]
+    return ints, flts
+
+
+def unpack_cols(ints: np.ndarray, flts: np.ndarray) -> Dict[str, np.ndarray]:
+    """Packed pair → column dict of row VIEWS (zero copy)."""
+    out: Dict[str, np.ndarray] = {}
+    for i, name in enumerate(INT_COLUMNS):
+        out[name] = ints[i]
+    for i, name in enumerate(FLOAT_COLUMNS):
+        out[name] = flts[i]
+    return out
+
+
+# Filterable columns carrying per-segment min/max zone-maps (the
+# Cassandra denormalized-table analog: a segment whose [min, max]
+# excludes the wanted key is skipped without touching its rows).
+FILTER_COLUMNS = (
+    "tenant_id", "device_id", "assignment_id", "customer_id", "area_id",
+    "asset_id", "event_type", "mtype_id", "alert_code", "command_id",
+)
+
+# High-cardinality exact-match columns get a per-segment Bloom filter on
+# top of the min/max bounds: random device ids never prune on range, but
+# a 128 Kbit two-hash Bloom (16 KB packed per segment; fill ~22% at 16k
+# rows → ~5% false positives) skips almost every non-containing segment.
+BLOOM_COLUMNS = ("device_id", "assignment_id")
+BLOOM_BITS = 17  # 131072-bit filter
+_H1 = 0x9E3779B97F4A7C15
+_H2 = 0xC2B2AE3D27D4EB4F
+_SHIFT = np.uint64(64 - BLOOM_BITS)
+
+
+def bloom_probe(want: int) -> tuple:
+    """(h1, h2) bit positions for one lookup key (pure-int: the prune
+    loop tests these against hundreds of segments per query)."""
+    v = want & 0xFFFFFFFFFFFFFFFF
+    return (((v * _H1) & 0xFFFFFFFFFFFFFFFF) >> int(_SHIFT),
+            ((v * _H2) & 0xFFFFFFFFFFFFFFFF) >> int(_SHIFT))
+
+
+# npz members carrying prune metadata alongside the column arrays, so a
+# restart reads ONLY these (np.load decompresses zip members on demand —
+# opening a segment never materializes its columns).
+META_CORE = "_meta_core"        # int64 [version, n, min_ts, max_ts]
+META_BOUNDS = "_meta_bounds"    # int64 (len(FILTER_COLUMNS), 2)
+# int64 [shard, shard_count]: the shard the rows routed to AND the
+# shard count in force when they were sealed.  Compaction groups by
+# the PAIR — after an events.shards resize, a device may hash to a
+# different shard, and merging segments across shard generations
+# could reorder its history in scan order.  Legacy 1-element arrays
+# read back with shard_count=0 (their own group).
+META_SHARD = "_meta_shard"
+META_REPLACES = "_meta_replaces"  # int64 (k, 3): [src_seq, row_base, rows]
+META_VERSION = 1
+
+
+def bloom_member(name: str) -> str:
+    return f"_bloom_{name}"
+
+
+class SegmentPruned(Exception):
+    """A lazy read found the segment file gone.
+
+    Sealed columns are disk-resident; readers must handle the file
+    vanishing mid-read (query retries on a fresh snapshot, scans skip
+    the expired segment, id lookups report the id expired).  Carries
+    the seq so the store can self-heal when the file vanished OUTSIDE
+    retention (manual deletion, disk fault)."""
+
+    def __init__(self, seq: int):
+        super().__init__(seq)
+        self.seq = seq
+
+
+class ColumnCache:
+    """Byte-bounded LRU over sealed-segment column arrays.
+
+    The store's durability layer (npz segment files) doubles as its
+    memory manager: sealed columns load on first touch and evict
+    least-recently-used once ``max_bytes`` of materialized columns
+    accumulate, so a store holding billions of rows keeps only blooms +
+    zone-map bounds (+ whatever the current query touches) resident.
+    """
+
+    def __init__(self, max_bytes: int):
+        self.max_bytes = int(max_bytes)
+        self._od: "OrderedDict[Tuple[int, str], np.ndarray]" = OrderedDict()
+        # pruned seqs (never reused: the seq high-water marker only goes
+        # up) — rejects a put() racing drop_seq(), which would otherwise
+        # park a dead column in the LRU that no reader ever asks for.
+        # Bounded: the race window is one in-flight column load, so only
+        # RECENT tombstones matter; older ones expire FIFO.
+        self._dead: set = set()
+        self._dead_order: deque = deque()
+        self._lock = threading.Lock()
+        self.bytes = 0
+        self.loads = 0
+        self.hits = 0
+        self.evictions = 0
+
+    def get(self, key: Tuple[int, str]) -> Optional[np.ndarray]:
+        with self._lock:
+            arr = self._od.get(key)
+            if arr is not None:
+                self._od.move_to_end(key)
+                self.hits += 1
+            return arr
+
+    def put(self, key: Tuple[int, str], arr: np.ndarray) -> None:
+        with self._lock:
+            if key[0] in self._dead:
+                return
+            old = self._od.pop(key, None)
+            if old is not None:
+                self.bytes -= old.nbytes
+            self._od[key] = arr
+            self.bytes += arr.nbytes
+            while self.bytes > self.max_bytes and len(self._od) > 1:
+                _, evicted = self._od.popitem(last=False)
+                self.bytes -= evicted.nbytes
+                self.evictions += 1
+
+    def drop_seq(self, seq: int) -> None:
+        """Forget a pruned segment's columns (and refuse late arrivals)."""
+        with self._lock:
+            if seq not in self._dead:
+                self._dead.add(seq)
+                self._dead_order.append(seq)
+                while len(self._dead_order) > 1024:
+                    self._dead.discard(self._dead_order.popleft())
+            for key in [k for k in self._od if k[0] == seq]:
+                self.bytes -= self._od.pop(key).nbytes
+
+
+class Segment:
+    """An immutable columnar segment (+ zone-map prune metadata).
+
+    Sealed segments are LAZY: only ``n``/``min_ts``/``max_ts``/
+    ``bounds``/``blooms`` stay resident; column arrays load from the
+    npz file on demand through the store's :class:`ColumnCache`.
+    ``light=True`` marks a VIRTUAL segment over an unsealed buffer —
+    fully resident, rebuilt per read call under the append lock, no
+    prune metadata (as the newest data it would rarely prune).
+
+    ``shard`` tags the tenant/device shard the rows were routed to
+    (``NULL_SHARD`` for legacy/unsharded data); ``replaces`` carries
+    compaction provenance (``(src_seq, row_base, rows)`` triplets);
+    ``order_key`` is the SCAN position — a compacted segment inherits
+    the minimum order key of its inputs so per-device append order
+    survives compaction (its fresh seq would otherwise move old rows
+    after newer ones).
+    """
+
+    __slots__ = ("seq", "n", "min_ts", "max_ts", "bounds", "blooms",
+                 "_cols", "_path", "_cache", "shard", "shard_count",
+                 "replaces", "order_key")
+
+    def __init__(self, seq: int, cols: Dict[str, np.ndarray],
+                 light: bool = False, shard: int = NULL_SHARD,
+                 shard_count: int = 0):
+        self.seq = seq
+        self._cols: Optional[Dict[str, np.ndarray]] = cols
+        self._path: Optional[str] = None
+        self._cache: Optional[ColumnCache] = None
+        self.shard = int(shard)
+        self.shard_count = int(shard_count)
+        self.replaces: Optional[Tuple[Tuple[int, int, int], ...]] = None
+        self.order_key = seq
+        self.n = len(cols["ts_s"])
+        self.min_ts = int(cols["ts_s"].min()) if self.n else 0
+        self.max_ts = int(cols["ts_s"].max()) if self.n else 0
+        if light:
+            self.bounds = None
+            self.blooms = {}
+            return
+        self.bounds = {
+            name: ((int(cols[name].min()), int(cols[name].max()))
+                   if self.n else (0, -1))
+            for name in FILTER_COLUMNS
+        }
+        self.blooms = {}
+        for name in BLOOM_COLUMNS:
+            bits = np.zeros(1 << BLOOM_BITS, np.bool_)
+            if self.n:
+                v = cols[name].astype(np.int64).astype(np.uint64)
+                bits[(v * np.uint64(_H1)) >> _SHIFT] = True
+                bits[(v * np.uint64(_H2)) >> _SHIFT] = True
+            self.blooms[name] = np.packbits(bits)  # 16 KB, MSB-first
+
+    @classmethod
+    def lazy(cls, seq: int, path: str, cache: ColumnCache, n: int,
+             min_ts: int, max_ts: int, bounds: Dict[str, tuple],
+             blooms: Dict[str, np.ndarray],
+             shard: int = NULL_SHARD, shard_count: int = 0,
+             replaces: Optional[Tuple[Tuple[int, int, int], ...]] = None,
+             ) -> "Segment":
+        """A sealed segment from persisted metadata — no columns
+        resident."""
+        seg = cls.__new__(cls)
+        seg.seq = seq
+        seg._cols = None
+        seg._path = path
+        seg._cache = cache
+        seg.n = n
+        seg.min_ts = min_ts
+        seg.max_ts = max_ts
+        seg.bounds = bounds
+        seg.blooms = blooms
+        seg.shard = int(shard)
+        seg.shard_count = int(shard_count)
+        seg.replaces = replaces
+        seg.order_key = (min(r[0] for r in replaces)
+                         if replaces else seq)
+        return seg
+
+    def detach(self, path: str, cache: ColumnCache) -> None:
+        """Release resident columns (post-seal): reads go via the
+        cache."""
+        self._path = path
+        self._cache = cache
+        self._cols = None
+
+    def _load_members(self, names: List[str]) -> Dict[str, np.ndarray]:
+        """One npz open covering every requested member (a cold segment
+        must not pay a zip-directory parse per column)."""
+        out: Dict[str, np.ndarray] = {}
+        try:
+            with np.load(self._path) as data:
+                files = set(data.files)
+                for name in names:
+                    if name in files:
+                        out[name] = data[name]
+                    else:  # forward-compat: absent column → default
+                        out[name] = np.full(self.n, NULL_ID,
+                                            COLUMN_DTYPES[name])
+        except FileNotFoundError:
+            raise SegmentPruned(self.seq) from None
+        return out
+
+    def col(self, name: str) -> np.ndarray:
+        """One column's array, loading (and caching) it if not
+        resident."""
+        # local capture: readers run lock-free while the sealer's
+        # detach() may null _cols between a check and a use
+        cols = self._cols
+        if cols is not None:
+            return cols[name]
+        key = (self.seq, name)
+        arr = self._cache.get(key)
+        if arr is None:
+            self._cache.loads += 1
+            arr = self._load_members([name])[name]
+            self._cache.put(key, arr)
+        return arr
+
+    def materialize(self) -> Dict[str, np.ndarray]:
+        """Every column (scan/page API) — via the cache when lazy, with
+        ONE file open for all the columns a cold segment is missing."""
+        cols = self._cols  # local capture: see col()
+        if cols is not None:
+            return dict(cols)
+        out: Dict[str, np.ndarray] = {}
+        missing: List[str] = []
+        for name in COLUMN_NAMES:
+            arr = self._cache.get((self.seq, name))
+            if arr is None:
+                missing.append(name)
+            else:
+                out[name] = arr
+        if missing:
+            self._cache.loads += 1
+            loaded = self._load_members(missing)
+            for name, arr in loaded.items():
+                self._cache.put((self.seq, name), arr)
+                out[name] = arr
+        return out
+
+    def may_contain(self, name: str, h1: int, h2: int) -> bool:
+        bloom = self.blooms.get(name)
+        if bloom is None:
+            return True
+        return bool(bloom[h1 >> 3] >> (7 - (h1 & 7)) & 1
+                    and bloom[h2 >> 3] >> (7 - (h2 & 7)) & 1)
+
+
+def segment_pruned(c: Segment, active, probes, t0, t1) -> bool:
+    """Zone-map + Bloom skip (the hour-bucket/denormalized-table
+    analog) — ONE predicate shared by the indexed query path, the
+    legacy scan API and the segment catalog's retrospective lane, so
+    they can never disagree about what a segment's metadata
+    excludes."""
+    if c.n == 0:
+        return True
+    if t0 is not None and c.max_ts < t0:
+        return True
+    if t1 is not None and c.min_ts > t1:
+        return True
+    if c.bounds is None:
+        return False  # light segment (unsealed buffer): never pruned
+    for name, want in active:
+        lo, hi = c.bounds[name]
+        if want < lo or want > hi:
+            return True
+        probe = probes.get(name)
+        if probe is not None and not c.may_contain(name, *probe):
+            return True
+    return False
+
+
+def write_segment_file(path: str, cols: Dict[str, np.ndarray],
+                       seg: Segment, sync: bool = True,
+                       fsync_dir=None) -> None:
+    """Atomically write one sealed segment: columns + prune metadata.
+
+    ``sync=False`` defers the fsyncs: the write stays atomic (tmp +
+    rename) but durability is settled later by the store's deferred-
+    durability pass.  The at-least-once premise only requires a segment
+    to be DURABLE before the journal offset covering its rows is
+    committed (the commit gate's explicit sync flush), not at seal
+    time."""
+    meta = {
+        META_CORE: np.asarray(
+            [META_VERSION, seg.n, seg.min_ts, seg.max_ts], np.int64),
+        META_BOUNDS: np.asarray(
+            [seg.bounds[name] for name in FILTER_COLUMNS], np.int64),
+        META_SHARD: np.asarray([seg.shard, seg.shard_count], np.int64),
+    }
+    if seg.replaces:
+        meta[META_REPLACES] = np.asarray(seg.replaces, np.int64)
+    for bname, bloom in seg.blooms.items():
+        meta[bloom_member(bname)] = bloom
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "wb") as f:
+        np.savez(f, **cols, **meta)
+        if sync:
+            f.flush()
+            os.fsync(f.fileno())
+    os.replace(tmp, path)
+    if sync and fsync_dir is not None:
+        fsync_dir()
+
+
+def open_segment(seq: int, path: str, cache: ColumnCache) -> Segment:
+    """Open a sealed segment reading ONLY its prune metadata.
+
+    np.load on an npz reads the zip directory, not the members; the
+    metadata arrays written at seal time are the only members touched
+    here.  A pre-metadata file (older store) raises KeyError — the
+    caller falls back to a full column read."""
+    with np.load(path) as data:
+        files = set(data.files)
+        if META_CORE not in files or META_BOUNDS not in files:
+            raise KeyError("pre-metadata segment")
+        core = data[META_CORE]
+        bounds_arr = data[META_BOUNDS]
+        if (int(core[0]) != META_VERSION
+                or len(bounds_arr) != len(FILTER_COLUMNS)):
+            raise KeyError("unknown segment metadata version")
+        bounds = {
+            name: (int(bounds_arr[i][0]), int(bounds_arr[i][1]))
+            for i, name in enumerate(FILTER_COLUMNS)
+        }
+        blooms = {
+            name: data[bloom_member(name)]
+            for name in BLOOM_COLUMNS
+            if bloom_member(name) in files
+        }
+        shard, shard_count = NULL_SHARD, 0
+        if META_SHARD in files:
+            shard_arr = data[META_SHARD]
+            shard = int(shard_arr[0])
+            if len(shard_arr) > 1:  # legacy files carry only [shard]
+                shard_count = int(shard_arr[1])
+        replaces = None
+        if META_REPLACES in files:
+            replaces = tuple(
+                (int(r[0]), int(r[1]), int(r[2]))
+                for r in data[META_REPLACES])
+    return Segment.lazy(seq, path, cache, n=int(core[1]),
+                        min_ts=int(core[2]), max_ts=int(core[3]),
+                        bounds=bounds, blooms=blooms, shard=shard,
+                        shard_count=shard_count, replaces=replaces)
+
+
+def resolve_tombstones(segments: Iterable[Segment]) -> Tuple[
+        List[Segment], List[Segment]]:
+    """Apply compaction provenance to a freshly scanned segment set.
+
+    A merged segment's ``replaces`` triplets tombstone its input seqs:
+    a crash between the merged file landing and the input files being
+    unlinked leaves BOTH on disk, and rebuilding the catalog from the
+    directory alone would double every compacted row.  Returns
+    ``(live, tombstoned)`` — the caller unlinks the tombstoned files.
+    """
+    segs = list(segments)
+    dead = set()
+    for s in segs:
+        if s.replaces:
+            dead.update(r[0] for r in s.replaces)
+    live = [s for s in segs if s.seq not in dead]
+    gone = [s for s in segs if s.seq in dead]
+    return live, gone
+
+
+__all__ = [
+    "COLUMNS", "COLUMN_NAMES", "COLUMN_DTYPES", "INT_COLUMNS",
+    "FLOAT_COLUMNS", "FILTER_COLUMNS", "BLOOM_COLUMNS", "BLOOM_BITS",
+    "ROW_BITS", "NULL_SHARD", "META_CORE", "META_BOUNDS", "META_SHARD",
+    "META_REPLACES", "META_VERSION", "event_id", "split_event_id",
+    "pack_cols", "unpack_cols", "bloom_probe", "bloom_member",
+    "SegmentPruned", "ColumnCache", "Segment", "segment_pruned",
+    "write_segment_file", "open_segment", "resolve_tombstones",
+]

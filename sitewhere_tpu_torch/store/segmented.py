@@ -1,0 +1,596 @@
+"""SegmentStore: the log-structured sharded segment store.
+
+Counterpart of ``sitewhere_tpu/store/segmented.py``, the dispatcher's
+``event_store``.  It keeps the public API of
+:class:`~sitewhere_tpu_torch.services.event_store.EventStore` (the
+indexed queries are inherited) and persists through four pieces:
+
+- **sharded packed append buffers**: ``append_columns`` routes rows by a
+  ``(tenant_id, device_id)`` hash into per-shard ``[C, cap]`` packed
+  buffers.  The egress worker's whole seal cost is that row copy plus an
+  O(1) job enqueue when a buffer fills.
+- **seal worker pool** (:mod:`~sitewhere_tpu_torch.store.sealer`):
+  supervised, fail-closed background workers turn full buffers into
+  durable segments.  ``flush(sync=True)``, the dispatcher's commit
+  gate, drains the queue and settles the deferred fsyncs before the
+  journal offset may commit.
+- **segment catalog** (:mod:`~sitewhere_tpu_torch.store.catalog`):
+  retention and compaction go through it, and old event ids survive
+  compaction through its remap.
+- **hot tier and scan lane** (:mod:`~sitewhere_tpu_torch.store.tiering`,
+  :mod:`~sitewhere_tpu_torch.store.scan`): recent segments stay
+  resident in packed form, and scans stream pruned segments oldest
+  first.
+
+Event ids stay ``(seq << 24) | row``: a shard buffer takes its segment
+seq when it opens, so an id handed out against a buffered row is the id
+of the sealed row.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import os
+import time
+from typing import Dict, Iterator, List, Optional
+
+import numpy as np
+
+from sitewhere_tpu_torch.analysis.markers import hot_path
+from sitewhere_tpu_torch.ids import NULL_ID
+from sitewhere_tpu_torch.runtime.metrics import global_registry
+from sitewhere_tpu_torch.services.common import EntityNotFound, ValidationError
+from sitewhere_tpu_torch.services.event_store import EventRecord, EventStore
+from sitewhere_tpu_torch.store.catalog import SegmentCatalog
+from sitewhere_tpu_torch.store.scan import iter_segment_cols
+from sitewhere_tpu_torch.store.sealer import SealJob, SealerPool
+from sitewhere_tpu_torch.store.segment import (
+    COLUMNS,
+    FLOAT_COLUMNS,
+    INT_COLUMNS,
+    _INT_INDEX,
+    Segment,
+    event_id,
+    open_segment,
+    split_event_id,
+)
+from sitewhere_tpu_torch.store.compaction import Compactor
+from sitewhere_tpu_torch.store.tiering import HotTier
+
+logger = logging.getLogger("sitewhere_tpu_torch.store")
+
+_MIX_DEV = 2654435761  # Knuth multiplicative hash
+_MIX_TEN = 97
+
+
+class _ShardBuffer:
+    """One shard's open packed append buffer.
+
+    ``seq`` is assigned when the buffer opens (first row), making event
+    ids stable across the seal; the buffer becomes exactly the segment
+    of that seq.  Buffers recycle through a freelist once their seal
+    job completes — steady-state appends allocate nothing.
+
+    Storage grows on demand (doubling) toward ``cap`` instead of being
+    allocated eagerly: ``cap`` tracks ``flush_rows``, and a large
+    flush threshold (the benches use 2^30 for "never auto-seal") must
+    not eagerly commit gigabytes per shard.  Growth happens under the
+    store lock while the buffer is OPEN — seal jobs only ever hold
+    views of a buffer that stopped growing.
+    """
+
+    INITIAL_ROWS = 4096
+
+    __slots__ = ("shard", "seq", "ints", "flts", "n", "cap", "alloc")
+
+    def __init__(self, cap: int):
+        self.shard = -1
+        self.seq = -1
+        self.cap = int(cap)
+        self.alloc = min(self.cap, self.INITIAL_ROWS)
+        self.ints = np.empty((len(INT_COLUMNS), self.alloc), np.int32)
+        self.flts = np.empty((len(FLOAT_COLUMNS), self.alloc), np.float32)
+        self.n = 0
+
+    def ensure(self, rows: int) -> None:
+        """Grow storage so ``rows`` total rows fit (amortized: doubles
+        up to ``cap``)."""
+        if rows <= self.alloc:
+            return
+        new_alloc = min(self.cap, max(rows, 2 * self.alloc))
+        ints = np.empty((len(INT_COLUMNS), new_alloc), np.int32)
+        flts = np.empty((len(FLOAT_COLUMNS), new_alloc), np.float32)
+        ints[:, :self.n] = self.ints[:, :self.n]
+        flts[:, :self.n] = self.flts[:, :self.n]
+        self.ints, self.flts, self.alloc = ints, flts, new_alloc
+
+
+class SegmentStore(EventStore):
+    """Tenant/device-sharded log-structured columnar event store."""
+
+    def __init__(
+        self,
+        root: str,
+        flush_rows: int = 10_000,
+        flush_interval_s: float = 0.25,
+        retention_s: Optional[int] = None,
+        resident_bytes: int = 256 << 20,
+        dead_letters=None,
+        max_seal_retries: int = 8,
+        seal_retry_window_s: float = 30.0,
+        name: str = "event-store",
+        *,
+        n_shards: int = 4,
+        shard_key=None,
+        seal_workers: int = 2,
+        hot_bytes: int = 64 << 20,
+        compact_min_rows: int = 0,
+        compact_target_rows: int = 1 << 20,
+        compact_interval_s: float = 30.0,
+        metrics=None,
+    ):
+        self.metrics = metrics if metrics is not None else global_registry()
+        self.n_shards = max(1, int(n_shards))
+        # Optional placement override: ``shard_key(device_ids, tenant_ids)
+        # -> shard array``.  The instance passes a MESH-aligned key on a
+        # multi-chip deployment — store shards keyed to the mesh shard
+        # owning each device's registry block — so one egress segment's
+        # columns land in ONE shard buffer instead of hash-scattering
+        # across all of them host-side.  None keeps the tenant/device
+        # hash (best load spread for single-chip).
+        self._shard_key = shard_key
+        # tenant metering hook: the instance points this at its
+        # UsageLedger so sealed bytes bill per tenant (_commit_sealed)
+        self.usage_ledger = None
+        super().__init__(
+            root, flush_rows=flush_rows, flush_interval_s=flush_interval_s,
+            retention_s=retention_s, resident_bytes=resident_bytes,
+            dead_letters=dead_letters, max_seal_retries=max_seal_retries,
+            seal_retry_window_s=seal_retry_window_s, name=name)
+        cap = min(max(int(flush_rows), 64), (1 << 24) - 1)
+        self._buf_cap = cap
+        self._open_bufs: List[Optional[_ShardBuffer]] = \
+            [None] * self.n_shards
+        self._free_bufs: List[_ShardBuffer] = []
+        # hoisted identity-index scratch for the single-shard route (the
+        # hot-path allocation lint's np.arange finding): grown on demand,
+        # sliced per batch
+        self._iota = np.arange(4096, dtype=np.int64)
+        # ids of segments currently inputs of an in-flight compaction
+        # merge (guarded by _lock): retention skips them, so a crash
+        # after the merged write can never resurrect rows a concurrent
+        # prune removed — the merged segment simply straddles the
+        # cutoff and the NEXT retention pass collects it whole
+        self._compacting: set = set()
+        self.catalog = SegmentCatalog(self)
+        self.hot = HotTier(hot_bytes, metrics=self.metrics)
+        self.sealer = SealerPool(self, workers=seal_workers)
+        # compact_min_rows defaults to flush_rows // 4: interval flushes
+        # of a quiet shard produce sub-quarter-full segments worth
+        # folding; 0 keeps the default, negative disables
+        if compact_min_rows == 0:
+            compact_min_rows = max(2, int(flush_rows) // 4)
+        self.compactor = Compactor(
+            self, min_rows=max(0, compact_min_rows),
+            target_rows=compact_target_rows,
+            interval_s=compact_interval_s)
+        self.catalog.adopt_loaded()
+        # pre-register the store.* family so the OpenMetrics surface
+        # (and the dynamic name-lint) sees it even before traffic
+        for c in ("rows_sealed", "bytes_written", "seal_failures",
+                  "rows_compacted", "segments_compacted", "scan_rows",
+                  "scan_hot_hits", "scan_pruned", "tier_promotions",
+                  "tier_demotions"):
+            self.metrics.counter(f"store.{c}")
+        self.metrics.histogram("store.seal_s")
+        self.metrics.histogram("store.compact_s")
+        self._m_buffered = self.metrics.gauge("store.buffered_rows")
+        self._update_gauges()
+
+    # -- layout --------------------------------------------------------------
+
+    def _segment_path(self, seq: int) -> str:
+        return os.path.join(self.dir, f"events-{seq:010d}.npz")
+
+    def _open_chunk(self, seq: int, path: str) -> Segment:
+        try:
+            return open_segment(seq, path, self._cache)
+        except KeyError:
+            # pre-metadata legacy chunk: the base class rebuilds (and
+            # persists) its metadata with a one-time full read
+            return super()._open_chunk(seq, path)
+
+    # -- write path ----------------------------------------------------------
+
+    @hot_path
+    def append_columns(
+        self, cols: Dict[str, np.ndarray], mask: Optional[np.ndarray] = None
+    ) -> int:
+        """Route a column batch into the shard buffers (optionally
+        row-masked).  Returns rows added.
+
+        This IS the seal hand-off the dispatcher's egress pays: packed
+        row copies plus an O(1) enqueue when a buffer fills — never an
+        npz build, never an fsync.  Those run on the seal workers.
+
+        Backpressure valve (the legacy 4×-flush_rows inline seal, pool
+        edition): if the seal queue falls more than a few jobs behind
+        the workers, the WRITER seals one job on its own thread —
+        bounded memory beats hot-path latency when the disk cannot
+        keep up, exactly the legacy safety-valve trade."""
+        added = self._route_and_fill(cols, mask)
+        if added:
+            self._m_buffered.set(self._buffered_rows)
+            if self.sealer.queue_depth() > 4 + self.sealer.n_workers:
+                self.sealer.pump_one()
+        return added
+
+    def _route_and_fill(self, cols, mask) -> int:
+        """Validate, shard-route and copy rows into the packed buffers;
+        enqueue seal jobs for any buffer that filled."""
+        src: Dict[str, np.ndarray] = {}
+        n_src = None
+        for name, dtype in COLUMNS:
+            if name == "received_s":
+                continue
+            if name not in cols:
+                raise ValidationError(f"missing event column {name}")
+            arr = np.asarray(cols[name])
+            if n_src is None:
+                n_src = len(arr)
+            elif len(arr) != n_src:
+                raise ValidationError(
+                    f"column {name} length {len(arr)} != {n_src}")
+            src[name] = arr
+        idx = None
+        if mask is not None:
+            mask_arr = np.asarray(mask)
+            if len(mask_arr) != n_src:
+                raise ValidationError(
+                    f"mask length {len(mask_arr)} != {n_src}")
+            idx = np.nonzero(mask_arr)[0]
+            if not len(idx):
+                return 0
+        if not n_src:
+            return 0
+        dev = src["device_id"] if idx is None \
+            else src["device_id"].take(idx)
+        ten = src["tenant_id"] if idx is None \
+            else src["tenant_id"].take(idx)
+        shards = self._shard_of(dev, ten)
+        received = np.int32(int(time.time()))
+        total = len(dev)
+        added = 0
+        jobs: List[SealJob] = []
+        with self._lock:
+            # scratch growth must happen under the lock: two racing
+            # appenders regrowing it unlocked could leave the slower
+            # one slicing a too-short iota (silently dropped rows)
+            if len(self._iota) < total:
+                self._iota = np.arange(
+                    max(total, 2 * len(self._iota)), dtype=np.int64)
+            for s in range(self.n_shards):
+                rel = np.nonzero(shards == s)[0] if self.n_shards > 1 \
+                    else self._iota[:total]
+                if not len(rel):
+                    continue
+                sel = rel if idx is None else idx.take(rel)
+                pos = 0
+                while pos < len(sel):
+                    buf = self._open_buf_locked(s)
+                    k = min(buf.cap - buf.n, len(sel) - pos)
+                    part = sel[pos:pos + k]
+                    lo, hi = buf.n, buf.n + k
+                    buf.ensure(hi)
+                    for ci, cname in enumerate(INT_COLUMNS):
+                        if cname == "received_s":
+                            buf.ints[ci, lo:hi] = received
+                        else:
+                            buf.ints[ci, lo:hi] = src[cname].take(part)
+                    for ci, cname in enumerate(FLOAT_COLUMNS):
+                        buf.flts[ci, lo:hi] = src[cname].take(part)
+                    buf.n = hi
+                    pos += k
+                    added += k
+                    if buf.n >= buf.cap:
+                        jobs.append(self._close_buf_locked(s))
+            self._recount_buffered_locked()
+            if jobs:
+                self.sealer.enqueue_many(jobs)
+        return added
+
+    def _recount_buffered_locked(self) -> None:
+        self._buffered_rows = sum(
+            b.n for b in self._open_bufs if b is not None)
+
+    def _shard_of(self, dev: np.ndarray, ten: np.ndarray) -> np.ndarray:
+        if self.n_shards <= 1:
+            return np.zeros(len(dev), np.int64)
+        if self._shard_key is not None:
+            # mesh-keyed placement; the modulo keeps an out-of-range key
+            # (unregistered NULL_ID rows) a valid shard, never a crash
+            return (np.asarray(self._shard_key(dev, ten), np.int64)
+                    % self.n_shards)
+        d = dev.astype(np.int64)
+        t = ten.astype(np.int64)
+        return ((d * _MIX_DEV) ^ (t * _MIX_TEN)) % self.n_shards
+
+    def _open_buf_locked(self, shard: int) -> _ShardBuffer:
+        buf = self._open_bufs[shard]
+        if buf is None:
+            buf = self._free_bufs.pop() if self._free_bufs \
+                else _ShardBuffer(self._buf_cap)
+            buf.shard = shard
+            buf.seq = self._next_seq
+            self._next_seq += 1
+            buf.n = 0
+            self._open_bufs[shard] = buf
+        return buf
+
+    def _close_buf_locked(self, shard: int) -> SealJob:
+        buf = self._open_bufs[shard]
+        self._open_bufs[shard] = None
+        return SealJob(buf.seq, shard, buf.ints[:, :buf.n],
+                       buf.flts[:, :buf.n], buf.n, buffer=buf)
+
+    def _recycle_buffer(self, job: SealJob) -> None:
+        with self._lock:
+            buf = job.buffer
+            job.buffer = None
+            if buf is not None and len(self._free_bufs) < 2 * self.n_shards:
+                self._free_bufs.append(buf)
+
+    def add_event(self, **fields) -> EventRecord:
+        """Append one event (REST create path).  The id is computed
+        from the owning shard buffer's assigned seq — stable across the
+        background seal."""
+        received = np.int32(int(time.time()))
+        values: Dict[str, object] = {}
+        for name, dtype in COLUMNS:
+            if name == "received_s":
+                values[name] = int(received)
+                continue
+            default = NULL_ID if np.issubdtype(dtype, np.integer) else 0.0
+            values[name] = fields.get(name, default)
+        jobs: List[SealJob] = []
+        with self._lock:
+            shard = int(self._shard_of(
+                np.asarray([values["device_id"]], np.int64),
+                np.asarray([values["tenant_id"]], np.int64))[0])
+            buf = self._open_buf_locked(shard)
+            seq, pos = buf.seq, buf.n
+            buf.ensure(pos + 1)
+            for ci, cname in enumerate(INT_COLUMNS):
+                buf.ints[ci, pos] = int(values[cname])
+            for ci, cname in enumerate(FLOAT_COLUMNS):
+                buf.flts[ci, pos] = float(values[cname])
+            # read back through the buffer so the record reflects the
+            # stored dtypes exactly (int32/float32 truncation included)
+            for ci, cname in enumerate(INT_COLUMNS):
+                values[cname] = int(buf.ints[ci, pos])
+            for ci, cname in enumerate(FLOAT_COLUMNS):
+                values[cname] = float(buf.flts[ci, pos])
+            buf.n += 1
+            if buf.n >= buf.cap:
+                jobs.append(self._close_buf_locked(shard))
+                self.sealer.enqueue_many(jobs)
+            self._recount_buffered_locked()
+        return EventRecord(event_id=event_id(seq, pos), **values)
+
+    # -- seal completion (worker side) ---------------------------------------
+
+    def _commit_sealed(self, job: SealJob, seg: Segment, path: str,
+                       seal_s: float) -> None:
+        """Publish one durably written segment (called by a seal
+        worker, or inline from a drain with no workers)."""
+        with self._lock:
+            seg.detach(path, self._cache)
+            self.catalog.add_locked(seg)
+            self._unsynced_paths.add(path)
+            job.committed = True
+            # seq high-water marker rides the worker (off the hot
+            # path); boot recovers a stale one from the files
+            try:
+                self._write_marker(sync=False)
+            except OSError:
+                logger.exception("next-seq marker write failed")
+        self.hot.adopt(seg.seq, job.ints, job.flts, job.n)
+        self._recycle_buffer(job)
+        self.metrics.counter("store.rows_sealed").inc(job.n)
+        self.metrics.counter("store.bytes_written").inc(
+            int(job.ints.nbytes + job.flts.nbytes))
+        self.metrics.histogram("store.seal_s").observe(seal_s)
+        # Tenant metering: every sealed row bills its storage-bytes
+        # share to its tenant (the tenant column is right there in the
+        # job's packed ints; one bincount on the seal WORKER — never
+        # the hot path).  Attribute wired by the instance; None = off.
+        ledger = getattr(self, "usage_ledger", None)
+        if ledger is not None and job.n:
+            bytes_per_row = (job.ints.nbytes + job.flts.nbytes) / job.n
+            try:
+                ledger.charge_rows_host(
+                    job.ints[_INT_INDEX["tenant_id"], :job.n],
+                    "sealed_bytes",
+                    weights=np.full(job.n, bytes_per_row))
+            except Exception:
+                logger.exception("sealed-bytes usage charge failed")
+        self._update_gauges()
+
+    # -- flush / drain -------------------------------------------------------
+
+    def flush(self, sync: bool = True) -> int:
+        """Seal every open shard buffer.  ``sync=True`` (commit gate,
+        shutdown) additionally drains the seal queue and settles the
+        deferred fsyncs, raising while any job is parked failed — the
+        durability point journal reclaim is premised on."""
+        with self._flush_io:
+            jobs: List[SealJob] = []
+            with self._lock:
+                for s in range(self.n_shards):
+                    buf = self._open_bufs[s]
+                    if buf is not None and buf.n:
+                        jobs.append(self._close_buf_locked(s))
+                flushed = sum(j.n for j in jobs)
+                self._recount_buffered_locked()
+                if jobs:
+                    self.sealer.enqueue_many(jobs)
+                self._last_flush = time.monotonic()
+            self.sealer.retry_parked()
+            if sync:
+                self.sealer.drain()
+                with self._lock:
+                    self._sync_durable()
+                parked = self.sealer.parked_count()
+                if parked:
+                    raise OSError(
+                        f"{parked} segment(s) not durably sealed")
+            elif not self.sealer.running:
+                # unstarted store: flush(sync=False) still performs the
+                # writes (legacy parity) — on the caller's thread
+                self.sealer.drain(pump_inline=True)
+        return flushed
+
+    # -- reads ---------------------------------------------------------------
+
+    def _buffer_chunks_locked(self) -> List[Segment]:
+        """Virtual segments over every unsealed row: queued/in-flight/
+        parked seal jobs plus open shard buffers.  Row data is COPIED
+        under the lock — the backing buffers recycle once their job
+        commits, and a query result must not read recycled memory."""
+        out: List[Segment] = []
+        for job in self.sealer.snapshot_jobs():
+            out.append(self._virtual_locked(
+                job.seq, job.shard, job.ints, job.flts, job.n))
+        for buf in self._open_bufs:
+            if buf is not None and buf.n:
+                out.append(self._virtual_locked(
+                    buf.seq, buf.shard, buf.ints, buf.flts, buf.n))
+        out.sort(key=lambda c: c.seq)
+        return out
+
+    def _virtual_locked(self, seq, shard, ints, flts, n) -> Segment:
+        cols: Dict[str, np.ndarray] = {}
+        for ci, cname in enumerate(INT_COLUMNS):
+            cols[cname] = ints[ci, :n].copy()
+        for ci, cname in enumerate(FLOAT_COLUMNS):
+            cols[cname] = flts[ci, :n].copy()
+        return Segment(seq, cols, light=True, shard=shard)
+
+    @property
+    def total_events(self) -> int:
+        with self._lock:
+            n = sum(c.n for c in self._chunks) + self._buffered_rows
+            n += sum(j.n for j in self.sealer.snapshot_jobs())
+        return n
+
+    def get_event(self, eid: int) -> EventRecord:
+        try:
+            return super().get_event(eid)
+        except EntityNotFound:
+            # compacted away?  old ids keep resolving through the
+            # catalog remap (provenance-recorded row bases).  The
+            # record carries the REQUESTED id — the caller's handle
+            # stays round-trippable, the merged segment's fresh
+            # (seq, row) is an internal detail
+            seq, row = split_event_id(eid)
+            entry = self.catalog.resolve_remapped(seq)
+            if entry is not None:
+                seg, base, rows = entry
+                if row < rows:
+                    try:
+                        rec = self._record(seg, base + row)
+                    except Exception:
+                        pass
+                    else:
+                        return dataclasses.replace(rec, event_id=eid)
+            raise
+
+    def iter_chunks(self, **filters) -> Iterator[Dict[str, np.ndarray]]:
+        """The retrospective scan lane (see store/scan.py): catalog-
+        pruned, hot-tier-served, row-filtered column streams in scan
+        order.  Accepts ``stats={}`` to collect THIS scan's
+        pruned/hot-hit accounting (race-free, unlike the shared
+        ``store.scan_*`` counters)."""
+        self.flush()
+        return iter_segment_cols(self, **filters)
+
+    # -- retention -----------------------------------------------------------
+
+    def prune_older_than(self, cutoff_s: int) -> int:
+        """Retention THROUGH the catalog: only committed segments are
+        candidates, so a pass can never race a background seal worker
+        into a dangling entry — an in-flight job is simply not in the
+        catalog yet (its rows are newer than any honest cutoff anyway;
+        if not, the next pass collects the sealed segment)."""
+        with self._lock:
+            doomed = self.catalog.prune_locked(cutoff_s)
+            if not doomed:
+                return 0
+            paths = []
+            for c in doomed:
+                path = c._path or self._segment_path(c.seq)
+                self._unsynced_paths.discard(path)
+                paths.append((c, path))
+            # Seqs must never regress: the high-water marker goes
+            # durable BEFORE any segment file disappears
+            self._write_marker(sync=True)
+            removed = 0
+            for c, path in paths:
+                removed += c.n
+                self._cache.drop_seq(c.seq)
+                self.hot.drop(c.seq)
+                try:
+                    os.unlink(path)
+                except FileNotFoundError:
+                    pass
+        self._update_gauges()
+        return removed
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def start(self) -> None:
+        super().start()          # interval flusher + retention ticks
+        self.sealer.start()
+        self.compactor.start()
+
+    def stop(self) -> None:
+        self.compactor.stop()
+        try:
+            super().stop()       # joins the flusher, then sync flush
+        finally:
+            self.sealer.stop()
+
+    # -- observability -------------------------------------------------------
+
+    def _update_gauges(self) -> None:
+        m = self.metrics
+        with self._lock:
+            segs = len(self._chunks)
+        m.gauge("store.segments").set(segs)
+        m.gauge("store.segments_hot").set(len(self.hot))
+        m.gauge("store.hot_bytes").set(self.hot.bytes)
+        m.gauge("store.seal_queue_depth").set(self.sealer.queue_depth())
+        m.gauge("store.buffered_rows").set(self._buffered_rows)
+
+    def store_stats(self) -> Dict[str, object]:
+        with self._lock:
+            segs = len(self._chunks)
+            shards = sorted({c.shard for c in self._chunks})
+        return {
+            "segments": segs,
+            "shards": shards,
+            "buffered_rows": int(self._buffered_rows),
+            "queued_rows": self.sealer.pending_rows(),
+            "sealed_segments": self.sealer.sealed_segments,
+            "compactions": self.compactor.compactions,
+            "tombstones_resolved": self.catalog.tombstones_resolved,
+            "hot": self.hot.stats(),
+            "cache": self.cache_stats(),
+        }
+
+    def verify_catalog(self) -> List[str]:
+        return self.catalog.verify()
+
+
+__all__ = ["SegmentStore"]

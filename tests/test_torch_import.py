@@ -120,3 +120,62 @@ def test_port_has_no_cpu_step_fallback():
             assert "_packed_step" not in body and "_step" not in body \
                 and "'cpu'" not in body, ast.get_source_segment(
                     src.read_text(), node)
+
+
+# The persist-and-restart slice's modules, each imported on its own with
+# JAX and the reference blocked.
+SLICE4_MODULES = (
+    "store.segment", "store.scan", "store.tiering", "store.sealer",
+    "store.compaction", "store.catalog", "store.segmented",
+    "services.event_store", "runtime.config", "runtime.checkpoint",
+    "instance",
+)
+
+_ONE_BY_ONE = """
+import importlib, json, sys
+sys.modules["jax"] = None
+sys.modules["sitewhere_tpu"] = None
+out = {}
+for name in sys.argv[1:]:
+    before = set(sys.modules)
+    try:
+        importlib.import_module("sitewhere_tpu_torch." + name)
+        out[name] = "ok"
+    except Exception as e:
+        out[name] = f"{type(e).__name__}: {e}"
+bad = sorted(m for m, v in sys.modules.items() if v is not None
+             and (m.startswith("jax") or m == "sitewhere_tpu"
+                  or m.startswith("sitewhere_tpu.")))
+print(json.dumps([out, bad]))
+"""
+
+
+@pytest.fixture(scope="module")
+def slice4_imports():
+    import json
+
+    proc = subprocess.run(
+        [sys.executable, "-c", _ONE_BY_ONE, *SLICE4_MODULES], cwd=REPO,
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout.strip())
+
+
+@pytest.mark.parametrize("name", SLICE4_MODULES)
+def test_slice4_module_imports_without_jax(slice4_imports, name):
+    out, bad = slice4_imports
+    assert out[name] == "ok"
+    assert bad == []
+
+
+def test_instance_raises_without_a_card(monkeypatch, tmp_path):
+    from sitewhere_tpu_torch.instance import Instance
+    from sitewhere_tpu_torch.runtime.config import Config
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = Config({"instance": {"data_dir": str(tmp_path)},
+                  "pipeline": {"width": 8, "registry_capacity": 16}},
+                 apply_env=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Instance(cfg)
+    assert not (tmp_path / "checkpoint").exists()

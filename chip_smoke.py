@@ -71,7 +71,30 @@ script exits non-zero without printing a result:
    the device state equal to the golden run's (ints exact, EWMA within 4
    ULPs of the value scale, other floats bitwise), kernel launches ==
    steps; reports the boot, restore, warm-up and replay seconds;
-8. a small input run on the card and on the CPU: identical int outputs.
+8. bring-your-own rule programs (phase ``byo_rules``).  ``rules_engine``:
+   a ``RuleEngineRunner`` at the deployment's size (2^20 slots, 8
+   measurement slots, K=3) with 4 programs of each of the five structure
+   keys (c2p4, c2p4g, c4p4, c4p4g, c4p8) for each of the 8 world
+   tenants, set to fire on about 1% of rows, the device ``tier`` of
+   every active device and the ``grade`` of every asset, and a
+   population of 20,000 programs from ``tools/rulebench.py``'s mix over
+   5,000 more tenants; 24 full-width 60/30/10 batches straight into
+   ``_eval_batch``: ms per batch of the prepare pass and of each group
+   pass (CUDA events), each pass's transient peak, engine events/s, and
+   6 more under the profiler for the card's busy share; checks at 8192
+   rows, the passes on the card against the port's CPU run from the same
+   trail (fired/code/level/pid and trail ints exact, EWMA within 4 ULPs
+   of the value scale, rate within 4 ULPs), and at 2048 rows the card's
+   alerts against the port's numpy ``interp``.  ``rules_wire``: the
+   60/30/10 payloads through the port ``Instance`` as in
+   ``persist_throughput``, without programs and with them (the default
+   tenant's 20, the population, the attributes): events/s, latency, the
+   step span and the ``rules.*`` metrics; checks: every program alert
+   the engine injected is stored exactly once, stored = accepted
+   (registered lines + derived alerts, program alerts among them);
+   ``checkpoint_full`` with the ``rule-programs`` section: programs and
+   attributes come back as saved;
+9. a small input run on the card and on the CPU: identical int outputs.
 
 The line before the last is the card's ``nvidia-smi`` name and power
 limit; before it, the kernels' JSON record.  The last line is
@@ -81,6 +104,7 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import contextlib
 import json
@@ -131,6 +155,22 @@ WIRE_STAGES = ("decode", "batch", "dispatch", "ring_dispatch", "egress")
 # stays under 80/s), so no derived-alert rows join the batcher between
 # the payloads and every full-width payload can be adopted as its plan.
 MEAS_VALUE_BAND = (20.0, 40.0)
+# bring-your-own rule programs (phase byo_rules): every world tenant holds
+# RULE_PER_KEY programs of each structure key RULEBENCH_r01.json lists,
+# which fills every group's S = 4 slots for every row; on top, a
+# population from tools/rulebench.py's mix, cut from that tool's 100,000
+# programs over 25,000 tenants
+RULE_KEYS = ("c2p4", "c2p4g", "c4p4", "c4p4g", "c4p8")
+RULE_PER_KEY = 4
+RULE_POP_PROGRAMS, RULE_POP_TENANTS = 20_000, 5_000
+RULE_ASSET_CAPACITY = 8192        # the world's 5000 assets, pow2
+RULE_BATCHES, RULE_PROFILED = 24, 6
+RULE_CPU_ROWS, RULE_INTERP_ROWS = 8192, 2048
+# the share of traffic rows the world programs fire on (the wire world's
+# built-in derived-alert rate is 1.1%): a geofence square's side is
+# sqrt(RULE_SQUARE_SHARE) of the traffic's box
+RULE_SQUARE_SHARE = 0.0011
+RATE_MAX_ULP = 4.0
 # instructions per edge test in the kernel: float32 - 2 compares
 # (straddle), sub, mul, add, 1 compare (px < x_cross); logic - the
 # straddle xor and the and-xor into the parity
@@ -749,6 +789,14 @@ def _device_ms(prof):
                if "CUDA" in str(e.device_type)) / 1e3
 
 
+def _device_launches(prof):
+    """Kernels and copies the card ran in a profile (None without one)."""
+    if prof is None:
+        return None
+    return sum(e.count for e in prof.key_averages()
+               if "CUDA" in str(e.device_type))
+
+
 def _busy(rec, span_ms, device_ms, elapsed, steps):
     """The card's share of the wall time: the CUDA-event span's bound and,
     in a profiled run, the measured kernel and copy time."""
@@ -1182,6 +1230,8 @@ def instance_config(data_dir, capacity, width, ring_depth, deadline_ms):
                      "adaptive_deadline": False, "ring_depth": ring_depth,
                      "max_zones": FULL_Z, "max_zone_verts": FULL_V},
         "checkpoint": {"interval_s": 0},
+        # the rule engine's asset table covers the world's 5000 assets
+        "rules": {"asset_capacity": RULE_ASSET_CAPACITY},
     }, apply_env=False)
 
 
@@ -1238,17 +1288,40 @@ def row_checksum(cols, mask=None):
 
 
 def persist_throughput(device, geo_cuda, world_ckpt, payloads, root, run,
-                       meas=False):
+                       meas=False, rules=None, phase="persist_recover",
+                       name=None):
     """The wire path through the port ``Instance``: its ``SegmentStore``
     and journal at the Config defaults, ring off, the deployment's 5 ms
     deadline.  Timed from the first byte to the return of the
-    dispatcher's flush (every row egressed, sealed and committed)."""
+    dispatcher's flush (every row egressed, sealed and committed) and,
+    with tenant programs, to the point where every program alert they
+    fired has been injected and stored too (:func:`settle`).
+
+    ``rules(inst)`` loads tenant programs before the instance starts and
+    returns a record of the load; the run then records every alert the
+    engine injects and checks each is stored exactly once.  A 60/30/10
+    run ends with checkpoint_full."""
     import torch
 
     data_dir = os.path.join(root, run)
     inst = instance_from_world(device, world_ckpt, data_dir, CAPACITY,
                                FULL_B, 0, WIRE_DEADLINE_MS)
-    store, disp = inst.event_store, inst.dispatcher
+    store, disp, eng = inst.event_store, inst.dispatcher, inst.rule_engine
+    load = rules(inst) if rules is not None else None
+    fired = collections.Counter()
+    if load is not None:
+        real_inject = eng.inject
+
+        def inject(cols):
+            fired.update(zip(*(np.asarray(cols[k]).tolist() for k in (
+                "device_id", "ts_s", "ts_ns", "alert_code",
+                "alert_level"))))
+            return real_inject(cols)
+
+        eng.inject = inject
+    byo_codes = np.asarray(sorted(load["alert_codes"]) if load else [],
+                           np.int64)
+    stored_alerts = collections.Counter()
     persist_s, commits = [0.0], []
     appended = {"rows": 0, "sum": 0}
     real_append, real_flush = store.append_columns, store.flush
@@ -1280,14 +1353,16 @@ def persist_throughput(device, geo_cuda, world_ckpt, payloads, root, run,
         commits.clear()
         persist_s[0] = 0.0
         disp.latencies_s.clear()
+        rules0 = rules_metrics(inst)
         geo_cuda.reset_launch_counts()
         t0 = time.perf_counter()
         for payload, _ in payloads:
             disp.ingest_wire_lines(payload)
-        disp.flush()
+        settle(inst)
         elapsed = time.perf_counter() - t0
         launches = geo_cuda.launch_counts["pip_parity"]
         snap = disp.metrics_snapshot()
+        rules1 = rules_metrics(inst)
         committed = disp.journal_reader.committed
         records = inst.ingest_journal.end_offset
         latency = _latency(disp, "max")
@@ -1298,6 +1373,8 @@ def persist_throughput(device, geo_cuda, world_ckpt, payloads, root, run,
         # instance restores it; the state must come back bitwise
         if not meas:
             saved_state = inst.device_state.snapshot_host()
+            saved_rules = (eng.registry.snapshot_payload()[0],
+                           eng.attributes.snapshot_payload())
             inst.checkpointer.save()
             save_stats = dict(inst.checkpointer.last_save_stats)
         inst.stop()
@@ -1310,6 +1387,13 @@ def persist_throughput(device, geo_cuda, world_ckpt, payloads, root, run,
             n, h = row_checksum(cols)
             stored["rows"] += n
             stored["sum"] = (stored["sum"] + h) % (1 << 64)
+            if byo_codes.size:
+                mine = ((np.asarray(cols["event_type"]) == 2)
+                        & np.isin(np.asarray(cols["alert_code"]), byo_codes))
+                stored_alerts.update(zip(*(
+                    np.asarray(cols[k])[mine].tolist() for k in (
+                        "device_id", "ts_s", "ts_ns", "alert_code",
+                        "alert_level"))))
         parked = store.sealer.parked_count()
         dead = store.sealed_dead_lettered
     finally:
@@ -1319,7 +1403,7 @@ def persist_throughput(device, geo_cuda, world_ckpt, payloads, root, run,
     lines = sum(p.count(b"\n") + 1 for p, _ in payloads)
     registered = sum(r for _, r in payloads)
     plans = len(disp.latencies_s)
-    rec = {"phase": "persist_recover", "run": f"persist_throughput.{run}",
+    rec = {"phase": phase, "run": name or f"persist_throughput.{run}",
            "traffic": "measurements" if meas else "60/30/10",
            "ring_depth": 0, "deadline_ms": WIRE_DEADLINE_MS,
            "payloads": len(payloads), "lines": lines, "elapsed_s": elapsed,
@@ -1333,10 +1417,29 @@ def persist_throughput(device, geo_cuda, world_ckpt, payloads, root, run,
            "rows_stored": stored["rows"], "store_shards": store.n_shards,
            "seal_workers": store.sealer.n_workers,
            "pip_launches": launches, "committed": committed,
-           "journal_records": records, **delta}
+           "journal_records": records, **delta,
+           "rules": {k: rules1[k] - rules0[k] for k in rules1},
+           "rule_program_alerts": (snap.get("rule_program_alerts", 0)
+                                   - snap0.get("rule_program_alerts", 0))}
+    if load is not None:
+        rec["rules"]["eval_ms_per_batch"] = (
+            rec["rules"]["eval_s"] * 1e3
+            / max(1, rec["rules"]["eval_batches"]))
+        rec["rules_load"] = {k: v for k, v in load.items()
+                             if k != "alert_codes"}
+        rec["program_alerts_stored"] = sum(stored_alerts.values())
     emit(_busy(rec, span_ms, None, elapsed, delta["steps"]))
     check(launches == delta["steps"],
           f"kernel launched {launches}x in {delta['steps']} dispatcher steps")
+    if load is not None:
+        n_fired = sum(fired.values())
+        check(n_fired > 0 and rec["rule_program_alerts"] == n_fired
+              == rec["rules"]["alerts"],
+              f"program alerts: injected {n_fired}, dispatcher "
+              f"{rec['rule_program_alerts']}, engine {rec['rules']['alerts']}")
+        check(stored_alerts == fired,
+              f"{sum(stored_alerts.values())} program alerts stored for "
+              f"{n_fired} fired: one lost or stored twice")
     check(delta["accepted"] == registered + delta["derived_alerts"],
           f"accepted {delta['accepted']} != registered {registered} + "
           f"derived {delta['derived_alerts']}")
@@ -1350,14 +1453,43 @@ def persist_throughput(device, geo_cuda, world_ckpt, payloads, root, run,
           f"stored rows {stored} != accepted rows {appended}: a row lost "
           "or stored twice")
     if not meas:
-        restore_full(device, data_dir, saved_state, save_stats)
+        restore_full(device, data_dir, saved_state, save_stats, saved_rules,
+                     phase=phase,
+                     run="checkpoint_full" + (".rules" if load else ""))
     shutil.rmtree(data_dir, ignore_errors=True)
     return rec
 
 
-def restore_full(device, data_dir, saved_state, save_stats):
+def settle(inst):
+    """Flush the dispatcher, then until the rule engine is idle: drain it
+    (its worker injects the program alerts it fires) and flush again, so
+    every program alert is stored."""
+    disp, eng = inst.dispatcher, inst.rule_engine
+    disp.flush()
+    while eng is not None:
+        eng.drain(timeout_s=120.0)
+        disp.flush()
+        with eng._q.all_tasks_done:
+            idle = eng._q.unfinished_tasks == 0
+        if idle and disp.batcher.pending == 0:
+            return
+
+
+def rules_metrics(inst):
+    """The ``rules.*`` family's totals (zeros without an engine)."""
+    m = inst.metrics
+    t = m.timer("rules.eval_s")
+    return {"eval_s": t.total, "eval_batches": t.count,
+            "live_batches": m.counter("rules.live_batches").value,
+            "live_dropped": m.counter("rules.live_dropped").value,
+            "alerts": m.counter("rules.alerts").value}
+
+
+def restore_full(device, data_dir, saved_state, save_stats, saved_rules,
+                 phase="persist_recover", run="checkpoint_full"):
     """checkpoint_full: a fresh instance restores the saved instance's
-    newest generation; the state must equal the saved one bitwise."""
+    newest generation; the state must equal the saved one bitwise, and
+    the rule programs and attribute tables must come back as saved."""
     from sitewhere_tpu_torch.instance import Instance
 
     ckpt = os.path.join(data_dir, "checkpoint")
@@ -1373,12 +1505,21 @@ def restore_full(device, data_dir, saved_state, save_stats):
                          or got[k].tobytes() != saved_state[k].tobytes())
         restore = dict(inst.checkpointer.restore_stats)
         restore_s = inst.checkpointer.restore_s
+        eng = inst.rule_engine
+        got_attrs = eng.attributes.snapshot_payload()
+        rules_equal = (
+            eng.registry.snapshot_payload()[0] == saved_rules[0]
+            and got_attrs[0] == saved_rules[1][0]
+            and all(np.array_equal(got_attrs[1][t], saved_rules[1][1][t])
+                    for t in ("device", "asset")))
+        programs = eng.registry.program_count()
     finally:
         inst.terminate()
     gen = max(int(f.split("-")[1].split(".")[0]) for f in os.listdir(ckpt)
               if f.startswith("manifest-"))
-    emit({"phase": "persist_recover", "run": "checkpoint_full",
+    emit({"phase": phase, "run": run,
           "capacity": CAPACITY, "devices": N_ACTIVE,
+          "rule_programs": programs, "rule_programs_equal": rules_equal,
           "state_fields": len(saved_state),
           "state_bytes_in_memory": int(sum(a.nbytes
                                            for a in saved_state.values())),
@@ -1386,6 +1527,7 @@ def restore_full(device, data_dir, saved_state, save_stats):
           "restore": restore, "instance_construct_s": construct_s,
           "generation": gen, "unequal_fields": unequal})
     check(not unequal, f"restored state differs from the saved: {unequal}")
+    check(rules_equal, "restored rule programs or attributes differ")
 
 
 # -- kill -9 and restart --------------------------------------------------------
@@ -1724,6 +1866,488 @@ def phase_persist_recover(device, geo_cuda, mixed, meas):
     return launches
 
 
+# -- bring-your-own rule programs ------------------------------------------------
+
+_RULEBENCH_POLY = [[0.0, 0.0], [10.0, 0.0], [10.0, 10.0], [0.0, 10.0]]
+
+
+def rulebench_program_doc(rng, idx):
+    """One program of ``tools/rulebench.py``'s skewed mix (its
+    ``_program_doc``, copied: that tool imports JAX)."""
+    token = f"p{idx}"
+    thr = float(rng.uniform(10.0, 90.0))
+    op = str(rng.choice(["gt", "lt", "gte", "lte"]))
+    level = str(rng.choice(["info", "warning", "error", "critical"]))
+    alert = {"type": f"byo.kind{int(rng.integers(0, 16))}",
+             "level": level}
+    shape = rng.random()
+    if shape < 0.55:
+        when = {"pred": "value", "op": op, "value": thr}
+    elif shape < 0.70:
+        when = {"all": [
+            {"pred": "ewma", "op": op, "value": thr,
+             "window_s": float(rng.choice([60, 600, 3600]))},
+            {"pred": "rate", "op": "gt",
+             "value": float(rng.uniform(0.1, 5.0))}]}
+    elif shape < 0.82:
+        when = {"any": [
+            {"pred": "value", "op": "gt", "value": thr},
+            {"pred": "value", "op": "lt", "value": thr - 30.0},
+            {"all": [{"pred": "rate", "op": "gt", "value": 1.0},
+                     {"pred": "value", "op": "gt", "value": thr - 10.0}]}]}
+    elif shape < 0.90:
+        jx, jy = rng.uniform(-2, 2, 2)
+        poly = [[x + jx, y + jy] for x, y in _RULEBENCH_POLY]
+        when = {"pred": "geo", "polygon": poly,
+                "inside": bool(rng.random() < 0.5)}
+    elif shape < 0.95:
+        when = {"any": [
+            {"all": [
+                {"pred": "value", "op": "gt", "value": thr},
+                {"pred": "attr", "table": "device", "column": "tier",
+                 "value": int(rng.integers(0, 4)), "op": "eq"},
+                {"pred": "event_type", "value": "measurement"},
+                {"pred": "ewma", "op": "gt", "value": thr - 5.0,
+                 "window_s": 600.0},
+                {"pred": "rate", "op": "gt", "value": 0.5}]},
+            {"all": [{"pred": "value", "op": "lt", "value": 5.0}]},
+            {"all": [{"pred": "value", "op": "gt", "value": 95.0}]}]}
+    else:
+        when = {"any": [
+            {"all": [{"pred": "geo", "polygon": _RULEBENCH_POLY,
+                      "inside": True},
+                     {"pred": "value", "op": "gt", "value": thr}]},
+            {"all": [{"pred": "rate", "op": "gt", "value": 2.0}]},
+            {"all": [{"pred": "value", "op": "lt", "value": 2.0}]}]}
+    return {"token": token, "name": f"bench-{idx}", "alert": alert,
+            "when": when}
+
+
+def world_program_docs(tenant, box):
+    """The world tenant's RULE_PER_KEY programs of each structure key,
+    set to fire on about 1% of the traffic's rows: measurements above 99
+    or below 0.3 (values are uniform on [0, 100]) and locations inside
+    eight small squares of the traffic's ``box`` (lon0, lon1, lat0,
+    lat1).  Every predicate kind appears; some clauses never fire (a
+    rate of 1e6/s), as in tenants' real programs."""
+    lon0, lon1, lat0, lat1 = box
+    side = math.sqrt(RULE_SQUARE_SHARE * (lon1 - lon0) * (lat1 - lat0))
+
+    def square(k):
+        cx = lon0 + (lon1 - lon0) * ((3 * k + tenant) % 8 + 0.5) / 8
+        cy = lat0 + (lat1 - lat0) * ((5 * k + tenant) % 8 + 0.5) / 8
+        h = side / 2
+        return [[cx - h, cy - h], [cx + h, cy - h], [cx + h, cy + h],
+                [cx - h, cy + h]]
+
+    levels = ("info", "warning", "error", "critical")
+    docs = []
+    for j in range(RULE_PER_KEY):
+        whens = {
+            "c2p4": {"pred": "value", "op": "gt", "value": 99.9 + 0.02 * j},
+            "c2p4g": {"pred": "geo", "polygon": square(j), "inside": True},
+            "c4p4": {"any": [
+                {"pred": "value", "op": "lt", "value": 0.3 - 0.05 * j},
+                {"pred": "value", "op": "gt", "value": 99.95},
+                {"all": [{"pred": "rate", "op": "gt", "value": 1e6},
+                         {"pred": "value", "op": "gt", "value": 99.0}]}]},
+            "c4p4g": {"any": [
+                {"all": [{"pred": "geo", "polygon": square(4 + j),
+                          "inside": True},
+                         {"pred": "event_type", "value": "location"}]},
+                {"all": [{"pred": "ewma", "op": "lt", "value": -1.0,
+                          "window_s": 60.0}]},
+                {"all": [{"pred": "value", "op": "gt", "value": 99.97}]}]},
+            "c4p8": {"any": [
+                {"all": [
+                    {"pred": "value", "op": "gt", "value": 99.0},
+                    {"pred": "attr", "table": "device", "column": "tier",
+                     "op": "eq", "value": j},
+                    {"pred": "event_type", "value": "measurement"},
+                    {"pred": "ewma", "op": "gt", "value": 95.0,
+                     "window_s": 600.0},
+                    {"pred": "attr", "table": "asset", "column": "grade",
+                     "op": "gte", "value": 0},
+                    {"pred": "value", "op": "lt", "value": 1000.0}]},
+                {"all": [{"pred": "value", "op": "lt", "value": 0.02}]},
+                {"all": [{"pred": "rate", "op": "lt", "value": -1e6}]}]},
+        }
+        for key in RULE_KEYS:
+            docs.append({"token": f"w{tenant}-{key}-{j}",
+                         "alert": {"type": f"world.{key}.{j}",
+                                   "level": levels[j]},
+                         "when": whens[key]})
+    return docs
+
+
+def load_rule_programs(eng, world_tenants, box, n_devices, seed):
+    """The world tenants' programs, the rulebench population over tenants
+    after them, and the attribute columns (``tier`` for every active
+    device, ``grade`` for every asset), through the registry and one
+    publish.  Returns a record of the load."""
+    from sitewhere_tpu_torch.rules import compile as rcompile
+
+    t0 = time.perf_counter()
+    for tenant in world_tenants:
+        for doc in world_program_docs(tenant, box):
+            eng.registry.put_program(tenant, doc)
+    rng = np.random.default_rng(seed)
+    rejected = 0
+    base = max(world_tenants) + 1
+    for i in range(RULE_POP_PROGRAMS):
+        doc = rulebench_program_doc(rng, i)
+        try:
+            eng.registry.put_program(
+                base + int(rng.integers(0, RULE_POP_TENANTS)), doc)
+        except ValueError:
+            # a per-tenant structure-slot collision of the random draw
+            rejected += 1
+    ids = np.arange(n_devices)
+    eng.attributes.set_many("device", ids, "tier", ids % 4)
+    assets = np.arange(5000)
+    eng.attributes.set_many("asset", assets, "grade", assets % 3)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    epoch = eng.refresh()
+    publish_s = time.perf_counter() - t0
+    world = sorted(world_tenants)
+    codes = {p.alert_code for g in eng.registry._groups.values()
+             for (t, _), p in g.programs.items() if t in world}
+    keys = eng.registry.structure_keys()
+    check(keys == sorted(RULE_KEYS), f"structure keys {keys}")
+    return {"programs": eng.registry.program_count(),
+            "world_programs": len(world) * RULE_PER_KEY * len(RULE_KEYS),
+            "population_rejected": rejected, "structure_keys": keys,
+            "tables": {g.key: {n: list(t.shape) for n, t in
+                               zip(g.tables._fields, g.tables)}
+                       for g in epoch.groups},
+            "signatures": rcompile.compile_count(),
+            "load_s": load_s, "publish_s": publish_s,
+            "alert_codes": codes}
+
+
+def rule_batches(n, width, seed, ts0=1_700_000_000):
+    """Engine batches: the main path's 60/30/10 columns with the accepted
+    mask the step would give (valid, registered, tenant matching) and the
+    registry's asset id."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        c = make_batch_cols(rng, width, N_ACTIVE, CAPACITY, ts0 + i)
+        dev = c["device_id"]
+        reg = dev < N_ACTIVE
+        out.append({
+            "device_id": dev, "tenant_id": c["tenant_id"],
+            "event_type": c["event_type"], "mtype_id": c["mtype_id"],
+            "value": c["value"], "lon": c["lon"], "lat": c["lat"],
+            "ts_s": c["ts_s"], "ts_ns": c["ts_ns"],
+            "asset_id": np.where(reg, dev % 5000, -1).astype(np.int32),
+            "accepted": c["valid"] & reg & (c["tenant_id"] == dev % N_TENANTS),
+        })
+    return out
+
+
+class PassClock:
+    """CUDA events and the allocator's peak around the engine's prepare
+    pass and each group pass (by structure key), on the stream they run
+    on.  Nothing on the CPU."""
+
+    def __init__(self, eng, device):
+        import torch
+
+        from sitewhere_tpu_torch.rules import compile as rcompile
+
+        self.torch, self.rcompile = torch, rcompile
+        self.on = device.type == "cuda"
+        self.eng = eng
+        self.keys = {g.tables.kind.data_ptr(): g.key
+                     for g in eng.registry.current_epoch().groups}
+        self.pairs = collections.defaultdict(list)
+        self.peak = collections.defaultdict(float)
+        self.max_allocated = 0
+        self._group = rcompile.rules_group_eval
+        self._prepare = eng._prepare
+
+    def _timed(self, name, fn, *args, **kw):
+        torch = self.torch
+        if not self.on:
+            return fn(*args, **kw)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args, **kw)
+        end.record()
+        self.pairs[name].append((start, end))
+        top = torch.cuda.max_memory_allocated()
+        self.peak[name] = max(self.peak[name], top - base)
+        self.max_allocated = max(self.max_allocated, top)
+        return out
+
+    def __enter__(self):
+        def group(tables, *args, **kw):
+            return self._timed(self.keys[tables.kind.data_ptr()],
+                               self._group, tables, *args, **kw)
+
+        self.rcompile.rules_group_eval = group
+        self.eng._prepare = lambda *a: self._timed("prepare",
+                                                   self._prepare, *a)
+        return self
+
+    def __exit__(self, *exc):
+        self.rcompile.rules_group_eval = self._group
+        self.eng._prepare = self._prepare
+        return False
+
+    def ms_per_batch(self, batches):
+        if not self.on:
+            return None
+        self.torch.cuda.synchronize()
+        return {k: sum(s.elapsed_time(e) for s, e in v) / batches
+                for k, v in self.pairs.items()}
+
+
+def _run_passes(eng, batch, trail, device, tables_of):
+    """The prepare and group passes of ``_eval_batch``, called directly on
+    ``device`` with the given trail (updated in place) and the current
+    epoch's tables as ``tables_of(group)`` gives them.  Returns the
+    features and ``{key: (fired, code, level, pid)}`` on the host."""
+    import torch
+
+    from sitewhere_tpu_torch.rules import compile as rcompile
+
+    attrs = eng.attributes.publish()
+    t = {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(device)
+         for k in ("device_id", "asset_id", "ts_s", "ts_ns", "mtype_id",
+                   "event_type", "tenant_id", "value", "lon", "lat",
+                   "accepted")}
+    feats, _ = rcompile.rules_prepare_batch(
+        *trail, attrs.device.to(device), attrs.asset.to(device),
+        t["device_id"], t["asset_id"], t["ts_s"], t["ts_ns"], t["mtype_id"],
+        t["value"], t["event_type"], t["accepted"], eng.taus.to(device))
+    outs = {}
+    for g in eng.registry.current_epoch().groups:
+        out = rcompile.rules_group_eval(
+            tables_of(g), feats, t["tenant_id"], t["event_type"],
+            t["mtype_id"], t["value"], t["lon"], t["lat"], t["accepted"],
+            has_geo=g.has_geo)
+        outs[g.key] = tuple(x.cpu().numpy() for x in out)
+    return {k: v.cpu().numpy() for k, v in feats._asdict().items()}, outs
+
+
+def _ulp_of(ref, got, floor):
+    """Largest ``|ref - got|`` in ULPs of ``max(|ref|, floor)`` (finite
+    entries; non-finite ones must match)."""
+    fin = np.isfinite(ref)
+    check(np.array_equal(ref[~fin], got[~fin], equal_nan=True),
+          "non-finite entries differ")
+    if not fin.any():
+        return 0.0
+    err = np.abs(ref[fin].astype(np.float64) - got[fin].astype(np.float64))
+    unit = np.spacing(np.maximum(np.abs(ref[fin]), np.float32(floor)))
+    return float((err / unit).max())
+
+
+def rules_card_vs_cpu(eng, device, batches):
+    """At RULE_CPU_ROWS rows: the passes on the card and on the CPU, from
+    the same trail (a copy of the engine's), over two consecutive
+    batches: fired/code/level/pid and the trail's ints exact, features
+    within the ULP bounds."""
+    import torch
+
+    cpu = torch.device("cpu")
+    card_trail = tuple(x.clone() for x in eng._trail)
+    cpu_trail = tuple(x.to(cpu, copy=True) for x in card_trail)
+    worst = {"ewma": 0.0, "rate": 0.0}
+    fired = 0
+    for batch in batches:
+        fc, oc = _run_passes(eng, batch, card_trail, device,
+                             lambda g: g.tables)
+        fh, oh = _run_passes(
+            eng, batch, cpu_trail, cpu,
+            lambda g: type(g.tables)(*(x.cpu() for x in g.tables)))
+        for key in oc:
+            for name, a, b in zip(("fired", "code", "level", "pid"),
+                                  oh[key], oc[key]):
+                check(np.array_equal(a, b),
+                      f"card != CPU: {key} {name} "
+                      f"({int((a != b).sum())} entries)")
+            fired += int(oc[key][0].sum())
+        for name in ("rate_valid", "dev_attr", "asset_attr"):
+            check(np.array_equal(fh[name], fc[name]), f"card != CPU: {name}")
+        worst["ewma"] = max(worst["ewma"], _ulp_of(fh["ewma"], fc["ewma"],
+                                                   EWMA_SCALE))
+        worst["rate"] = max(worst["rate"], _ulp_of(fh["rate"], fc["rate"],
+                                                   np.finfo(np.float32).tiny))
+    for i, (a, b) in enumerate(zip(cpu_trail, card_trail)):
+        if i < 3:
+            # bitwise (NaN measurements are stored as they came)
+            check(a.numpy().tobytes() == b.cpu().numpy().tobytes(),
+                  f"card != CPU: trail {i}")
+        else:
+            worst["ewma"] = max(worst["ewma"], _ulp_of(
+                a.numpy(), b.cpu().numpy(), EWMA_SCALE))
+    check(worst["ewma"] <= EWMA_MAX_ULP, f"EWMA off by {worst['ewma']} ULP")
+    check(worst["rate"] <= RATE_MAX_ULP, f"rate off by {worst['rate']} ULP")
+    check(fired > 0, "nothing fired in the card-vs-CPU batches")
+    return {"rows": len(batches[0]["device_id"]), "batches": len(batches),
+            "fired": fired, "ewma_max_ulp_of_scale": worst["ewma"],
+            "rate_max_ulp": worst["rate"]}
+
+
+def rules_card_vs_interp(eng, device, batch):
+    """At RULE_INTERP_ROWS rows: the card's alerts, (row, code, level) as
+    a multiset, against the port's numpy interpreter over the world
+    tenants' programs, from the same trail."""
+    from sitewhere_tpu_torch.rules.interp import (
+        InterpTrail, interp_eval, interp_features)
+
+    card_trail = tuple(x.clone() for x in eng._trail)
+    trail = InterpTrail(*card_trail[3].shape)
+    trail.ts_s, trail.ts_ns, trail.value, trail.ewma = (
+        x.to("cpu", copy=True).numpy() for x in card_trail)
+    _, outs = _run_passes(eng, batch, card_trail, device, lambda g: g.tables)
+    card = collections.Counter()
+    for fired, code, level, _pid in outs.values():
+        rows, slots = np.nonzero(fired)
+        card.update(zip(rows.tolist(), code[rows, slots].tolist(),
+                        level[rows, slots].tolist()))
+    _, arrays = eng.attributes.snapshot_payload()
+    tenants = set(np.unique(batch["tenant_id"]).tolist())
+    progs = [(t, p.canonical, p.alert_code)
+             for g in eng.registry._groups.values()
+             for (t, _tok), p in sorted(g.programs.items()) if t in tenants]
+    t0 = time.perf_counter()
+    feats = interp_features(trail, batch, eng.taus.cpu().tolist(),
+                            arrays["device"], arrays["asset"])
+    golden = collections.Counter(
+        (row, code, lvl) for row, _tok, code, lvl in
+        interp_eval(progs, batch, feats))
+    interp_s = time.perf_counter() - t0
+    check(card == golden,
+          f"card != interp: {sum((card - golden).values())} extra, "
+          f"{sum((golden - card).values())} missing alerts")
+    check(sum(card.values()) > 0, "nothing fired in the interp batch")
+    return {"rows": len(batch["device_id"]), "programs": len(progs),
+            "alerts": sum(card.values()), "interp_s": interp_s}
+
+
+def rules_engine_run(device):
+    """``rules_engine``: RULE_BATCHES full-width 60/30/10 batches straight
+    into the engine's ``_eval_batch``: ms per batch of each pass, engine
+    events/s, the allocator's peak, the card's busy share under the
+    profiler; then the card against the CPU and against ``interp``."""
+    import torch
+
+    from sitewhere_tpu_torch.rules.engine import RuleEngineRunner
+
+    t0 = time.perf_counter()
+    eng = RuleEngineRunner(capacity=CAPACITY, n_mtype_slots=M_SLOTS,
+                           asset_capacity=RULE_ASSET_CAPACITY, device=device)
+    alerts = []
+    eng.inject = lambda cols: alerts.append(len(cols["device_id"]))
+    load = load_rule_programs(eng, range(N_TENANTS), (-12, 12, -12, 12),
+                              N_ACTIVE, SEED + 8)
+    batches = rule_batches(1 + RULE_BATCHES + RULE_PROFILED, FULL_B,
+                           SEED + 9)
+    setup_s = time.perf_counter() - t0
+    eng._eval_batch(dict(batches[0]))                 # seeds the trail
+    sync = torch.cuda.synchronize if device.type == "cuda" else (
+        lambda: None)
+    sync()
+    alerts.clear()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    timed = batches[1:1 + RULE_BATCHES]
+    with PassClock(eng, device) as clock:
+        t0 = time.perf_counter()
+        for b in timed:
+            eng._eval_batch(dict(b))
+        sync()
+        elapsed = time.perf_counter() - t0
+    pass_ms = clock.ms_per_batch(len(timed))
+    rows = sum(len(b["device_id"]) for b in timed)
+    accepted = sum(int(b["accepted"].sum()) for b in timed)
+    n_alerts = sum(alerts)
+    with _device_profile(device.type == "cuda") as prof:
+        t1 = time.perf_counter()
+        for b in batches[1 + RULE_BATCHES:]:
+            eng._eval_batch(dict(b))
+        sync()
+        prof_s = time.perf_counter() - t1
+    dev_ms = _device_ms(prof)
+    rec = {"phase": "byo_rules", "run": "rules_engine",
+           "capacity": CAPACITY, "width": FULL_B, "batches": len(timed),
+           "world_tenants": N_TENANTS, **{k: v for k, v in load.items()
+                                          if k != "alert_codes"},
+           "setup_s": setup_s, "elapsed_s": elapsed,
+           "engine_events_per_s": rows / elapsed,
+           "ms_per_batch": elapsed / len(timed) * 1e3,
+           "pass_ms_per_batch": pass_ms,
+           "pass_transient_peak_mib": (
+               {k: v / 2**20 for k, v in clock.peak.items()}
+               if clock.on else None),
+           "peak_allocated_gib": (clock.max_allocated / 2**30
+                                  if clock.on else None),
+           "run_base_allocated_gib": (base / 2**30 if device.type == "cuda"
+                                      else None),
+           "alerts": n_alerts, "alerts_per_accepted_row": n_alerts / accepted,
+           "profiled_batches": RULE_PROFILED, "profiled_s": prof_s,
+           "device_ms_per_batch": (None if dev_ms is None
+                                   else dev_ms / RULE_PROFILED),
+           "device_busy_share": (None if dev_ms is None
+                                 else dev_ms / 1e3 / prof_s),
+           "device_ops_per_batch": (None if prof is None
+                                    else _device_launches(prof)
+                                    / RULE_PROFILED)}
+    emit(rec)
+    check(n_alerts > 0, "no program fired in rules_engine")
+    # the checks, on batches the timed run never saw
+    tail = rule_batches(3, RULE_CPU_ROWS, SEED + 10,
+                        ts0=1_700_000_000 + 2 * len(batches))
+    cpu_rec = rules_card_vs_cpu(eng, device, tail[:2])
+    interp_batch = {k: v[:RULE_INTERP_ROWS] for k, v in tail[2].items()}
+    interp_rec = rules_card_vs_interp(eng, device, interp_batch)
+    emit({"phase": "byo_rules", "run": "rules_engine.checks",
+          "card_vs_cpu": cpu_rec, "card_vs_interp": interp_rec})
+    return rec
+
+
+def phase_byo_rules(device, geo_cuda, mixed):
+    """Bring-your-own rule programs on the port: ``rules_engine`` (the
+    engine alone at full width), then ``rules_wire``: the 60/30/10
+    payloads of ``dispatcher_wire`` through the port ``Instance`` with
+    its segment store, ring off at 5 ms, without programs and with them
+    (the world tenant's programs, the population, the attributes), each
+    program alert checked stored exactly once, and checkpoint_full with
+    the ``rule-programs`` section.  Returns the kernel's launches in each
+    wire run, by run name."""
+    t0 = time.perf_counter()
+    rules_engine_run(device)
+    root = tempfile.mkdtemp(prefix="rules-", dir=geo_cuda.BUILD_DIR)
+    launches = {}
+    try:
+        world = world_checkpoint(device, root, "full")
+
+        def programs(inst):
+            return load_rule_programs(
+                inst.rule_engine, [inst.identity.tenant.mint("default")],
+                (-175, 175, -85, 85), N_ACTIVE, SEED + 11)
+
+        for run, rules in (("off", None), ("on", programs)):
+            rec = persist_throughput(
+                device, geo_cuda, world, mixed, root, f"rules_{run}",
+                rules=rules, phase="byo_rules", name=f"rules_wire.{run}")
+            launches[f"rules_wire.{run}"] = rec["pip_launches"]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "byo_rules", "run": "done",
+          "seconds": time.perf_counter() - t0})
+    return launches
+
+
 def phase_small_reference(device):
     """A small deployment stepped on the card (kernel) and on the CPU
     (plain versions): int outputs and metrics identical, EWMAs close."""
@@ -1803,15 +2427,19 @@ def main() -> int:
     main_launches = phase_main_path(device, geo_cuda)
     wire_launches, mixed, meas = phase_dispatcher_wire(device, geo_cuda)
     persist_launches = phase_persist_recover(device, geo_cuda, mixed, meas)
-    del mixed, meas
-    # this slice's path: the Instance with its segment store, ring off,
-    # the deployment's deadline
-    rec["launches"] = persist_launches["persist_throughput.ring0"]
+    del meas
+    rules_launches = phase_byo_rules(device, geo_cuda, mixed)
+    del mixed
+    # this slice's path: the Instance with its segment store and the
+    # tenant programs loaded, ring off, the deployment's deadline
+    rec["launches"] = rules_launches["rules_wire.on"]
     rec["launches_by_path"] = {"main_path": main_launches,
                                **{f"dispatcher_wire.{k}": v
                                   for k, v in wire_launches.items()},
                                **{f"persist_recover.{k}": v
-                                  for k, v in persist_launches.items()}}
+                                  for k, v in persist_launches.items()},
+                               **{f"byo_rules.{k}": v
+                                  for k, v in rules_launches.items()}}
     phase_small_reference(device)
 
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

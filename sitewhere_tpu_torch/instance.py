@@ -1,13 +1,32 @@
-"""The port's composition root, as far as the persist-and-restart slice goes.
+"""The port's composition root, as far as the slices ported so far go.
 
 Counterpart of ``sitewhere_tpu/instance.py``'s :class:`Instance`, cut to
 the components this package has: the identity map, the registry mirror,
 the rule manager, the device-state manager, the segment store, the
-ingest journal and its dead letters, the batcher, the pipeline
-dispatcher and the checkpointer (with the segment catalog's section).
-The attributes keep the reference's names, since the
+ingest journal and its dead letters, the bring-your-own rule engine
+(``rules.programs_enabled``, on by default as in the reference; its
+fired programs re-enter through the dispatcher's ``inject_rule_alerts``
+and its programs and attributes are the ``rule-programs`` checkpoint
+section), the batcher, the pipeline dispatcher and the checkpointer (with
+the segment catalog's section).  The attributes keep the reference's
+names, since the
 :class:`~sitewhere_tpu_torch.runtime.checkpoint.Checkpointer` reads
 them.
+
+Components the reference composes by default and this instance does NOT
+yet (each left at its default here, so the port does less than the
+reference until its slice comes):
+
+- streaming analytics, the ``QueryRunner`` (``sitewhere_tpu/instance.py``
+  :444-466), with its ``analytics`` checkpoint section (:726-733);
+- overload control, the ``OverloadController`` (:289-340): no admission,
+  no shedding, and the rule engine's ``overload`` hook stays ``None``;
+- metering, the ``UsageLedger`` and ``QuotaTable`` (:341-380): the rule
+  engine's ``usage_ledger`` and ``quotas`` hooks stay ``None``;
+- outbound connectors, the ``OutboundConnectorsManager`` (:432-434);
+- presence scans, the ``PresenceManager`` (:592-597);
+- device-fault containment, devguard, which the reference dispatcher
+  composes (``sitewhere_tpu/runtime/dispatcher.py:531-602``).
 
 Lifecycle, as in the reference:
 
@@ -30,12 +49,14 @@ Configuration: the reference's keys and defaults
 mirror's zone table; defaults 256 and 32, the reference mirror's).  The
 keys in :data:`HONOURED` drive the instance.  Sections whose components
 the port does not have yet (``sources``, ``analytics``, ``overload``,
-``outbound``, ``rpc``, ``registration``, ``presence``, the decode pool
-and the rest) are not composed; at their defaults they describe idle
-components, and any other value raises :class:`NotImplementedError`, as
-does ``pipeline.n_shards`` above 1.  Events are ingested through
-``instance.dispatcher`` (``ingest_wire_lines`` and the other entry
-points) on the caller's thread.
+``metering``, ``outbound``, ``rpc``, ``registration``, ``presence``, the
+decode pool and the rest) are not composed: at their defaults the
+instance runs without them (the list above names those the reference
+turns on by default), and any other value raises
+:class:`NotImplementedError`, as does ``pipeline.n_shards`` above 1.
+Events are ingested through ``instance.dispatcher``
+(``ingest_wire_lines`` and the other entry points) on the caller's
+thread.
 
 The instance runs on the card unless ``device="cpu"`` is named.
 """
@@ -52,7 +73,8 @@ from sitewhere_tpu_torch.ids import IdentityMap
 from sitewhere_tpu_torch.ingest.batcher import AdaptiveBatchController, Batcher
 from sitewhere_tpu_torch.ingest.journal import Journal, JournalReader
 from sitewhere_tpu_torch.pipeline.rules import RuleManager
-from sitewhere_tpu_torch.runtime.checkpoint import Checkpointer
+from sitewhere_tpu_torch.rules.engine import RuleEngineRunner
+from sitewhere_tpu_torch.runtime.checkpoint import Checkpointer, StateProvider
 from sitewhere_tpu_torch.runtime.config import DEFAULTS, Config
 from sitewhere_tpu_torch.runtime.dispatcher import PipelineDispatcher
 from sitewhere_tpu_torch.runtime.lifecycle import LifecycleComponent
@@ -77,7 +99,7 @@ HONOURED = (
     "pipeline.inflight_depth", "pipeline.quarantine_after",
     "pipeline.ewma_halflives_s", "pipeline.max_zones",
     "pipeline.max_zone_verts",
-    "journal.*", "events.*", "checkpoint.interval_s",
+    "journal.*", "events.*", "checkpoint.interval_s", "rules.*",
     "dead_letters.retain_records",
     "tracing.sample_rate", "tracing.tail_errors", "tracing.tail_latency_ms",
     "tracing.pending_capacity",
@@ -179,6 +201,28 @@ class Instance(LifecycleComponent):
         self.dead_letters = Journal(self.data_dir, name="dead-letters")
         self.event_store.dead_letters = self.dead_letters
 
+        # Bring-your-own rules: per-tenant rule programs bucketed into
+        # per-structure group passes.  Added before the dispatcher so the
+        # reverse-order stop keeps the engine draining through the
+        # dispatcher's shutdown flush.
+        self.rule_engine = None
+        if bool(self.config.get("rules.programs_enabled", True)):
+            self.rule_engine = self.add_child(RuleEngineRunner(
+                capacity=cap,
+                n_mtype_slots=int(self.config.get("pipeline.mtype_slots", 8)),
+                asset_capacity=int(self.config.get(
+                    "rules.asset_capacity", 1024)),
+                resolve_mtype=self.identity.mtype.mint,
+                resolve_alert=self.identity.alert_type.mint,
+                metrics=self.metrics,
+                programs_per_tenant=int(self.config.get(
+                    "rules.programs_per_tenant", 4)),
+                max_programs=int(self.config.get(
+                    "rules.max_programs", 262144)),
+                queue_depth=int(self.config.get("rules.queue_depth", 64)),
+                device=dev,
+            ))
+
         tail_ms = self.config.get("tracing.tail_latency_ms", 100.0)
         self.tracer = Tracer(
             sample_rate=float(self.config.get("tracing.sample_rate", 0.01)),
@@ -217,6 +261,7 @@ class Instance(LifecycleComponent):
             rules_provider=self.rules.publish,
             zones_provider=self.mirror.publish_zones,
             event_store=self.event_store,
+            rules_engine=self.rule_engine,
             journal=self.ingest_journal,
             dead_letters=self.dead_letters,
             resolve_tenant=self.identity.tenant.mint,
@@ -230,6 +275,10 @@ class Instance(LifecycleComponent):
                 "pipeline.quarantine_after", 3)),
             device=dev,
         ))
+        if self.rule_engine is not None:
+            # fired tenant programs re-enter the pipeline as first-class
+            # ALERT events through the dispatcher's derived-alert edge
+            self.rule_engine.inject = self.dispatcher.inject_rule_alerts
 
         # checkpoint/resume: restore the newest complete snapshot BEFORE
         # start, so identity, registry, rules and device state survive a
@@ -241,6 +290,15 @@ class Instance(LifecycleComponent):
             prune_journal=bool(self.config.get(
                 "journal.prune_after_checkpoint", False)),
         ))
+        if self.rule_engine is not None:
+            # tenant rule programs + attribute tables (the docs are the
+            # durable identity; operand tables rebuild on the first
+            # publish after a restore)
+            self.checkpointer.register_provider(StateProvider(
+                name="rule-programs",
+                snapshot_fn=self.rule_engine.snapshot_state,
+                restore_fn=self.rule_engine.restore_state,
+                version=1))
         self.checkpointer.register_provider(
             catalog_state_provider(self.event_store))
         self.restored = self.checkpointer.restore()

@@ -34,7 +34,11 @@ first-class events, and the new state committed to the
   (:class:`~sitewhere_tpu_torch.store.segmented.SegmentStore`) in an
   ``Instance``.  The journal offset commits only past plans whose egress
   completed, and only after the store's ``flush()`` has sealed every
-  buffered row to disk (:meth:`_maybe_commit_offset`).
+  buffered row to disk (:meth:`_maybe_commit_offset`).  After the
+  store, egress offers the accepted rows to the tenant rule engine
+  (``rules_engine``, :class:`~sitewhere_tpu_torch.rules.engine.
+  RuleEngineRunner`), whose fired programs come back through
+  :meth:`inject_rule_alerts` as ALERT events.
 - RECOVERY: :meth:`replay_journal` re-ingests journal records from the
   committed offset, or from a checkpoint's replay floor below it; rows
   below the committed offset re-run their state effects but are not
@@ -207,6 +211,8 @@ class PipelineDispatcher(LifecycleComponent):
       offset commit; a ``SegmentStore`` in an ``Instance``
     - ``registration`` -> registration manager (process_unregistered);
       None = unregistered rows only dead-letter
+    - ``rules_engine`` -> the tenant rule engine (``submit_live``, a
+      non-blocking bounded offer); None = no BYO rule programs
 
     ``device`` is where the step runs: ``None`` means the card and raises
     without one; the CPU only when named.
@@ -221,6 +227,7 @@ class PipelineDispatcher(LifecycleComponent):
         zones_provider: Callable[[], object],
         event_store=None,
         registration=None,
+        rules_engine=None,
         journal: Optional[Journal] = None,
         dead_letters: Optional[Journal] = None,
         resolve_tenant: Optional[Callable[[str], int]] = None,
@@ -244,6 +251,10 @@ class PipelineDispatcher(LifecycleComponent):
         self.state_manager = state_manager
         self.event_store = event_store
         self.registration = registration
+        # Bring-your-own rules: egress offers every accepted batch to the
+        # engine's bounded queue; its worker evaluates the tenant programs
+        # and fired ones re-enter through inject_rule_alerts.
+        self.rules_engine = rules_engine
         self.journal = journal
         self.dead_letters = dead_letters
         self.resolve_tenant = resolve_tenant or (lambda token: 0)
@@ -1213,6 +1224,12 @@ class PipelineDispatcher(LifecycleComponent):
         # chaos kill point: stored but the offset commit never runs
         faults.crosspoint("crash.mid_egress")
 
+        # 1b. tenant rule programs: the same accepted enriched batch,
+        # evaluated on the engine's own worker (non-blocking offer)
+        if self.rules_engine is not None and accepted.any():
+            with trace.span("egress.rules"):
+                self.rules_engine.submit_live(cols, accepted)
+
         # 2. auto-registration + replay
         if int(m.unregistered) > 0:
             with trace.span("egress.registration"):
@@ -1378,6 +1395,28 @@ class PipelineDispatcher(LifecycleComponent):
         self._run_plans(self._take(
             lambda: self.batcher.add_arrays(_copy=False, **cols)),
             replay_depth)
+
+    def inject_rule_alerts(self, cols: Dict[str, np.ndarray]) -> int:
+        """Re-inject fired tenant-program alerts as first-class ALERT
+        events (the rule engine's half of the derived-alert contract).
+
+        Called from the rule engine's worker thread, outside the engine's
+        stream, so any step it runs launches on this thread's current
+        stream as every other intake does; ``_take`` and ``_run_plans``
+        serialize it against live intake.  The engine builds the columns
+        with ``update_state=False`` and masks ALERT rows at eval, so the
+        path cannot amplify itself."""
+        n = int(np.asarray(cols["device_id"]).size)
+        if n == 0:
+            return 0
+        self.totals["derived_alerts"] += n
+        # the key appears with the first program alert, as in the
+        # reference's totals
+        self.totals["rule_program_alerts"] = (
+            self.totals.get("rule_program_alerts", 0) + n)
+        self._run_plans(self._take(
+            lambda: self.batcher.add_arrays(_copy=False, **cols)))
+        return n
 
     def metrics_snapshot(self) -> Dict[str, object]:
         with self._lock:

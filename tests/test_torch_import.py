@@ -179,3 +179,37 @@ def test_instance_raises_without_a_card(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         Instance(cfg)
     assert not (tmp_path / "checkpoint").exists()
+
+
+# The bring-your-own rules slice: the package and each module imported on
+# its own with JAX and the reference blocked.
+SLICE5_MODULES = (
+    "rules", "rules.dsl", "rules.interp", "rules.compile", "rules.enrich",
+    "rules.registry", "rules.engine",
+)
+
+
+@pytest.fixture(scope="module")
+def slice5_imports():
+    import json
+
+    proc = subprocess.run(
+        [sys.executable, "-c", _ONE_BY_ONE, *SLICE5_MODULES], cwd=REPO,
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout.strip())
+
+
+@pytest.mark.parametrize("name", SLICE5_MODULES)
+def test_slice5_module_imports_without_jax(slice5_imports, name):
+    out, bad = slice5_imports
+    assert out[name] == "ok"
+    assert bad == []
+
+
+def test_rule_engine_raises_without_a_card(monkeypatch):
+    from sitewhere_tpu_torch.rules.engine import RuleEngineRunner
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RuleEngineRunner(capacity=16)

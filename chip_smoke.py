@@ -94,7 +94,25 @@ script exits non-zero without printing a result:
    (registered lines + derived alerts, program alerts among them);
    ``checkpoint_full`` with the ``rule-programs`` section: programs and
    attributes come back as saved;
-9. a small input run on the card and on the CPU: identical int outputs.
+9. streaming analytics (phase ``streaming_analytics``), four queries: a
+   60 s tumbling mean, a 60 s x 4 sliding max, a count >= 3 session with
+   a 120 s gap, and a window-mean cross then an alert within 60 s, with
+   thresholds where about 1% of windows match; event time advances at
+   one report per device per 60 s and values lie on a 1/8 grid.
+   ``analytics_engine``: a ``QueryRunner`` at the deployment's size
+   (2^20 slots, 1,000,000 devices), 24 full-width batches straight into
+   ``_eval_batch``: card ms per batch of each query (CUDA events) beside
+   its HBM bound, CEP passes, host copies and transient peak per batch,
+   state bytes, events/s, and the busy share under the profiler;
+   ``card_vs_cpu``: 8192 rows in two batches through the four queries on
+   the card and on the CPU, matches and state bitwise equal;
+   ``analytics_wire``: rules_wire.on's run with the four queries
+   registered, on payloads of the same shape regenerated with this
+   phase's event time: the ``analytics.*`` metrics, and every query's
+   live matches equal to ``run_retrospective`` over the sealed store
+   (``analytics.live_dropped`` must be 0); ``checkpoint_full.analytics``:
+   the operator state restored bitwise;
+10. a small input run on the card and on the CPU: identical int outputs.
 
 The line before the last is the card's ``nvidia-smi`` name and power
 limit; before it, the kernels' JSON record.  The last line is
@@ -107,6 +125,7 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import contextlib
+import functools
 import json
 import math
 import os
@@ -171,6 +190,35 @@ RULE_CPU_ROWS, RULE_INTERP_ROWS = 8192, 2048
 # sqrt(RULE_SQUARE_SHARE) of the traffic's box
 RULE_SQUARE_SHARE = 0.0011
 RATE_MAX_ULP = 4.0
+# streaming analytics (phase streaming_analytics): event time advances at
+# the fleet's reporting rate, each device once per AN_REPORT_S on average,
+# so a full-width batch spans FULL_B / N_ACTIVE * AN_REPORT_S seconds
+AN_REPORT_S = 60.0
+AN_BATCHES, AN_PROFILED = 24, 4
+AN_CPU_ROWS, AN_CPU_DEVICES = 8192, 4096
+# values: a set point and signed deviations on a 1/8 grid (a sensor of
+# 0.125 resolution), 50 +- 48: every window sum and sum of squares is exact
+# in float32 whatever the order, and the world's instant rules (below 0.1,
+# above 99.9) never fire
+AN_SET_POINT, AN_SPREAD_EIGHTHS = 50.0, 384
+# the cross feature's prefix sums stay exact while every |prefix| is under
+# 2^21 (2^24 eighths); each generated batch is checked against it
+AN_PREFIX_BOUND = float(1 << 21)
+# thresholds where about 1% of windows match: a window's mean (mostly one
+# sample) above 97.0 is 1.04% of a uniform 2..98; the trailing 4-hop max
+# above 97.75 about 1% at ~4 samples
+AN_QUERIES = (
+    {"kind": "window", "name": "temp-mean", "mtype": "m0", "agg": "mean",
+     "op": "gt", "threshold": 97.0, "windowS": 60},
+    {"kind": "window", "name": "temp-max4", "mtype": "m0", "agg": "max",
+     "op": "gt", "threshold": 97.75, "windowS": 60, "length": 4},
+    {"kind": "session", "name": "burst", "gapS": 120, "agg": "count",
+     "op": "gte", "threshold": 3.0},
+    {"kind": "pattern", "name": "cross-alert", "windowS": 60,
+     "crossOp": "gt", "crossThreshold": 97.0, "crossMtype": "m0",
+     "steps": [{"windowCross": True},
+               {"eventType": "alert", "withinS": 60}]},
+)
 # instructions per edge test in the kernel: float32 - 2 compares
 # (straddle), sub, mul, add, 1 compare (px < x_cross); logic - the
 # straddle xor and the and-xor into the parity
@@ -1232,6 +1280,9 @@ def instance_config(data_dir, capacity, width, ring_depth, deadline_ms):
         "checkpoint": {"interval_s": 0},
         # the rule engine's asset table covers the world's 5000 assets
         "rules": {"asset_capacity": RULE_ASSET_CAPACITY},
+        # every live match of a run is kept for the live == retrospective
+        # check
+        "analytics": {"max_matches": 1 << 21},
     }, apply_env=False)
 
 
@@ -1289,7 +1340,7 @@ def row_checksum(cols, mask=None):
 
 def persist_throughput(device, geo_cuda, world_ckpt, payloads, root, run,
                        meas=False, rules=None, phase="persist_recover",
-                       name=None):
+                       name=None, analytics=None):
     """The wire path through the port ``Instance``: its ``SegmentStore``
     and journal at the Config defaults, ring off, the deployment's 5 ms
     deadline.  Timed from the first byte to the return of the
@@ -1300,7 +1351,13 @@ def persist_throughput(device, geo_cuda, world_ckpt, payloads, root, run,
     ``rules(inst)`` loads tenant programs before the instance starts and
     returns a record of the load; the run then records every alert the
     engine injects and checks each is stored exactly once.  A 60/30/10
-    run ends with checkpoint_full."""
+    run ends with checkpoint_full.
+
+    ``analytics``: streaming queries registered before the instance
+    starts; the run then waits for the runner to drain, reports the
+    ``analytics.*`` metrics, and after ``flush_live()`` and ``stop()``
+    checks every query's live matches against ``run_retrospective`` over
+    the sealed store (which needs ``analytics.live_dropped`` 0)."""
     import torch
 
     data_dir = os.path.join(root, run)
@@ -1308,6 +1365,21 @@ def persist_throughput(device, geo_cuda, world_ckpt, payloads, root, run,
                                FULL_B, 0, WIRE_DEADLINE_MS)
     store, disp, eng = inst.event_store, inst.dispatcher, inst.rule_engine
     load = rules(inst) if rules is not None else None
+    runner = inst.analytics
+    live_matches = collections.defaultdict(list)
+    if analytics is not None:
+        for doc in analytics:
+            runner.register(doc)
+        real_record = runner._record
+
+        def record(entry, matches, live):
+            if live:
+                live_matches[entry.spec.name].extend(
+                    m.to_dict() for m in matches)
+            return real_record(entry, matches, live=live)
+
+        runner._record = record
+        order = OfferOrder(runner, CAPACITY)
     fired = collections.Counter()
     if load is not None:
         real_inject = eng.inject
@@ -1360,6 +1432,9 @@ def persist_throughput(device, geo_cuda, world_ckpt, payloads, root, run,
             disp.ingest_wire_lines(payload)
         settle(inst)
         elapsed = time.perf_counter() - t0
+        if analytics is not None:
+            runner.drain(timeout_s=600.0)
+        drained = time.perf_counter() - t0
         launches = geo_cuda.launch_counts["pip_parity"]
         snap = disp.metrics_snapshot()
         rules1 = rules_metrics(inst)
@@ -1371,13 +1446,26 @@ def persist_throughput(device, geo_cuda, world_ckpt, payloads, root, run,
         store.append_columns, store.flush = real_append, real_flush
         # checkpoint_full: one save of the loaded instance, then a fresh
         # instance restores it; the state must come back bitwise
+        an = analytics_metrics(inst) if analytics is not None else None
         if not meas:
             saved_state = inst.device_state.snapshot_host()
+            saved_analytics = {n: e.compiled.export_state()
+                               for n, e in runner._queries.items()}
             saved_rules = (eng.registry.snapshot_payload()[0],
                            eng.attributes.snapshot_payload())
             inst.checkpointer.save()
             save_stats = dict(inst.checkpointer.last_save_stats)
         inst.stop()
+        retro = {}
+        if analytics is not None:
+            # after stop(): its final generation holds the open windows
+            # checkpoint_full compares; then every open window finalizes
+            runner.flush_live()
+            t1 = time.perf_counter()
+            for doc in analytics:
+                retro[doc["name"]] = runner.run_retrospective(
+                    doc["name"])["matches"]
+            retro_s = time.perf_counter() - t1
         sealed = store.sealer.sealed_segments - sealed0
         stats = store.store_stats()
         disk = sum(os.path.getsize(os.path.join(store.dir, f))
@@ -1421,6 +1509,31 @@ def persist_throughput(device, geo_cuda, world_ckpt, payloads, root, run,
            "rules": {k: rules1[k] - rules0[k] for k in rules1},
            "rule_program_alerts": (snap.get("rule_program_alerts", 0)
                                    - snap0.get("rule_program_alerts", 0))}
+    if analytics is not None:
+        rec["analytics_drain_s"] = drained - elapsed
+        rec["analytics"] = an
+        rec["analytics_matches"] = {n: len(v)
+                                    for n, v in live_matches.items()}
+        rec["retrospective_s"] = retro_s
+        rec["disordered_devices"] = order.counts()
+        rec["live_equals_retrospective"] = {}
+        rec["matches_outside_the_contract"] = {}
+        for doc in analytics:
+            n = doc["name"]
+            keep = order.ordered_devices(doc)
+            got = [m for m in live_matches[n] if keep[m["device_id"]]]
+            want = [m for m in retro[n] if keep[m["device_id"]]]
+            rec["live_equals_retrospective"][n] = (
+                sorted(got, key=_match_key) == sorted(want, key=_match_key))
+            rec["matches_outside_the_contract"][n] = {
+                "live": len(live_matches[n]) - len(got),
+                "retrospective": len(retro[n]) - len(want)}
+            if not rec["live_equals_retrospective"][n]:
+                a = {tuple(sorted(m.items())) for m in got}
+                b = {tuple(sorted(m.items())) for m in want}
+                rec.setdefault("differences", {})[n] = {
+                    "live_only": [dict(m) for m in sorted(a - b)[:4]],
+                    "retrospective_only": [dict(m) for m in sorted(b - a)[:4]]}
     if load is not None:
         rec["rules"]["eval_ms_per_batch"] = (
             rec["rules"]["eval_s"] * 1e3
@@ -1452,10 +1565,23 @@ def persist_throughput(device, geo_cuda, world_ckpt, payloads, root, run,
     check(stored == appended,
           f"stored rows {stored} != accepted rows {appended}: a row lost "
           "or stored twice")
+    if analytics is not None:
+        check(an["live_dropped"] == 0,
+              f"analytics dropped {an['live_dropped']} live batches: live "
+              "and retrospective matches cannot agree")
+        check(rec["disordered_devices"]["m0"]["rows"] == 0,
+              "measurement rows reached the runner out of time order")
+        check(all(rec["live_equals_retrospective"].values()),
+              f"live != retrospective matches: "
+              f"{rec['live_equals_retrospective']}")
+        check(all(live_matches.get(n) for n in retro),
+              f"a query never matched: {rec['analytics_matches']}")
     if not meas:
         restore_full(device, data_dir, saved_state, save_stats, saved_rules,
                      phase=phase,
-                     run="checkpoint_full" + (".rules" if load else ""))
+                     run="checkpoint_full" + (".analytics" if analytics
+                                              else ".rules" if load else ""),
+                     saved_analytics=saved_analytics)
     shutil.rmtree(data_dir, ignore_errors=True)
     return rec
 
@@ -1475,6 +1601,89 @@ def settle(inst):
             return
 
 
+class OfferOrder:
+    """Which devices' rows reached the analytics runner out of time order.
+
+    Live and retrospective evaluation agree by construction only for a
+    per-device time-ordered stream (the operators' split invariance): the
+    store keeps each device's rows in the order they were offered, but
+    splits them into other batches.  A derived or program alert
+    re-enters the pipeline after its source plan's egress, so it can
+    follow a later row of the same device.  Every offered row is checked,
+    in offer order, against the newest row offered before it for its
+    device: over all rows, and over the measurement rows of ``m0`` alone
+    (what the window queries read)."""
+
+    def __init__(self, runner, capacity):
+        self.newest = {"all": np.full(capacity, -1, np.int64),
+                       "m0": np.full(capacity, -1, np.int64)}
+        self.late = {k: np.zeros(capacity, bool) for k in self.newest}
+        self.rows = {k: 0 for k in self.newest}
+        real = runner.submit_live
+
+        def submit(cols, mask, trace=None, committed=None):
+            m = np.asarray(mask)
+            dev = np.asarray(cols["device_id"])[m].astype(np.int64)
+            ts = np.asarray(cols["ts_s"])[m].astype(np.int64)
+            m0 = ((np.asarray(cols["event_type"])[m] == 0)
+                  & (np.asarray(cols["mtype_id"])[m] == 0))
+            for key, sel in (("all", slice(None)), ("m0", m0)):
+                d, t = dev[sel], ts[sel]
+                ok = (d >= 0) & (d < capacity)
+                self._scan(key, d[ok], t[ok])
+            return real(cols, mask, trace=trace, committed=committed)
+
+        runner.submit_live = submit
+
+    def _scan(self, key, d, t):
+        """Rows older than the newest earlier row of their device, in this
+        batch's order: a running max over each device's rows (sorted by
+        device, stably), seeded with the newest of earlier batches."""
+        order = np.argsort(d, kind="stable")
+        ds, ts = d[order], t[order]
+        run = np.maximum.accumulate((ds << 32) | ts)
+        prev = np.concatenate([[-1], run[:-1]])
+        same = (prev >> 32) == ds
+        before = np.maximum(np.where(same, prev & 0xFFFFFFFF, -1),
+                            self.newest[key][ds])
+        late = ts < before
+        self.rows[key] += int(late.sum())
+        self.late[key][ds[late]] = True
+        np.maximum.at(self.newest[key], ds, ts)
+
+    def counts(self):
+        return {k: {"devices": int(self.late[k].sum()),
+                    "rows": self.rows[k]} for k in self.late}
+
+    def ordered_devices(self, doc):
+        """The devices whose rows the query reads all arrived in time
+        order (a boolean mask over device ids)."""
+        key = "m0" if doc["kind"] == "window" and doc.get("mtype") == "m0" \
+            else "all"
+        return ~self.late[key]
+
+
+def _match_key(m):
+    return (m["ts_s"], m["device_id"], m["start_ts_s"], m["value"],
+            m["count"])
+
+
+def analytics_metrics(inst):
+    """The ``analytics.*`` family: live batches, drops, replay skips, and
+    each query's eval seconds (timer total and count) and matches."""
+    m = inst.metrics
+    out = {k: m.counter(f"analytics.{k}").value for k in (
+        "live_batches", "live_dropped", "live_shed", "replay_rows_skipped")}
+    out["queries"] = {}
+    for name, entry in inst.analytics._queries.items():
+        t = entry.timer
+        out["queries"][name] = {
+            "eval_s": t.total, "eval_batches": t.count,
+            "eval_ms_per_batch": t.total * 1e3 / max(1, t.count),
+            "matches": entry.counter.value}
+    return out
+
+
 def rules_metrics(inst):
     """The ``rules.*`` family's totals (zeros without an engine)."""
     m = inst.metrics
@@ -1486,10 +1695,12 @@ def rules_metrics(inst):
 
 
 def restore_full(device, data_dir, saved_state, save_stats, saved_rules,
-                 phase="persist_recover", run="checkpoint_full"):
+                 phase="persist_recover", run="checkpoint_full",
+                 saved_analytics=None):
     """checkpoint_full: a fresh instance restores the saved instance's
-    newest generation; the state must equal the saved one bitwise, and
-    the rule programs and attribute tables must come back as saved."""
+    newest generation; the state must equal the saved one bitwise, the
+    rule programs and attribute tables must come back as saved, and so
+    must every analytics query's operator state."""
     from sitewhere_tpu_torch.instance import Instance
 
     ckpt = os.path.join(data_dir, "checkpoint")
@@ -1513,6 +1724,15 @@ def restore_full(device, data_dir, saved_state, save_stats, saved_rules,
             and all(np.array_equal(got_attrs[1][t], saved_rules[1][1][t])
                     for t in ("device", "asset")))
         programs = eng.registry.program_count()
+        got_an = {n: e.compiled.export_state()
+                  for n, e in inst.analytics._queries.items()}
+        an_unequal = sorted(
+            f"{n}.{k}" for n, arrays in (saved_analytics or {}).items()
+            for k, a in arrays.items()
+            if n not in got_an or got_an[n][k].dtype != a.dtype
+            or got_an[n][k].tobytes() != a.tobytes())
+        an_bytes = int(sum(a.nbytes for arrays in got_an.values()
+                           for a in arrays.values()))
     finally:
         inst.terminate()
     gen = max(int(f.split("-")[1].split(".")[0]) for f in os.listdir(ckpt)
@@ -1525,8 +1745,13 @@ def restore_full(device, data_dir, saved_state, save_stats, saved_rules,
                                            for a in saved_state.values())),
           "save": save_stats, "restore_s": restore_s,
           "restore": restore, "instance_construct_s": construct_s,
-          "generation": gen, "unequal_fields": unequal})
+          "generation": gen, "unequal_fields": unequal,
+          "analytics_queries": len(got_an),
+          "analytics_state_bytes": an_bytes,
+          "analytics_unequal_fields": an_unequal})
     check(not unequal, f"restored state differs from the saved: {unequal}")
+    check(not an_unequal and len(got_an) == len(saved_analytics or {}),
+          f"restored analytics state differs from the saved: {an_unequal}")
     check(rules_equal, "restored rule programs or attributes differ")
 
 
@@ -2348,6 +2573,322 @@ def phase_byo_rules(device, geo_cuda, mixed):
     return launches
 
 
+# -- streaming analytics ---------------------------------------------------------
+
+
+def an_span_ms(rows=None, devices=None):
+    """Event time of one batch of ``rows`` rows over ``devices`` devices
+    at one report per device per AN_REPORT_S (full width: ~7.9 s)."""
+    rows = FULL_B if rows is None else rows
+    devices = N_ACTIVE if devices is None else devices
+    return int(round(rows / devices * AN_REPORT_S * 1000))
+
+
+def an_values(rng, n):
+    """Measurement values: AN_SET_POINT +- AN_SPREAD_EIGHTHS / 8, on the
+    1/8 grid."""
+    k = rng.integers(-AN_SPREAD_EIGHTHS, AN_SPREAD_EIGHTHS + 1, n)
+    return (AN_SET_POINT + k / 8).astype(np.float32)
+
+
+def an_check_prefix(value, cross_rows):
+    """The window-cross feature's prefix sums over one batch stay exact in
+    float32: the sum of |value| over its rows is under 2^21."""
+    bound = float(np.abs(value[cross_rows].astype(np.float64)).sum())
+    check(bound < AN_PREFIX_BOUND,
+          f"a batch's cross-feature prefix reaches {bound} >= 2^21")
+
+
+def an_payloads(rng, n_payloads, lines, ts0_ms):
+    """rules_wire's payload shape (60/30/10 measurements, locations and
+    alerts, WIRE_GHOSTS unregistered tokens) on this phase's event time:
+    payload p spans ``an_span_ms()`` from ``ts0_ms + p * span``, its lines
+    in time order (a gateway's batch); values on the 1/8 grid print as
+    exact decimals.  Returns ``[(bytes, registered_lines)]``."""
+    span = an_span_ms()
+    out = []
+    for p in range(n_payloads):
+        dev = rng.integers(0, N_ACTIVE, lines)
+        ghost = rng.random(lines) < WIRE_GHOSTS
+        kind = rng.choice(3, lines, p=[0.6, 0.3, 0.1])
+        value = an_values(rng, lines)
+        lat = rng.uniform(-85, 85, lines)
+        lon = rng.uniform(-175, 175, lines)
+        ts = ts0_ms + span * p + np.sort(rng.integers(0, span, lines))
+        an_check_prefix(value, (kind == 0) & (dev % M_SLOTS == 0) & ~ghost)
+        body = []
+        for d, g, k, v, la, lo, t in zip(
+                dev.tolist(), ghost.tolist(), kind.tolist(), value.tolist(),
+                lat.tolist(), lon.tolist(), ts.tolist()):
+            tok = f"x-{d}" if g else f"d-{d}"
+            if k == 0:
+                body.append(_M_LINE % (tok, d % M_SLOTS, v, t))
+            elif k == 1:
+                body.append(_L_LINE % (tok, la, lo, v, t))
+            else:
+                body.append(_A_LINE % (tok, d % 4, t))
+        out.append(("\n".join(body).encode(), lines - int(ghost.sum())))
+    return out
+
+
+def an_batches(rng, n, width, ts0_s, devices=None):
+    """Runner batches: the accepted rows of payloads shaped as
+    :func:`an_payloads`'s, as the egress offer hands them over (device,
+    time, type, measurement, value, journal ref); batch b spans
+    ``an_span_ms(width, devices)`` from ``ts0_s + b * span``."""
+    devices = N_ACTIVE if devices is None else devices
+    span = an_span_ms(width, devices)
+    out = []
+    for b in range(n):
+        dev = rng.integers(0, devices, width).astype(np.int32)
+        kind = rng.choice(3, width, p=[0.6, 0.3, 0.1]).astype(np.int32)
+        ts_ms = ts0_s * 1000 + span * b + np.sort(rng.integers(0, span,
+                                                               width))
+        mt = np.where(kind == 0, dev % M_SLOTS, -1).astype(np.int32)
+        value = np.where(kind == 0, an_values(rng, width), 0.0)
+        an_check_prefix(value, mt == 0)
+        out.append({"device_id": dev, "ts_s": (ts_ms // 1000).astype(np.int32),
+                    "event_type": kind, "mtype_id": mt,
+                    "value": value.astype(np.float32),
+                    "payload_ref": np.full(width, -1, np.int32)})
+    return out
+
+
+def an_resolve():
+    return {f"m{m}": m for m in range(M_SLOTS)}.__getitem__
+
+
+class QueryClock:
+    """CUDA events and the allocator's peak around each query's share of a
+    batch (its operator and its one host copy), on the runner's stream
+    where it runs.  Nothing on the CPU."""
+
+    def __init__(self, runner, device):
+        import torch
+
+        self.torch = torch
+        self.on = device.type == "cuda"
+        self.compiled = {n: e.compiled for n, e in runner._queries.items()}
+        self.pairs = collections.defaultdict(list)
+        self.peak = collections.defaultdict(float)
+        self.max_allocated = 0
+
+    def _timed(self, name, fn, staged):
+        torch = self.torch
+        if not self.on:
+            return fn(staged)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(staged)
+        end.record()
+        self.pairs[name].append((start, end))
+        top = torch.cuda.max_memory_allocated()
+        self.peak[name] = max(self.peak[name], top - base)
+        self.max_allocated = max(self.max_allocated, top)
+        return out
+
+    def __enter__(self):
+        for name, c in self.compiled.items():
+            c.eval_staged = functools.partial(self._timed, name,
+                                              c.eval_staged)
+        return self
+
+    def __exit__(self, *exc):
+        for c in self.compiled.values():
+            del c.eval_staged
+        return False
+
+    def ms_per_batch(self, batches):
+        if not self.on:
+            return None
+        self.torch.cuda.synchronize()
+        return {k: sum(s.elapsed_time(e) for s, e in v) / batches
+                for k, v in self.pairs.items()}
+
+
+def an_bound_ms(doc, batch):
+    """The least card time of one query's batch: the bytes it must move
+    over the HBM rate (its columns read once; the state rows of the
+    devices it touches read and written once; the matches are a few
+    rows).  Its operations (a few compares and adds per row) bound it far
+    lower."""
+    dev = batch["device_id"]
+    n = dev.size
+    if doc["kind"] == "window":
+        rows = (batch["event_type"] == 0) & (batch["mtype_id"] == 0)
+        length = doc.get("length", 1)
+        state = 24 + (24 * length if length > 1 else 0)
+        cols = 21        # device, time, type, measurement, value, valid
+    elif doc["kind"] == "session":
+        rows, state, cols = np.ones(n, bool), 12, 9
+    else:
+        rows, state, cols = np.ones(n, bool), 28, 21
+    touched = np.unique(dev[rows]).size
+    return (n * cols + 2 * touched * state) / PEAK_HBM_BYTES * 1e3
+
+
+def analytics_engine_run(device):
+    """``analytics_engine``: the ``QueryRunner`` alone at the deployment's
+    size, AN_BATCHES full-width batches straight into ``_eval_batch``:
+    card ms per batch of each query (CUDA events) beside its HBM bound,
+    CEP passes, host copies and the transient peak per batch, the
+    operators' state bytes, events/s, and the card's busy share under
+    the profiler in AN_PROFILED more batches."""
+    import torch
+
+    from sitewhere_tpu_torch.analytics.runner import QueryRunner
+
+    t0 = time.perf_counter()
+    runner = QueryRunner(CAPACITY, resolve_mtype=an_resolve(),
+                         device=device)
+    for doc in AN_QUERIES:
+        runner.register(doc)
+    batches = an_batches(np.random.default_rng(SEED + 12),
+                         1 + AN_BATCHES + AN_PROFILED, FULL_B, 1_700_000_000)
+    setup_s = time.perf_counter() - t0
+    sync = torch.cuda.synchronize if device.type == "cuda" else (
+        lambda: None)
+    runner._eval_batch(dict(batches[0]))
+    sync()
+    entries = runner._queries
+    cep = entries["cross-alert"].compiled.evaluator
+    copies0 = {n: e.compiled.copies[0] for n, e in entries.items()}
+    matches0 = {n: e.counter.value for n, e in entries.items()}
+    passes0 = cep.passes
+    timed = batches[1:1 + AN_BATCHES]
+    with QueryClock(runner, device) as clock:
+        t0 = time.perf_counter()
+        for b in timed:
+            runner._eval_batch(dict(b))
+        sync()
+        elapsed = time.perf_counter() - t0
+    query_ms = clock.ms_per_batch(len(timed))
+    nb = len(timed)
+    bounds = {d["name"]: sum(an_bound_ms(d, b) for b in timed) / nb
+              for d in AN_QUERIES}
+    rows = sum(b["device_id"].size for b in timed)
+    with _device_profile(device.type == "cuda") as prof:
+        t1 = time.perf_counter()
+        for b in batches[1 + AN_BATCHES:]:
+            runner._eval_batch(dict(b))
+        sync()
+        prof_s = time.perf_counter() - t1
+    dev_ms = _device_ms(prof)
+    state_bytes = {n: int(sum(a.nbytes for a in e.compiled.export_state()
+                              .values())) for n, e in entries.items()}
+    rec = {"phase": "streaming_analytics", "run": "analytics_engine",
+           "capacity": CAPACITY, "devices": N_ACTIVE, "width": FULL_B,
+           "batches": nb, "batch_span_ms": an_span_ms(),
+           "setup_s": setup_s, "elapsed_s": elapsed,
+           "engine_events_per_s": rows / elapsed,
+           "ms_per_batch": elapsed / nb * 1e3,
+           "query_ms_per_batch": query_ms,
+           "query_bound_ms": bounds, "bound_by": "bytes",
+           "query_bound_share": (None if query_ms is None else {
+               n: bounds[n] / ms for n, ms in query_ms.items()}),
+           "cep_passes_per_batch": (cep.passes - passes0) / nb,
+           "d2h_copies_per_batch": {
+               n: (e.compiled.copies[0] - copies0[n]) / nb
+               for n, e in entries.items()},
+           "transient_peak_mib": ({k: v / 2**20 for k, v in
+                                   clock.peak.items()} if clock.on else None),
+           "peak_allocated_gib": (clock.max_allocated / 2**30
+                                  if clock.on else None),
+           "state_bytes": state_bytes,
+           "matches": {n: e.counter.value - matches0[n]
+                       for n, e in entries.items()},
+           "window_occupancy": runner._m_occupancy.value,
+           "profiled_batches": AN_PROFILED, "profiled_s": prof_s,
+           "device_ms_per_batch": (None if dev_ms is None
+                                   else dev_ms / AN_PROFILED),
+           "device_busy_share": (None if dev_ms is None
+                                 else dev_ms / 1e3 / prof_s),
+           "device_ops_per_batch": (None if prof is None
+                                    else _device_launches(prof)
+                                    / AN_PROFILED)}
+    emit(rec)
+    # a 120 s-gap session closes only after two minutes of silence, rare
+    # in the run's ~3 minutes of event time: its matches come at flush
+    check(all(v for n, v in rec["matches"].items() if n != "burst"),
+          f"a query never matched in analytics_engine: {rec['matches']}")
+    return rec
+
+
+def analytics_card_vs_cpu(device):
+    """AN_CPU_ROWS rows in two batches over AN_CPU_DEVICES devices
+    through the four queries on the card and on the port's CPU path: the
+    matches (the flush's too) and the exported state bitwise equal."""
+    import torch
+
+    from sitewhere_tpu_torch.analytics.query import compile_query, parse_query
+
+    resolve = an_resolve()
+    batches = an_batches(np.random.default_rng(SEED + 14), 2, AN_CPU_ROWS,
+                         1_700_000_000, devices=AN_CPU_DEVICES)
+    out = {}
+    for doc in AN_QUERIES:
+        runs = []
+        for dev in (device, torch.device("cpu")):
+            c = compile_query(parse_query(doc, resolve), CAPACITY,
+                              resolve_mtype=resolve, device=dev)
+            matches = [m.to_dict() for b in batches for m in c.eval_cols(b)]
+            state = c.export_state()
+            matches += [m.to_dict() for m in c.flush()]
+            runs.append((matches, state))
+        (gm, gs), (cm, cs) = runs
+        unequal = sorted(k for k in gs if gs[k].dtype != cs[k].dtype
+                         or gs[k].tobytes() != cs[k].tobytes())
+        out[doc["name"]] = {"matches": len(gm), "matches_equal": gm == cm,
+                            "unequal_state": unequal}
+    emit({"phase": "streaming_analytics", "run": "card_vs_cpu",
+          "rows": AN_CPU_ROWS, "batches": 2, "devices": AN_CPU_DEVICES,
+          "queries": out})
+    for name, r in out.items():
+        check(r["matches_equal"] and not r["unequal_state"],
+              f"card != CPU for {name}: {r}")
+    check(sum(r["matches"] for r in out.values()) > 0,
+          "card_vs_cpu: no query matched")
+
+
+def phase_streaming_analytics(device, geo_cuda):
+    """Streaming analytics on the port: ``analytics_engine`` (the runner
+    alone at full width), ``card_vs_cpu`` (8192 rows, bitwise), then
+    ``analytics_wire``: rules_wire.on's run through the ``Instance`` with
+    the four queries registered, on payloads regenerated with this
+    phase's event time and 1/8-grid values; every query's live matches
+    checked equal to ``run_retrospective`` over the sealed store, and
+    checkpoint_full with the ``analytics`` section.  Returns the kernel's
+    launches in the wire run, by run name."""
+    t0 = time.perf_counter()
+    analytics_engine_run(device)
+    analytics_card_vs_cpu(device)
+    root = tempfile.mkdtemp(prefix="analytics-", dir=geo_cuda.BUILD_DIR)
+    launches = {}
+    try:
+        world = world_checkpoint(device, root, "full")
+
+        def programs(inst):
+            return load_rule_programs(
+                inst.rule_engine, [inst.identity.tenant.mint("default")],
+                (-175, 175, -85, 85), N_ACTIVE, SEED + 11)
+
+        payloads = an_payloads(np.random.default_rng(SEED + 13),
+                               WIRE_PAYLOADS, FULL_B, WIRE_TS0_MS)
+        rec = persist_throughput(
+            device, geo_cuda, world, payloads, root, "analytics",
+            rules=programs, phase="streaming_analytics",
+            name="analytics_wire", analytics=AN_QUERIES)
+        launches["analytics_wire"] = rec["pip_launches"]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "streaming_analytics", "run": "done",
+          "seconds": time.perf_counter() - t0})
+    return launches
+
+
 def phase_small_reference(device):
     """A small deployment stepped on the card (kernel) and on the CPU
     (plain versions): int outputs and metrics identical, EWMAs close."""
@@ -2430,16 +2971,20 @@ def main() -> int:
     del meas
     rules_launches = phase_byo_rules(device, geo_cuda, mixed)
     del mixed
-    # this slice's path: the Instance with its segment store and the
-    # tenant programs loaded, ring off, the deployment's deadline
-    rec["launches"] = rules_launches["rules_wire.on"]
+    an_launches = phase_streaming_analytics(device, geo_cuda)
+    # this slice's path: the Instance with its segment store, the tenant
+    # programs and the four analytics queries, ring off, the deployment's
+    # deadline
+    rec["launches"] = an_launches["analytics_wire"]
     rec["launches_by_path"] = {"main_path": main_launches,
                                **{f"dispatcher_wire.{k}": v
                                   for k, v in wire_launches.items()},
                                **{f"persist_recover.{k}": v
                                   for k, v in persist_launches.items()},
                                **{f"byo_rules.{k}": v
-                                  for k, v in rules_launches.items()}}
+                                  for k, v in rules_launches.items()},
+                               **{f"streaming_analytics.{k}": v
+                                  for k, v in an_launches.items()}}
     phase_small_reference(device)
 
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

@@ -3,60 +3,80 @@
 Counterpart of ``sitewhere_tpu/instance.py``'s :class:`Instance`, cut to
 the components this package has: the identity map, the registry mirror,
 the rule manager, the device-state manager, the segment store, the
-ingest journal and its dead letters, the bring-your-own rule engine
-(``rules.programs_enabled``, on by default as in the reference; its
-fired programs re-enter through the dispatcher's ``inject_rule_alerts``
-and its programs and attributes are the ``rule-programs`` checkpoint
-section), the batcher, the pipeline dispatcher and the checkpointer (with
-the segment catalog's section).  The attributes keep the reference's
-names, since the
+ingest journal and its dead letters, the streaming analytics runner
+(``analytics.enabled``, on by default as in the reference: registered
+Window/Session/Pattern queries evaluate on every accepted batch, and
+their operator state is the ``analytics`` checkpoint section), the
+bring-your-own rule engine (``rules.programs_enabled``, on by default as
+in the reference; its fired programs re-enter through the dispatcher's
+``inject_rule_alerts`` and its programs and attributes are the
+``rule-programs`` checkpoint section), the batcher, the pipeline
+dispatcher and the checkpointer (with the segment catalog's section).
+The attributes keep the reference's names, since the
 :class:`~sitewhere_tpu_torch.runtime.checkpoint.Checkpointer` reads
 them.
 
 Components the reference composes by default and this instance does NOT
-yet (each left at its default here, so the port does less than the
-reference until its slice comes):
+yet, so the port does less than the reference until their slices come
+(line numbers in ``sitewhere_tpu/instance.py`` unless named):
 
-- streaming analytics, the ``QueryRunner`` (``sitewhere_tpu/instance.py``
-  :444-466), with its ``analytics`` checkpoint section (:726-733);
-- overload control, the ``OverloadController`` (:289-340): no admission,
-  no shedding, and the rule engine's ``overload`` hook stays ``None``;
-- metering, the ``UsageLedger`` and ``QuotaTable`` (:341-380): the rule
-  engine's ``usage_ledger`` and ``quotas`` hooks stay ``None``;
+- registration and its replay, the ``RegistrationManager`` (:495-501,
+  passed to the dispatcher at :558): the port dead-letters rows of
+  unregistered devices (``kind: "unregistered"``) instead of registering
+  them and replaying the rows;
+- command delivery, the dispatcher's command-rows leg
+  (``sitewhere_tpu/runtime/dispatcher.py:2634-2639``, ``_on_command_rows``
+  :1160): accepted COMMAND_INVOCATION rows are stored, never routed;
+- overload control, the ``OverloadController`` (:283-340): no admission,
+  no shedding;
+- metering, the ``UsageLedger`` and ``QuotaTable`` (:341-386);
+- the flight recorder and the SLO burn-rate engine (:224-274);
+- the decode pool (:537-549): payloads decode on the caller's thread;
+- tenant partitions of the device state (:388-403);
 - outbound connectors, the ``OutboundConnectorsManager`` (:432-434);
+- search providers (:692-706);
 - presence scans, the ``PresenceManager`` (:592-597);
 - device-fault containment, devguard, which the reference dispatcher
-  composes (``sitewhere_tpu/runtime/dispatcher.py:531-602``).
+  composes (``sitewhere_tpu/runtime/dispatcher.py:531-602``);
+- the ``runtime`` and ``tenant-metering`` checkpoint sections (:746-767).
+
+The hooks the runner and the rule engine keep for those components stay
+``None``: ``outbound`` (the runner's match fan-out), ``overload`` (both
+shed as non-priority consumers from SHEDDING), ``usage_ledger`` and
+``quotas`` (eval seconds billed and gated per tenant).
 
 Lifecycle, as in the reference:
 
 - ``__init__`` builds the components, then restores the newest complete
   checkpoint generation (identity, mirror, rules, device state, catalog
-  manifest) before anything starts;
+  manifest, the analytics queries with their operator state, the rule
+  programs) before anything starts;
 - :meth:`start` captures the journal end (``recover_upto``) before
-  anything ingests, starts the store, the dispatcher (whose warm-up
-  builds the native scanners, the ``TokenTable`` mirror and the geofence
-  kernel, and raises if any build fails) and the checkpointer, then
-  replays the journal from the checkpoint's replay floor up to
-  ``recover_upto``, and sets the ``recovery.restore_s``,
-  ``recovery.replay_s`` and ``recovery.replay_events`` gauges;
-- :meth:`stop` flushes the dispatcher (every row egressed and sealed,
-  the offset committed), stops the store and saves a final generation.
+  anything ingests, starts the store, the analytics runner, the rule
+  engine, the dispatcher (whose warm-up builds the native scanners, the
+  ``TokenTable`` mirror and the geofence kernel, and raises if any build
+  fails) and the checkpointer, then replays the journal from the
+  checkpoint's replay floor up to ``recover_upto`` (the runner drops the
+  replayed rows already inside its restored state, row-exactly), and
+  sets the ``recovery.restore_s``, ``recovery.replay_s`` and
+  ``recovery.replay_events`` gauges;
+- :meth:`stop` stops the children in reverse: the dispatcher flushes
+  (every row egressed and sealed, the offset committed) while the rule
+  engine and the analytics runner still run, then they drain, then the
+  store stops; a final generation is saved.
 
 Configuration: the reference's keys and defaults
 (:mod:`~sitewhere_tpu_torch.runtime.config`), plus two of the port's own,
 ``pipeline.max_zones`` and ``pipeline.max_zone_verts`` (the registry
 mirror's zone table; defaults 256 and 32, the reference mirror's).  The
 keys in :data:`HONOURED` drive the instance.  Sections whose components
-the port does not have yet (``sources``, ``analytics``, ``overload``,
-``metering``, ``outbound``, ``rpc``, ``registration``, ``presence``, the
-decode pool and the rest) are not composed: at their defaults the
-instance runs without them (the list above names those the reference
-turns on by default), and any other value raises
-:class:`NotImplementedError`, as does ``pipeline.n_shards`` above 1.
-Events are ingested through ``instance.dispatcher``
-(``ingest_wire_lines`` and the other entry points) on the caller's
-thread.
+the port does not have yet (``sources``, ``overload``, ``metering``,
+``outbound``, ``rpc``, ``registration``, ``presence``, the decode pool
+and the rest) are not composed: at their defaults the instance runs
+without them, and any other value raises :class:`NotImplementedError`,
+as does ``pipeline.n_shards`` above 1.  Events are ingested through
+``instance.dispatcher`` (``ingest_wire_lines`` and the other entry
+points) on the caller's thread.
 
 The instance runs on the card unless ``device="cpu"`` is named.
 """
@@ -68,6 +88,7 @@ import os
 import time
 from typing import Any, Dict, Iterator, Optional, Tuple
 
+from sitewhere_tpu_torch.analytics.runner import QueryRunner
 from sitewhere_tpu_torch.device import DeviceLike, resolve_device
 from sitewhere_tpu_torch.ids import IdentityMap
 from sitewhere_tpu_torch.ingest.batcher import AdaptiveBatchController, Batcher
@@ -100,6 +121,7 @@ HONOURED = (
     "pipeline.ewma_halflives_s", "pipeline.max_zones",
     "pipeline.max_zone_verts",
     "journal.*", "events.*", "checkpoint.interval_s", "rules.*",
+    "analytics.*",
     "dead_letters.retain_records",
     "tracing.sample_rate", "tracing.tail_errors", "tracing.tail_latency_ms",
     "tracing.pending_capacity",
@@ -201,6 +223,37 @@ class Instance(LifecycleComponent):
         self.dead_letters = Journal(self.data_dir, name="dead-letters")
         self.event_store.dead_letters = self.dead_letters
 
+        tail_ms = self.config.get("tracing.tail_latency_ms", 100.0)
+        self.tracer = Tracer(
+            sample_rate=float(self.config.get("tracing.sample_rate", 0.01)),
+            tail_errors=bool(self.config.get("tracing.tail_errors", True)),
+            tail_latency_s=(float(tail_ms) / 1e3
+                            if tail_ms is not None else None),
+            pending_capacity=int(
+                self.config.get("tracing.pending_capacity", 512)))
+
+        # Streaming analytics: registered Window/Session/Pattern queries
+        # evaluate live on every accepted batch (the dispatcher's egress
+        # offers it to the runner's worker) and retrospectively over the
+        # sealed store.  Added before the dispatcher so the reverse-order
+        # stop keeps it alive through the dispatcher's shutdown flush.
+        self.analytics = None
+        if bool(self.config.get("analytics.enabled", True)):
+            self.analytics = self.add_child(QueryRunner(
+                capacity=cap,
+                resolve_mtype=self.identity.mtype.mint,
+                event_store=self.event_store,
+                metrics=self.metrics,
+                tracer=self.tracer,
+                max_queries=int(self.config.get("analytics.max_queries", 32)),
+                max_matches=int(self.config.get(
+                    "analytics.max_matches", 1024)),
+                queue_depth=int(self.config.get("analytics.queue_depth", 64)),
+                fanout_matches=bool(self.config.get(
+                    "analytics.fanout_matches", True)),
+                device=dev,
+            ))
+
         # Bring-your-own rules: per-tenant rule programs bucketed into
         # per-structure group passes.  Added before the dispatcher so the
         # reverse-order stop keeps the engine draining through the
@@ -222,15 +275,6 @@ class Instance(LifecycleComponent):
                 queue_depth=int(self.config.get("rules.queue_depth", 64)),
                 device=dev,
             ))
-
-        tail_ms = self.config.get("tracing.tail_latency_ms", 100.0)
-        self.tracer = Tracer(
-            sample_rate=float(self.config.get("tracing.sample_rate", 0.01)),
-            tail_errors=bool(self.config.get("tracing.tail_errors", True)),
-            tail_latency_s=(float(tail_ms) / 1e3
-                            if tail_ms is not None else None),
-            pending_capacity=int(
-                self.config.get("tracing.pending_capacity", 512)))
 
         controller = None
         if bool(self.config.get("pipeline.adaptive_deadline", True)):
@@ -262,6 +306,7 @@ class Instance(LifecycleComponent):
             zones_provider=self.mirror.publish_zones,
             event_store=self.event_store,
             rules_engine=self.rule_engine,
+            analytics=self.analytics,
             journal=self.ingest_journal,
             dead_letters=self.dead_letters,
             resolve_tenant=self.identity.tenant.mint,
@@ -290,6 +335,14 @@ class Instance(LifecycleComponent):
             prune_journal=bool(self.config.get(
                 "journal.prune_after_checkpoint", False)),
         ))
+        if self.analytics is not None:
+            # live query/CEP state: open windows, rings, sessions, pattern
+            # stages, with the exact journal offset it is applied up to
+            self.checkpointer.register_provider(StateProvider(
+                name="analytics",
+                snapshot_fn=self.analytics.snapshot_state,
+                restore_fn=self.analytics.restore_state,
+                version=1))
         if self.rule_engine is not None:
             # tenant rule programs + attribute tables (the docs are the
             # durable identity; operand tables rebuild on the first
@@ -327,7 +380,8 @@ class Instance(LifecycleComponent):
     def stop(self) -> None:
         # children stop in reverse: the checkpointer's interval thread,
         # then the dispatcher (its flush egresses and seals every row and
-        # commits the final offset), then the store.  The final snapshot
+        # commits the final offset), then the rule engine and the analytics
+        # runner (each drains what the flush offered), then the store.  The final snapshot
         # comes AFTER that flush and captures the committed offset before
         # reading any component, so it never claims rows the journal
         # offset has not sealed.

@@ -35,10 +35,13 @@ first-class events, and the new state committed to the
   ``Instance``.  The journal offset commits only past plans whose egress
   completed, and only after the store's ``flush()`` has sealed every
   buffered row to disk (:meth:`_maybe_commit_offset`).  After the
-  store, egress offers the accepted rows to the tenant rule engine
-  (``rules_engine``, :class:`~sitewhere_tpu_torch.rules.engine.
-  RuleEngineRunner`), whose fired programs come back through
-  :meth:`inject_rule_alerts` as ALERT events.
+  store, egress offers the accepted rows, with the committed journal
+  offset, to the streaming analytics runner (``analytics``,
+  :class:`~sitewhere_tpu_torch.analytics.runner.QueryRunner`), then to
+  the tenant rule engine (``rules_engine``,
+  :class:`~sitewhere_tpu_torch.rules.engine.RuleEngineRunner`), whose
+  fired programs come back through :meth:`inject_rule_alerts` as ALERT
+  events.
 - RECOVERY: :meth:`replay_journal` re-ingests journal records from the
   committed offset, or from a checkpoint's replay floor below it; rows
   below the committed offset re-run their state effects but are not
@@ -211,6 +214,9 @@ class PipelineDispatcher(LifecycleComponent):
       offset commit; a ``SegmentStore`` in an ``Instance``
     - ``registration`` -> registration manager (process_unregistered);
       None = unregistered rows only dead-letter
+    - ``analytics`` -> the streaming query runner (``submit_live`` with
+      ``committed=``, a non-blocking bounded offer); None = no live
+      queries
     - ``rules_engine`` -> the tenant rule engine (``submit_live``, a
       non-blocking bounded offer); None = no BYO rule programs
 
@@ -228,6 +234,7 @@ class PipelineDispatcher(LifecycleComponent):
         event_store=None,
         registration=None,
         rules_engine=None,
+        analytics=None,
         journal: Optional[Journal] = None,
         dead_letters: Optional[Journal] = None,
         resolve_tenant: Optional[Callable[[str], int]] = None,
@@ -255,6 +262,9 @@ class PipelineDispatcher(LifecycleComponent):
         # engine's bounded queue; its worker evaluates the tenant programs
         # and fired ones re-enter through inject_rule_alerts.
         self.rules_engine = rules_engine
+        # Streaming analytics: egress offers every accepted batch, with the
+        # committed journal offset as the runner's applied watermark.
+        self.analytics = analytics
         self.journal = journal
         self.dead_letters = dead_letters
         self.resolve_tenant = resolve_tenant or (lambda token: 0)
@@ -1224,7 +1234,20 @@ class PipelineDispatcher(LifecycleComponent):
         # chaos kill point: stored but the offset commit never runs
         faults.crosspoint("crash.mid_egress")
 
-        # 1b. tenant rule programs: the same accepted enriched batch,
+        # 1b. streaming analytics: live window/session/pattern queries on
+        # the runner's own worker (non-blocking offer).  The committed
+        # offset rides along as the runner's fully-applied watermark:
+        # queue order guarantees every batch carrying rows of records
+        # below it was offered before this one.
+        if self.analytics is not None and accepted.any():
+            with trace.span("egress.analytics"):
+                self.analytics.submit_live(
+                    cols, accepted, trace=trace,
+                    committed=(int(self.journal_reader.committed)
+                               if self.journal_reader is not None
+                               else None))
+
+        # 1c. tenant rule programs: the same accepted enriched batch,
         # evaluated on the engine's own worker (non-blocking offer)
         if self.rules_engine is not None and accepted.any():
             with trace.span("egress.rules"):

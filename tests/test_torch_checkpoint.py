@@ -446,9 +446,13 @@ def test_rules_section_equals_the_reference(both_saved):
 def test_unsupported_config_is_refused(tmp_path):
     for tree in ({"sources": [{"type": "mqtt"}]},
                  {"pipeline": {"n_shards": 2}},
-                 {"analytics": {"max_queries": 8}},
+                 {"presence": {"scan_interval_s": 60.0}},
                  {"rpc": {"peers": ["a:1", "b:2"]}},
                  {"overload": {"enabled": False}}):
         with pytest.raises(NotImplementedError):
             refuse_unsupported(Config(tree, apply_env=False))
     refuse_unsupported(config(tmp_path))
+    # the analytics section is the runner's since streaming analytics
+    refuse_unsupported(Config({"analytics": {"max_queries": 8,
+                                             "enabled": False}},
+                              apply_env=False))

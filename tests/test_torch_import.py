@@ -213,3 +213,45 @@ def test_rule_engine_raises_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         RuleEngineRunner(capacity=16)
+
+
+# The streaming analytics slice: the package and each module imported on
+# its own with JAX and the reference blocked.
+SLICE6_MODULES = (
+    "analytics", "analytics.windows", "analytics.cep", "analytics.query",
+    "analytics.checkpoint", "analytics.runner", "analytics.charts",
+)
+
+
+@pytest.fixture(scope="module")
+def slice6_imports():
+    import json
+
+    proc = subprocess.run(
+        [sys.executable, "-c", _ONE_BY_ONE, *SLICE6_MODULES], cwd=REPO,
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout.strip())
+
+
+@pytest.mark.parametrize("name", SLICE6_MODULES)
+def test_slice6_module_imports_without_jax(slice6_imports, name):
+    out, bad = slice6_imports
+    assert out[name] == "ok"
+    assert bad == []
+
+
+@pytest.mark.parametrize("entry", ["QueryRunner", "AnalyticsJob",
+                                   "build_chart_series"])
+def test_analytics_entry_points_default_to_the_card(monkeypatch, entry):
+    """With no device named, each entry point resolves ``cuda:0``: here,
+    without a card, that raises."""
+    from sitewhere_tpu_torch import analytics
+    from sitewhere_tpu_torch.analytics.charts import build_chart_series
+
+    calls = {"QueryRunner": lambda: analytics.QueryRunner(capacity=16),
+             "AnalyticsJob": lambda: analytics.AnalyticsJob(),
+             "build_chart_series": lambda: build_chart_series(object())}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calls[entry]()

@@ -342,3 +342,45 @@ def test_kill_at_a_crash_point_loses_no_committed_event(killed, control,
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--child"]:
         child_main(sys.argv[2], int(sys.argv[3]))
+
+
+def test_replay_dead_letters_an_out_of_int32_event_date(tmp_path):
+    """A journal record whose eventDate is finite but outside int32 (one
+    written before the live decode refused such dates): the restart's
+    replay dead-letters that record, as the scalar decoder refuses it,
+    replays the records around it, and the boot completes.  (The
+    reference's replay aborts here; it is not run.)"""
+    from sitewhere_tpu_torch.ingest.journal import Journal
+
+    bad = json.dumps({
+        "deviceToken": "d-1", "type": "DeviceMeasurements",
+        "request": {"name": "temp", "value": 21.5,
+                    "eventDate": 10 ** 13}}).encode()   # 1e10 s
+    journal = Journal(str(tmp_path), name="ingest")
+    for record in (payload(0), bad, payload(1)):
+        journal.append(record)
+    journal.close()
+    inst = Instance(config(tmp_path), device="cpu")
+    seed(inst)
+    inst.start()
+    try:
+        assert inst.dispatcher.journal_reader.committed == 3
+        gauges = inst.metrics.snapshot()["gauges"]
+        assert gauges["recovery.replay_events"] == 2 * WIDTH
+        counts = stored_counts(inst)
+        assert set(counts) == {row_key(k * WIDTH + r) for k in (0, 1)
+                               for r in range(WIDTH)} & REGISTERED
+        assert set(counts.values()) == {1}
+    finally:
+        inst.stop()
+        inst.terminate()
+    letters = Journal(str(tmp_path), name="dead-letters")
+    try:
+        docs = [json.loads(p) for _, p in letters.scan(0)]
+    finally:
+        letters.close()
+    decode = [d for d in docs if d["kind"] == "failed-decode"]
+    assert len(decode) == 1
+    assert decode[0]["source"] == "journal-replay"
+    assert bytes.fromhex(decode[0]["payload"]) == bad
+    assert "eventDate" in decode[0]["error"]

@@ -50,7 +50,9 @@ script exits non-zero without printing a result:
    decode and batch;
 7. persistence and restart through the port ``Instance`` (phase
    ``persist_recover``), its segment store and journal at the Config
-   defaults, under a temporary directory that is removed afterwards.
+   defaults (registration composed, with no default device type, so
+   rows of unknown devices are re-decoded and rejected, as in the
+   reference), under a temporary directory that is removed afterwards.
    ``persist_throughput``: the same two kinds of full-width payloads,
    ring off at 5 ms, with the real store: events/s, latency, persist ms
    per plan, ``flush`` ms per commit, segments sealed, bytes on disk and
@@ -112,8 +114,40 @@ script exits non-zero without printing a result:
    live matches equal to ``run_retrospective`` over the sealed store
    (``analytics.live_dropped`` must be 0); ``checkpoint_full.analytics``:
    the operator state restored bitwise;
-10. a small input run on the card and on the CPU: identical int outputs.
+10. the device system of record, auto-registration and command delivery
+   (phase ``device_services``): the wire world restored into an
+   ``Instance`` with ``registration.default_device_type: sensor``; device
+   types ``sensor`` and ``gateway`` with the commands ``ping`` and
+   ``set-rate``, 1,000 assets and 20,000 devices ``c-*`` (every 20th a
+   gateway) with their assignments, created through ``DeviceManagement``
+   (us per call); then ``device_services_wire``: the first 8 of
+   dispatcher_wire's 60/30/10 payloads (0.5% of lines from unknown
+   ``x-*`` tokens, every 100th registered line from a ``c-*`` device, 64
+   NDJSON command lines of ``c-*`` sensors in every third payload) while
+   1,000 ``create_command_invocation`` calls, to the first 1,000 ``c-*``
+   devices, arrive at 2,000/s on one thread and are served by 32 handler
+   threads;
+   sensors' commands go to a callback with the binary encoder, gateways'
+   to an HTTP gateway on 127.0.0.1 with the JSON encoder.  Reports
+   events/s, latency, the step span, ``egress.registration`` and
+   ``egress.commands`` ms per plan, invocation-to-delivery p50 and p99,
+   registry republishes and repacks with their ms (the dispatcher's
+   ``pipeline.*_s`` timers), the replays beyond the ghost lines and the
+   stored rows per sent line of the ``c-*`` devices (the reference's
+   straddled-payload duplicates) and
+   the log records (the reference logs each failed registration with
+   its traceback).  Checks: every distinct ghost registered once with
+   one active assignment and an active mirror row of tenant 0, every
+   ghost line stored, stored == accepted, every invocation delivered
+   exactly once with its encoding, each NDJSON command line dead-lettered
+   once as ``undeliverable-invocation``, ``commands`` == stored command
+   rows, kernel launches == steps.  ``checkpoint_full.stores``: save,
+   restore into a fresh instance; devices, assignments, device types and
+   commands, assets equal, the mirror bitwise;
+11. a small input run on the card and on the CPU: identical int outputs.
 
+Every log record of the run goes to a file under the build directory
+(removed at the end); the ``done`` line counts them by logger and level.
 The line before the last is the card's ``nvidia-smi`` name and power
 limit; before it, the kernels' JSON record.  The last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card the script exits
@@ -1266,9 +1300,11 @@ SIZES = {"full": (CAPACITY, N_ACTIVE, FULL_B),
 EWMA_MAX_ULP, EWMA_SCALE = 4.0, 128.0
 
 
-def instance_config(data_dir, capacity, width, ring_depth, deadline_ms):
+def instance_config(data_dir, capacity, width, ring_depth, deadline_ms,
+                    **extra):
     """The deployment as an ``Instance`` config: the reference's keys; the
-    journal and the segment store at the Config defaults."""
+    journal and the segment store at the Config defaults; ``extra``
+    sections on top (``registration`` in device_services)."""
     from sitewhere_tpu_torch.runtime.config import Config
 
     return Config({
@@ -1283,6 +1319,7 @@ def instance_config(data_dir, capacity, width, ring_depth, deadline_ms):
         # every live match of a run is kept for the live == retrospective
         # check
         "analytics": {"max_matches": 1 << 21},
+        **extra,
     }, apply_env=False)
 
 
@@ -1304,14 +1341,14 @@ def world_checkpoint(device, root, size):
 
 
 def instance_from_world(device, world_ckpt, data_dir, capacity, width,
-                        ring_depth, deadline_ms):
+                        ring_depth, deadline_ms, **extra):
     """A fresh instance whose checkpoint directory is a copy of the
     world's: construction restores the deployment."""
     from sitewhere_tpu_torch.instance import Instance
 
     shutil.copytree(world_ckpt, os.path.join(data_dir, "checkpoint"))
     inst = Instance(instance_config(data_dir, capacity, width, ring_depth,
-                                    deadline_ms), device=device)
+                                    deadline_ms, **extra), device=device)
     check(inst.restored, f"world checkpoint not restored in {data_dir}")
     return inst
 
@@ -1438,6 +1475,8 @@ def persist_throughput(device, geo_cuda, world_ckpt, payloads, root, run,
         launches = geo_cuda.launch_counts["pip_parity"]
         snap = disp.metrics_snapshot()
         rules1 = rules_metrics(inst)
+        registration = {"registered": inst.registration.registered,
+                        "rejected": inst.registration.rejected}
         committed = disp.journal_reader.committed
         records = inst.ingest_journal.end_offset
         latency = _latency(disp, "max")
@@ -1507,6 +1546,7 @@ def persist_throughput(device, geo_cuda, world_ckpt, payloads, root, run,
            "pip_launches": launches, "committed": committed,
            "journal_records": records, **delta,
            "rules": {k: rules1[k] - rules0[k] for k in rules1},
+           "registration": registration,
            "rule_program_alerts": (snap.get("rule_program_alerts", 0)
                                    - snap0.get("rule_program_alerts", 0))}
     if analytics is not None:
@@ -2076,11 +2116,12 @@ def phase_persist_recover(device, geo_cuda, mixed, meas):
                   for size in ("full", "small")}
         emit({"phase": "persist_recover", "run": "setup",
               "world_s": time.perf_counter() - t0})
-        rec = persist_throughput(device, geo_cuda, worlds["full"], mixed,
-                                 root, "ring0")
+        rec = persist_throughput(device, geo_cuda, worlds["full"],
+                                 mixed, root, "ring0")
         launches["persist_throughput.ring0"] = rec["pip_launches"]
-        rec = persist_throughput(device, geo_cuda, worlds["full"], meas,
-                                 root, "measurements_ring0", meas=True)
+        rec = persist_throughput(device, geo_cuda, worlds["full"],
+                                 meas, root,
+                                 "measurements_ring0", meas=True)
         launches["persist_throughput.measurements_ring0"] = \
             rec["pip_launches"]
         kill_recover(device, worlds, os.path.join(root, "kills"))
@@ -2563,7 +2604,8 @@ def phase_byo_rules(device, geo_cuda, mixed):
 
         for run, rules in (("off", None), ("on", programs)):
             rec = persist_throughput(
-                device, geo_cuda, world, mixed, root, f"rules_{run}",
+                device, geo_cuda, world, mixed, root,
+                f"rules_{run}",
                 rules=rules, phase="byo_rules", name=f"rules_wire.{run}")
             launches[f"rules_wire.{run}"] = rec["pip_launches"]
     finally:
@@ -2889,6 +2931,644 @@ def phase_streaming_analytics(device, geo_cuda):
     return launches
 
 
+# -- device services -------------------------------------------------------------
+
+# The command devices: c-0 .. c-19999 created through DeviceManagement with
+# their assignments, every 20th a gateway.  REST invocations, half ping
+# and half set-rate, go to the first DS_INVOCATIONS of them (5% gateways),
+# arriving at DS_RATE_PER_S.  create_command_invocation journals the
+# invocation and then flushes the dispatcher (the reference's design): one
+# full-width step and one offset commit per call, serialized on the step
+# lock, so the count is cut from one per device to what fits the phase
+DS_DEVICES, DS_GATEWAY_EVERY = 20_000, 20
+DS_INVOCATIONS = 1_000
+# The phase takes the first 8 of the 24 wire payloads: where its plans
+# split payloads, each split record's rows of devices that only the
+# mirror knows fail registration with a logged traceback (the
+# reference's), 10,000 or more per plan, and at 24 payloads the phase
+# alone took 151-233 s of the script's 1,200
+DS_PAYLOADS = 8
+DS_RATE_PER_S = 2_000.0
+# arrivals are paced on one thread and served by a pool, as a REST front
+# end's handler threads serve them
+DS_HANDLERS = 32
+# NDJSON command lines, spread over every third wire payload
+DS_CMD_LINES, DS_CMD_EVERY = 64, 3
+# every DS_C_EVERY-th registered wire line comes from a c-* device: their
+# stored rows per sent line show the straddled-payload replays (devices
+# only in the mirror are refused instead)
+DS_C_EVERY = 100
+DS_ASSETS = 1_000
+_C_LINE = ('{"deviceToken":"c-%d","type":"CommandInvocation","request":'
+           '{"commandToken":"ping","eventDate":%d}}')
+
+
+class LogTally:
+    """A root log handler for the whole run: every record is formatted,
+    its traceback included, and written to a file under the build
+    directory (removed at the end), so the records the reference's
+    registration logs cost what they cost without flooding the output;
+    counts by logger, level and traceback.  Configured as a service
+    logging at volume is (the logging HOWTO's "Optimization"): a
+    buffered file flushed at close, no caller frame, thread or process
+    lookups per record."""
+
+    _FAST = {"logThreads": False, "logProcesses": False,
+             "logMultiprocessing": False, "_srcfile": None}
+
+    def __init__(self, path):
+        import logging
+
+        self.path = path
+        self.counts = collections.Counter()
+        self.first = {}
+        self.bytes = 0
+        self.saved = {k: getattr(logging, k) for k in self._FAST}
+        for k, v in self._FAST.items():
+            setattr(logging, k, v)
+        self.stream = open(path, "w", buffering=1 << 20)
+
+        class Buffered(logging.StreamHandler):
+            def flush(self):
+                pass
+
+        handler = Buffered(self.stream)
+        handler.setFormatter(logging.Formatter(
+            "%(asctime)s %(name)s %(levelname)s %(message)s"))
+        tally = self
+
+        class Counting(logging.Filter):
+            def filter(self, record):
+                key = (record.name, record.levelname,
+                       record.exc_info is not None)
+                tally.counts[key] += 1
+                if key not in tally.first:
+                    tally.first[key] = record.getMessage()[:160]
+                return True
+
+        handler.addFilter(Counting())
+        self.handler = handler
+        logging.getLogger().addHandler(handler)
+
+    def snapshot(self):
+        return collections.Counter(self.counts)
+
+    def since(self, before):
+        out = {}
+        for (name, level, tb), n in (self.counts - before).items():
+            key = f"{name}:{level}" + (":traceback" if tb else "")
+            out[key] = n
+        return out
+
+    def close(self):
+        import logging
+
+        logging.getLogger().removeHandler(self.handler)
+        self.handler.close()
+        self.stream.close()
+        for k, v in self.saved.items():
+            setattr(logging, k, v)
+        self.bytes = os.path.getsize(self.path)
+        os.remove(self.path)
+
+
+def ds_payloads(mixed):
+    """The 60/30/10 wire payloads with every DS_C_EVERY-th registered
+    line sent by a c-* device, and 64 NDJSON command lines of c-* sensors
+    in place of registered lines of every third payload (their records
+    are not one JSON document).  Returns ``(payloads, command lines as
+    (payload index, device token), ghost lines per token, c-* event lines
+    per token)``."""
+    import re
+
+    out, cmd_lines = [], []
+    ghosts, c_lines = collections.Counter(), collections.Counter()
+    hosts = range(0, len(mixed), DS_CMD_EVERY)
+    per = dict(zip(hosts, (len(a) for a in np.array_split(
+        np.arange(DS_CMD_LINES), len(hosts)))))
+    k = 0
+    for p, (payload, registered) in enumerate(mixed):
+        ghosts.update(t.decode() for t in
+                      re.findall(rb'"deviceToken":"(x-\d+)"', payload))
+        lines = payload.split(b"\n")
+        for pos in range(DS_C_EVERY // 2, len(lines), DS_C_EVERY):
+            line = lines[pos]
+            if b'"x-' in line:
+                continue
+            dev = (p * len(lines) + pos) // DS_C_EVERY % DS_DEVICES
+            cut = line.index(b'","type"')
+            lines[pos] = b'{"deviceToken":"c-%d' % dev + line[cut:]
+            c_lines[f"c-{dev}"] += 1
+        for pos in np.linspace(16, len(lines) - 16,
+                               per.get(p, 0)).astype(int):
+            while b'"x-' in lines[pos] or b'"c-' in lines[pos]:
+                pos += 1
+            dev = (k * 37 + 1) % DS_DEVICES
+            if dev % DS_GATEWAY_EVERY == 0:
+                dev += 1
+            lines[pos] = (_C_LINE % (dev, WIRE_TS0_MS + 1000 * p)).encode()
+            cmd_lines.append((p, f"c-{dev}"))
+            k += 1
+        out.append((b"\n".join(lines), registered))
+    return out, cmd_lines, ghosts, c_lines
+
+
+class Gateway:
+    """An SMS/webhook gateway stand-in on 127.0.0.1: records each POST's
+    arrival time and form body."""
+
+    def __init__(self):
+        import http.server
+        import threading
+
+        self.got = []
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_POST(handler):
+                n = int(handler.headers.get("Content-Length", 0))
+                body = handler.rfile.read(n)
+                self.got.append((time.perf_counter(), body))
+                handler.send_response(204)
+                handler.end_headers()
+
+            def log_message(handler, *args):
+                pass
+
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                                      Handler)
+        self.server.daemon_threads = True
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}/sms"
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(10.0)
+
+
+def ds_populate(inst):
+    """Device types, commands, assets and the command devices with their
+    assignments, through the instance's own services; µs per call."""
+    dm, am = inst.device_management, inst.assets
+    for dtype in ("sensor", "gateway"):
+        dm.create_device_type(token=dtype, name=dtype.title())
+        dm.create_device_command(dtype, token="ping", name="ping",
+                                 namespace="sw")
+        dm.create_device_command(
+            dtype, token="set-rate", name="setRate", namespace="sw",
+            parameters=[("rate", "int32", True), ("unit", "string", False)])
+    am.create_asset_type("gw-hw", name="Gateway hardware",
+                         category="hardware")
+    for a in range(DS_ASSETS):
+        am.create_asset(f"gw-asset-{a}", name=f"Gateway {a}",
+                        asset_type="gw-hw")
+    t0 = time.perf_counter()
+    for i in range(DS_DEVICES):
+        gw = i % DS_GATEWAY_EVERY == 0
+        dm.create_device(
+            token=f"c-{i}", device_type="gateway" if gw else "sensor",
+            metadata={"phone_number": f"+1555{i:07d}"} if gw else {})
+    t1 = time.perf_counter()
+    for i in range(DS_DEVICES):
+        gw = i % DS_GATEWAY_EVERY == 0
+        dm.create_device_assignment(
+            token=f"ca-{i}", device=f"c-{i}",
+            asset=(f"gw-asset-{(i // DS_GATEWAY_EVERY) % DS_ASSETS}"
+                   if gw else None))
+    t2 = time.perf_counter()
+    return {"create_device_us": (t1 - t0) / DS_DEVICES * 1e6,
+            "create_device_assignment_us": (t2 - t1) / DS_DEVICES * 1e6}
+
+
+def ds_destinations(inst, gateway):
+    """sensor -> a callback with the binary encoder, gateway -> the HTTP
+    gateway with the JSON encoder.  Returns the callback's record."""
+    from sitewhere_tpu_torch.commands import (
+        BinaryCommandEncoder, CallbackDeliveryProvider, CommandDestination,
+        DeviceTypeMappingRouter, HttpDeliveryProvider, JsonCommandEncoder,
+        SmsParameterExtractor, TopicParameterExtractor)
+
+    encoder, delivered = BinaryCommandEncoder(), []
+
+    def callback(execution, payload, params):
+        delivered.append((execution.invocation.token, time.perf_counter(),
+                          payload, payload == encoder(execution)))
+
+    inst.commands.add_destination(CommandDestination(
+        "sensors", encoder, TopicParameterExtractor(),
+        CallbackDeliveryProvider(callback)))
+    inst.commands.add_destination(CommandDestination(
+        "gateways", JsonCommandEncoder(), SmsParameterExtractor(),
+        HttpDeliveryProvider(gateway.url, timeout_s=30.0)))
+    inst.commands.router = DeviceTypeMappingRouter(
+        {"sensor": "sensors", "gateway": "gateways"})
+    return delivered
+
+
+def ds_invocation(i):
+    if i % 2 == 0:
+        return "ping", {}
+    return "set-rate", {"rate": str(i % 1000), "unit": "hz"}
+
+
+class Invoker:
+    """Operators' REST invocations: arrivals paced on one thread at
+    DS_RATE_PER_S, each served by one of DS_HANDLERS threads through
+    ``Instance.create_command_invocation``."""
+
+    def __init__(self, inst, n):
+        import queue
+        import threading
+
+        self.inst, self.n = inst, n
+        self.calls = [None] * n
+        self.errors = []
+        self.q = queue.Queue()
+        self.threads = [threading.Thread(target=self.pace, daemon=True)] + [
+            threading.Thread(target=self.serve, daemon=True)
+            for _ in range(DS_HANDLERS)]
+
+    def start(self):
+        self.t0 = time.perf_counter()
+        for t in self.threads:
+            t.start()
+
+    def pace(self):
+        for i in range(self.n):
+            due = self.t0 + i / DS_RATE_PER_S
+            wait = due - time.perf_counter()
+            if wait > 0:
+                time.sleep(wait)
+            self.q.put((i, due))
+        for _ in range(DS_HANDLERS):
+            self.q.put(None)
+
+    def serve(self):
+        while True:
+            item = self.q.get()
+            if item is None:
+                return
+            i, due = item
+            command, params = ds_invocation(i)
+            t_call = time.perf_counter()
+            try:
+                out = self.inst.create_command_invocation(
+                    f"ca-{i}", command, params, initiator_id=f"op-{i}")
+            except Exception as e:  # noqa: BLE001 - counted and raised below
+                self.errors.append(f"{i}: {type(e).__name__}: {e}")
+                continue
+            self.calls[i] = (out["token"], due, t_call, time.perf_counter())
+
+    def join(self, timeout_s):
+        deadline = time.monotonic() + timeout_s
+        for t in self.threads:
+            t.join(max(0.1, deadline - time.monotonic()))
+        return all(not t.is_alive() for t in self.threads)
+
+
+def _expected_execution(i, token):
+    from sitewhere_tpu_torch.commands import (
+        CommandExecution, CommandInvocation)
+
+    command, params = ds_invocation(i)
+    declared = [] if command == "ping" else [
+        ("rate", "int32", int(params["rate"])), ("unit", "string", "hz")]
+    return CommandExecution(
+        invocation=CommandInvocation(command_token=command,
+                                     target_assignment=f"ca-{i}",
+                                     token=token),
+        command_name="ping" if command == "ping" else "setRate",
+        namespace="sw", parameters=declared)
+
+
+def ds_legs(disp):
+    """The dispatcher's egress-leg and republish timers: ``{name: (count,
+    seconds)}``."""
+    return {k: (t.count, t.total) for k, t in (
+        (k, disp.metrics.timer(f"pipeline.{k}_s")) for k in (
+            "egress_registration", "egress_commands", "registry_publish",
+            "tables_repack"))}
+
+
+def _pct_ms(values, q):
+    """The ``q`` percentile of seconds, in ms (None without values)."""
+    return float(np.percentile(np.asarray(values), q)) * 1e3 \
+        if values else None
+
+
+def device_services_run(device, geo_cuda, world, mixed, root, logs):
+    """The wire world with auto-registration and command delivery (see
+    :func:`phase_device_services`); ``logs`` is the run's
+    :class:`LogTally`.  Returns the kernel's launches."""
+    import torch
+    from urllib.parse import parse_qs
+
+    from sitewhere_tpu_torch.commands import (
+        BinaryCommandEncoder, JsonCommandEncoder, decode_binary_execution)
+    from sitewhere_tpu_torch.instance import Instance
+    from sitewhere_tpu_torch.schema import EventType
+
+    t_setup = time.perf_counter()
+    payloads, cmd_lines, ghost_lines, c_lines = ds_payloads(mixed)
+    data_dir = os.path.join(root, "device_services")
+    registration = {"registration": {"default_device_type": "sensor"}}
+    inst = instance_from_world(device, world, data_dir, CAPACITY, FULL_B, 0,
+                               WIRE_DEADLINE_MS, **registration)
+    dm, disp, mirror = inst.device_management, inst.dispatcher, inst.mirror
+    per_call = ds_populate(inst)
+    slots = len(inst.identity.device) + len(ghost_lines)
+    check(slots <= CAPACITY,
+          f"{slots} devices and ghosts exceed {CAPACITY} registry slots")
+    gateway = Gateway()
+    delivered = ds_destinations(inst, gateway)
+
+    dead0 = inst.dead_letters.end_offset
+    inst.start()
+    spans = DeviceSpans(disp)
+    logs0 = logs.snapshot()
+    setup_s = time.perf_counter() - t_setup
+    invoker = Invoker(inst, DS_INVOCATIONS)
+    try:
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        snap0 = disp.metrics_snapshot()
+        legs0 = ds_legs(disp)
+        disp.latencies_s.clear()
+        reg0 = (inst.registration.registered, inst.registration.rejected)
+        geo_cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        invoker.start()
+        for payload, _ in payloads:
+            disp.ingest_wire_lines(payload)
+        disp.flush()
+        wire_s = time.perf_counter() - t0
+        check(invoker.join(900.0), "command invocations did not finish")
+        settle(inst)
+        elapsed = time.perf_counter() - t0
+        launches = geo_cuda.launch_counts["pip_parity"]
+        snap = disp.metrics_snapshot()
+        legs = {k: (n - legs0[k][0], t - legs0[k][1])
+                for k, (n, t) in ds_legs(disp).items()}
+        latency = _latency(disp, "max")
+        span_ms = spans.total_ms()
+        reg = (inst.registration.registered - reg0[0],
+               inst.registration.rejected - reg0[1])
+        logged = logs.since(logs0)
+        # ghosts: one Device, one active assignment, an active mirror row
+        # of tenant 0 each
+        active = collections.Counter(
+            a.device for a in dm.assignments.values()
+            if a.status == "Active" and a.device.startswith("x-"))
+        bad_ghosts = []
+        for tok in ghost_lines:
+            h = inst.identity.device.lookup(tok)
+            if (tok not in dm.devices or active[tok] != 1 or h < 0
+                    or not mirror.active[h] or mirror.tenant_id[h] != 0):
+                bad_ghosts.append(tok)
+        ghost_handles = {inst.identity.device.lookup(t): t
+                         for t in ghost_lines}
+        c_handles = np.asarray([inst.identity.device.lookup(t)
+                                for t in c_lines])
+        cmd_handles = collections.Counter(
+            (p, inst.identity.device.lookup(tok)) for p, tok in cmd_lines)
+        dead = [json.loads(raw) for _, raw in inst.dead_letters.scan(dead0)]
+        journal = inst.ingest_journal
+        # checkpoint_full.stores: save the loaded instance
+        saved = {attr: {k: dict(getattr(getattr(inst, attr), k))
+                        for k in keys} for attr, keys in (
+            ("device_management", ("device_types", "devices",
+                                   "assignments")),
+            ("assets", ("_types", "_assets")))}
+        saved_mirror = {k: np.array(getattr(mirror, k))
+                        for k in ("active", "tenant_id", "device_type_id",
+                                  "assignment_id", "assignment_status",
+                                  "area_id", "customer_id", "asset_id")}
+        inst.checkpointer.save()
+        save_stats = dict(inst.checkpointer.last_save_stats)
+        refs = {}
+        for d in dead:
+            ref = d.get("payload_ref", -1)
+            if d["kind"] == "undeliverable-invocation" and ref >= 0 \
+                    and ref not in refs:
+                refs[ref] = journal.read_one(ref)
+        inst.stop()
+        stored_ghosts = collections.Counter()
+        stored_rows, stored_commands, stored_c = 0, 0, 0
+        for cols in inst.event_store.iter_chunks():
+            dev = np.asarray(cols["device_id"])
+            etype = np.asarray(cols["event_type"])
+            stored_rows += int(dev.size)
+            stored_commands += int((etype
+                                    == EventType.COMMAND_INVOCATION).sum())
+            # the c-* devices' own lines: derived alerts aside
+            stored_c += int((np.isin(dev, c_handles) & np.isin(
+                etype, (EventType.MEASUREMENT, EventType.LOCATION))).sum())
+            for h, n in zip(*np.unique(dev, return_counts=True)):
+                if int(h) in ghost_handles:
+                    stored_ghosts[ghost_handles[int(h)]] += int(n)
+    finally:
+        invoker.join(60.0)
+        gateway.close()
+        inst.terminate()
+
+    delta = {k: snap[k] - snap0[k] for k in (
+        "steps", "processed", "accepted", "unregistered", "replayed",
+        "commands", "derived_alerts")}
+    lines = sum(p.count(b"\n") + 1 for p, _ in payloads)
+    n_ghost_lines = sum(ghost_lines.values())
+    c_sent = sum(sum(1 for ln in p.split(b"\n") if ln.startswith(
+        b'{"deviceToken":"c-') and (b'Measurements"' in ln
+                                    or b'Location"' in ln))
+        for p, _ in payloads)
+    # deliveries: the callback's and the gateway's, by invocation token
+    calls = {c[0]: (i, c) for i, c in enumerate(invoker.calls)
+             if c is not None}
+    by_token = collections.defaultdict(list)
+    for token, t, payload, same in delivered:
+        by_token[token].append(t)
+    http_unequal = 0
+    for t, body in gateway.got:
+        form = parse_qs(body.decode())
+        doc = json.loads(form["Body"][0])
+        token = doc["invocation"]
+        by_token[token].append(t)
+        i = calls[token][0] if token in calls else None
+        if i is None or form["Body"][0].encode() != JsonCommandEncoder()(
+                _expected_execution(i, token)):
+            http_unequal += 1
+    # the sensors' payloads: each equal to the encoder's output for the
+    # execution it was delivered with, and to the binary encoding of the
+    # invocation made, which decodes back to its command
+    binary_unequal = sum(1 for *_, same in delivered if not same)
+    for token, t, payload, _ in delivered:
+        i = calls[token][0] if token in calls else None
+        if i is None or payload != BinaryCommandEncoder()(
+                _expected_execution(i, token)) \
+                or decode_binary_execution(payload)["invocation"] != token:
+            binary_unequal += 1
+    once = all(len(v) == 1 for v in by_token.values())
+    lat_call = [by_token[tok][0] - c[2] for tok, (i, c) in calls.items()
+                if by_token.get(tok)]
+    lat_arrival = [by_token[tok][0] - c[1] for tok, (i, c) in calls.items()
+                   if by_token.get(tok)]
+    kinds = collections.Counter(d["kind"] for d in dead)
+    # the NDJSON command lines: one undeliverable-invocation dead letter
+    # each at its own record; replayed duplicates carry no record
+    payload_index = {p: i for i, (p, _) in enumerate(payloads)}
+    got = collections.Counter()
+    dup_undeliverable = 0
+    for d in dead:
+        if d["kind"] != "undeliverable-invocation":
+            continue
+        ref = d.get("payload_ref", -1)
+        if ref < 0:
+            dup_undeliverable += 1
+            continue
+        got[(payload_index.get(refs.get(ref)), d["device_id"])] += 1
+    rec = {"phase": "device_services", "run": "device_services_wire",
+           "traffic": "60/30/10 + invocations", "ring_depth": 0,
+           "deadline_ms": WIRE_DEADLINE_MS, "payloads": len(payloads),
+           "lines": lines, "ghost_lines": n_ghost_lines,
+           "distinct_ghosts": len(ghost_lines),
+           "ndjson_command_lines": len(cmd_lines),
+           "command_devices": DS_DEVICES,
+           "gateways": DS_DEVICES // DS_GATEWAY_EVERY,
+           "invocations": DS_INVOCATIONS,
+           "invocation_rate_per_s": DS_RATE_PER_S,
+           "invocation_handlers": DS_HANDLERS,
+           "registry_slots_used": slots, "setup_s": setup_s, **per_call,
+           "wire_s": wire_s, "elapsed_s": elapsed,
+           "events_per_s": lines / wire_s, **latency, **delta,
+           "pip_launches": launches,
+           "registration": {"registered": reg[0], "rejected": reg[1]},
+           "replayed_minus_ghost_lines": delta["replayed"] - n_ghost_lines,
+           "c_device_lines": sum(c_lines.values()),
+           "c_measurement_location_lines_sent": c_sent,
+           "c_measurement_location_rows_stored": stored_c,
+           "c_stored_per_sent_line": stored_c / c_sent if c_sent else None,
+           "duplicate_cause": (
+               "a plan's ghost rows re-decode their whole payload and "
+               "replay every request the plan did not process itself, the "
+               "rows of the payload another plan holds among them (the "
+               "reference's _handle_unregistered)"),
+           **{f"{k}_ms_each": (t / n * 1e3 if n else None)
+              for k, (n, t) in legs.items()},
+           **{f"{k}_count": n for k, (n, _) in legs.items()},
+           "invocation_to_delivery_ms": {
+               "from_call_p50": _pct_ms(lat_call, 50),
+               "from_call_p99": _pct_ms(lat_call, 99),
+               "from_arrival_p50": _pct_ms(lat_arrival, 50),
+               "from_arrival_p99": _pct_ms(lat_arrival, 99)},
+           "deliveries": {"callback": len(delivered),
+                          "http": len(gateway.got)},
+           "dead_letters": dict(kinds),
+           "undeliverable_replayed_duplicates": dup_undeliverable,
+           "rows_stored": stored_rows, "command_rows_stored": stored_commands,
+           "logs": logged, "invocation_errors": invoker.errors[:5]}
+    emit(_busy(rec, span_ms, None, wire_s, delta["steps"]))
+    check(not invoker.errors, f"invocations failed: {invoker.errors[:3]}")
+    check(not bad_ghosts, f"{len(bad_ghosts)} ghosts not registered once "
+          f"with an active assignment and row: {bad_ghosts[:3]}")
+    check(reg[0] == len(ghost_lines),
+          f"registered {reg[0]} of {len(ghost_lines)} distinct ghosts")
+    missing = [t for t, n in ghost_lines.items() if stored_ghosts[t] < n]
+    check(not missing, f"{len(missing)} ghosts' lines not all stored")
+    check(stored_c >= c_sent,
+          f"{stored_c} rows stored for {c_sent} c-* device lines")
+    check(stored_rows == delta["accepted"],
+          f"stored rows {stored_rows} != accepted {delta['accepted']}")
+    tokens = [c[0] for c in invoker.calls if c is not None]
+    check(len(tokens) == DS_INVOCATIONS == len(set(tokens)),
+          f"{len(set(tokens))} unique invocation tokens of {DS_INVOCATIONS}")
+    check(len(delivered) + len(gateway.got) == DS_INVOCATIONS and once
+          and set(by_token) == set(tokens),
+          f"deliveries: callback {len(delivered)} + http "
+          f"{len(gateway.got)} for {DS_INVOCATIONS} invocations, once {once}")
+    check(http_unequal == 0 and binary_unequal == 0,
+          f"{http_unequal} HTTP bodies and {binary_unequal} binary payloads "
+          "differ from their execution's encoding")
+    check(got == cmd_handles,
+          f"NDJSON command lines: {sum(got.values())} dead letters at their "
+          f"records for {len(cmd_lines)} lines")
+    check(delta["commands"] == stored_commands
+          == DS_INVOCATIONS + len(cmd_lines) + dup_undeliverable,
+          f"commands {delta['commands']}, stored command rows "
+          f"{stored_commands}, invocations {DS_INVOCATIONS} + NDJSON lines "
+          f"{len(cmd_lines)} + replayed {dup_undeliverable}")
+    check(launches == delta["steps"],
+          f"kernel launched {launches}x in {delta['steps']} dispatcher steps")
+    ds_restore(device, data_dir, saved, saved_mirror, save_stats)
+    return launches
+
+
+def ds_restore(device, data_dir, saved, saved_mirror, save_stats):
+    """checkpoint_full.stores: a fresh instance restores the saved one;
+    devices, assignments, device types with their commands and assets
+    come back equal, and the mirror bitwise."""
+    from sitewhere_tpu_torch.instance import Instance
+
+    t0 = time.perf_counter()
+    inst = Instance(instance_config(
+        data_dir, CAPACITY, FULL_B, 0, WIRE_DEADLINE_MS,
+        registration={"default_device_type": "sensor"}), device=device)
+    construct_s = time.perf_counter() - t0
+    try:
+        check(inst.restored, "checkpoint_full.stores: nothing restored")
+        unequal = sorted(f"{attr}.{k}" for attr, stores in saved.items()
+                         for k, v in stores.items()
+                         if dict(getattr(getattr(inst, attr), k)) != v)
+        mirror_unequal = sorted(
+            k for k, a in saved_mirror.items()
+            if getattr(inst.mirror, k).tobytes() != a.tobytes())
+        dm = inst.device_management
+        commands = sum(len(t.commands) for t in dm.device_types.values())
+        restore = dict(inst.checkpointer.restore_stats)
+        restore_s = inst.checkpointer.restore_s
+        sample = next(t for t in dm.devices if t.startswith("x-"))
+        active_ok = dm.get_active_assignment(sample) is not None
+    finally:
+        inst.terminate()
+    emit({"phase": "device_services", "run": "checkpoint_full.stores",
+          "devices": len(saved["device_management"]["devices"]),
+          "assignments": len(saved["device_management"]["assignments"]),
+          "device_types": len(saved["device_management"]["device_types"]),
+          "commands": commands,
+          "assets": len(saved["assets"]["_assets"]),
+          "stores_bytes": save_stats.get("stores_bytes"),
+          "stores_pickle_s": save_stats.get("stores_pickle_s"),
+          "stores_save_s": save_stats.get("stores_s"),
+          "stores_restore_s": restore.get("stores_s"),
+          "save": save_stats, "restore": restore, "restore_s": restore_s,
+          "instance_construct_s": construct_s,
+          "unequal": unequal, "mirror_unequal": mirror_unequal})
+    check(not unequal, f"restored stores differ from the saved: {unequal}")
+    check(not mirror_unequal,
+          f"restored mirror differs from the saved: {mirror_unequal}")
+    check(commands == 4 and active_ok,
+          "restored device types, commands or assignment index wrong")
+
+
+def phase_device_services(device, geo_cuda, mixed, logs):
+    """The device system of record, auto-registration and command delivery
+    on the wire path (see the module docstring, phase 10); ``logs`` is
+    the run's :class:`LogTally`.  Returns the kernel's launches in the
+    wire run, by run name."""
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="devices-", dir=geo_cuda.BUILD_DIR)
+    launches = {}
+    try:
+        world = world_checkpoint(device, root, "full")
+        launches["device_services_wire"] = device_services_run(
+            device, geo_cuda, world, mixed[:DS_PAYLOADS], root, logs)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "device_services", "run": "done",
+          "seconds": time.perf_counter() - t0})
+    return launches
+
+
 def phase_small_reference(device):
     """A small deployment stepped on the card (kernel) and on the CPU
     (plain versions): int outputs and metrics identical, EWMAs close."""
@@ -2943,6 +3623,9 @@ def main() -> int:
 
     t_start = time.perf_counter()
     device = resolve_device()
+    geo_cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    logs = LogTally(os.path.join(geo_cuda.BUILD_DIR,
+                                 f"chip-smoke-{os.getpid()}.log"))
     smi = nvidia_smi_line()
     emit({"phase": "card", "nvidia_smi": smi,
           "name": torch.cuda.get_device_name(0),
@@ -2970,12 +3653,12 @@ def main() -> int:
     persist_launches = phase_persist_recover(device, geo_cuda, mixed, meas)
     del meas
     rules_launches = phase_byo_rules(device, geo_cuda, mixed)
-    del mixed
     an_launches = phase_streaming_analytics(device, geo_cuda)
-    # this slice's path: the Instance with its segment store, the tenant
-    # programs and the four analytics queries, ring off, the deployment's
-    # deadline
-    rec["launches"] = an_launches["analytics_wire"]
+    ds_launches = phase_device_services(device, geo_cuda, mixed, logs)
+    del mixed
+    # this slice's path: the Instance with its segment store, registration
+    # and command delivery, ring off, the deployment's deadline
+    rec["launches"] = ds_launches["device_services_wire"]
     rec["launches_by_path"] = {"main_path": main_launches,
                                **{f"dispatcher_wire.{k}": v
                                   for k, v in wire_launches.items()},
@@ -2984,10 +3667,17 @@ def main() -> int:
                                **{f"byo_rules.{k}": v
                                   for k, v in rules_launches.items()},
                                **{f"streaming_analytics.{k}": v
-                                  for k, v in an_launches.items()}}
+                                  for k, v in an_launches.items()},
+                               **{f"device_services.{k}": v
+                                  for k, v in ds_launches.items()}}
     phase_small_reference(device)
 
-    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+    logs.close()
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start,
+          "log_records": {f"{n}:{lv}" + (":traceback" if tb else ""):
+                          {"count": c, "first": logs.first[(n, lv, tb)]}
+                          for (n, lv, tb), c in sorted(logs.counts.items())},
+          "log_bytes": logs.bytes})
     emit({"kernels": [rec]})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

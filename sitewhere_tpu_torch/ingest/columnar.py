@@ -42,6 +42,7 @@ from sitewhere_tpu_torch.ingest.decoders import (
     _TYPE_ALIASES,
     DecodedRequest,
     DecodeError,
+    JsonLinesDecoder,
     RequestKind,
     _decode_one,
     _parse_ts,
@@ -266,6 +267,81 @@ def _host_requests(host_lines) -> List[DecodedRequest]:
             raise DecodeError(f"bad wire batch: {e}") from e
         host.append(_decode_one(*envelope_fields(doc)))
     return host
+
+
+class RecordEvents:
+    """The event requests of one NDJSON journal record, in line order,
+    as the scalar :class:`~sitewhere_tpu_torch.ingest.decoders.JsonLinesDecoder`
+    returns them (host-plane lines left out); ``tokens`` holds each
+    event's device token.
+
+    :meth:`of` decodes the record up front, and raises as the scalar
+    decoder does, unless :func:`certified_event_lines` proves that every
+    line decodes; then :meth:`request` decodes a line the first time it
+    is asked for, and a reader that needs a few lines of a large record
+    pays for those alone."""
+
+    def __init__(self, tokens: List[str], requests: List[object],
+                 lines: Optional[List[bytes]] = None):
+        self.tokens = tokens
+        self._requests = requests
+        self._lines = lines
+
+    @classmethod
+    def of(cls, payload: bytes) -> "RecordEvents":
+        certified = certified_event_lines(payload)
+        if certified is not None:
+            lines, tokens = certified
+            return cls(tokens, [None] * len(tokens), lines)
+        reqs = [r for r in JsonLinesDecoder()(payload)
+                if r.event_type is not None]
+        return cls([r.device_token for r in reqs], reqs)
+
+    def __len__(self) -> int:
+        return len(self.tokens)
+
+    def request(self, i: int) -> DecodedRequest:
+        req = self._requests[i]
+        if req is None:
+            req = self._requests[i] = _decode_one(
+                *envelope_fields(json.loads(self._lines[i])))
+        return req
+
+
+def certified_event_lines(
+        payload: bytes) -> Optional[Tuple[List[bytes], List[str]]]:
+    """``(lines, device tokens)`` of an NDJSON record every line of which
+    the scalar decoder accepts as an event, proven without running it;
+    None when that is not proven.
+
+    The proof: the C event scanner (``swwire.c decode_event_lines``)
+    accepts every line as a measurement, location or alert, none is a
+    host-plane line, and every event time lies in the scalar decoder's
+    int32 range.  The scanner's grammar is no wider than the scalar
+    decoder's: unescaped string keys, tokens, names and types, finite
+    JSON numbers, the same type aliases, the same token and name
+    precedence, lowercase level aliases or in-range numbers, literal
+    booleans, and a present ``request`` object.  Its event time is
+    ``eventDate`` unless that is 0, the scalar decoder's whenever they
+    differ is 0, so the range check is no wider either."""
+    if not fill_direct_ready(payload):
+        return None
+    from sitewhere_tpu_torch.native import load_swwire
+
+    out = load_swwire().decode_event_lines(payload)
+    if out is None:
+        return None
+    tokens, ts_b, host_lines = out[0], out[5], out[11]
+    if not tokens or host_lines:
+        return None
+    try:
+        _split_epoch(np.frombuffer(ts_b, np.float64))
+    except DecodeError:
+        return None
+    lines = [ln for ln in payload.split(b"\n") if ln.strip()]
+    if len(lines) != len(tokens):
+        return None
+    return lines, tokens
 
 
 def _native_decode_events_into(

@@ -1,9 +1,16 @@
 """The port's composition root, as far as the slices ported so far go.
 
 Counterpart of ``sitewhere_tpu/instance.py``'s :class:`Instance`, cut to
-the components this package has: the identity map, the registry mirror,
-the rule manager, the device-state manager, the segment store, the
-ingest journal and its dead letters, the streaming analytics runner
+the components this package has: the identity map, the registry mirror
+and the device system of record over it (``DeviceManagement``), asset
+management, the rule manager, the device-state manager, the segment
+store, command delivery (the ``CommandProcessor``: the dispatcher's
+command-rows leg delivers every accepted COMMAND_INVOCATION row whose
+journal record is one JSON document, and :meth:`create_command_invocation`
+journals one), auto-registration (``registration.*``: the
+``RegistrationManager`` registers the senders of unregistered rows and
+the dispatcher replays their rows), the ingest journal and its dead
+letters, the streaming analytics runner
 (``analytics.enabled``, on by default as in the reference: registered
 Window/Session/Pattern queries evaluate on every accepted batch, and
 their operator state is the ``analytics`` checkpoint section), the
@@ -20,13 +27,10 @@ Components the reference composes by default and this instance does NOT
 yet, so the port does less than the reference until their slices come
 (line numbers in ``sitewhere_tpu/instance.py`` unless named):
 
-- registration and its replay, the ``RegistrationManager`` (:495-501,
-  passed to the dispatcher at :558): the port dead-letters rows of
-  unregistered devices (``kind: "unregistered"``) instead of registering
-  them and replaying the rows;
-- command delivery, the dispatcher's command-rows leg
-  (``sitewhere_tpu/runtime/dispatcher.py:2634-2639``, ``_on_command_rows``
-  :1160): accepted COMMAND_INVOCATION rows are stored, never routed;
+- the batch-operation and schedule managers (:414-426) and the tenant
+  engines (:427-431);
+- the fabric: :meth:`invoke_command` runs locally and has no peers to
+  route an unknown assignment to;
 - overload control, the ``OverloadController`` (:283-340): no admission,
   no shedding;
 - metering, the ``UsageLedger`` and ``QuotaTable`` (:341-386);
@@ -48,9 +52,9 @@ shed as non-priority consumers from SHEDDING), ``usage_ledger`` and
 Lifecycle, as in the reference:
 
 - ``__init__`` builds the components, then restores the newest complete
-  checkpoint generation (identity, mirror, rules, device state, catalog
-  manifest, the analytics queries with their operator state, the rule
-  programs) before anything starts;
+  checkpoint generation (identity, the management stores, mirror, rules,
+  device state, catalog manifest, the analytics queries with their
+  operator state, the rule programs) before anything starts;
 - :meth:`start` captures the journal end (``recover_upto``) before
   anything ingests, starts the store, the analytics runner, the rule
   engine, the dispatcher (whose warm-up builds the native scanners, the
@@ -71,7 +75,7 @@ Configuration: the reference's keys and defaults
 mirror's zone table; defaults 256 and 32, the reference mirror's).  The
 keys in :data:`HONOURED` drive the instance.  Sections whose components
 the port does not have yet (``sources``, ``overload``, ``metering``,
-``outbound``, ``rpc``, ``registration``, ``presence``, the decode pool
+``outbound``, ``rpc``, ``presence``, the decode pool
 and the rest) are not composed: at their defaults the instance runs
 without them, and any other value raises :class:`NotImplementedError`,
 as does ``pipeline.n_shards`` above 1.  Events are ingested through
@@ -83,16 +87,24 @@ The instance runs on the card unless ``device="cpu"`` is named.
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import time
 from typing import Any, Dict, Iterator, Optional, Tuple
 
 from sitewhere_tpu_torch.analytics.runner import QueryRunner
+from sitewhere_tpu_torch.commands.model import CommandInvocation
+from sitewhere_tpu_torch.commands.processing import CommandProcessor
 from sitewhere_tpu_torch.device import DeviceLike, resolve_device
-from sitewhere_tpu_torch.ids import IdentityMap
+from sitewhere_tpu_torch.ids import NULL_ID, IdentityMap
 from sitewhere_tpu_torch.ingest.batcher import AdaptiveBatchController, Batcher
-from sitewhere_tpu_torch.ingest.journal import Journal, JournalReader
+from sitewhere_tpu_torch.ingest.decoders import DecodedRequest, RequestKind
+from sitewhere_tpu_torch.ingest.journal import (
+    CorruptJournal,
+    Journal,
+    JournalReader,
+)
 from sitewhere_tpu_torch.pipeline.rules import RuleManager
 from sitewhere_tpu_torch.rules.engine import RuleEngineRunner
 from sitewhere_tpu_torch.runtime.checkpoint import Checkpointer, StateProvider
@@ -100,9 +112,16 @@ from sitewhere_tpu_torch.runtime.config import DEFAULTS, Config
 from sitewhere_tpu_torch.runtime.dispatcher import PipelineDispatcher
 from sitewhere_tpu_torch.runtime.lifecycle import LifecycleComponent
 from sitewhere_tpu_torch.runtime.metrics import MetricsRegistry
+from sitewhere_tpu_torch.runtime.resilience import dead_letter
 from sitewhere_tpu_torch.runtime.tracing import Tracer
 from sitewhere_tpu_torch.schema import DEFAULT_EWMA_HALFLIVES_S
-from sitewhere_tpu_torch.services.device_management import RegistryMirror
+from sitewhere_tpu_torch.services.assets import AssetManagement
+from sitewhere_tpu_torch.services.common import mint_token, now_s
+from sitewhere_tpu_torch.services.device_management import (
+    DeviceManagement,
+    RegistryMirror,
+)
+from sitewhere_tpu_torch.services.registration import RegistrationManager
 from sitewhere_tpu_torch.state.manager import DeviceStateManager
 from sitewhere_tpu_torch.store.catalog import catalog_state_provider
 from sitewhere_tpu_torch.store.segmented import SegmentStore
@@ -121,7 +140,7 @@ HONOURED = (
     "pipeline.ewma_halflives_s", "pipeline.max_zones",
     "pipeline.max_zone_verts",
     "journal.*", "events.*", "checkpoint.interval_s", "rules.*",
-    "analytics.*",
+    "analytics.*", "registration.*",
     "dead_letters.retain_records",
     "tracing.sample_rate", "tracing.tail_errors", "tracing.tail_latency_ms",
     "tracing.pending_capacity",
@@ -188,6 +207,9 @@ class Instance(LifecycleComponent):
             max_zones=int(self.config.get("pipeline.max_zones", 256)),
             max_verts=int(self.config.get("pipeline.max_zone_verts", 32)),
             device=dev)
+        # the device system of record over the mirror
+        self.device_management = DeviceManagement(
+            "default", self.identity, self.mirror)
         self.rules = RuleManager(self.identity,
                                  ewma_halflives_s=ewma_halflives, device=dev)
         mirror = self.mirror
@@ -231,6 +253,16 @@ class Instance(LifecycleComponent):
                             if tail_ms is not None else None),
             pending_capacity=int(
                 self.config.get("tracing.pending_capacity", 512)))
+
+        # domain services the dispatcher egresses into, registered as
+        # children BEFORE it so the reverse-order stop keeps them alive
+        # through the dispatcher's shutdown flush
+        self.assets = AssetManagement("default", self.identity)
+        self.commands = self.add_child(CommandProcessor(
+            self.device_management,
+            on_undelivered=self._on_undelivered_command,
+            metrics=self.metrics,
+        ))
 
         # Streaming analytics: registered Window/Session/Pattern queries
         # evaluate live on every accepted batch (the dispatcher's egress
@@ -276,6 +308,14 @@ class Instance(LifecycleComponent):
                 device=dev,
             ))
 
+        self.registration = self.add_child(RegistrationManager(
+            self.device_management,
+            default_device_type=self.config.get(
+                "registration.default_device_type"),
+            allow_new_devices=bool(
+                self.config.get("registration.allow_new_devices", True)),
+        ))
+
         controller = None
         if bool(self.config.get("pipeline.adaptive_deadline", True)):
             controller = AdaptiveBatchController(
@@ -305,6 +345,8 @@ class Instance(LifecycleComponent):
             rules_provider=self.rules.publish,
             zones_provider=self.mirror.publish_zones,
             event_store=self.event_store,
+            registration=self.registration,
+            on_command_rows=self._on_command_rows,
             rules_engine=self.rule_engine,
             analytics=self.analytics,
             journal=self.ingest_journal,
@@ -392,6 +434,129 @@ class Instance(LifecycleComponent):
         super().terminate()
         self.ingest_journal.close()
         self.dead_letters.close()
+
+    # -- command delivery ---------------------------------------------------
+
+    def _on_command_rows(self, cols, mask, trace=None) -> None:
+        """Deliver the plan's accepted COMMAND_INVOCATION rows (the
+        reference's enriched-command-invocations -> command delivery).
+
+        The row carries only dense handles; the command token and its
+        parameters live in the journaled payload (``payload_ref``), read
+        back as ONE JSON document: a command line inside a multi-line
+        NDJSON record does not parse, and dead-letters as
+        ``undeliverable-invocation`` like every row without a resolvable
+        command, as in the reference."""
+        refs = cols["payload_ref"][mask]
+        device_ids = cols["device_id"][mask]
+        for ref, dev in zip(refs, device_ids):
+            invocation = None
+            try:
+                if int(ref) != NULL_ID:
+                    doc = json.loads(self.ingest_journal.read_one(int(ref)))
+                    body = doc.get("request", doc)
+                    command = body.get("commandToken")
+                    if command:
+                        assignment = body.get("assignmentToken")
+                        if not assignment:
+                            token = self.identity.device.token_of(int(dev))
+                            active = (self.device_management
+                                      .get_active_assignment(token)
+                                      if token else None)
+                            assignment = active.token if active else None
+                        if assignment:
+                            kwargs = {}
+                            if body.get("invocationToken"):
+                                kwargs["token"] = str(body["invocationToken"])
+                            invocation = CommandInvocation(
+                                command_token=str(command),
+                                target_assignment=str(assignment),
+                                parameter_values=dict(
+                                    body.get("parameterValues", {})),
+                                initiator=str(body.get("initiator", "EVENT")),
+                                initiator_id=body.get("initiatorId"),
+                                **kwargs,
+                            )
+            except (ValueError, KeyError, CorruptJournal) as e:
+                logger.debug("unresolvable command payload ref %s: %s", ref, e)
+            if invocation is not None:
+                self.commands.invoke(invocation, trace=trace)
+            else:
+                self.dead_letters.append_json({
+                    "kind": "undeliverable-invocation",
+                    "device_id": int(dev),
+                    "payload_ref": int(ref),
+                })
+
+    def _on_undelivered_command(self, invocation, reason) -> None:
+        """Undelivered commands dead-letter (the reference's
+        undelivered-command-invocations topic)."""
+        dead_letter(self.dead_letters, {
+            "kind": "undelivered-command",
+            "invocation": invocation.token,
+            "command": invocation.command_token,
+            "assignment": invocation.target_assignment,
+            "parameterValues": invocation.parameter_values,
+            "reason": str(reason),
+        })
+
+    def create_command_invocation(
+            self, assignment_token: str, command_token: str,
+            parameter_values: Optional[Dict[str, str]] = None,
+            initiator: str = "REST", initiator_id: Optional[str] = None,
+            ts_s: Optional[int] = None) -> dict:
+        """Create a command-invocation EVENT for an assignment: journal
+        the invocation body and let the pipeline's command-row egress
+        deliver it (one delivery path: a direct ``commands.invoke`` would
+        deliver twice), then flush.  Raises ``EntityNotFound`` when the
+        assignment is not on this instance."""
+        assignment = self.device_management.get_device_assignment(
+            assignment_token)
+        device = self.device_management.get_device(assignment.device)
+        inv_token = mint_token("inv")
+        event_ts = int(ts_s if ts_s is not None else now_s())
+        payload = json.dumps({
+            "deviceToken": device.token,
+            "type": "commandinvocation",
+            "request": {
+                "commandToken": str(command_token),
+                "assignmentToken": assignment_token,
+                "parameterValues": dict(parameter_values or {}),
+                "initiator": initiator,
+                "initiatorId": initiator_id,
+                "invocationToken": inv_token,
+                # crash replay re-decodes this payload: without the
+                # eventDate the recovered row would be stamped 1970 and
+                # immediately TTL-pruned
+                "eventDate": event_ts,
+            },
+        }).encode()
+        self.dispatcher.ingest(DecodedRequest(
+            kind=RequestKind.COMMAND_INVOCATION,
+            device_token=device.token,
+            ts_s=event_ts,
+            # the invocation row carries the invocation handle so its
+            # responses (correlated by the same token) query directly
+            originating_event=inv_token,
+        ), payload)
+        self.dispatcher.flush()
+        return {"queued": True, "token": inv_token,
+                "deviceToken": device.token,
+                "host": self.instance_id}
+
+    def invoke_command(self, assignment_token: str, command_token: str,
+                       parameter_values: Optional[Dict[str, str]] = None,
+                       initiator: str = "REST",
+                       initiator_id: Optional[str] = None,
+                       ts_s: Optional[int] = None) -> dict:
+        """The reference's federated invocation, on one instance: the
+        assignment must be local (``EntityNotFound`` otherwise, which the
+        reference answers only after asking its fabric peers; the port has
+        none yet)."""
+        return self.create_command_invocation(
+            assignment_token, command_token=command_token,
+            parameter_values=parameter_values, initiator=initiator,
+            initiator_id=initiator_id, ts_s=ts_s)
 
 
 __all__ = ["HONOURED", "Instance", "refuse_unsupported"]

@@ -41,6 +41,8 @@ from sitewhere_tpu_torch.services.common import (
 class ThresholdRule:
     """One declarative threshold rule (host record)."""
 
+    _PICKLE_AS = ("sitewhere_tpu.pipeline.rules", "ThresholdRule")
+
     token: str
     mtype: Optional[str]          # measurement name; None = all
     op: ComparisonOp

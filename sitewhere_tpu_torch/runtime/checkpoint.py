@@ -5,7 +5,8 @@ rules and identity live in host dicts and numpy rows and the device
 state lives on the card, so durability is explicit:
 
 - a :class:`Checkpointer` snapshots the management stores the instance
-  has (the rule manager's), the registry-mirror columns, the
+  has (device management, assets and the rule manager), the
+  registry-mirror columns, the
   ``DeviceState`` tensors, the identity map and every registered
   per-component :class:`StateProvider` (the segment catalog) into
   ``data_dir/checkpoint/`` on an interval and at shutdown;
@@ -36,6 +37,11 @@ generation, and a section whose version is not supported is skipped
 with a log line.  Section order: stores, mirror, state, identity LAST,
 providers, then the manifest swap (``crash.mid_checkpoint`` after the
 stores, ``crash.pre_manifest`` before the swap).
+
+The ``stores`` section pickles its records under the reference's names
+(:mod:`~sitewhere_tpu_torch.runtime.refpickle`, over
+:data:`STORE_CLASSES`), so a section either package wrote restores into
+the other, and the port's restore imports nothing of the reference.
 """
 
 from __future__ import annotations
@@ -47,7 +53,6 @@ import glob
 import json
 import logging
 import os
-import pickle
 import struct
 import threading
 import time
@@ -57,16 +62,21 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from sitewhere_tpu_torch.runtime import faults
+from sitewhere_tpu_torch.pipeline.rules import ThresholdRule
+from sitewhere_tpu_torch.runtime import faults, refpickle
 from sitewhere_tpu_torch.runtime.lifecycle import LifecycleComponent
+from sitewhere_tpu_torch.schema import AlertLevel, ComparisonOp, RuleKind
+from sitewhere_tpu_torch.services import assets as _assets
+from sitewhere_tpu_torch.services import device_management as _dm
 
 logger = logging.getLogger("sitewhere_tpu_torch.checkpoint")
 
 # Host-dict state per Instance attribute: (attr name on Instance, attrs to
 # snapshot).  Entities are plain dataclasses — pickled by value.  The
 # reference's table; save and restore skip the attributes an instance does
-# not have (the port's has ``rules``; the management stores come with the
-# DeviceManagement slice).
+# not have (the port's has ``device_management``, ``assets`` and
+# ``rules``; the users, tenants, schedules and batch operations come with
+# the control plane).
 _STORE_ATTRS = {
     "device_management": (
         "device_types", "devices", "assignments", "area_types", "areas",
@@ -79,6 +89,24 @@ _STORE_ATTRS = {
     "batch_ops": ("operations",),
     "rules": ("_rules", "_slots", "_free"),
 }
+
+#: every port class the stores section pickles, each naming the
+#: reference's in ``_PICKLE_AS``
+STORE_CLASSES = (
+    ThresholdRule, AlertLevel, ComparisonOp, RuleKind,
+    _dm.DeviceCommand, _dm.DeviceStatus, _dm.DeviceType, _dm.Device,
+    _dm.DeviceAssignment, _dm.AreaType, _dm.Area, _dm.CustomerType,
+    _dm.Customer, _dm.Zone, _dm.DeviceGroupElement, _dm.DeviceGroup,
+    _dm.DeviceAlarm, _assets.AssetType, _assets.Asset,
+)
+_STORE_NAMES = refpickle.reference_names(STORE_CLASSES)
+#: the modules of the reference's stores this instance does not compose
+#: (users, tenants, schedules, batch operations): a reference section's
+#: records of them load inert and are skipped with their store
+_UNPORTED_STORE_MODULES = (
+    "sitewhere_tpu.security.users", "sitewhere_tpu.services.tenants",
+    "sitewhere_tpu.services.schedules", "sitewhere_tpu.services.batch_ops",
+)
 
 _MIRROR_ARRAYS = (
     "active", "tenant_id", "device_type_id", "assignment_id",
@@ -332,7 +360,9 @@ class Checkpointer(LifecycleComponent):
                 if getattr(inst, attr, None) is not None
             }
             names["stores"] = f"stores-{gen:08d}.swsnap"
-            blob = pickle.dumps(stores, protocol=4)
+            t0 = time.perf_counter()
+            blob = refpickle.dumps(stores, _STORE_NAMES)
+            stats["stores_pickle_s"] = time.perf_counter() - t0
             timed_write("stores", lambda path: write_framed(
                 path, {"component": "stores", "version": STORES_VERSION,
                        "as_of": committed}, blob))
@@ -563,7 +593,8 @@ class Checkpointer(LifecycleComponent):
     @staticmethod
     def _unpickle(payload: bytes, path: str):
         try:
-            return pickle.loads(payload)
+            return refpickle.loads(payload, _STORE_NAMES,
+                                   inert=_UNPORTED_STORE_MODULES)
         except Exception as e:  # noqa: BLE001 — unpickling raises anything
             raise SnapshotCorrupt(f"{path}: unpicklable ({e})") from e
 
@@ -599,6 +630,9 @@ class Checkpointer(LifecycleComponent):
                 merge_store(obj, values)
             if hasattr(inst.rules, "_dirty"):
                 inst.rules._dirty = True
+            dm = getattr(inst, "device_management", None)
+            if dm is not None:
+                dm.reindex()
         lap("stores")
 
         # registry mirror: columns, epoch and z_hi; both dirty flags set

@@ -5,8 +5,9 @@ One host thread cycles
 
     wire bytes -> journal -> decode -> batcher -> step (device) -> egress
 
-where egress covers accepted rows to the event store, unregistered rows
-to the registration manager (and replay), derived alerts re-injected as
+where egress covers accepted rows to the event store, accepted command
+invocations to command delivery, unregistered rows to the registration
+manager (and replay), derived alerts re-injected as
 first-class events, and the new state committed to the
 :class:`~sitewhere_tpu_torch.state.manager.DeviceStateManager`.
 
@@ -80,6 +81,7 @@ from sitewhere_tpu_torch.ingest.batcher import (
 )
 from sitewhere_tpu_torch.ingest.columnar import (
     CopyTally,
+    RecordEvents,
     _native_decode_resolved,
     decode_fill_direct,
     decode_json_lines,
@@ -118,7 +120,7 @@ from sitewhere_tpu_torch.runtime.resilience import (
     dead_letter,
 )
 from sitewhere_tpu_torch.runtime.tracing import _NOOP_TRACE, Tracer
-from sitewhere_tpu_torch.schema import EventBatch
+from sitewhere_tpu_torch.schema import EventBatch, EventType
 from sitewhere_tpu_torch.state.presence import (
     STATE_CHANGE_QUARANTINED,
     state_changes_for,
@@ -126,6 +128,11 @@ from sitewhere_tpu_torch.state.presence import (
 from sitewhere_tpu_torch.store import segment as _segment_schema
 
 logger = logging.getLogger("sitewhere_tpu_torch.dispatcher")
+
+# Journal records whose re-decoded events registration keeps: a plan
+# touches at most two records of a full-width payload stream, the next
+# plan one of the same two
+_REDECODED_RECORDS = 2
 
 # egress-view split of the stored row schema: the 5 step-output
 # enrichment columns, and everything else (minus the store-stamped
@@ -214,6 +221,9 @@ class PipelineDispatcher(LifecycleComponent):
       offset commit; a ``SegmentStore`` in an ``Instance``
     - ``registration`` -> registration manager (process_unregistered);
       None = unregistered rows only dead-letter
+    - ``on_command_rows(cols, mask, trace=None)`` -> command delivery of
+      the accepted COMMAND_INVOCATION rows (``trace`` is the plan's, so
+      the delivery span joins it); None = they are only stored
     - ``analytics`` -> the streaming query runner (``submit_live`` with
       ``committed=``, a non-blocking bounded offer); None = no live
       queries
@@ -233,6 +243,7 @@ class PipelineDispatcher(LifecycleComponent):
         zones_provider: Callable[[], object],
         event_store=None,
         registration=None,
+        on_command_rows: Optional[Callable[..., None]] = None,
         rules_engine=None,
         analytics=None,
         journal: Optional[Journal] = None,
@@ -258,6 +269,7 @@ class PipelineDispatcher(LifecycleComponent):
         self.state_manager = state_manager
         self.event_store = event_store
         self.registration = registration
+        self.on_command_rows = on_command_rows
         # Bring-your-own rules: egress offers every accepted batch to the
         # engine's bounded queue; its worker evaluates the tenant programs
         # and fired ones re-enter through inject_rule_alerts.
@@ -272,6 +284,13 @@ class PipelineDispatcher(LifecycleComponent):
         self._step = pipeline_step
         self._packed_step = packed_pipeline_step
         self._tables_cache: Optional[tuple] = None
+        # Registration's re-decoded journal records, by offset: a line of
+        # a record split across two plans is decoded once, not once per
+        # plan (records are immutable; the decoded requests are only
+        # read)
+        self._redecoded: "collections.OrderedDict[int, RecordEvents]" = (
+            collections.OrderedDict())
+        self._redecoded_lock = threading.Lock()
         # Commit-after-egress stream position: the highest journal offset
         # whose row has completed egress, committed only at quiescent
         # points (no pending rows, no in-flight step).
@@ -353,6 +372,12 @@ class PipelineDispatcher(LifecycleComponent):
             for s in ("decode", "batch", "dispatch", "egress",
                       "ring_wait", "ring_dispatch", "h2d")
         }
+        # Egress legs and table republishes, host seconds each
+        self._m_leg = {
+            s: metrics.timer(f"pipeline.{s}_s")
+            for s in ("egress_registration", "egress_commands",
+                      "registry_publish", "tables_repack")
+        }
         # One inc per BLOCKING device-to-host wait on the dispatch/egress
         # path: a view's first read (single step) or a ring's shared
         # fetch.  With the ring on, host_syncs / steps is 1/K.
@@ -404,7 +429,7 @@ class PipelineDispatcher(LifecycleComponent):
         self.totals: Dict[str, int] = {
             "processed": 0, "accepted": 0, "unregistered": 0,
             "unassigned": 0, "threshold_alerts": 0, "zone_alerts": 0,
-            "replayed": 0, "derived_alerts": 0,
+            "replayed": 0, "derived_alerts": 0, "commands": 0,
         }
 
     # -- ingest entry points ------------------------------------------------
@@ -896,13 +921,19 @@ class PipelineDispatcher(LifecycleComponent):
     def _tables_packed(self):
         """PackedTables for the current provider epochs, identity-cached
         (re-packs only when a registry/rule/zone epoch changed)."""
+        t0 = time.perf_counter()
         reg = self.registry_provider()
+        t_reg = time.perf_counter() - t0
         rules = self.rules_provider()
         zones = self.zones_provider()
         c = self._tables_cache
         if c is not None and c[0] is reg and c[1] is rules and c[2] is zones:
             return c[3]
+        if c is not None and c[0] is not reg:
+            self._m_leg["registry_publish"].observe(t_reg)
+        t0 = time.perf_counter()
         t = pack_tables(reg, rules, zones)
+        self._m_leg["tables_repack"].observe(time.perf_counter() - t0)
         self._tables_cache = (reg, rules, zones, t)
         return t
 
@@ -1253,12 +1284,23 @@ class PipelineDispatcher(LifecycleComponent):
             with trace.span("egress.rules"):
                 self.rules_engine.submit_live(cols, accepted)
 
-        # 2. auto-registration + replay
+        # 2. command invocations (command delivery, synchronous on this
+        # thread as in the reference)
+        cmd_mask = accepted & (cols["event_type"]
+                               == EventType.COMMAND_INVOCATION)
+        if self.on_command_rows is not None and cmd_mask.any():
+            self.totals["commands"] += int(cmd_mask.sum())
+            with trace.span("egress.commands"), \
+                    self._m_leg["egress_commands"].time():
+                self.on_command_rows(cols, cmd_mask, trace=trace)
+
+        # 3. auto-registration + replay
         if int(m.unregistered) > 0:
-            with trace.span("egress.registration"):
+            with trace.span("egress.registration"), \
+                    self._m_leg["egress_registration"].time():
                 self._handle_unregistered(host_cols, out, replay_depth)
 
-        # 3. derived alerts re-injection, read only when rules fired
+        # 4. derived alerts re-injection, read only when rules fired
         if int(m.threshold_alerts) + int(m.zone_alerts) > 0:
             with trace.span("egress.derived-alerts"):
                 self._reinject_derived(plan, out, replay_depth)
@@ -1323,21 +1365,16 @@ class PipelineDispatcher(LifecycleComponent):
         if not mask.any():
             return
         refs = host_cols["payload_ref"][mask]
-        requests: List[DecodedRequest] = []
+        records: List[RecordEvents] = []
         unreplayable: List[int] = []
         if self.journal is not None and self.registration is not None:
             # resolve the original requests from the journal for replay;
             # rows of one payload share an offset, so decode each once
-            decoder = JsonLinesDecoder()  # envelopes and NDJSON
             unreplayable = [int(r) for r in refs if int(r) == NULL_ID]
             for ref in dict.fromkeys(int(r) for r in refs
                                      if int(r) != NULL_ID):
                 try:
-                    # host-plane lines were handled at first ingest; only
-                    # events replay
-                    requests.extend(
-                        r for r in decoder(self.journal.read_one(ref))
-                        if r.event_type is not None)
+                    records.append(self._redecode(ref))
                 except Exception:
                     logger.debug("unreplayable payload ref %d", ref)
                     unreplayable.append(ref)
@@ -1348,7 +1385,7 @@ class PipelineDispatcher(LifecycleComponent):
             dead_letter(self.dead_letters,
                         {"kind": "unregistered", "count": len(unreplayable),
                          "refs": unreplayable})
-        if self.registration is None or not requests:
+        if self.registration is None or not any(records):
             return
         # A multi-event payload shares one journal ref, so the re-decode
         # above returns EVERY event in it: drop only the siblings this
@@ -1363,12 +1400,13 @@ class PipelineDispatcher(LifecycleComponent):
             for i in host_cols["device_id"][replayed_refs & ~mask]
             if int(i) != NULL_ID
         }
-        if sibling_processed:
-            requests = [
-                r for r in requests
-                if self.batcher.resolve_device(r.device_token)
-                not in sibling_processed
-            ]
+        resolve = self.batcher.resolve_device
+        requests = [
+            rec.request(i) for rec in records
+            for i, token in enumerate(rec.tokens)
+            if not sibling_processed
+            or resolve(token) not in sibling_processed
+        ]
         if not requests:
             return
         replay = self.registration.process_unregistered(requests)
@@ -1389,6 +1427,23 @@ class PipelineDispatcher(LifecycleComponent):
                 return out
 
             self._run_plans(self._take(intake), replay_depth + 1)
+
+    def _redecode(self, ref: int) -> RecordEvents:
+        """The events of journal record ``ref`` (host-plane lines were
+        handled at first ingest; only events replay), kept for the last
+        few records so a record split across plans decodes once."""
+        cache = self._redecoded
+        with self._redecoded_lock:
+            events = cache.get(ref)
+            if events is not None:
+                cache.move_to_end(ref)
+                return events
+        events = RecordEvents.of(self.journal.read_one(ref))
+        with self._redecoded_lock:
+            cache[ref] = events
+            while len(cache) > _REDECODED_RECORDS:
+                cache.popitem(last=False)
+        return events
 
     def _reinject_derived(self, plan: BatchPlan, out,
                           replay_depth: int) -> None:

@@ -1,4 +1,4 @@
-"""Resilience primitives the dispatcher uses: supervisor and dead letters.
+"""Resilience primitives: retry, supervisor and dead letters.
 
 Counterpart of the part of ``sitewhere_tpu/runtime/resilience.py`` this
 slice runs, reporting through one metrics surface
@@ -6,6 +6,11 @@ slice runs, reporting through one metrics surface
 
 - :class:`RetryPolicy` — immutable exponential-backoff schedule with
   symmetric jitter, attempt- and deadline-capped.
+- :class:`Backoff` — per-instance mutable cursor over a policy (the
+  "when may I try again" state a connection keeps).
+- :func:`call_with_retry` — run a callable under a policy (the command
+  destinations' transient-failure retry); exhausting it raises
+  :class:`RetriesExhausted`.
 - :class:`Supervisor` — restart-with-backoff for worker threads (the
   dispatcher's egress worker), escalating to a terminal failure after N
   consecutive restarts instead of spinning forever.
@@ -13,11 +18,12 @@ slice runs, reporting through one metrics surface
   (``Journal.append_json`` already satisfies it); :func:`dead_letter`
   records one.
 
-The retry cursor and circuit breaker the connectors use come with the
-slices that port them.
+The circuit breaker the connectors use comes with the slices that port
+them.
 
 Metric names (counters):
 
+- ``resilience.retries.<name>`` — retry attempts consumed
 - ``resilience.supervisor.<name>.restarts`` — worker restarts
 - ``resilience.supervisor.<name>.escalated`` — terminal give-ups
 - ``resilience.dead_letters.<kind>`` — dead-lettered records
@@ -30,7 +36,7 @@ import logging
 import random
 import threading
 import time
-from typing import Callable, List, Optional, Protocol, runtime_checkable
+from typing import Callable, List, Optional, Protocol, Tuple, runtime_checkable
 
 from sitewhere_tpu_torch.runtime.metrics import MetricsRegistry, global_registry
 
@@ -38,6 +44,9 @@ logger = logging.getLogger("sitewhere_tpu_torch.resilience")
 
 __all__ = [
     "RetryPolicy",
+    "Backoff",
+    "call_with_retry",
+    "RetriesExhausted",
     "Supervisor",
     "DeadLetterSink",
     "dead_letter",
@@ -87,6 +96,111 @@ class RetryPolicy:
                     - started_at >= self.deadline_s:
                 return True
         return False
+
+
+class Backoff:
+    """Mutable cursor over a :class:`RetryPolicy`: the per-connection /
+    per-connector "next retry due at" state.  Thread-safe.
+    """
+
+    def __init__(self, policy: RetryPolicy, seed: Optional[int] = None,
+                 name: str = "backoff",
+                 metrics: Optional[MetricsRegistry] = None):
+        self.policy = policy
+        self.name = name
+        self._rng = random.Random(seed) if seed is not None else None
+        self._lock = threading.Lock()
+        self._attempt = 0
+        self._retry_at = 0.0
+        self._started_at: Optional[float] = None
+        self._metrics = metrics if metrics is not None else global_registry()
+
+    @property
+    def attempt(self) -> int:
+        return self._attempt
+
+    def reset(self) -> None:
+        """A success: start the schedule over."""
+        with self._lock:
+            self._attempt = 0
+            self._retry_at = 0.0
+            self._started_at = None
+
+    def next_delay(self) -> float:
+        """Consume one attempt, returning its delay."""
+        with self._lock:
+            if self._started_at is None:
+                self._started_at = time.monotonic()
+            d = self.policy.delay(self._attempt, self._rng)
+            self._attempt += 1
+        self._metrics.counter(f"resilience.retries.{self.name}").inc()
+        return d
+
+    def defer(self, now: Optional[float] = None) -> float:
+        """Consume one attempt and stamp the not-before time; returns it."""
+        d = self.next_delay()
+        with self._lock:
+            self._retry_at = (now if now is not None
+                              else time.monotonic()) + d
+            return self._retry_at
+
+    def due(self, now: Optional[float] = None) -> bool:
+        with self._lock:
+            return (now if now is not None
+                    else time.monotonic()) >= self._retry_at
+
+    def remaining(self, now: Optional[float] = None) -> float:
+        with self._lock:
+            return max(0.0, self._retry_at - (
+                now if now is not None else time.monotonic()))
+
+    def exhausted(self, now: Optional[float] = None) -> bool:
+        with self._lock:
+            return self.policy.exhausted(
+                self._attempt, self._started_at, now)
+
+
+class RetriesExhausted(Exception):
+    """``call_with_retry`` ran out of attempts; ``__cause__`` is the last
+    underlying failure."""
+
+
+def call_with_retry(fn: Callable[[], object], policy: RetryPolicy,
+                    retry_on: Tuple[type, ...] = (Exception,),
+                    name: str = "call",
+                    on_retry: Optional[Callable[[int, BaseException], None]] = None,
+                    sleep: Callable[[float], None] = time.sleep,
+                    seed: Optional[int] = None,
+                    metrics: Optional[MetricsRegistry] = None):
+    """Run ``fn`` under ``policy``; non-``retry_on`` exceptions propagate
+    immediately, exhausting the schedule raises :class:`RetriesExhausted`
+    from the last failure.
+
+    ``policy`` must be bounded (``max_attempts`` or ``deadline_s``):
+    this call BLOCKS between attempts, so an unbounded schedule against
+    a permanently failing target would never return.  Unbounded
+    schedules belong to :class:`Backoff` loops that stay interruptible.
+    """
+    if policy.max_attempts is None and policy.deadline_s is None:
+        raise ValueError(
+            f"{name}: call_with_retry needs a bounded policy "
+            "(set max_attempts or deadline_s)")
+    reg = metrics if metrics is not None else global_registry()
+    rng = random.Random(seed) if seed is not None else None
+    started = time.monotonic()
+    attempt = 0
+    while True:
+        try:
+            return fn()
+        except retry_on as e:
+            if policy.exhausted(attempt, started):
+                raise RetriesExhausted(
+                    f"{name}: gave up after {attempt + 1} attempts") from e
+            reg.counter(f"resilience.retries.{name}").inc()
+            if on_retry is not None:
+                on_retry(attempt, e)
+            sleep(policy.delay(attempt, rng))
+            attempt += 1
 
 
 # ---------------------------------------------------------------------------

@@ -63,6 +63,15 @@ class ZoneCondition(enum.IntEnum):
     ALERT_IF_OUTSIDE = 1
 
 
+# The enums a checkpoint section pickles (a ThresholdRule's op, level and
+# kind) name the reference's classes, as the section's records do (see
+# sitewhere_tpu_torch.runtime.refpickle).  Set after the class bodies: in
+# an enum body the name would become a member.
+for _enum in (AlertLevel, ComparisonOp, RuleKind):
+    _enum._PICKLE_AS = ("sitewhere_tpu.schema", _enum.__name__)
+del _enum
+
+
 # Default EWMA half-lives (seconds), converted once to e-folding taus.
 DEFAULT_EWMA_HALFLIVES_S = (60.0, 600.0, 3600.0)
 _LN2 = 0.6931471805599453

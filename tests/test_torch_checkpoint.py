@@ -456,3 +456,218 @@ def test_unsupported_config_is_refused(tmp_path):
     refuse_unsupported(Config({"analytics": {"max_queries": 8,
                                              "enabled": False}},
                               apply_env=False))
+
+
+# -- the stores section across packages ---------------------------------------
+
+_STORE_KEYS = {
+    "device_management": ("device_types", "devices", "assignments",
+                          "area_types", "areas", "customer_types",
+                          "customers", "zones", "device_groups", "alarms"),
+    "assets": ("_types", "_assets"),
+    "rules": ("_rules", "_slots", "_free"),
+}
+
+
+def seed_entities(inst, pkg):
+    """The same entities through either package's own services."""
+    if pkg == "jax":
+        from sitewhere_tpu.schema import ComparisonOp
+        from sitewhere_tpu.services.device_management import (
+            DeviceGroupElement)
+    else:
+        from sitewhere_tpu_torch.schema import ComparisonOp
+        from sitewhere_tpu_torch.services.device_management import (
+            DeviceGroupElement)
+    dm = inst.device_management
+    dm.create_device_type(token="sensor", name="Sensor")
+    dm.create_device_command(
+        "sensor", token="set-rate", name="setRate", namespace="sw",
+        parameters=[("rate", "int32", True), ("unit", "string", False)])
+    dm.create_device_status("sensor", token="ok", code="ok", name="OK")
+    dm.create_area_type(token="site", name="Site")
+    dm.create_area(token="hq", area_type="site", name="HQ",
+                   bounds=[(0.0, 0.0), (0.0, 1.0), (1.0, 1.0)])
+    dm.create_customer_type(token="org", name="Org")
+    dm.create_customer(token="acme", customer_type="org", name="Acme")
+    inst.assets.create_asset_type("person", name="Person",
+                                  category="person")
+    inst.assets.create_asset("ada", name="Ada", asset_type="person",
+                             metadata={"k": "v"})
+    for i in range(6):
+        dm.create_device(token=f"dev-{i}", device_type="sensor",
+                         metadata={"i": str(i)})
+        dm.create_device_assignment(
+            token=f"a-{i}", device=f"dev-{i}", area="hq", customer="acme",
+            asset="ada" if i == 0 else None)
+    dm.release_device_assignment("a-5")
+    dm.create_zone(token="z-1", area="hq", name="fence",
+                   bounds=[(0.0, 0.0), (0.0, 10.0), (10.0, 10.0)],
+                   condition="outside", alert_level=3)
+    dm.create_device_group(token="g", name="G", roles=["fleet"])
+    dm.add_device_group_elements("g", [DeviceGroupElement(device="dev-1",
+                                                          roles=["r"])])
+    dm.create_device_alarm(token="al-1", device="dev-2", message="hot")
+    inst.rules.create_rule("temp", ComparisonOp.GT, 80.0, "hot",
+                           token="r-hot")
+
+
+def store_view(inst):
+    from test_torch_device_management import normalize
+
+    return {attr: {k: normalize(getattr(getattr(inst, attr), k))
+                   for k in keys} for attr, keys in _STORE_KEYS.items()}
+
+
+def _ref_instance(root):
+    from sitewhere_tpu.instance import Instance as RefInstance
+    from sitewhere_tpu.runtime.config import Config as RefConfig
+
+    return RefInstance(RefConfig({
+        "instance": {"id": "ckpt", "data_dir": str(root)},
+        "pipeline": {"width": WIDTH, "registry_capacity": CAP,
+                     "mtype_slots": M},
+        "presence": {"scan_interval_s": 3600.0, "missing_after_s": 1800},
+        "checkpoint": {"interval_s": 0},
+    }, apply_env=False))
+
+
+def _stores_file(d):
+    return os.path.join(d, [f for f in os.listdir(d)
+                            if f.startswith("stores-")][-1])
+
+
+@pytest.fixture(scope="module")
+def stores_both(tmp_path_factory):
+    """A reference and a port instance holding the same entities, each
+    saved once."""
+    root = tmp_path_factory.mktemp("stores")
+    ref = _ref_instance(root / "jax")
+    seed_entities(ref, "jax")
+    ref.checkpointer.save()
+    port = Instance(config(root / "torch"), device="cpu")
+    seed_entities(port, "torch")
+    port.checkpointer.save()
+    out = {"root": root,
+           "jax": (store_view(ref), _stores_file(ref.checkpointer.dir)),
+           "torch": (store_view(port), _stores_file(port.checkpointer.dir))}
+    ref.terminate()
+    port.terminate()
+    return out
+
+
+def test_stores_sections_hold_the_same_entities(stores_both):
+    assert stores_both["torch"][0] == stores_both["jax"][0]
+    assert len(stores_both["torch"][0]["device_management"]["devices"]) == 6
+
+
+def test_port_stores_section_restores_into_the_reference(stores_both,
+                                                         tmp_path):
+    """The reference's own restore path (its unpickler, ``merge_store``)
+    over the section the port wrote: the reference's classes come back,
+    field for field."""
+    view, path = stores_both["torch"]
+    header, payload = ref_ckpt.read_framed(path, component="stores")
+    assert header["version"] == ref_ckpt.STORES_VERSION
+    # every class is written under the reference's module name
+    assert b"sitewhere_tpu_torch" not in payload
+    stores = ref_ckpt.Checkpointer._unpickle(payload, path)
+    assert sorted(stores) == ["assets", "device_management", "rules"]
+    ref = _ref_instance(tmp_path / "ref")
+    try:
+        for attr, values in stores.items():
+            ref_ckpt.merge_store(getattr(ref, attr), values)
+        assert store_view(ref) == view
+        dev = ref.device_management.devices["dev-0"]
+        assert type(dev).__module__ == \
+            "sitewhere_tpu.services.device_management"
+        rule = ref.rules._rules["r-hot"]
+        assert type(rule.op).__module__ == "sitewhere_tpu.schema"
+        # the reference's services work on what it restored
+        assert ref.device_management.get_active_assignment("dev-1").token \
+            == "a-1"
+    finally:
+        ref.terminate()
+
+
+_STORES_PROBE = """
+import json, sys
+sys.modules["jax"] = None
+sys.modules["sitewhere_tpu"] = None
+import dataclasses
+from sitewhere_tpu_torch.instance import Instance
+from sitewhere_tpu_torch.runtime.config import Config
+inst = Instance(Config(json.loads(sys.argv[1]), apply_env=False),
+                device="cpu")
+assert inst.restored
+DATES = ("active_date_s", "released_date_s", "triggered_date_s",
+         "acknowledged_date_s", "resolved_date_s")
+def normalize(obj):
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        out = {"__class__": type(obj).__name__}
+        for f in dataclasses.fields(obj):
+            if f.name in ("created_s", "updated_s"):
+                continue
+            v = getattr(obj, f.name)
+            out[f.name] = (v is not None) if f.name in DATES else normalize(v)
+        return out
+    if isinstance(obj, dict):
+        return {k: normalize(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [normalize(v) for v in obj]
+    return obj
+view = {attr: {k: normalize(getattr(getattr(inst, attr), k)) for k in keys}
+        for attr, keys in json.loads(sys.argv[2]).items()}
+dm = inst.device_management
+view["active_of_dev_1"] = dm.get_active_assignment("dev-1").token
+view["active_of_dev_5"] = dm.get_active_assignment("dev-5")
+bad = sorted(m for m, v in sys.modules.items() if v is not None
+             and (m.startswith("jax") or m == "sitewhere_tpu"
+                  or m.startswith("sitewhere_tpu.")))
+inst.terminate()
+print(json.dumps([view, bad]))
+"""
+
+
+def test_reference_stores_section_restores_into_the_port_without_jax(
+        stores_both, tmp_path):
+    """A port instance whose newest generation carries the stores section
+    a reference ``Instance`` wrote (users, tenants, schedules and batch
+    operations among it, which the port skips) restores it in a process
+    where ``jax`` and ``sitewhere_tpu`` cannot be imported."""
+    import shutil
+    import subprocess
+    import sys
+
+    view, path = stores_both["jax"]
+    data = tmp_path / "port"
+    port = Instance(config(data), device="cpu")
+    port.checkpointer.save()
+    target = _stores_file(port.checkpointer.dir)
+    port.terminate()
+    shutil.copyfile(path, target)
+    tree = config(data).as_dict()
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-c", _STORES_PROBE, json.dumps(tree),
+         json.dumps(_STORE_KEYS)],
+        cwd=repo, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    got, bad = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert bad == []
+    assert got.pop("active_of_dev_1") == "a-1"
+    assert got.pop("active_of_dev_5") is None
+    want = json.loads(json.dumps(view))      # tuples as JSON lists
+    assert got == want
+
+
+def test_stores_section_refuses_other_reference_globals():
+    forged = (b"\x80\x04\x95\x00\x00\x00\x00\x00\x00\x00\x00\x8c\x16"
+              b"sitewhere_tpu.instance\x94\x8c\x08Instance\x94\x93\x94.")
+    with pytest.raises(port_ckpt.SnapshotCorrupt):
+        port_ckpt.Checkpointer._unpickle(forged, "forged")
+    inert = (b"\x80\x04\x95\x00\x00\x00\x00\x00\x00\x00\x00\x8c\x1c"
+             b"sitewhere_tpu.security.users\x94\x8c\x04User\x94\x93\x94"
+             b")\x81\x94.")
+    obj = port_ckpt.Checkpointer._unpickle(inert, "inert")
+    assert type(obj).__name__ == "Unported"

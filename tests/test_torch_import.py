@@ -255,3 +255,82 @@ def test_analytics_entry_points_default_to_the_card(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
+
+
+# The device services slice: the system of record, auto-registration and
+# command delivery, each module imported on its own with JAX and the
+# reference blocked.
+SLICE7_MODULES = (
+    "services.common", "runtime.resilience", "runtime.refpickle",
+    "services.device_management", "services.assets",
+    "services.registration", "commands", "commands.model",
+    "commands.encoders", "commands.routing", "commands.destinations",
+    "commands.processing", "ingest.mqtt", "ingest.coap",
+    "analytics.checkpoint", "runtime.checkpoint", "runtime.dispatcher",
+    "instance",
+)
+
+
+@pytest.fixture(scope="module")
+def slice7_imports():
+    import json
+
+    proc = subprocess.run(
+        [sys.executable, "-c", _ONE_BY_ONE, *SLICE7_MODULES], cwd=REPO,
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout.strip())
+
+
+@pytest.mark.parametrize("name", SLICE7_MODULES)
+def test_slice7_module_imports_without_jax(slice7_imports, name):
+    out, bad = slice7_imports
+    assert out[name] == "ok"
+    assert bad == []
+
+
+def test_registry_mirror_raises_without_a_card(monkeypatch):
+    from sitewhere_tpu_torch.services.device_management import RegistryMirror
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RegistryMirror(16)
+
+
+def test_instance_composes_the_device_services_by_default(tmp_path):
+    """As the reference does: device management, assets, command delivery
+    and auto-registration, wired into the dispatcher; ``registration.*``
+    is honoured."""
+    from sitewhere_tpu_torch.commands.processing import CommandProcessor
+    from sitewhere_tpu_torch.instance import Instance, refuse_unsupported
+    from sitewhere_tpu_torch.runtime.config import Config
+    from sitewhere_tpu_torch.services.assets import AssetManagement
+    from sitewhere_tpu_torch.services.device_management import (
+        DeviceManagement)
+    from sitewhere_tpu_torch.services.registration import (
+        RegistrationManager)
+
+    tree = {"instance": {"data_dir": str(tmp_path)},
+            "pipeline": {"width": 8, "registry_capacity": 16},
+            "checkpoint": {"interval_s": 0},
+            "registration": {"default_device_type": "sensor",
+                             "allow_new_devices": False}}
+    refuse_unsupported(Config(tree, apply_env=False))
+    inst = Instance(Config(tree, apply_env=False), device="cpu")
+    try:
+        assert isinstance(inst.device_management, DeviceManagement)
+        assert inst.device_management.mirror is inst.mirror
+        assert isinstance(inst.assets, AssetManagement)
+        assert isinstance(inst.commands, CommandProcessor)
+        assert isinstance(inst.registration, RegistrationManager)
+        assert inst.registration.default_device_type == "sensor"
+        assert inst.registration.allow_new_devices is False
+        disp = inst.dispatcher
+        assert disp.registration is inst.registration
+        assert disp.on_command_rows == inst._on_command_rows
+        assert disp.totals["commands"] == 0
+        children = inst.children
+        assert children.index(inst.commands) < children.index(disp)
+        assert children.index(inst.registration) < children.index(disp)
+    finally:
+        inst.terminate()

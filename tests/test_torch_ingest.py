@@ -356,3 +356,98 @@ def test_batcher_runs_one_shard_only():
     assert tbatcher.shard_for_device(70, 128, 2) == 1
     with pytest.raises(ValueError):
         tbatcher.shard_for_device(0, 3, 2)
+
+
+def _meas(token="d-1", **req):
+    body = {"name": "m", "value": 1.5, "eventDate": WIRE_TS0_MS}
+    body.update(req)
+    return {"deviceToken": token, "type": "DeviceMeasurements",
+            "request": body}
+
+
+# Records for registration's re-decode, each with the lines it varies;
+# "certified" marks those the C scanner proves decodable line by line.
+_REDECODE = {
+    "mixed": (True, [
+        _meas("d-1"),
+        {"deviceToken": "d-2", "type": "DeviceLocation",
+         "request": {"latitude": 1.5, "longitude": -2, "elevation": 3,
+                     "eventDate": WIRE_TS0_MS}},
+        {"type": "Alert", "hardwareId": "d-3",
+         "request": {"level": 2, "type": "", "eventDate": 1.7e9,
+                     "metadata": {"k": [1, "\\u00e9"]}}},
+        _meas("d-4", value=7, updateState=False, extra={"a": None}),
+        {"deviceToken": "d-5", "type": "measurement",
+         "request": {"name": "", "measurementId": "m2", "value": 1e300,
+                     "timestamp": WIRE_TS0_MS}}]),
+    "blank lines": (True, [_meas("d-1"), " \r", _meas("d-2"), ""]),
+    "duplicate key": (True, [
+        '{"deviceToken":"d-1","type":"DeviceMeasurements","request":'
+        '{"name":"m","value":1,"value":2,"eventDate":1700000000}}']),
+    "eventDate 0, timestamp out of range": (False, [
+        _meas("d-1"), _meas("d-2", eventDate=0, timestamp=1e17)]),
+    "eventDate out of range": (False, [_meas("d-1"),
+                                       _meas("d-2", eventDate=2 ** 31)]),
+    "eventDate not finite": (False, [_meas("d-1"),
+                                     '{"deviceToken":"d-2","type":"'
+                                     'Measurement","request":{"name":"m",'
+                                     '"value":1,"eventDate":1e999}}']),
+    "value too large for a float": (False, [
+        '{"deviceToken":"d-1","type":"Measurement","request":{"name":"m",'
+        '"value":1' + "0" * 400 + ',"eventDate":1700000000}}']),
+    "value a boolean": (False, [_meas("d-1", value=True)]),
+    "value a string": (False, [_meas("d-1", value="x")]),
+    "name null": (False, [_meas("d-1", name=None, measurementId="m")]),
+    "no name": (False, [_meas("d-1", name="")]),
+    "level cased": (False, [{"deviceToken": "d-1", "type": "Alert",
+                             "request": {"level": "Warning"}}]),
+    "level out of range": (False, [{"deviceToken": "d-1", "type": "Alert",
+                                    "request": {"level": 2 ** 40}}]),
+    "updateState not a literal boolean": (False, [_meas("d-1",
+                                                        updateState=0)]),
+    "escaped token": (False, ['{"deviceToken":"d-\\u0031","type":'
+                              '"Measurement","request":{"name":"m",'
+                              '"value":1}}']),
+    "registration line": (False, [_meas("d-1"), {
+        "deviceToken": "d-9", "type": "RegisterDevice",
+        "request": {"deviceTypeToken": "sensor"}}]),
+    "command line": (False, [_meas("d-1"), {
+        "deviceToken": "d-2", "type": "CommandInvocation",
+        "request": {"commandToken": "ping"}}]),
+    "no request": (False, [{"deviceToken": "d-1", "type": "Measurement"}]),
+    "vertical tab line": (False, [_meas("d-1"), "\x0b", _meas("d-2")]),
+    "array": (False, None),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_REDECODE))
+def test_record_events_equal_the_scalar_decode(name):
+    """Registration's re-decode (``RecordEvents``) returns, for any subset
+    of a record's lines, what the reference's scalar decoder returns for
+    them, and raises where it raises; only records the C scanner certifies
+    are decoded line by line."""
+    certified, lines = _REDECODE[name]
+    if lines is None:
+        payload = json.dumps([_meas("d-1"), _meas("d-2")]).encode()
+    else:
+        payload = "\n".join(
+            ln if isinstance(ln, str) else json.dumps(ln)
+            for ln in lines).encode()
+    assert (tcolumnar.certified_event_lines(payload) is not None) \
+        == certified
+    try:
+        ref = [r for r in jdecoders.JsonLinesDecoder()(payload)
+               if r.event_type is not None]
+    except jdecoders.DecodeError:
+        with pytest.raises(tdecoders.DecodeError):
+            tcolumnar.RecordEvents.of(payload)
+        return
+    for pick in (lambda i: True, lambda i: i % 2 == 1, lambda i: False):
+        events = tcolumnar.RecordEvents.of(payload)
+        assert events.tokens == [r.device_token for r in ref]
+        got = [dataclasses.asdict(events.request(i))
+               for i in range(len(events)) if pick(i)]
+        want = [dataclasses.asdict(r) for i, r in enumerate(ref) if pick(i)]
+        for doc in got + want:
+            doc["kind"] = int(doc["kind"])
+        assert got == want

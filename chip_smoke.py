@@ -144,7 +144,45 @@ script exits non-zero without printing a result:
    rows, kernel launches == steps.  ``checkpoint_full.stores``: save,
    restore into a fresh instance; devices, assignments, device types and
    commands, assets equal, the mirror bitwise;
-11. a small input run on the card and on the CPU: identical int outputs.
+11. device-fault containment and the control plane (phase
+   ``control_plane``).  ``devfault``: ``tools/torch_devfault_bench.py``'s
+   five phases on the card at width 64 (a chain fault re-parked and
+   re-dispatched with the epoch bitwise kept and the state bitwise a
+   fault-free run's; the breaker's ladder, whose FALLBACK level fails
+   closed on the card: a child process demoted past it must exit with the
+   dispatcher's STICKY_EXIT_CODE and a restart must store every row it
+   journaled, ``cpu_fallback_steps`` 0 here as everywhere; poison
+   rows bisected to ``device-poison`` letters; their requeue into one
+   quarantine STATE_CHANGE; the watchdog's soft, hard and recovered
+   transitions), then every clean subset of a width-64 bisection stepped
+   again by the port on the CPU, bitwise.  ``containment_full``: an
+   ``Instance`` at the deployment's size with ring K=8 (the ladder off:
+   every row counts) takes a fault at slot 3 of a chain and then one NaN
+   row with a NaN-triggered device fault: re-dispatches, bisect rounds,
+   launches and ms, the kernel against its plain version on every clean
+   subset, one subset stepped again on the CPU, stored == sent - poison.
+   ``sticky_child``: a ``--kill-child`` process whose step triggers a real
+   device-side assert must exit with the dispatcher's STICKY_EXIT_CODE,
+   dead-letter nothing and never step on the CPU; a fresh child recovers
+   every sent row.  ``overload``: the paced region (width 4096, 3.5 ms)
+   through an ``Instance`` with the ladder, metering, the SLO engine and
+   the flight recorder at their defaults, over the deployment's registry
+   spread over 8 tenants (the default tenant noisy, 4 of every
+   11 payloads, each payload a tenant's, through ``ingest_many``): a
+   burst measures the sustained rate, then regions at 50% and 200% of it;
+   transitions, sheds by class and tenant, Retry-After, each tenant's
+   billed rows against its stored rows (exact), a quota tenant throttled
+   in the rule engine and refused at the program-write gate, SLO alerts,
+   flight-recorder dumps and bytes, host syncs per batch with metering
+   on and off (equal), the ``tenant-metering`` section saved and
+   restored;
+12. a small input run on the card and on the CPU: identical int outputs.
+
+Every ``Instance`` run before ``control_plane`` turns the overload
+ladder and the SLO engine off (``instance_config``), as the reference's
+zero-loss benches do; the ``guards`` line sums each phase's
+``device.fault.*`` counters (``cpu_fallback_steps`` must be 0 in every
+one: on the card no step runs on the CPU).
 
 Every log record of the run goes to a file under the build directory
 (removed at the end); the ``done`` line counts them by logger and level.
@@ -168,6 +206,7 @@ import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -262,6 +301,35 @@ PIP_LOGIC_PER_TEST = 2
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+# the device guards' counters of every dispatcher a phase ran, summed by
+# phase (``guard_counts``); main holds cpu_fallback_steps at 0 in every
+# phase
+GUARD_KEYS = ("cpu_fallback_steps", "watchdog_soft_trips",
+              "watchdog_hard_trips", "chain_faults", "step_faults",
+              "bisect_rounds", "poison_rows")
+GUARDS = {}
+
+
+def fault_counters(metrics):
+    """The ``device.fault.*`` counters of one metrics registry."""
+    c = metrics.snapshot()["counters"]
+    return {k: int(c.get(f"device.fault.{k}", 0)) for k in GUARD_KEYS}
+
+
+def add_guards(phase, counts):
+    acc = GUARDS.setdefault(phase, dict.fromkeys(GUARD_KEYS, 0))
+    for k in GUARD_KEYS:
+        acc[k] += int(counts.get(k, 0))
+
+
+def guard_counts(metrics, phase):
+    """The ``device.fault.*`` counters of one run's metrics registry,
+    added to ``GUARDS[phase]``; returns them for the run's record."""
+    out = fault_counters(metrics)
+    add_guards(phase, out)
+    return out
 
 
 def check(cond: bool, what: str) -> None:
@@ -650,22 +718,31 @@ def make_wire_world(device):
     return identity, mirror, rules
 
 
-def populate_world(identity, mirror, rules, n_active):
+def tenant_token(k):
+    """Tenant ``k`` of a multi-tenant world: 0 is the default tenant."""
+    return "default" if k == 0 else f"t-{k}"
+
+
+def populate_world(identity, mirror, rules, n_active, n_tenants=1):
     """Write the deployment's devices (``n_active`` of them), zones and
-    rules into the given identity map, registry mirror and rule manager."""
+    rules into the given identity map, registry mirror and rule manager.
+    Device ``d-i`` belongs to tenant ``i % n_tenants`` (``tenant_token``);
+    with one tenant every device is the default tenant's."""
     import torch
 
     from sitewhere_tpu_torch.schema import (
         AssignmentStatus, ComparisonOp, RuleKind, ZoneCondition)
 
-    identity.tenant.mint("default")
+    for k in range(n_tenants):
+        check(identity.tenant.mint(tenant_token(k)) == k,
+              f"tenant {k} minted out of order")
     for m in range(M_SLOTS):
         identity.mtype.mint(f"m{m}")
     active = int(AssignmentStatus.ACTIVE)
     for i in range(n_active):
         d = identity.device.mint(f"d-{i}")
         mirror.set_device_row(
-            d, active=True, tenant_id=0, device_type_id=i % 16,
+            d, active=True, tenant_id=i % n_tenants, device_type_id=i % 16,
             assignment_id=i, assignment_status=active, area_id=i % 64,
             customer_id=i % 1000, asset_id=i % 5000)
     gen = torch.Generator(device="cpu").manual_seed(SEED + 5)
@@ -1027,6 +1104,7 @@ def wire_throughput(device, geo_cuda, world, payloads, ring_depth,
            "ring_region_host_syncs_per_batch": ring_syncs / ring_steps,
            "pip_launches": launches, "committed": committed,
            "journal_records": records, **delta}
+    rec.update(guard_counts(disp.metrics, rec["phase"]))
     emit(_busy(rec, span_ms, _device_ms(prof), elapsed, delta["steps"]))
     check(launches == delta["steps"],
           f"kernel launched {launches}x in {delta['steps']} dispatcher steps")
@@ -1120,6 +1198,7 @@ def wire_paced(device, world, payloads, root, run="paced_ring0",
            "steps": steps,
            "host_syncs_per_batch":
            (snap["host_syncs"] - snap0["host_syncs"]) / max(1, steps)}
+    rec.update(guard_counts(disp.metrics, rec["phase"]))
     emit(_busy(rec, span_ms, _device_ms(prof), elapsed, steps))
     return rec
 
@@ -1304,7 +1383,18 @@ def instance_config(data_dir, capacity, width, ring_depth, deadline_ms,
                     **extra):
     """The deployment as an ``Instance`` config: the reference's keys; the
     journal and the segment store at the Config defaults; ``extra``
-    sections on top (``registration`` in device_services)."""
+    sections on top (``registration`` in device_services, the control
+    plane's own settings in control_plane).
+
+    The overload ladder and the SLO engine are off here: these runs
+    count every line they send (stored == accepted, nothing lost across
+    a kill), and the ladder at its defaults sheds whenever the commit
+    gate's seal lag passes 0.1 s, which a run that pushes payloads as
+    fast as it can always does.  The reference's zero-loss benches turn
+    both off for the same reason (``tools/crashrec_bench.py:116-119``).
+    The flight recorder, metering, the breaker and the watchdog stay at
+    their defaults; phase ``control_plane`` runs the ladder and the SLO
+    engine at theirs."""
     from sitewhere_tpu_torch.runtime.config import Config
 
     return Config({
@@ -1319,22 +1409,26 @@ def instance_config(data_dir, capacity, width, ring_depth, deadline_ms,
         # every live match of a run is kept for the live == retrospective
         # check
         "analytics": {"max_matches": 1 << 21},
+        "overload": {"enabled": False},
+        "slo": {"enabled": False},
         **extra,
     }, apply_env=False)
 
 
-def world_checkpoint(device, root, size):
+def world_checkpoint(device, root, size, n_tenants=1):
     """Write the deployment through an ``Instance``'s own identity, mirror
     and rules, save it as checkpoint generation 0 (empty device state) and
     return its directory: every later instance restores the world from a
-    copy of it."""
+    copy of it.  ``n_tenants`` > 1 spreads the devices over that many
+    tenants (``populate_world``)."""
     from sitewhere_tpu_torch.instance import Instance
 
     capacity, n_active, width = SIZES[size]
-    data_dir = os.path.join(root, f"world-{size}")
+    data_dir = os.path.join(root, f"world-{size}-{n_tenants}")
     inst = Instance(instance_config(data_dir, capacity, width, 0,
                                     WIRE_DEADLINE_MS), device=device)
-    populate_world(inst.identity, inst.mirror, inst.rules, n_active)
+    populate_world(inst.identity, inst.mirror, inst.rules, n_active,
+                   n_tenants)
     inst.checkpointer.save()
     inst.terminate()
     return os.path.join(data_dir, "checkpoint")
@@ -1581,6 +1675,7 @@ def persist_throughput(device, geo_cuda, world_ckpt, payloads, root, run,
         rec["rules_load"] = {k: v for k, v in load.items()
                              if k != "alert_codes"}
         rec["program_alerts_stored"] = sum(stored_alerts.values())
+    rec.update(guard_counts(disp.metrics, rec["phase"]))
     emit(_busy(rec, span_ms, None, elapsed, delta["steps"]))
     check(launches == delta["steps"],
           f"kernel launched {launches}x in {delta['steps']} dispatcher steps")
@@ -1878,6 +1973,7 @@ def kill_child(spec):
                 inst.checkpointer.save()
         disp.flush()
         np.savez(spec["state_out"], **inst.device_state.snapshot_host())
+        out["guards"] = fault_counters(inst.metrics)
         inst.stop()
         inst.terminate()
         with open(spec["result_out"], "w") as f:
@@ -1937,6 +2033,7 @@ def kill_child(spec):
         "stored_twice_above": int((counts > 1).sum()) - int(twice.size),
         "catalog_problems": inst.event_store.verify_catalog(),
         "dedup_floor_after": disp.store_dedup_floor,
+        "guards": fault_counters(inst.metrics),
     })
     np.savez(spec["state_out"], **inst.device_state.snapshot_host())
     inst.stop()
@@ -2049,6 +2146,8 @@ def kill_recover(device, worlds, root):
     for name, (rc, err) in done.items():
         if name.startswith("golden"):
             check(rc == 0, f"{name} failed (rc {rc}): {err}")
+            add_guards("persist_recover",
+                       _read_result(specs[name]["result_out"])["guards"])
         else:
             check(rc == -signal.SIGKILL,
                   f"{name} was not killed at its point (rc {rc}): {err}")
@@ -2071,6 +2170,7 @@ def kill_recover(device, worlds, root):
     for point, hit, size, ring, deadline in KILLS:
         kname = f"kill-{point.split('.')[1]}"
         res = _read_result(verify[kname]["result_out"])
+        add_guards("persist_recover", res["guards"])
         unequal, ulp = _state_close(specs[f"golden-{size}"]["state_out"],
                                     verify[kname]["state_out"])
         capacity, n_active, width = SIZES[size]
@@ -3467,6 +3567,7 @@ def device_services_run(device, geo_cuda, world, mixed, root, logs):
            "undeliverable_replayed_duplicates": dup_undeliverable,
            "rows_stored": stored_rows, "command_rows_stored": stored_commands,
            "logs": logged, "invocation_errors": invoker.errors[:5]}
+    rec.update(guard_counts(disp.metrics, rec["phase"]))
     emit(_busy(rec, span_ms, None, wire_s, delta["steps"]))
     check(not invoker.errors, f"invocations failed: {invoker.errors[:3]}")
     check(not bad_ghosts, f"{len(bad_ghosts)} ghosts not registered once "
@@ -3569,6 +3670,776 @@ def phase_device_services(device, geo_cuda, mixed, logs):
     return launches
 
 
+# -- device-fault containment and the control plane ----------------------------
+
+CP_TS0_MS = WIRE_TS0_MS + 40_000_000
+# the full-width chain fault strikes at this slot of the K=8 chain, after
+# the earlier slots ran
+CP_FAULT_SLOT = 3
+# clean bisection subsets of the full-width run stepped again by the port
+# on the CPU (each a full-width CPU step with the plain geofence); at the
+# devfault bench's width 64 every clean subset is
+CP_CPU_SUBSETS = 1
+# overload and metering: the paced region's width and deadline
+# (PACED_WIDTH, PACED_DEADLINE_MS) over the deployment's registry (2^20
+# slots, 1,000,000 devices) spread over 8 tenants, the world that
+# containment_full and the sticky child use too; tenant 0 ("default") is
+# the noisy one, 4 of every 11 payloads
+CP_TENANTS = 8
+CP_TENANT_CYCLE = (0, 0, 0, 0, 1, 2, 3, 4, 5, 6, 7)
+CP_BURST, CP_REGION = 32, 88
+CP_UTILS = (0.5, 2.0)
+CP_SYNC_PAYLOADS = 16
+# tenant 1 carries an eval quota its first evaluated batch overruns (a
+# deprioritized tenant's rows are skipped, so live eval alone stops
+# billing it below the refusal line; the CPU tests walk the whole ladder)
+CP_QUOTA_TENANT, CP_QUOTA_EVAL_S = 1, 2e-5
+# the sticky child: payloads of PACED_WIDTH lines of the default tenant's
+# devices
+CP_STICKY_PAYLOADS = 2
+
+
+def to_device(obj, device):
+    """A packed dataclass (tables, carry) with every tensor on ``device``."""
+    import dataclasses
+
+    import torch
+
+    return dataclasses.replace(obj, **{
+        f.name: getattr(obj, f.name).to(device)
+        for f in dataclasses.fields(obj)
+        if isinstance(getattr(obj, f.name), torch.Tensor)})
+
+
+def clean_measurements(rng, n_payloads, lines, ts0_ms, devices):
+    """Measurement-only payloads of registered ``devices`` (no unknown
+    tokens), values in MEAS_VALUE_BAND: no rule fires, so each full-width
+    payload is one adopted plan.  Returns a list of bytes."""
+    lo, hi = MEAS_VALUE_BAND
+    out = []
+    for p in range(n_payloads):
+        dev = rng.choice(devices, lines)
+        value = rng.uniform(lo, hi, lines)
+        ts = ts0_ms + 1000 * p + 250 * rng.integers(0, 4, lines)
+        out.append("\n".join(
+            _M_LINE % (f"d-{d}", d % M_SLOTS, v, t)
+            for d, v, t in zip(dev.tolist(), value.tolist(),
+                               ts.tolist())).encode())
+    return out
+
+
+def poisoned(payload):
+    """``payload`` with its first line's value NaN (JSON ``NaN``)."""
+    first, rest = payload.split(b"\n", 1)
+    head, tail = first.split(b'"value":', 1)
+    return head + b'"value":NaN' + tail[tail.index(b","):] + b"\n" + rest
+
+
+def steps_equal_on_cpu(captured, geofence):
+    """Step each captured ``(tables, carry, bi, bf, outputs)`` again on the
+    CPU with ``geofence`` (the plain version): outputs, metrics, presence
+    and the carry's int rows bitwise, its exact float rows bitwise, the
+    EWMA within EWMA_MAX_ULP of the value scale.  Returns the worst EWMA
+    error in ULPs of the scale; raises on any other difference."""
+    import torch
+
+    from sitewhere_tpu_torch.pipeline.packed import packed_pipeline_step
+
+    cpu = torch.device("cpu")
+    worst = 0.0
+    for tables, ps, bi, bf, out in captured:
+        got = packed_pipeline_step(to_device(tables, cpu), to_device(ps, cpu),
+                                   bi.cpu(), bf.cpu(), geofence)
+        new_ps, oi, met, present = out
+        check(torch.equal(oi.cpu(), got[1]), "subset outputs differ on CPU")
+        check(torch.equal(met.cpu(), got[2]), "subset metrics differ on CPU")
+        check(torch.equal(present.cpu(), got[3]),
+              "subset presence differs on CPU")
+        check(torch.equal(new_ps.si.cpu(), got[0].si),
+              "subset int carry differs on CPU")
+        n_exact = 3 + new_ps.num_mtype_slots
+        check(torch.equal(new_ps.sf[:n_exact].cpu(), got[0].sf[:n_exact]),
+              "subset float carry differs on CPU")
+        a = got[0].sf[n_exact:].double()
+        b = new_ps.sf[n_exact:].cpu().double()
+        fin = torch.isfinite(a)
+        check(torch.equal(torch.isfinite(b), fin), "EWMA finiteness differs")
+        scale = torch.clamp(a.abs(), min=EWMA_SCALE) * 2.0 ** -23
+        if bool(fin.any()):
+            worst = max(worst, float(((a - b).abs()[fin]
+                                      / scale[fin]).max()))
+    check(worst <= EWMA_MAX_ULP, f"EWMA off by {worst} ULP of scale")
+    return worst
+
+
+def cp_devfault(device, geo_cuda, root):
+    """The port's twin of tools/devfault_bench.py --smoke on the card,
+    every phase's contract held, then every clean subset of a width-64
+    bisection stepped again on the CPU."""
+    import torch
+
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tools"))
+    import torch_devfault_bench as bench
+
+    from sitewhere_tpu_torch.ops.geo import points_in_polygons
+    from sitewhere_tpu_torch.pipeline.packed import packed_pipeline_step
+    from sitewhere_tpu_torch.runtime import faults
+
+    failures = []
+
+    def note(ok, msg):
+        if not ok and msg:
+            failures.append(msg)
+
+    def on_phase(name, report):
+        emit({"phase": "control_plane", "run": f"devfault.{name}",
+              **report})
+        add_guards("control_plane.devfault." + name, dict(
+            report, watchdog_soft_trips=report.get("soft_trips", 0),
+            watchdog_hard_trips=report.get("hard_trips", 0)))
+
+    phases = bench.run(device, note, os.path.join(root, "devfault"),
+                       on_phase=on_phase)
+    check(not failures, f"devfault contract: {failures}")
+    for name, rep in phases.items():
+        check(rep["cpu_fallback_steps"] == 0,
+              f"devfault {name} stepped on the CPU")
+    # the breaker's FALLBACK level failed closed in its child, and the
+    # restart stored every journaled row
+    from sitewhere_tpu_torch.runtime.dispatcher import STICKY_EXIT_CODE
+
+    brk = phases["breaker"]
+    check(brk["exit_code"] == STICKY_EXIT_CODE
+          and brk["trip_levels"] == [1, 2]
+          and brk["stored"] == brk["ingested"],
+          f"the breaker did not fail closed at FALLBACK: {brk}")
+
+    # every clean subset of a width-64 bisection against the CPU port
+    inst = bench.make_instance(os.path.join(root, "subsets"), device)
+    inst.start()
+    bench.register(inst)
+    d = inst.dispatcher
+    d.breaker.threshold = 99
+    traffic = bench.Traffic(clean_devices=bench.N_DEVICES - 1)
+    d.ingest_wire_lines(traffic.payload())
+    d.flush()
+    captured = []
+    step = d._packed_step
+
+    def recording(tables, ps, bi, bf):
+        out = packed_pipeline_step(tables, ps, bi, bf)
+        captured.append((tables, ps, bi, bf, out))
+        return out
+
+    d._packed_step = recording
+    faults.device_inject("device.dispatch", times=None,
+                         when_nonfinite=True)
+    try:
+        d.ingest_wire_lines(traffic.payload(poison_rows=3))
+        d.flush()
+    finally:
+        faults.device_clear()
+        d._packed_step = step
+    check(len(captured) > 1, "the width-64 bisection stepped no subset")
+    worst = steps_equal_on_cpu(captured, points_in_polygons)
+    emit({"phase": "control_plane", "run": "devfault.subsets_vs_cpu",
+          "width": bench.WIDTH, "clean_subsets": len(captured),
+          "bitwise": True, "ewma_max_ulp_of_scale": worst})
+    del captured
+    inst.stop()
+    inst.terminate()
+    torch.cuda.synchronize()
+
+
+def cp_containment(device, geo_cuda, world, root):
+    """Containment at the deployment's size (ring K=8): a fault at slot
+    CP_FAULT_SLOT of a chain, then one poison row bisected out of a
+    full-width plan.  Returns the kernel's launches in the run."""
+    import torch
+
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tools"))
+    import torch_devfault_bench as bench
+
+    from sitewhere_tpu_torch.ops.geo_cuda import points_in_polygons_auto
+    from sitewhere_tpu_torch.pipeline.packed import packed_pipeline_step
+    from sitewhere_tpu_torch.runtime import faults
+
+    # every row counts: the ladder stays off (instance_config)
+    inst = instance_from_world(device, world, os.path.join(root, "contain"),
+                               CAPACITY, FULL_B, RING_K,
+                               RING_DIAG_DEADLINE_MS)
+    inst.start()
+    d, sm = inst.dispatcher, inst.device_state
+    rng = np.random.default_rng(SEED + 11)
+    payloads = clean_measurements(rng, 2 * RING_K + 1, FULL_B, CP_TS0_MS,
+                                  # the default tenant's devices: the
+                                  # wire lines name no tenant
+                                  np.arange(0, N_ACTIVE, CP_TENANTS))
+    sent = 0
+    try:
+        for payload in payloads[:RING_K]:
+            d.ingest_wire_lines(payload)
+            sent += FULL_B
+        d.flush()
+        check(d.metrics_snapshot()["ring_chains"] >= 1,
+              "the warm ring never chained")
+        epoch0 = sm.snapshot_host()
+        kept = {}
+
+        def observe(plans, exc, _orig=d._recover_ring):
+            kept.update(sm.snapshot_host())
+            return _orig(plans, exc)
+
+        d._ring_chains[RING_K] = bench.chain_failing_at(RING_K,
+                                                        CP_FAULT_SLOT)
+        d._recover_ring = observe
+        c0 = fault_counters(inst.metrics)
+        l0, s0 = geo_cuda.launch_counts["pip_parity"], d.steps
+        t0 = time.perf_counter()
+        try:
+            for payload in payloads[RING_K:2 * RING_K]:
+                d.ingest_wire_lines(payload)
+                sent += FULL_B
+            d.flush()
+        finally:
+            del d._recover_ring
+            del d._ring_chains[RING_K]
+        chain_s = time.perf_counter() - t0
+        c1 = fault_counters(inst.metrics)
+        l1, s1 = geo_cuda.launch_counts["pip_parity"], d.steps
+        epoch_kept = bool(kept) and all(
+            kept[k].tobytes() == epoch0[k].tobytes() for k in epoch0)
+        del kept, epoch0
+        check(epoch_kept, "the failed chain changed the held epoch")
+        check(c1["chain_faults"] - c0["chain_faults"] == 1,
+              "the chain fault was not contained once")
+
+        # one poison row: bisected out of the full-width plan
+        captured, geo_calls = [], []
+        step = d._packed_step
+
+        def geo_recording(points, verts):
+            out = points_in_polygons_auto(points, verts)
+            geo_calls.append((points, verts, out))
+            return out
+
+        def recording(tables, ps, bi, bf):
+            out = packed_pipeline_step(tables, ps, bi, bf, geo_recording)
+            captured.append((tables, ps, bi, bf, out))
+            return out
+
+        bisect = {}
+        contain = d._contain_step_failure
+
+        def timed(plan, exc, depth, trace):
+            t = time.perf_counter()
+            try:
+                contain(plan, exc, depth, trace)
+            finally:
+                bisect["ms"] = (time.perf_counter() - t) * 1e3
+
+        d._packed_step = recording
+        d._contain_step_failure = timed
+        faults.device_inject("device.dispatch", times=None,
+                             when_nonfinite=True)
+        try:
+            d.ingest_wire_lines(poisoned(payloads[-1]))
+            sent += FULL_B
+            d.flush()
+        finally:
+            faults.device_clear()
+            d._packed_step = step
+            del d._contain_step_failure
+        c2 = fault_counters(inst.metrics)
+        l2 = geo_cuda.launch_counts["pip_parity"]
+        settle(inst)
+        inst.event_store.flush()
+        stored = inst.event_store.total_events
+        letters = [doc for doc in inst.list_dead_letters(limit=20)
+                   if doc.get("kind") == "device-poison"]
+        # the kernel against its plain version on every clean subset
+        # (comparison launches, after the counted window)
+        subsets_bitwise = all(
+            torch.equal(out, plain_chunked(points, verts))
+            for points, verts, out in geo_calls)
+        check(subsets_bitwise, "kernel != plain on a bisection subset")
+        worst = steps_equal_on_cpu(captured[:CP_CPU_SUBSETS],
+                                   lambda p, v: plain_chunked(p, v))
+        n_subsets = len(captured)
+        del captured, geo_calls
+        inst.stop()
+    finally:
+        inst.terminate()
+    torch.cuda.synchronize()
+    poison = c2["poison_rows"] - c1["poison_rows"]
+    rec = {"phase": "control_plane", "run": "containment_full",
+           "width": FULL_B, "capacity": CAPACITY, "devices": N_ACTIVE,
+           "zones": FULL_Z, "ring_depth": RING_K,
+           "chain_fault_slot": CP_FAULT_SLOT,
+           "chain_faults": c1["chain_faults"] - c0["chain_faults"],
+           "redispatched_plans": s1 - s0,
+           "chain_fault_launches": l1 - l0, "chain_fault_s": chain_s,
+           "epoch_kept_bitwise": epoch_kept,
+           "step_faults": c2["step_faults"] - c1["step_faults"],
+           "bisect_rounds": c2["bisect_rounds"] - c1["bisect_rounds"],
+           "bisect_ms": bisect.get("ms"), "clean_subsets": n_subsets,
+           "bisect_launches": l2 - l1, "poison_rows": poison,
+           "poison_letters": sum(int(doc["count"]) for doc in letters),
+           "subsets_kernel_bitwise": subsets_bitwise,
+           "subsets_vs_cpu": CP_CPU_SUBSETS,
+           "subsets_cpu_ewma_max_ulp_of_scale": worst,
+           "sent": sent, "stored": stored,
+           "nothing_lost": stored == sent - poison,
+           **{k: c2[k] for k in ("cpu_fallback_steps",
+                                 "watchdog_soft_trips",
+                                 "watchdog_hard_trips")}}
+    emit(rec)
+    add_guards("control_plane.containment_full", c2)
+    check(rec["redispatched_plans"] == RING_K,
+          f"{rec['redispatched_plans']} plans re-dispatched, not {RING_K}")
+    check(poison == 1 and rec["poison_letters"] == 1,
+          f"poison rows {poison}, letters {rec['poison_letters']}")
+    check(rec["nothing_lost"], f"stored {stored} of {sent} sent")
+    check(rec["bisect_launches"] == n_subsets,
+          "bisection launches != clean subsets")
+    return {"chain_fault": l1 - l0, "bisect": l2 - l1}
+
+
+def sticky_child(spec):
+    """``--kill-child`` roles ``sticky`` and ``sticky-recover``.  sticky:
+    an instance of the world ingests and commits its first payload, then a
+    patch in this script makes its step trigger a real device-side
+    assert; the dispatcher must fail closed (the process exits with the
+    dispatcher's STICKY_EXIT_CODE).  sticky-recover: restart on the
+    survivor's directory and count what came back."""
+    import torch
+
+    from sitewhere_tpu_torch.device import resolve_device
+    from sitewhere_tpu_torch.instance import Instance
+
+    device = resolve_device(spec["device"])
+    torch.set_num_threads(2)
+    data_dir, width = spec["data_dir"], spec["width"]
+    extra = {"rules": {"programs_enabled": False},
+             "analytics": {"enabled": False}}
+    rng = np.random.default_rng(SEED + 13)
+    devices = np.arange(0, spec["n_active"], CP_TENANTS)  # the default's
+    payloads = clean_measurements(rng, CP_STICKY_PAYLOADS, width,
+                                  CP_TS0_MS + 5_000_000, devices)
+    out = {"role": spec["role"]}
+    if spec["role"] == "sticky":
+        inst = instance_from_world(device, spec["world_ckpt"], data_dir,
+                                   spec["capacity"], width, 0,
+                                   WIRE_DEADLINE_MS, **extra)
+        inst.start()
+        d = inst.dispatcher
+        d.flush()
+        inst.checkpointer.save()
+        d.ingest_wire_lines(payloads[0])
+        d.flush()
+        out["before_fault"] = fault_counters(inst.metrics)
+        out["stored_before_fault"] = inst.event_store.total_events
+        with open(spec["result_out"], "w") as f:
+            json.dump(out, f)
+        step = d._packed_step
+
+        def asserting(tables, ps, bi, bf):
+            res = step(tables, ps, bi, bf)
+            # an out-of-range index: a device-side assert, reported
+            # asynchronously, after which the context is lost
+            bad = torch.full((1,), 1 << 30, dtype=torch.long,
+                             device=bi.device)
+            bi[0][bad]
+            return res
+
+        d._packed_step = asserting
+        d.ingest_wire_lines(payloads[1])
+        d.flush()
+        out["survived"] = True
+        with open(spec["result_out"], "w") as f:
+            json.dump(out, f)
+        return
+    inst = Instance(instance_config(data_dir, spec["capacity"], width, 0,
+                                    WIRE_DEADLINE_MS, **extra),
+                    device=device)
+    check(inst.restored, "the sticky restart restored no checkpoint")
+    inst.start()
+    inst.dispatcher.flush()
+    inst.event_store.flush()
+    out.update({
+        "stored": inst.event_store.total_events,
+        "sent": CP_STICKY_PAYLOADS * width,
+        "replay_events": int(inst.metrics.snapshot()["gauges"][
+            "recovery.replay_events"]),
+        "poison_letters": len([
+            doc for doc in inst.list_dead_letters(limit=1000)
+            if doc.get("kind") == "device-poison"]),
+        "dead_letter_kinds": sorted({
+            doc.get("kind") for doc in inst.list_dead_letters(limit=1000)}),
+        "flightrec_snapshots": [s.get("reason") for s in
+                                inst.flightrec.snapshots()],
+        "guards": fault_counters(inst.metrics),
+    })
+    inst.stop()
+    inst.terminate()
+    with open(spec["result_out"], "w") as f:
+        json.dump(out, f)
+
+
+def cp_sticky(device, world, root):
+    """A real device-side assert in a child process: it must exit
+    non-zero with nothing dead-lettered and no CPU step, and a fresh
+    child must recover every sent row from the checkpoint and journal."""
+    from sitewhere_tpu_torch.runtime.dispatcher import STICKY_EXIT_CODE
+
+    base = dict(capacity=CAPACITY, n_active=N_ACTIVE, width=PACED_WIDTH,
+                world_ckpt=world, device=str(device),
+                data_dir=os.path.join(root, "sticky"))
+    t0 = time.perf_counter()
+    spec = dict(base, role="sticky",
+                result_out=os.path.join(root, "sticky.json"))
+    rc, err = _wait_all({"sticky": _spawn(spec)}, 300)["sticky"]
+    child_s = time.perf_counter() - t0
+    first = _read_result(spec["result_out"])
+    check(rc != 0 and not first.get("survived"),
+          f"the sticky child did not fail closed (rc {rc}): {err}")
+    check("failing closed" in err, f"no fail-closed log: {err[-800:]}")
+    spec = dict(base, role="sticky-recover",
+                result_out=os.path.join(root, "sticky-recover.json"))
+    rc2, err2 = _wait_all({"recover": _spawn(spec)}, 300)["recover"]
+    check(rc2 == 0, f"the sticky restart failed (rc {rc2}): {err2}")
+    res = _read_result(spec["result_out"])
+    rec = {"phase": "control_plane", "run": "sticky_child",
+           "width": PACED_WIDTH, "exit_code": rc,
+           "exit_code_expected": STICKY_EXIT_CODE,
+           "stored_before_fault": first["stored_before_fault"],
+           "cpu_fallback_steps_before_fault":
+           first["before_fault"]["cpu_fallback_steps"],
+           "child_s": child_s, **{k: v for k, v in res.items()
+                                  if k != "role"},
+           "restart_cpu_fallback_steps": res["guards"]["cpu_fallback_steps"],
+           "nothing_lost": res["stored"] == res["sent"]}
+    emit(rec)
+    add_guards("control_plane.sticky_child", res["guards"])
+    check(rc == STICKY_EXIT_CODE, f"sticky child exit {rc}")
+    check(res["poison_letters"] == 0, "a sticky error dead-lettered rows")
+    check(first["before_fault"]["cpu_fallback_steps"] == 0
+          and res["guards"]["cpu_fallback_steps"] == 0,
+          "a sticky run stepped on the CPU")
+    check("device-lost" in res["flightrec_snapshots"],
+          "no device-lost flight-recorder dump")
+    check(rec["nothing_lost"], f"sticky restart stored {res['stored']} "
+          f"of {res['sent']}")
+
+
+def tenant_payloads(rng, n, lines, ts0_ms, n_active):
+    """The overload run's traffic: payload ``i`` belongs to tenant
+    ``CP_TENANT_CYCLE[i % 11]`` and carries measurements of that tenant's
+    devices, values uniform on [0, 100] (rules fire on some).  Returns
+    ``[(tenant, bytes)]``."""
+    out = []
+    for p in range(n):
+        k = CP_TENANT_CYCLE[p % len(CP_TENANT_CYCLE)]
+        dev = k + CP_TENANTS * rng.integers(0, n_active // CP_TENANTS,
+                                            lines)
+        value = rng.uniform(0, 100, lines)
+        ts = ts0_ms + 1000 * p + 250 * rng.integers(0, 4, lines)
+        out.append((k, "\n".join(
+            _M_LINE % (f"d-{d}", d % M_SLOTS, v, t)
+            for d, v, t in zip(dev.tolist(), value.tolist(),
+                               ts.tolist())).encode()))
+    return out
+
+
+def cp_overload_extra(metering=True):
+    """The overload run's sections: the ladder, the SLO engine and the
+    flight recorder at their defaults, and the quota tenant's budget."""
+    return {
+        "overload": {"enabled": True}, "slo": {"enabled": True},
+        "metering": {"enabled": metering},
+        "tenants": {tenant_token(CP_QUOTA_TENANT): {
+            "quota": {"eval_s_per_window": CP_QUOTA_EVAL_S}}},
+    }
+
+
+def cp_overload_instance(device, world, data_dir, metering=True):
+    return instance_from_world(device, world, data_dir, CAPACITY,
+                               PACED_WIDTH, 0, PACED_DEADLINE_MS,
+                               **cp_overload_extra(metering))
+
+
+def cp_decoded(payloads):
+    from sitewhere_tpu_torch.ingest.decoders import JsonLinesDecoder
+
+    decoder = JsonLinesDecoder()
+    out = []
+    for k, payload in payloads:
+        reqs = decoder(payload)
+        for r in reqs:
+            r.metadata = {"tenant": tenant_token(k)}
+        out.append((k, payload, reqs))
+    return out
+
+
+def cp_overload(device, geo_cuda, world, root):
+    """The paced region at 50% and 200% of the rate it sustains, through
+    an Instance with the ladder, metering and the SLO engine at their
+    defaults, over 8 tenants with one noisy."""
+    from sitewhere_tpu_torch.runtime.overload import OverloadShed
+    from sitewhere_tpu_torch.services.common import QuotaExceeded
+
+    capacity, n_active = CAPACITY, N_ACTIVE
+    rng = np.random.default_rng(SEED + 17)
+    t0 = time.perf_counter()
+    traffic = cp_decoded(tenant_payloads(
+        rng, CP_BURST + len(CP_UTILS) * CP_REGION + CP_SYNC_PAYLOADS,
+        PACED_LINES, CP_TS0_MS + 9_000_000, n_active))
+    decode_s = time.perf_counter() - t0
+    inst = cp_overload_instance(device, world, os.path.join(root, "ov"))
+    eng = inst.rule_engine
+    for k in range(CP_TENANTS):
+        eng.put_program(k, {"token": f"hot-{k}",
+                            "alert": {"type": f"hot-{k}", "level": "warning"},
+                            "when": {"pred": "value", "op": "gt",
+                                     "value": 99.0}})
+    ov, led, quotas = inst.overload, inst.usage_ledger, inst.quotas
+    transitions = []
+    ov.on_transition(lambda old, new, sig: transitions.append(
+        {"from": old.name, "to": new.name, "driver": ov.last_driver,
+         "t": time.perf_counter() - t_start,
+         "seal_lag_s": sig.seal_lag_s}))
+    quota_tid = int(inst.identity.tenant.lookup(
+        tenant_token(CP_QUOTA_TENANT)))
+    quota_states = []
+    sent = collections.Counter()
+    retry_after = collections.Counter()
+    shed_payloads = collections.Counter()
+    t_start = time.perf_counter()
+    inst.start()
+    d = inst.dispatcher
+    launches0 = geo_cuda.launch_counts["pip_parity"]
+    runs = []
+    try:
+        # the rate the region sustains: a burst with the ladder held at
+        # NORMAL (its sampling paused, its watermarks untouched)
+        signals_fn, ov.signals_fn = ov.signals_fn, None
+        tb = time.perf_counter()
+        for k, payload, reqs in traffic[:CP_BURST]:
+            d.ingest_many(reqs, payload, source_id=f"src-{k}")
+            sent[k] += len(reqs)
+        d.flush()
+        sustained = PACED_LINES * CP_BURST / (time.perf_counter() - tb)
+        ov.signals_fn = signals_fn
+        at = CP_BURST
+        for util in CP_UTILS:
+            gap_s = PACED_LINES / (sustained * util)
+            snap0 = d.metrics_snapshot()
+            shed0, adm0 = ov.shed_total, ov.admitted_total
+            tr0 = len(transitions)
+            d.latencies_s.clear()
+            region = traffic[at:at + CP_REGION]
+            at += CP_REGION
+            # each sender offers every n-th payload on its own drift-free
+            # schedule; ingest runs on the sender's thread, so more than
+            # the sustained rate takes more than one sender
+            n_send = max(1, int(round(util / CP_UTILS[0])))
+            lock = threading.Lock()
+            shed_here = [0]
+
+            def sender(j, m0):
+                for i in range(j, len(region), n_send):
+                    k, payload, reqs = region[i]
+                    delay = m0 + i * gap_s - time.monotonic()
+                    if delay > 0:
+                        time.sleep(delay)
+                    try:
+                        d.ingest_many(reqs, payload, source_id=f"src-{k}")
+                        with lock:
+                            sent[k] += len(reqs)
+                    except OverloadShed as e:
+                        with lock:
+                            shed_here[0] += 1
+                            shed_payloads[k] += 1
+                            retry_after[str(e.retry_after_s)] += 1
+                    with lock:
+                        quota_states.append(quotas.state_of(quota_tid))
+
+            t0 = time.perf_counter()
+            m0 = time.monotonic()
+            threads = [threading.Thread(target=sender, args=(j, m0))
+                       for j in range(n_send)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            shed_here = shed_here[0]
+            d.flush()
+            elapsed = time.perf_counter() - t0
+            snap = d.metrics_snapshot()
+            steps = snap["steps"] - snap0["steps"]
+            runs.append({
+                "util": util, "senders": n_send, "offered_events_per_s":
+                PACED_LINES * len(region) / elapsed,
+                "payloads": len(region), "shed_payloads": shed_here,
+                "shed_rows": ov.shed_total - shed0,
+                "admitted_rows": ov.admitted_total - adm0,
+                "transitions": transitions[tr0:],
+                "steps": steps,
+                "host_syncs_per_batch":
+                (snap["host_syncs"] - snap0["host_syncs"]) / max(1, steps),
+                **_latency(d, "p99")})
+        settle(inst)
+        inst.event_store.flush()
+        launches = geo_cuda.launch_counts["pip_parity"] - launches0
+        counters = inst.metrics.snapshot()["counters"]
+        usage = {tenant_token(k): led.usage_of(k)["usage"]
+                 for k in range(CP_TENANTS)}
+        stored = collections.Counter()
+        for c in inst.event_store.iter_chunks():
+            t, n = np.unique(np.asarray(c["tenant_id"]), return_counts=True)
+            for tid, cnt in zip(t.tolist(), n.tolist()):
+                stored[tenant_token(tid)] += cnt
+        # the operator gate in front of a rule program write
+        try:
+            quotas.check_eval(quota_tid)
+            eng.put_program(quota_tid, {
+                "token": "late", "alert": {"type": "late",
+                                           "level": "info"},
+                "when": {"pred": "value", "op": "gt", "value": 99.5}})
+            refused = False
+        except QuotaExceeded:
+            refused = True
+        slo_alerts = inst.slo.alerts_fired
+        slo_alerting = sorted(k for k, v in inst.slo.snapshot()[
+            "objectives"].items() if v["alerting"])
+        snaps = inst.flightrec.snapshots()
+        dump_bytes = sum(os.path.getsize(os.path.join(inst.flightrec.dir,
+                                                      s["name"]))
+                         for s in snaps)
+        ledger_before = led.snapshot()["totals"]
+        total_steps = d.steps
+        total_syncs = d.metrics_snapshot()["host_syncs"]
+        guards = fault_counters(inst.metrics)
+        inst.stop()
+        save = dict(inst.checkpointer.last_save_stats)
+    finally:
+        inst.terminate()
+    add_guards("control_plane.overload", guards)
+    # the tenant-metering section restored into a fresh instance
+    from sitewhere_tpu_torch.instance import Instance
+
+    t0 = time.perf_counter()
+    again = Instance(instance_config(
+        os.path.join(root, "ov"), capacity, PACED_WIDTH, 0,
+        PACED_DEADLINE_MS, **cp_overload_extra()), device=device)
+    restore_s = time.perf_counter() - t0
+    try:
+        check(again.restored, "the overload instance restored nothing")
+        ledger_after = again.usage_ledger.snapshot()["totals"]
+    finally:
+        again.terminate()
+    restored_equal = all(ledger_after[c] == ledger_before[c]
+                         for c in ("rows", "state_writes", "shed_rows",
+                                   "dead_letter_rows", "sealed_bytes"))
+    # host syncs per batch with metering off, on the same payload shape
+    off = cp_overload_instance(device, world, os.path.join(root, "ov-off"),
+                               metering=False)
+    off.start()
+    try:
+        for k, payload, reqs in traffic[at:at + CP_SYNC_PAYLOADS]:
+            off.dispatcher.ingest_many(reqs, payload, source_id=f"src-{k}")
+        off.dispatcher.flush()
+        snap_off = off.dispatcher.metrics_snapshot()
+        guards_off = fault_counters(off.metrics)
+        off.stop()
+    finally:
+        off.terminate()
+    add_guards("control_plane.overload", guards_off)
+    syncs_on = total_syncs / max(1, total_steps)
+    syncs_off = snap_off["host_syncs"] / max(1, snap_off["steps"])
+    by_tenant = {tenant_token(k): {
+        "admitted_rows_sent": sent[k],
+        "shed_payloads": shed_payloads[k],
+        "usage_rows": usage[tenant_token(k)]["rows"],
+        "stored_rows": stored[tenant_token(k)],
+        "usage_shed_rows": usage[tenant_token(k)]["shed_rows"],
+        "usage_eval_s": usage[tenant_token(k)]["eval_s"]}
+        for k in range(CP_TENANTS)}
+    rec = {"phase": "control_plane", "run": "overload",
+           "width": PACED_WIDTH, "deadline_ms": PACED_DEADLINE_MS,
+           "capacity": capacity, "devices": n_active,
+           "tenants": CP_TENANTS, "noisy": tenant_token(0),
+           "decode_s": decode_s, "sustained_events_per_s": sustained,
+           "regions": runs,
+           "transitions": len(transitions),
+           "shed_by_class": {k.split(".")[-1]: int(v)
+                             for k, v in counters.items()
+                             if k.startswith("overload.shed.")},
+           "shed_by_tenant": {k[len("tenant.shed."):]: int(v)
+                              for k, v in counters.items()
+                              if k.startswith("tenant.shed.") and v},
+           "retry_after_s": dict(retry_after),
+           "tenants_usage": by_tenant,
+           "quota": {"tenant": tenant_token(CP_QUOTA_TENANT),
+                     "eval_s_per_window": CP_QUOTA_EVAL_S,
+                     "states_seen": sorted(set(quota_states)),
+                     "refused_at_end": refused,
+                     "eval_rows_skipped": int(counters.get(
+                         "tenant.quota.eval_rows_skipped", 0))},
+           "slo_alerts": slo_alerts, "slo_alerting_at_end": slo_alerting,
+           "flightrec_dumps": len(snaps), "flightrec_dump_bytes": dump_bytes,
+           "flightrec_reasons": sorted({s.get("reason") for s in snaps}),
+           "host_syncs_per_batch_metering_on": syncs_on,
+           "host_syncs_per_batch_metering_off": syncs_off,
+           "tenant_metering_save": {k: v for k, v in save.items()
+                                    if "tenant-metering" in k},
+           "tenant_metering_restored_equal": restored_equal,
+           "restore_instance_s": restore_s,
+           "kernel_launches": launches, "steps": total_steps,
+           **guards}
+    emit(rec)
+    for k, row in by_tenant.items():
+        check(row["usage_rows"] == row["stored_rows"],
+              f"tenant {k}: billed {row['usage_rows']} rows, "
+              f"stored {row['stored_rows']}")
+    check(syncs_on == syncs_off,
+          f"host syncs per batch {syncs_on} with metering, {syncs_off} "
+          "without")
+    check(restored_equal, "tenant-metering section restored unequal")
+    check(launches == total_steps, f"kernel launched {launches}x in "
+          f"{total_steps} steps")
+    check(rec["quota"]["eval_rows_skipped"] > 0 and refused,
+          f"the quota tenant was not throttled: {rec['quota']}")
+    return launches
+
+
+def phase_control_plane(device, geo_cuda):
+    """Device-fault containment and the control plane on the card: the
+    devfault bench's five phases, containment at the deployment's size,
+    a sticky CUDA error in a child process, and overload and metering on
+    the paced region.  Returns the kernel's launches by run."""
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="control-", dir=geo_cuda.BUILD_DIR)
+    launches = {}
+    try:
+        l0 = geo_cuda.launch_counts["pip_parity"]
+        cp_devfault(device, geo_cuda, root)
+        launches["devfault"] = geo_cuda.launch_counts["pip_parity"] - l0
+        # one world, its devices over CP_TENANTS tenants, for every run
+        world = world_checkpoint(device, root, "full", CP_TENANTS)
+        for k, v in cp_containment(device, geo_cuda, world, root).items():
+            launches[f"containment_full.{k}"] = v
+        cp_sticky(device, world, root)
+        launches["overload"] = cp_overload(device, geo_cuda, world, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "control_plane", "run": "done",
+          "seconds": time.perf_counter() - t0})
+    return launches
+
+
 def phase_small_reference(device):
     """A small deployment stepped on the card (kernel) and on the CPU
     (plain versions): int outputs and metrics identical, EWMAs close."""
@@ -3656,10 +4527,14 @@ def main() -> int:
     an_launches = phase_streaming_analytics(device, geo_cuda)
     ds_launches = phase_device_services(device, geo_cuda, mixed, logs)
     del mixed
-    # this slice's path: the Instance with its segment store, registration
-    # and command delivery, ring off, the deployment's deadline
-    rec["launches"] = ds_launches["device_services_wire"]
+    cp_launches = phase_control_plane(device, geo_cuda)
+    # this slice's path: containment and the control plane through the
+    # Instance (the devfault bench, the full-width chain fault and
+    # bisection, the overload run)
+    rec["launches"] = sum(cp_launches.values())
     rec["launches_by_path"] = {"main_path": main_launches,
+                               **{f"control_plane.{k}": v
+                                  for k, v in cp_launches.items()},
                                **{f"dispatcher_wire.{k}": v
                                   for k, v in wire_launches.items()},
                                **{f"persist_recover.{k}": v
@@ -3671,6 +4546,10 @@ def main() -> int:
                                **{f"device_services.{k}": v
                                   for k, v in ds_launches.items()}}
     phase_small_reference(device)
+    emit({"phase": "guards", "by_phase": GUARDS})
+    for phase, g in GUARDS.items():
+        check(g["cpu_fallback_steps"] == 0,
+              f"{phase}: {g['cpu_fallback_steps']} steps on the CPU")
 
     logs.close()
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
@@ -3687,9 +4566,14 @@ def main() -> int:
 
 
 def child_main(spec_json: str) -> int:
-    """``--kill-child``: one instance life of the kill_recover runs."""
+    """``--kill-child``: one instance life of the kill_recover runs, or of
+    the control_plane's sticky runs."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    kill_child(json.loads(spec_json))
+    spec = json.loads(spec_json)
+    if spec["role"].startswith("sticky"):
+        sticky_child(spec)
+    else:
+        kill_child(spec)
     return 0
 
 

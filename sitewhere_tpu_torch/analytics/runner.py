@@ -26,10 +26,11 @@ Streams and threads (the rule engine's design, ``rules/engine.py``):
   calls while on its stream reaches back into the dispatcher: match
   fan-out goes to ``outbound``, after the worker has left its stream.
 
-Hooks of components the port does not have yet stay ``None``:
-``outbound`` (match fan-out as STATE_CHANGE rows), ``overload`` (shed
-from SHEDDING as a non-priority consumer), ``usage_ledger`` (eval seconds
-billed by row share) and ``quotas`` (the metered-quota row gate).
+The ``Instance`` wires ``overload`` (shed from SHEDDING as a
+non-priority consumer), ``usage_ledger`` (eval seconds billed by row
+share) and ``quotas`` (the metered-quota row gate, pure host work);
+``outbound`` (match fan-out as STATE_CHANGE rows) stays ``None`` until
+the outbound slice.
 """
 
 from __future__ import annotations
@@ -355,7 +356,7 @@ class QueryRunner(LifecycleComponent):
         self._q: "queue.Queue" = queue.Queue(maxsize=queue_depth)
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
-        # hooks of components the port has not ported yet: None
+        # metering hooks (instance-wired): None without the ledger
         self.usage_ledger = None
         self.quotas = None
 

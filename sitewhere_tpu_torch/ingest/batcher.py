@@ -268,7 +268,7 @@ class BatchPlan:
 
     __slots__ = ("_batch", "n_events", "width", "created_at", "max_wait_s",
                  "host_cols", "packed_i", "packed_f", "staged", "seq",
-                 "reason", "received_at")
+                 "reason", "received_at", "dispatch_s")
 
     def __init__(
         self,
@@ -308,6 +308,9 @@ class BatchPlan:
         self.reason = reason
         self.received_at = (created_at - max_wait_s if received_at is None
                             else received_at)
+        # host seconds of the plan's dispatch (the flight recorder's
+        # stage attribution; a ring slot gets its share of the chain)
+        self.dispatch_s = 0.0
 
     def materialize_batch(self, device: DeviceLike = None
                           ) -> Optional[EventBatch]:

@@ -18,7 +18,19 @@ bring-your-own rule engine (``rules.programs_enabled``, on by default as
 in the reference; its fired programs re-enter through the dispatcher's
 ``inject_rule_alerts`` and its programs and attributes are the
 ``rule-programs`` checkpoint section), the batcher, the pipeline
-dispatcher and the checkpointer (with the segment catalog's section).
+dispatcher with its device-fault containment (the breaker and the
+watchdog of ``runtime/devguard.py``: bisection, single-step re-dispatch,
+and a fail-closed exit on a card error and at the breaker's FALLBACK
+level on a card), the
+control plane (the flight recorder, ``flightrec.*``; the SLO burn-rate
+engine, ``slo.*``; overload admission and shedding, ``overload.*``, with
+per-tenant budgets from ``tenants.<token>.overload``; the tenant usage
+ledger and its quotas, ``metering.*``, with per-tenant quotas from
+``tenants.<token>.quota``; the tenant partition views of the device
+state, ``state.partition_min_capacity``), the dead-letter listing and
+requeue (:meth:`list_dead_letters`, :meth:`requeue_dead_letter`) and the
+checkpointer (with the segment catalog's and the ``tenant-metering``
+sections).
 The attributes keep the reference's names, since the
 :class:`~sitewhere_tpu_torch.runtime.checkpoint.Checkpointer` reads
 them.
@@ -30,24 +42,22 @@ yet, so the port does less than the reference until their slices come
 - the batch-operation and schedule managers (:414-426) and the tenant
   engines (:427-431);
 - the fabric: :meth:`invoke_command` runs locally and has no peers to
-  route an unknown assignment to;
-- overload control, the ``OverloadController`` (:283-340): no admission,
-  no shedding;
-- metering, the ``UsageLedger`` and ``QuotaTable`` (:341-386);
-- the flight recorder and the SLO burn-rate engine (:224-274);
-- the decode pool (:537-549): payloads decode on the caller's thread;
-- tenant partitions of the device state (:388-403);
+  route an unknown assignment to, and the ``forward-shed`` requeue finds
+  no forwarder;
+- the decode pool (:537-549): payloads decode on the caller's thread, so
+  the overload ladder's ``decode_backlog`` signal reads 0;
 - outbound connectors, the ``OutboundConnectorsManager`` (:432-434);
 - search providers (:692-706);
 - presence scans, the ``PresenceManager`` (:592-597);
-- device-fault containment, devguard, which the reference dispatcher
-  composes (``sitewhere_tpu/runtime/dispatcher.py:531-602``);
-- the ``runtime`` and ``tenant-metering`` checkpoint sections (:746-767).
+- the mesh's per-shard breakers (``ShardBreakers``);
+- the profiler endpoints that calibrate the watchdog's budgets
+  (:1040-1060): the budgets stay at their defaults, soft 1 s, hard 10 s;
+- the ``runtime`` checkpoint section (:746-750), which holds the ingest
+  sources' dedup tables.
 
-The hooks the runner and the rule engine keep for those components stay
-``None``: ``outbound`` (the runner's match fan-out), ``overload`` (both
-shed as non-priority consumers from SHEDDING), ``usage_ledger`` and
-``quotas`` (eval seconds billed and gated per tenant).
+The runner's ``outbound`` hook (its match fan-out) stays ``None``; its
+and the rule engine's ``overload``, ``usage_ledger`` and ``quotas`` are
+wired.
 
 Lifecycle, as in the reference:
 
@@ -74,9 +84,8 @@ Configuration: the reference's keys and defaults
 ``pipeline.max_zones`` and ``pipeline.max_zone_verts`` (the registry
 mirror's zone table; defaults 256 and 32, the reference mirror's).  The
 keys in :data:`HONOURED` drive the instance.  Sections whose components
-the port does not have yet (``sources``, ``overload``, ``metering``,
-``outbound``, ``rpc``, ``presence``, the decode pool
-and the rest) are not composed: at their defaults the instance runs
+the port does not have yet (``sources``, ``outbound``, ``rpc``,
+``presence``, the decode pool and the rest) are not composed: at their defaults the instance runs
 without them, and any other value raises :class:`NotImplementedError`,
 as does ``pipeline.n_shards`` above 1.  Events are ingested through
 ``instance.dispatcher`` (``ingest_wire_lines`` and the other entry
@@ -90,16 +99,29 @@ from __future__ import annotations
 import json
 import logging
 import os
+import threading
 import time
-from typing import Any, Dict, Iterator, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
+
+import numpy as np
 
 from sitewhere_tpu_torch.analytics.runner import QueryRunner
 from sitewhere_tpu_torch.commands.model import CommandInvocation
 from sitewhere_tpu_torch.commands.processing import CommandProcessor
 from sitewhere_tpu_torch.device import DeviceLike, resolve_device
 from sitewhere_tpu_torch.ids import NULL_ID, IdentityMap
-from sitewhere_tpu_torch.ingest.batcher import AdaptiveBatchController, Batcher
-from sitewhere_tpu_torch.ingest.decoders import DecodedRequest, RequestKind
+from sitewhere_tpu_torch.ingest.batcher import (
+    _COL_FIELDS,
+    _DTYPE,
+    AdaptiveBatchController,
+    Batcher,
+)
+from sitewhere_tpu_torch.ingest.decoders import (
+    DecodedRequest,
+    DecodeError,
+    JsonLinesDecoder,
+    RequestKind,
+)
 from sitewhere_tpu_torch.ingest.journal import (
     CorruptJournal,
     Journal,
@@ -110,13 +132,31 @@ from sitewhere_tpu_torch.rules.engine import RuleEngineRunner
 from sitewhere_tpu_torch.runtime.checkpoint import Checkpointer, StateProvider
 from sitewhere_tpu_torch.runtime.config import DEFAULTS, Config
 from sitewhere_tpu_torch.runtime.dispatcher import PipelineDispatcher
+from sitewhere_tpu_torch.runtime.flightrec import FlightRecorder
 from sitewhere_tpu_torch.runtime.lifecycle import LifecycleComponent
-from sitewhere_tpu_torch.runtime.metrics import MetricsRegistry
+from sitewhere_tpu_torch.runtime.metering import QuotaTable, UsageLedger
+from sitewhere_tpu_torch.runtime.metrics import (
+    BurnRateEngine,
+    MetricsRegistry,
+    SloTargets,
+)
+from sitewhere_tpu_torch.runtime.overload import (
+    OverloadController,
+    OverloadShed,
+    OverloadSignals,
+    TenantBudgets,
+    Watermarks,
+)
 from sitewhere_tpu_torch.runtime.resilience import dead_letter
 from sitewhere_tpu_torch.runtime.tracing import Tracer
 from sitewhere_tpu_torch.schema import DEFAULT_EWMA_HALFLIVES_S
 from sitewhere_tpu_torch.services.assets import AssetManagement
-from sitewhere_tpu_torch.services.common import mint_token, now_s
+from sitewhere_tpu_torch.services.common import (
+    EntityNotFound,
+    ValidationError,
+    mint_token,
+    now_s,
+)
 from sitewhere_tpu_torch.services.device_management import (
     DeviceManagement,
     RegistryMirror,
@@ -144,6 +184,8 @@ HONOURED = (
     "dead_letters.retain_records",
     "tracing.sample_rate", "tracing.tail_errors", "tracing.tail_latency_ms",
     "tracing.pending_capacity",
+    "overload.*", "metering.*", "slo.*", "flightrec.*", "tenants.*",
+    "state.partition_min_capacity",
 )
 
 
@@ -254,6 +296,150 @@ class Instance(LifecycleComponent):
             pending_capacity=int(
                 self.config.get("tracing.pending_capacity", 512)))
 
+        # Flight recorder: an always-on bounded ring of per-batch records,
+        # snapshotted to JSONL on anomaly (SLO burn alert, egress crash,
+        # overload transition, device fault, watchdog trip)
+        self.flightrec = None
+        if bool(self.config.get("flightrec.enabled", True)):
+            self.flightrec = FlightRecorder(
+                data_dir=self.data_dir,
+                capacity=int(self.config.get("flightrec.capacity", 2048)),
+                min_snapshot_interval_s=float(self.config.get(
+                    "flightrec.min_snapshot_interval_s", 5.0)),
+                max_snapshots=int(self.config.get(
+                    "flightrec.max_snapshots", 32)),
+                metrics=self.metrics,
+            )
+
+        # SLO burn-rate engine: multi-window burn evaluation against the
+        # reference's targets (1M events/s, a 10 ms p99, a 1% shed rate),
+        # ticked by the dispatcher loop; alerts dump the flight recorder.
+        # slo.throughput_eps=0 disables that objective.
+        self.slo = None
+        if bool(self.config.get("slo.enabled", True)):
+            self.slo = BurnRateEngine(
+                targets=SloTargets(
+                    throughput_eps=float(self.config.get(
+                        "slo.throughput_eps", 1_000_000.0)),
+                    p99_ms=float(self.config.get("slo.p99_ms", 10.0)),
+                    shed_rate=float(self.config.get(
+                        "slo.shed_rate", 0.01))),
+                windows_s=(float(self.config.get("slo.fast_window_s",
+                                                 60.0)),
+                           float(self.config.get("slo.slow_window_s",
+                                                 600.0))),
+                error_budget=float(self.config.get(
+                    "slo.error_budget", 0.05)),
+                alert_burn=float(self.config.get("slo.alert_burn", 2.0)),
+                min_samples=int(self.config.get("slo.min_samples", 5)),
+                lag_tolerance_s=float(self.config.get(
+                    "slo.lag_tolerance_s", 2.0)),
+                sample_interval_s=float(self.config.get(
+                    "slo.sample_interval_s", 1.0)),
+                sample_fn=self._slo_sample,
+                metrics=self.metrics,
+                tracer=self.tracer,
+                on_alert=self._on_slo_alert,
+            )
+        self._slo_last = {"processed": 0, "shed": 0, "admitted": 0,
+                          "at": None}
+
+        # Overload control: a watermark-driven state machine over signals
+        # the pipeline exports, ticked by the dispatcher loop; admission
+        # at ingest hangs off its state.  Journal append, seal and
+        # checkpoint are never gated by it.
+        self.overload = None
+        if bool(self.config.get("overload.enabled", True)):
+            self.overload = OverloadController(
+                watermarks=Watermarks().replace(
+                    self.config.get("overload.watermarks") or {}),
+                cooldown_s=float(self.config.get("overload.cooldown_s", 2.0)),
+                hysteresis=float(self.config.get("overload.hysteresis", 0.7)),
+                confirm_samples=int(self.config.get(
+                    "overload.confirm_samples", 2)),
+                sample_interval_s=float(self.config.get(
+                    "overload.sample_interval_s", 0.1)),
+                retry_after_s=float(self.config.get(
+                    "overload.retry_after_s", 1.0)),
+                degraded_telemetry_rate_per_s=float(self.config.get(
+                    "overload.degraded_telemetry_rate_per_s", 10_000.0)),
+                degraded_telemetry_burst=float(self.config.get(
+                    "overload.degraded_telemetry_burst", 20_000.0)),
+                budget_refresh_s=float(self.config.get(
+                    "overload.budget_refresh_s", 5.0)),
+                signals_fn=self._overload_signals,
+                metrics=self.metrics,
+                tracer=self.tracer,
+            )
+            # per-tenant budget overlays compose with (never replace) the
+            # ledger's measured-share scaling
+            self.overload.set_tenant_budgets(
+                TenantBudgets.from_config(self.config.get("tenants")))
+            if self.flightrec is not None:
+                # every ladder move dumps the recorder
+                self.overload.on_transition(
+                    lambda old, new, signals: self._flightrec_dump_async(
+                        f"overload-{new.name.lower()}",
+                        f"{old.name}->{new.name}"))
+
+        # Tenant metering: the sliding-window usage ledger, fed by the
+        # packed step's tenant block (riding the fetch egress makes
+        # anyway) and by host charges (shed, dead-letter, seal, rule and
+        # analytics eval).  It feeds measured shares back into the
+        # DEGRADED per-tenant rates.
+        self.usage_ledger = None
+        if bool(self.config.get("metering.enabled", True)):
+            self.usage_ledger = UsageLedger(
+                top_k=int(self.config.get("metering.top_k", 32)),
+                window_s=float(self.config.get("metering.window_s", 60.0)),
+                fair_share_frac=float(self.config.get(
+                    "metering.fair_share_frac", 0.25)),
+                min_rate_frac=float(self.config.get(
+                    "metering.min_rate_frac", 0.1)),
+            )
+            self.usage_ledger.bind_metrics(
+                self.metrics, resolve=self.identity.tenant.token_of)
+            if self.overload is not None:
+                self.overload.set_usage_ledger(
+                    self.usage_ledger, resolve=self._tenant_dense_id)
+            self.event_store.usage_ledger = self.usage_ledger
+
+        # Metered quotas: per-tenant rule/analytics eval-seconds budgets
+        # over the ledger's window, deprioritize then refuse; never on the
+        # ingest path
+        self.quotas = None
+        if self.usage_ledger is not None and bool(self.config.get(
+                "metering.quota.enabled", True)):
+            self.quotas = QuotaTable(
+                self.usage_ledger,
+                default_eval_s=self.config.get(
+                    "metering.quota.eval_s_per_window"),
+                soft_frac=float(self.config.get(
+                    "metering.quota.soft_frac", 0.8)),
+                metrics=self.metrics,
+            )
+            tenants_cfg = self.config.get("tenants")
+            if isinstance(tenants_cfg, dict):
+                for tok, overlay in tenants_cfg.items():
+                    quota = (overlay.get("quota")
+                             if isinstance(overlay, dict) else None)
+                    if isinstance(quota, dict) \
+                            and "eval_s_per_window" in quota:
+                        self.quotas.set_quota(
+                            self._tenant_dense_id(str(tok)),
+                            float(quota["eval_s_per_window"]))
+
+        # Tenant-partitioned device-state views over the registry
+        # mirror's tenant column
+        def _tenant_column():
+            return np.where(mirror.active, mirror.tenant_id, NULL_ID)
+
+        self.device_state.attach_partitions(
+            _tenant_column,
+            min_capacity=int(self.config.get(
+                "state.partition_min_capacity", 64)),
+            metrics=self.metrics)
+
         # domain services the dispatcher egresses into, registered as
         # children BEFORE it so the reverse-order stop keeps them alive
         # through the dispatcher's shutdown flush
@@ -283,8 +469,11 @@ class Instance(LifecycleComponent):
                 queue_depth=int(self.config.get("analytics.queue_depth", 64)),
                 fanout_matches=bool(self.config.get(
                     "analytics.fanout_matches", True)),
+                overload=self.overload,
                 device=dev,
             ))
+            self.analytics.usage_ledger = self.usage_ledger
+            self.analytics.quotas = self.quotas
 
         # Bring-your-own rules: per-tenant rule programs bucketed into
         # per-structure group passes.  Added before the dispatcher so the
@@ -305,8 +494,11 @@ class Instance(LifecycleComponent):
                 max_programs=int(self.config.get(
                     "rules.max_programs", 262144)),
                 queue_depth=int(self.config.get("rules.queue_depth", 64)),
+                overload=self.overload,
                 device=dev,
             ))
+            self.rule_engine.usage_ledger = self.usage_ledger
+            self.rule_engine.quotas = self.quotas
 
         self.registration = self.add_child(RegistrationManager(
             self.device_management,
@@ -360,6 +552,10 @@ class Instance(LifecycleComponent):
             metrics=self.metrics,
             quarantine_after=int(self.config.get(
                 "pipeline.quarantine_after", 3)),
+            overload=self.overload,
+            flightrec=self.flightrec,
+            slo=self.slo,
+            usage_ledger=self.usage_ledger,
             device=dev,
         ))
         if self.rule_engine is not None:
@@ -396,6 +592,15 @@ class Instance(LifecycleComponent):
                 version=1))
         self.checkpointer.register_provider(
             catalog_state_provider(self.event_store))
+        if self.usage_ledger is not None:
+            # tenant usage totals and the heavy-hitter / count-min
+            # sketches, as JSON (readable across packages); the sliding
+            # window restarts empty
+            self.checkpointer.register_provider(StateProvider(
+                name="tenant-metering",
+                snapshot_fn=self.usage_ledger.snapshot_payload,
+                restore_fn=self.usage_ledger.restore_payload,
+                version=1))
         self.restored = self.checkpointer.restore()
 
     # -- lifecycle ----------------------------------------------------------
@@ -418,6 +623,15 @@ class Instance(LifecycleComponent):
             logger.info("recovered %d journaled events in %.3fs on start "
                         "(floor %s)", replayed, replay_s,
                         self.checkpointer.replay_floor)
+        if self.restored and self.flightrec is not None:
+            # every restore leaves a flight-recorder snapshot with the
+            # replay's batch records and the recovery numbers
+            self.flightrec.snapshot(
+                "recovery",
+                detail=(f"restored gen {self.checkpointer.restored_generation}"
+                        f" in {self.checkpointer.restore_s:.3f}s; replayed "
+                        f"{replayed} events in {replay_s:.3f}s from floor "
+                        f"{self.checkpointer.replay_floor}"))
 
     def stop(self) -> None:
         # children stop in reverse: the checkpointer's interval thread,
@@ -434,6 +648,265 @@ class Instance(LifecycleComponent):
         super().terminate()
         self.ingest_journal.close()
         self.dead_letters.close()
+
+    # -- control-plane wiring -----------------------------------------------
+
+    def _tenant_dense_id(self, token: str) -> int:
+        return self.identity.tenant.mint(token)
+
+    def _overload_signals(self) -> OverloadSignals:
+        """One sample of the pressure signals the overload controller
+        watches, read lock-free (a stale read delays a transition by one
+        sample).  The port has no decode pool: payloads decode on the
+        caller's thread, so ``decode_backlog`` reads 0."""
+        d = self.dispatcher
+        return OverloadSignals(
+            # the LIVE watermark (the oldest unsealed event's age), which
+            # decays as work seals
+            seal_lag_s=d.oldest_unsealed_wait_s(),
+            decode_backlog=0.0,
+            # ring-held plans are emitted, unstepped work: in-flight
+            # pressure all the same
+            egress_inflight=((len(d._inflight) + len(d._ring))
+                             / max(1, d.egress_queue_depth)),
+            batcher_backlog=self.batcher.pending / max(1, self.batcher.width),
+            fsync_latency_s=float(self.ingest_journal.last_fsync_s),
+        )
+
+    def _slo_sample(self):
+        """One SLO burn-rate sample: counter DELTAS since the previous
+        sample (events processed, shed vs admitted) and the rolling p99."""
+        now = time.monotonic()
+        last = self._slo_last
+        snap = self.dispatcher.metrics_snapshot()
+        processed = int(snap.get("processed", 0))
+        shed = (int(self.overload.shed_total)
+                if self.overload is not None else 0)
+        admitted = (int(self.overload.admitted_total)
+                    if self.overload is not None else processed)
+        sample = None
+        if last["at"] is not None:
+            events = processed - last["processed"]
+            sample = {
+                "events": events,
+                "elapsed_s": max(1e-9, now - last["at"]),
+                # the rolling p99 is evidence only while traffic flows
+                "p99_ms": (snap.get("latency_p99_ms")
+                           if events > 0 else None),
+                "shed": shed - last["shed"],
+                "admitted": admitted - last["admitted"],
+                # a queue snapshot: rows pending while nothing completes
+                # judge as a stall
+                "backlog": int(snap.get("pending_rows", 0)),
+            }
+        self._slo_last = {"processed": processed, "shed": shed,
+                          "admitted": admitted, "at": now}
+        return sample
+
+    def _flightrec_dump_async(self, reason: str, detail: str) -> None:
+        """Anomaly dump off the calling thread: overload transitions and
+        SLO alerts fire on the dispatcher loop, and a snapshot is a file
+        write.  The thread touches no tensor."""
+        threading.Thread(
+            target=lambda: self.flightrec.anomaly(reason, detail=detail),
+            daemon=True, name="flightrec-dump").start()
+
+    def _on_slo_alert(self, objective: str, burn: float) -> None:
+        """A burn alert armed: stamp the tail sampler and dump the flight
+        recorder."""
+        note = getattr(self.tracer, "note_anomaly", None)
+        if note is not None:
+            note()
+        if self.flightrec is not None:
+            self._flightrec_dump_async(f"slo-{objective}",
+                                       f"burn {burn:.2f}x budget")
+
+    # -- dead-letter operations ----------------------------------------------
+
+    def list_dead_letters(self, limit: int = 100,
+                          start: Optional[int] = None) -> List[dict]:
+        """Dead-letter records with their offsets: without ``start`` the
+        newest ``limit``, with it the first ``limit`` from that offset.
+        Records already requeued carry ``"requeued": true``."""
+        limit = max(1, limit)
+        if start is None:
+            begin = self.dead_letters.end_offset - limit
+            stop = None
+        else:
+            begin = start
+            stop = start + limit
+        requeued = self._requeued_dead_letters()
+        out: List[dict] = []
+        for offset, raw in self.dead_letters.scan(max(0, begin), stop):
+            try:
+                doc = json.loads(raw)
+            except ValueError:
+                doc = {"kind": "corrupt", "raw": raw.hex()}
+            if doc.get("kind") == "requeue-marker":
+                continue  # bookkeeping, not an operator-facing record
+            doc["offset"] = offset
+            if offset in requeued:
+                doc["requeued"] = True
+            out.append(doc)
+        return out[-limit:]
+
+    def _requeued_dead_letters(self) -> set:
+        """Offsets already requeued, rebuilt from the retained journal's
+        marker records (cached against the journal end offset)."""
+        end = self.dead_letters.end_offset
+        cache = getattr(self, "_requeue_cache", None)
+        if cache is not None and cache[0] == end:
+            return cache[1]
+        done: set = set()
+        for _, raw in self.dead_letters.scan(0):
+            try:
+                doc = json.loads(raw)
+            except ValueError:
+                continue
+            if doc.get("kind") == "requeue-marker":
+                done.add(int(doc.get("target", -1)))
+        self._requeue_cache = (end, done)
+        return done
+
+    def _mark_requeued(self, offset: int) -> None:
+        """Durable idempotency marker: requeuing the same offset twice
+        must not re-deliver."""
+        self.dead_letters.append_json(
+            {"kind": "requeue-marker", "target": int(offset)})
+
+    def requeue_dead_letter(self, offset: int) -> dict:
+        """Re-drive one dead-letter record through the pipeline.
+
+        - ``failed-decode`` / ``intake-shed`` / ``tenant-budget``:
+          re-decode the captured payload and re-ingest it; admission
+          applies again, so a requeue while still overloaded (or still
+          over the tenant's budget) is refused and stays un-requeued;
+        - ``unregistered``: re-read each referenced journal payload and
+          re-ingest it;
+        - ``device-poison``: rebuild the isolated rows from the columns
+          the document carries and re-ingest them;
+        - ``undelivered-command``: re-invoke the command;
+        - ``forward-shed``: refused here, the port has no forwarder.
+
+        Requeue granularity is the payload (at-least-once)."""
+        try:
+            raw = self.dead_letters.read_one(int(offset))
+        except KeyError:
+            raise EntityNotFound(f"dead letter {offset} (pruned or invalid)")
+        try:
+            doc = json.loads(raw)
+        except ValueError:
+            raise ValidationError(f"dead letter {offset} is not requeueable "
+                                  f"(corrupt record)")
+        kind = doc.get("kind")
+        if int(offset) in self._requeued_dead_letters():
+            return {"requeued": False, "kind": kind, "already": True,
+                    "reason": "record was already requeued"}
+        decoder = JsonLinesDecoder()
+        if kind == "forward-shed" and "payload" in doc:
+            return {"requeued": False, "kind": kind,
+                    "reason": "no forwarder on this host"}
+        if kind in ("failed-decode", "failed-stream-request",
+                    "intake-shed", "tenant-budget") and "payload" in doc:
+            payload = bytes.fromhex(doc["payload"])
+            try:
+                reqs = decoder(payload)
+            except DecodeError as e:
+                self.dispatcher.ingest_failed_decode(
+                    payload, doc.get("source", "requeue"), e)
+                return {"requeued": False, "kind": kind,
+                        "reason": f"decode failed again: {e}"}
+            if not reqs:
+                return {"requeued": False, "kind": kind,
+                        "reason": "decode failed again: no rows decoded"}
+            events = [r for r in reqs if r.event_type is not None]
+            if kind == "tenant-budget" and events:
+                # re-stamp rows without a tenant so the re-ingest checks
+                # THAT tenant's current budget
+                tenant = doc.get("tenant")
+                if tenant:
+                    for r in events:
+                        if r.metadata is None or "tenant" not in r.metadata:
+                            r.metadata = dict(r.metadata or {},
+                                              tenant=tenant)
+            if events:
+                try:
+                    self.dispatcher.ingest_many(events, payload,
+                                                source_id="requeue")
+                except OverloadShed as e:
+                    reason = ("still over tenant budget"
+                              if kind == "tenant-budget"
+                              else "refused by admission")
+                    return {"requeued": False, "kind": kind,
+                            "reason": f"{reason}: {e}"}
+            rows = len(events)
+            for r in reqs:
+                if r.event_type is not None:
+                    continue
+                if r.kind == RequestKind.REGISTRATION:
+                    self.dispatcher.ingest_registration(r)
+                else:
+                    # host-plane (stream) lines: the port routes none yet
+                    dead_letter(self.dead_letters, {
+                        "kind": "unsupported-wire-line",
+                        "request_kind": r.kind.name,
+                        "device_token": r.device_token,
+                        "payload_ref": NULL_ID,
+                    })
+                    rows += 1
+            self._mark_requeued(offset)
+            return {"requeued": True, "kind": kind, "rows": rows}
+        if kind == "unregistered" and doc.get("refs"):
+            rows = 0
+            missing: List[int] = []
+            for ref in doc["refs"]:
+                try:
+                    payload = self.ingest_journal.read_one(int(ref))
+                    reqs = [r for r in decoder(payload)
+                            if r.event_type is not None]
+                except Exception:
+                    missing.append(int(ref))
+                    continue
+                if reqs:
+                    self.dispatcher.ingest_many(reqs, payload)
+                    rows += len(reqs)
+            if rows > 0:
+                self._mark_requeued(offset)
+            return {"requeued": rows > 0, "kind": kind, "rows": rows,
+                    **({"unreadable_refs": missing} if missing else {})}
+        if kind == "device-poison" and doc.get("columns"):
+            # rows isolated by the dispatcher's bisection: they re-enter
+            # the normal batch path exactly as fresh ingest
+            columns = doc["columns"]
+            if "device_id" not in columns:
+                return {"requeued": False, "kind": kind,
+                        "reason": "poison record lacks device_id column"}
+            cols = {
+                field: np.asarray(columns[field],
+                                  dtype=_DTYPE.get(field, np.float32))
+                for field in _COL_FIELDS if field in columns
+            }
+            try:
+                rows = self.dispatcher.requeue_rows(cols)
+            except OverloadShed as e:
+                return {"requeued": False, "kind": kind,
+                        "reason": f"refused by admission: {e}"}
+            self._mark_requeued(offset)
+            return {"requeued": True, "kind": kind, "rows": rows}
+        if kind == "undelivered-command" and doc.get("command") \
+                and doc.get("assignment"):
+            ok = self.commands.invoke(CommandInvocation(
+                command_token=doc["command"],
+                target_assignment=doc["assignment"],
+                parameter_values=doc.get("parameterValues", {}),
+                initiator="REQUEUE",
+            ))
+            if ok:
+                self._mark_requeued(offset)
+            return {"requeued": bool(ok), "kind": kind,
+                    **({} if ok else {"reason": "delivery failed again"})}
+        return {"requeued": False, "kind": kind,
+                "reason": "record kind is not requeueable"}
 
     # -- command delivery ---------------------------------------------------
 

@@ -387,10 +387,13 @@ class PackedView:
     stays on the device: it feeds the commit, never the host.
     """
 
-    def __init__(self, oi, metrics, present_now, on_fetch=None):
+    def __init__(self, oi, metrics, present_now, on_fetch=None,
+                 copy=None):
         self.present_now = present_now
-        self._copy = (HostCopy(oi, metrics, on_fetch=on_fetch)
-                      if oi is not None else None)
+        # ``copy``: a copy of (oi, metrics) the caller already started
+        self._copy = copy if copy is not None else (
+            HostCopy(oi, metrics, on_fetch=on_fetch)
+            if oi is not None else None)
         self._oi: Optional[np.ndarray] = None
         self._metrics_host: Optional[np.ndarray] = None
         self._metrics: Optional[StepMetrics] = None

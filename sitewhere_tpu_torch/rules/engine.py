@@ -8,10 +8,11 @@ and fired programs become ALERT rows re-injected through the
 dispatcher's derived-alert path.  The ``rules.*`` metric family keeps the
 reference's names.
 
-The trail tensors live on the card.  The hooks the reference wires to
-components the port does not have yet stay ``None``: ``overload`` (shed
-as a non-priority consumer), ``quotas`` (the metered-quota row gate) and
-``usage_ledger`` (eval seconds billed by row share).
+The trail tensors live on the card.  The control-plane hooks, wired by
+the ``Instance`` and ``None`` without it: ``overload`` (shed as a
+non-priority consumer), ``quotas`` (the metered-quota row gate, pure
+host work on the worker) and ``usage_ledger`` (eval seconds billed by
+row share).
 
 Streams and threads:
 
@@ -119,8 +120,7 @@ class RuleEngineRunner(LifecycleComponent):
         self._warmed: set = set()
         # dispatcher hook (instance-wired): alert re-injection
         self.inject = None
-        # hooks of components the port has not ported yet (overload,
-        # metering): None, as in an instance without them
+        # metering hooks (instance-wired): None without the ledger
         self.usage_ledger = None
         self.quotas = None
         # rules.* metric family, the reference's names

@@ -48,13 +48,47 @@ first-class events, and the new state committed to the
   below the committed offset re-run their state effects but are not
   stored twice (``store_dedup_floor``).
 
-A device fault propagates: the plan stays outstanding, the commit gate
-stays closed, and journal replay recovers the plan.  There is no CPU
-level and no containment here (bisection, breaker and watchdog come with
-the device-guard slice).  Backend switches follow the reference's
-non-TPU branch until an H100 measurement chooses: ``inflight_depth`` 1,
-ring depth :func:`~sitewhere_tpu_torch.pipeline.packed.ring_depth_default`
-(0 unless ``SW_TPU_RING_DEPTH`` is set), egress offload on off the CPU.
+- ADMISSION (``overload``, an
+  :class:`~sitewhere_tpu_torch.runtime.overload.OverloadController`):
+  every wire entry point admits or sheds each row's priority class before
+  the journal append (a fill-direct reservation is admitted or shed,
+  whole, before it is adopted); shed rows dead-letter replayably
+  (``intake-shed`` / ``tenant-budget``) and a fully shed payload raises
+  :class:`~sitewhere_tpu_torch.runtime.overload.OverloadShed`.  The loop
+  ticks the ladder and the SLO burn-rate engine (``slo``).
+- METERING (``usage_ledger``): egress folds each plan's packed 16-slot
+  tenant block, read from the copy egress already fetches, into the
+  usage ledger (:meth:`_meter_plan`): no extra host sync.
+- CONTAINMENT (``runtime/devguard.py``).  A host-raised device fault
+  (an injected fault, a host exception around the launch, a NaN/Inf
+  poison row) is contained without a restart, as in the reference: a
+  failed chain re-parks its plans and re-dispatches them single-step
+  from the pre-chain epoch the state manager still holds
+  (:meth:`_recover_ring`); a failed single step bisects its rows, each
+  subset a full-width step with the other rows masked ``valid = 0`` and
+  its errors forced out by an event sync on the containment path only,
+  until the poison singles dead-letter replayably as ``device-poison``
+  (:meth:`_contain_step_failure`).  Faults of distinct batches trip the
+  :class:`~sitewhere_tpu_torch.runtime.devguard.DeviceBreaker` down its
+  ladder (chained, single-step, FALLBACK); the trip forces the overload
+  ladder to DEGRADED and the restore releases it.  The
+  :class:`~sitewhere_tpu_torch.runtime.devguard.DeviceWatchdog` times
+  every in-flight dispatch against its soft and hard budgets from the
+  loop's idle tick.  An error the CUDA runtime or torch raised about the
+  card (:func:`is_card_error`: a sticky one such as an illegal address or
+  a device-side assert, an out-of-memory, a refused launch) hits the
+  whole fixed-shape batch, not a row, so the dispatcher fails closed
+  instead of bisecting: it logs and flight-records the error and exits
+  the process with :data:`STICKY_EXIT_CODE`, dead-letters nothing, and a
+  restart recovers through the checkpoint and the journal replay.  The
+  breaker's FALLBACK level fails closed the same way on a card, where the
+  reference steps on the CPU; a dispatcher on the CPU steps there anyway
+  and counts those steps in ``device.fault.cpu_fallback_steps``.
+
+Backend switches follow the reference's non-TPU branch until an H100
+measurement chooses: ``inflight_depth`` 1, ring depth
+:func:`~sitewhere_tpu_torch.pipeline.packed.ring_depth_default` (0 unless
+``SW_TPU_RING_DEPTH`` is set), egress offload on off the CPU.
 """
 
 from __future__ import annotations
@@ -62,6 +96,7 @@ from __future__ import annotations
 import collections
 import collections.abc
 import logging
+import os
 import threading
 import time
 from typing import Callable, Dict, List, Optional
@@ -100,6 +135,7 @@ from sitewhere_tpu_torch.ingest.journal import Journal, JournalReader
 from sitewhere_tpu_torch.pipeline.packed import (
     BATCH_F,
     BATCH_I,
+    HostCopy,
     PackedView,
     RingFetch,
     RingStepView,
@@ -112,8 +148,20 @@ from sitewhere_tpu_torch.pipeline.packed import (
 )
 from sitewhere_tpu_torch.pipeline.step import pipeline_step
 from sitewhere_tpu_torch.runtime import faults
+from sitewhere_tpu_torch.runtime.devguard import (
+    BREAKER_LEVELS,
+    FALLBACK,
+    DeviceBreaker,
+    DeviceWatchdog,
+)
 from sitewhere_tpu_torch.runtime.lifecycle import LifecycleComponent
 from sitewhere_tpu_torch.runtime.metrics import MetricsRegistry
+from sitewhere_tpu_torch.runtime.overload import (
+    CLASS_OF_EVENT_TYPE,
+    OverloadState,
+    PriorityClass,
+    classify_event_type,
+)
 from sitewhere_tpu_torch.runtime.resilience import (
     RetryPolicy,
     Supervisor,
@@ -133,6 +181,88 @@ logger = logging.getLogger("sitewhere_tpu_torch.dispatcher")
 # touches at most two records of a full-width payload stream, the next
 # plan one of the same two
 _REDECODED_RECORDS = 2
+
+# Exit status of a process that failed closed on a card fault
+# (EX_SOFTWARE): the restart recovers through the journal
+STICKY_EXIT_CODE = 70
+
+# CUDA errors after which the context is unusable: every later launch on
+# it fails (cudaError_t codes, and the text torch raises them with)
+_STICKY_CODES = frozenset((214, 700, 702, 710, 714, 715, 716, 717, 718,
+                           719))
+_STICKY_TEXT = ("illegal memory access", "device-side assert",
+                "unspecified launch failure", "misaligned address",
+                "illegal instruction", "uncorrectable ecc",
+                "hardware stack error", "invalid program counter",
+                "invalid address space", "launch timed out")
+
+
+def is_sticky_cuda_error(exc: BaseException) -> bool:
+    """True for a CUDA error that has poisoned the context (an illegal
+    address, a device-side assert, a launch failure): bisecting it would
+    dead-letter every row, and moving the state to the CPU would move a
+    dead card's state.  An injected fault, a host exception and a poison
+    row leave the context alive and are not sticky."""
+    code = getattr(exc, "error_code", None)
+    if isinstance(code, int) and code in _STICKY_CODES:
+        return True
+    accel = getattr(torch, "AcceleratorError", None)
+    if not isinstance(exc, RuntimeError) and not (
+            accel is not None and isinstance(exc, accel)):
+        return False
+    text = str(exc).lower()
+    return "cuda" in text and any(m in text for m in _STICKY_TEXT)
+
+
+# Text of errors the CUDA runtime or torch raises about the card itself
+# (a launch that cannot start, an allocation the card refuses) rather than
+# about the host's inputs
+_CARD_TEXT = ("cuda error", "cuda out of memory", "cuda driver error",
+              "cublas_status", "cudnn_status")
+
+
+def is_card_error(exc: BaseException) -> bool:
+    """True for any error the CUDA runtime or torch raised about the
+    card: a sticky one (:func:`is_sticky_cuda_error`), an out-of-memory,
+    a launch the card refused.  The step has a fixed shape, so such an
+    error hits the whole batch, not a row: bisecting it would step every
+    subset to a single row and dead-letter them all.  The dispatcher
+    fails closed on it instead.  Only host-raised faults (an injected
+    fault, a host exception around the launch, a poison row) bisect."""
+    if is_sticky_cuda_error(exc):
+        return True
+    if isinstance(getattr(exc, "error_code", None), int):
+        return True
+    for name in ("AcceleratorError", "OutOfMemoryError"):
+        cls = getattr(torch, name, None)
+        if cls is not None and isinstance(exc, cls):
+            return True
+    if not isinstance(exc, RuntimeError):
+        return False
+    text = str(exc).lower()
+    return any(m in text for m in _CARD_TEXT)
+
+
+def _exit_process(code: int) -> None:
+    """The fail-closed exit: no ``finally`` blocks, no flush, no atexit
+    (nothing may run on a lost context); the journal is the durable
+    truth and the restart replays it."""
+    logging.shutdown()
+    os._exit(code)
+
+
+class _FailedCopy:
+    """Stands in for a device-to-host copy that could not start: its
+    fetch raises the copy's error, so the plan's egress fails and the
+    dispatcher re-dispatches it (see :meth:`PipelineDispatcher.
+    _on_host_copy_error`)."""
+
+    def __init__(self, exc: BaseException):
+        self._exc = exc
+
+    def fetch(self):
+        raise self._exc
+
 
 # egress-view split of the stored row schema: the 5 step-output
 # enrichment columns, and everything else (minus the store-stamped
@@ -229,6 +359,14 @@ class PipelineDispatcher(LifecycleComponent):
       queries
     - ``rules_engine`` -> the tenant rule engine (``submit_live``, a
       non-blocking bounded offer); None = no BYO rule programs
+    - ``overload`` -> the admission controller; None = admit everything
+    - ``flightrec`` -> the flight recorder (one record per egressed plan,
+      dumps on anomaly); None = recording off
+    - ``slo`` -> the SLO burn-rate engine the loop ticks; None = off
+    - ``usage_ledger`` -> the tenant usage ledger egress bills; None =
+      metering off
+    - ``breaker`` / ``watchdog`` -> pre-configured device guards (their
+      unset callbacks get the dispatcher's handlers); None = defaults
 
     ``device`` is where the step runs: ``None`` means the card and raises
     without one; the CPU only when named.
@@ -257,6 +395,12 @@ class PipelineDispatcher(LifecycleComponent):
         egress_offload: Optional[bool] = None,
         ring_depth: Optional[int] = None,
         quarantine_after: int = 3,
+        overload=None,
+        flightrec=None,
+        slo=None,
+        usage_ledger=None,
+        breaker: Optional[DeviceBreaker] = None,
+        watchdog: Optional[DeviceWatchdog] = None,
         device: DeviceLike = None,
         name: str = "pipeline-dispatcher",
     ):
@@ -279,6 +423,9 @@ class PipelineDispatcher(LifecycleComponent):
         self.analytics = analytics
         self.journal = journal
         self.dead_letters = dead_letters
+        # Overload control: admission at every wire entry point; None =
+        # admit everything (bare dispatchers)
+        self.overload = overload
         self.resolve_tenant = resolve_tenant or (lambda token: 0)
         self.max_replay_depth = max_replay_depth
         self._step = pipeline_step
@@ -395,6 +542,7 @@ class PipelineDispatcher(LifecycleComponent):
         self._m_native_fb = metrics.gauge("native.build_fallbacks")
         self._m_ring_chains = metrics.counter("pipeline.ring_chains")
         self._m_ring_flushes = metrics.counter("pipeline.ring_flushes")
+        self._m_host_copy_err = metrics.counter("pipeline.host_copy_errors")
         self._m_egress_fail = metrics.counter("pipeline.egress_failures")
         self._m_stall_overflow = metrics.counter(
             "pipeline.egress_stall_overflows")
@@ -413,11 +561,60 @@ class PipelineDispatcher(LifecycleComponent):
             for key in ("rows_admitted", "rows_invalid", "rules_fired",
                         "state_writes", "presence_merges")
         }
+        # Flight recorder: one structured record per egressed plan, dumped
+        # to JSONL on anomaly (egress crash, device faults, watchdog
+        # trips; the instance adds overload transitions and SLO alerts)
+        self.flightrec = flightrec
+        # SLO burn-rate engine: the loop ticks it beside the overload
+        # ladder
+        self.slo = slo
+        # Device-tier fault containment (runtime/devguard.py and the
+        # _recover_ring / _contain_step_failure paths below), under the
+        # reference's closed device.fault.* family
+        self._m_fault = {
+            key: metrics.counter(f"device.fault.{key}")
+            for key in ("chain_faults", "step_faults", "bisect_rounds",
+                        "poison_rows", "releases", "breaker_trips",
+                        "watchdog_soft_trips", "watchdog_hard_trips",
+                        "host_copy_faults", "cpu_fallback_steps")
+        }
+        self._m_breaker_state = metrics.gauge("device.fault.breaker_state")
         self._m_quar_devices = metrics.gauge("pipeline.quarantine.devices")
         self._m_quar_rows = metrics.counter(
             "pipeline.quarantine.rows_nonfinite")
         self._m_quar_changes = metrics.counter(
             "pipeline.quarantine.state_changes")
+        # Breaker: repeated device faults across distinct batches demote
+        # dispatch chained -> single-step -> CPU fallback; a cooldown
+        # probe restores.  Watchdog: wall-clock budgets over in-flight
+        # dispatches.  Callers may pass pre-configured guards; the
+        # dispatcher attaches its handlers to any callbacks left unset.
+        self.breaker = breaker if breaker is not None else DeviceBreaker()
+        if self.breaker.on_trip is None:
+            self.breaker.on_trip = self._on_breaker_trip
+        if self.breaker.on_restore is None:
+            self.breaker.on_restore = self._on_breaker_restore
+        self.watchdog = (watchdog if watchdog is not None
+                         else DeviceWatchdog())
+        if self.watchdog.on_soft is None:
+            self.watchdog.on_soft = self._on_watchdog_soft
+        if self.watchdog.on_unhealthy is None:
+            self.watchdog.on_unhealthy = self._on_watchdog_hard
+        if self.watchdog.on_recovered is None:
+            self.watchdog.on_recovered = self._on_watchdog_recovered
+        # D2H copy-fault escalation: _on_host_copy_error flags the
+        # suspect; the egress failure that follows re-dispatches the plan
+        # single-step
+        self._copy_suspect = False
+        # watchdog tokens per dispatched plan, keyed by id(plan)
+        self._wd_tokens: Dict[int, int] = {}
+        # Tenant metering: egress folds each plan's packed tenant block
+        # into the ledger (_meter_plan), from the copy it fetches anyway
+        self.usage_ledger = usage_ledger
+        # decode-stage attribution mark: egress is serialized per plan, so
+        # the decode timer's running-total delta between meter calls is
+        # the decode time this plan's rows paid for
+        self._meter_decode_mark = 0.0
         # NaN/Inf quarantine: host policy over the device-counted
         # rows_nonfinite scalar; a device crossing `quarantine_after`
         # cumulative poison rows emits one STATE_CHANGE through egress.
@@ -476,9 +673,129 @@ class PipelineDispatcher(LifecycleComponent):
             plan.materialize_batch(self.device)
             self._m_stage["h2d"].observe(time.perf_counter() - t0)
 
+    # -- admission ----------------------------------------------------------
+
+    def _shed_intake(self, payload: bytes, shed: Dict[object, int],
+                     source_id: str, tenant: str,
+                     budget_bound: bool = False) -> None:
+        """Audit one intake shed: dead-letter the payload with reason and
+        per-class counts, so shedding is inspectable and replayable
+        (``Instance.requeue_dead_letter`` re-drives it).  Sheds the
+        tenant's CONFIGURED budget overlay caused carry their own kind,
+        ``tenant-budget``, with the budget that clipped them."""
+        doc = {
+            "kind": "tenant-budget" if budget_bound else "intake-shed",
+            "state": self.overload.state.name,
+            "reason": ("tenant budget exceeded" if budget_bound
+                       else self.overload.last_driver or "admission"),
+            "classes": {cls.name.lower(): int(n)
+                        for cls, n in shed.items()},
+            "source": source_id,
+            "tenant": tenant,
+            "payload": payload.hex(),
+        }
+        if budget_bound:
+            overlay = self.overload.tenant_budgets.overlay(tenant)
+            if overlay:
+                doc["budget"] = overlay
+        dead_letter(self.dead_letters, doc)
+        if self.usage_ledger is not None:
+            try:
+                self.usage_ledger.charge(
+                    self.resolve_tenant(tenant), "dead_letter_rows",
+                    sum(shed.values()))
+            except Exception:
+                logger.exception("dead-letter usage charge failed")
+
+    def _admit_requests(self, reqs: List[DecodedRequest], payload: bytes,
+                        source_id: str) -> List[DecodedRequest]:
+        """Admission-filter a decoded request list.  Returns the admitted
+        subset; sheds dead-letter once per payload.  Raises
+        :class:`~sitewhere_tpu_torch.runtime.overload.OverloadShed` when
+        NOTHING was admitted."""
+        admitted: List[DecodedRequest] = []
+        shed: Dict[object, int] = {}
+        worst = None
+        budget_bound = False
+        for req in reqs:
+            cls = classify_event_type(int(req.event_type))
+            tenant = (req.metadata.get("tenant", "default")
+                      if req.metadata else "default")
+            ok, reason = self.overload.admit_detail(
+                cls, tenant=tenant, source=source_id)
+            if ok:
+                admitted.append(req)
+            else:
+                shed[cls] = shed.get(cls, 0) + 1
+                worst = cls
+                budget_bound = budget_bound or reason == "budget"
+        if shed:
+            tenant = (reqs[0].metadata.get("tenant", "default")
+                      if reqs[0].metadata else "default")
+            self._shed_intake(payload, shed, source_id, tenant,
+                              budget_bound=budget_bound)
+        if not admitted and shed:
+            raise self.overload.shed_exception(worst)
+        return admitted
+
+    def _admit_columns(self, columns, payload: bytes, source_id: str):
+        """Admission-filter one decoded wire-column dict (one
+        fancy-index classifies every row, one bucket take per class per
+        payload).  Returns ``(admitted_columns, shed_classes)``: the
+        input unchanged, a filtered copy, or None for zero admitted
+        rows; raising is the caller's decision."""
+        n = n_rows(columns)
+        if n == 0:
+            return columns, {}
+        et = np.asarray(columns["event_type"])
+        class_of = np.fromiter(
+            (int(c) for c in CLASS_OF_EVENT_TYPE), np.int32,
+            len(CLASS_OF_EVENT_TYPE))
+        # out-of-range types (STATE_CHANGE, future kinds) classify as
+        # COMMAND, the default of classify_event_type
+        in_range = (et >= 0) & (et < len(class_of))
+        classes = np.where(
+            in_range, class_of[np.clip(et, 0, len(class_of) - 1)],
+            np.int32(int(PriorityClass.COMMAND)))
+        keep = np.ones(n, bool)
+        shed: Dict[object, int] = {}
+        budget_bound = False
+        for cls in (PriorityClass.TELEMETRY, PriorityClass.COMMAND):
+            m = classes == int(cls)
+            count = int(m.sum())
+            if count:
+                ok, reason = self.overload.admit_detail(
+                    cls, source=source_id, n=count)
+                if not ok:
+                    keep &= ~m
+                    shed[cls] = count
+                    budget_bound = budget_bound or reason == "budget"
+        if not shed:
+            return columns, shed
+        self._shed_intake(payload, shed, source_id, "default",
+                          budget_bound=budget_bound)
+        if not keep.any():
+            return None, shed
+        # decoded columns mix ndarrays and python lists: filter every
+        # length-n sequence, pass scalars and None through
+        rows = np.nonzero(keep)[0]
+
+        def _filter(value):
+            if isinstance(value, np.ndarray) and value.ndim >= 1 \
+                    and len(value) == n:
+                return value[keep]
+            if isinstance(value, (list, tuple)) and len(value) == n:
+                return [value[i] for i in rows]
+            return value
+
+        return ({key: _filter(value) for key, value in columns.items()},
+                shed)
+
     def ingest(self, req: DecodedRequest, payload: bytes = b"",
                source_id: str = "ingest") -> None:
         """Queue one decoded request (journal it first: at-least-once)."""
+        if self.overload is not None and req.event_type is not None:
+            req = self._admit_requests([req], payload, source_id)[0]
         ref = NULL_ID
         if self.journal is not None and payload:
             ref = self.journal.append(payload)
@@ -503,6 +820,12 @@ class PipelineDispatcher(LifecycleComponent):
                 raise ValueError(
                     f"{r.kind.name} is a host-plane request, not a pipeline event"
                 )
+        if self.overload is not None:
+            # admission before the journal append: shed rows dead-letter
+            # (replayable), never journaled; a fully shed payload raises
+            reqs = self._admit_requests(reqs, payload, source_id)
+            if not reqs:
+                return
         ref = NULL_ID
         if self.journal is not None and payload:
             ref = self.journal.append(payload)
@@ -584,7 +907,17 @@ class PipelineDispatcher(LifecycleComponent):
         (``received_at``: when the payload arrived, before its decode).
         ``columns`` may be the fill-direct :class:`Reservation`."""
         if isinstance(columns, Reservation):
-            return self._ingest_reserved(payload, columns, received_at)
+            return self._ingest_reserved(payload, columns, source_id,
+                                         received_at)
+        if self.overload is not None:
+            columns, shed = self._admit_columns(columns, payload, source_id)
+            if columns is None:
+                if host_reqs:
+                    columns = {}   # host-plane lines still route below
+                else:
+                    # the WHOLE payload was shed: native backpressure,
+                    # attributed to the most-privileged class refused
+                    raise self.overload.shed_exception(min(shed, key=int))
         ref = NULL_ID
         if self.journal is not None and payload:
             ref = self.journal.append(payload)
@@ -607,13 +940,24 @@ class PipelineDispatcher(LifecycleComponent):
         return self._ingest_resolved_columns(columns, ref, received_at)
 
     def _ingest_reserved(self, payload: bytes, res: Reservation,
+                         source_id: str = "wire",
                          received_at: Optional[float] = None) -> int:
-        """The ordered ingest tail of the fill-direct lane: one journal
-        append, the per-payload constants, then the commit under the
-        intake lock.  (Overload admission, a whole-payload TELEMETRY
-        decision in the reference, comes here, before the journal append,
-        with the ``Instance`` slice.)"""
+        """The ordered ingest tail of the fill-direct lane: admission,
+        one journal append, the per-payload constants, then the commit
+        under the intake lock.  Every scanned row is a MEASUREMENT, so
+        admission is the whole-payload TELEMETRY decision the column path
+        would make, taken before the reservation is adopted: a shed
+        reservation is aborted, never committed."""
         n = res.n
+        if self.overload is not None:
+            ok, reason = self.overload.admit_detail(
+                PriorityClass.TELEMETRY, source=source_id, n=n)
+            if not ok:
+                res.abort()
+                self._shed_intake(payload, {PriorityClass.TELEMETRY: n},
+                                  source_id, "default",
+                                  budget_bound=reason == "budget")
+                raise self.overload.shed_exception(PriorityClass.TELEMETRY)
         ref = NULL_ID
         if self.journal is not None and payload:
             ref = self.journal.append(payload)
@@ -670,6 +1014,7 @@ class PipelineDispatcher(LifecycleComponent):
                 f"{self.name}-egress", self._egress_worker,
                 policy=RetryPolicy(initial_s=0.01, max_s=1.0),
                 max_restarts=8, min_uptime_s=5.0,
+                on_restart=self._on_egress_restart,
                 metrics=self.metrics)
             self._egress_super.start()
         self._warm_up()
@@ -749,6 +1094,15 @@ class PipelineDispatcher(LifecycleComponent):
         while not self._stop.wait(max(self.batcher.deadline_s / 2, 0.002)):
             try:
                 self._m_native_fb.set(native.build_fallbacks)
+                if self.overload is not None:
+                    # sample the pressure signals and run the ladder
+                    # (rate-limited inside tick)
+                    self.overload.tick()
+                if self.slo is not None:
+                    self.slo.tick()
+                # Hung-step watchdog: dispatch is asynchronous, so this
+                # thread stays live while a wedged step is in flight
+                self.watchdog.check()
                 # Backpressure: with the in-flight window full, drain one
                 # slot instead of emitting a partial plan behind it.
                 # Never block this thread on the step lock.
@@ -771,7 +1125,9 @@ class PipelineDispatcher(LifecycleComponent):
                     self._flush_ring_if_due()
                     self._drain_inflight()
                     self._maybe_commit_offset()
-            except Exception:
+            except Exception as e:
+                if is_card_error(e):
+                    self._fail_closed(e, "dispatch cycle")
                 logger.exception("dispatch cycle failed")
 
     def flush(self, timeout_s: float = 10.0) -> None:
@@ -961,13 +1317,17 @@ class PipelineDispatcher(LifecycleComponent):
 
     def _ring_eligible(self, plan: BatchPlan, replay_depth: int) -> bool:
         """May this plan wait in the ring?  Only depth-0 full-width fill
-        emissions of packed plans: partials are latency-sensitive and
-        re-injected plans must not recurse through the ring."""
+        emissions of packed plans, and only while the breaker admits
+        chained dispatch: partials are latency-sensitive and re-injected
+        plans must not recurse through the ring."""
         return (self.ring_depth > 0
                 and replay_depth == 0
                 and plan.packed_i is not None
                 and plan.reason == "fill"
-                and plan.n_events == plan.width)
+                and plan.n_events == plan.width
+                # breaker demoted past CHAINED: bisectable single-step
+                # dispatch only, until a cooldown probe succeeds
+                and self.breaker.allow_chain())
 
     def _stall_for_egress_room(self) -> None:
         """Bounded offload queue: stall (never while holding the step
@@ -1040,7 +1400,10 @@ class PipelineDispatcher(LifecycleComponent):
         steps, the carry threads on the device, and the stacked outputs'
         copy to the host starts at once, so egress waits once per ring.
         Each slot then windows as its own plan: commits stay fail-closed
-        per batch.  A fault propagates with the K plans outstanding."""
+        per batch.  A fault in the chain is contained by
+        :meth:`_recover_ring`."""
+        # chaos hook: a chain-dispatch failure before anything is popped
+        # leaves every plan in the ring, outstanding
         faults.fire("dispatcher.step")
         plans = self._ring[:self.ring_depth]
         del self._ring[:self.ring_depth]
@@ -1054,6 +1417,11 @@ class PipelineDispatcher(LifecycleComponent):
             slots_i[i], slots_f[i] = plan.staged
         t0 = time.perf_counter()
         tables = self._tables_packed()
+        # one watchdog entry for the whole chain; each slot's egress ends
+        # one part, so the entry drains with the LAST slot
+        wd = self.watchdog.begin(plans, parts=k)
+        for plan in plans:
+            self._wd_tokens[id(plan)] = wd
         ctrace = self.tracer.trace("pipeline.chain")
         try:
             if faults.device_active():
@@ -1065,12 +1433,16 @@ class PipelineDispatcher(LifecycleComponent):
             with ctrace.span("ring.dispatch").tag("steps", k):
                 _, ois, mets, _present = self._dispatch_chain(
                     chain, tables, slots_i, slots_f)
-            fetch = RingFetch(ois, mets, on_fetch=self._m_host_syncs.inc)
-        finally:
+        except Exception as e:
             ctrace.end()
+            self._recover_ring(plans, e)
+            return
+        finally:
             for i in range(k):
                 slots_i[i] = None
                 slots_f[i] = None
+        ctrace.end()
+        fetch = self._host_copy(RingFetch, ois, mets)
         # chaos kill point: the chain dispatched and committed, but no
         # slot has egressed; every ring plan must replay
         faults.crosspoint("crash.mid_ring")
@@ -1084,14 +1456,233 @@ class PipelineDispatcher(LifecycleComponent):
             trace.record("ring.slot", max(0.0, now - plan.created_at),
                          slot=slot, seq=plan.seq, chain_k=k)
             self._m_assemble.observe(plan.max_wait_s)
+            plan.dispatch_s = chain_dt / k   # per-slot share of the chain
             self._window_step(plan, RingStepView(fetch, slot), 0, trace)
+        # a clean CHAINED dispatch closes a half-open breaker probe
+        self.breaker.record_success(chained=True)
+
+    def _host_copy(self, make, oi, metrics):
+        """Start a step's device-to-host copy; a copy that cannot start
+        is escalated (:meth:`_on_host_copy_error`) and its fetch raises,
+        so the plan's egress fails and re-dispatches."""
+        try:
+            return make(oi, metrics, on_fetch=self._m_host_syncs.inc)
+        except Exception as e:
+            if is_card_error(e):
+                self._fail_closed(e, "device-to-host copy")
+            self._on_host_copy_error(e)
+            return _FailedCopy(e)
+
+    def _recover_ring(self, plans, exc) -> None:
+        """Chain-failure containment (runs under ``_step_lock``).
+
+        The K plans were popped off the ring before the dispatch; they go
+        back at the FRONT, which restores emission order and the
+        accounting that reads ``_ring`` (``oldest_unsealed_wait_s``, the
+        partial-ring drain).  The chain's lease is not stranded: the
+        chain faulted before ``commit_packed``, so the state manager still
+        holds the pre-chain epoch (no step writes into leased buffers),
+        and each single-step re-dispatch below reads it again: recovery
+        without a restart.  A re-dispatch that fails again is contained by
+        :meth:`_contain_step_failure`; faults across distinct batches trip
+        the breaker.  A card error fails closed instead."""
+        if is_card_error(exc):
+            self._fail_closed(exc, f"chain of {len(plans)}")
+        self._ring[:0] = plans
+        self._m_fault["chain_faults"].inc()
+        # the failed chain held the packed lease: the re-dispatches read
+        # the carry again from the last committed epoch
+        self._m_fault["releases"].inc()
+        for plan in plans:
+            self._wd_end(plan)
+        logger.warning(
+            "chained dispatch failed (%d plans re-parked): %s",
+            len(plans), exc)
+        if self.flightrec is not None:
+            for plan in plans:
+                self._flight_record(
+                    plan, None, 0, commit="device-fault",
+                    error=f"{type(exc).__name__}: {exc}")
+            self.flightrec.anomaly(
+                "device-fault",
+                detail=f"chain of {len(plans)} failed: "
+                       f"{type(exc).__name__}: {exc}")
+        self.breaker.record_fault(plans[0].seq)
+        # single-step re-dispatch in emission order; a plan that fails
+        # AGAIN stays re-parked (front of the ring) and keeps the commit
+        # gate closed: journal replay recovers it after a restart
+        for _ in range(len(plans)):
+            plan = self._ring.pop(0)
+            try:
+                self._dispatch_plan(plan, 0, stall=False)
+            except Exception:
+                self._ring.insert(0, plan)
+                logger.exception(
+                    "single-step re-dispatch of seq=%d failed; "
+                    "plan stays parked", plan.seq)
+                break
+
+    def _on_host_copy_error(self, exc) -> None:
+        """A device-to-host output copy failed.  The dispatch committed,
+        so the rows are not lost, but the egress fetch that follows hits
+        the same dead buffer: flag the plan's egress failure for a
+        single-step re-dispatch (the state re-step is at-least-once,
+        like journal replay) and dump the anomaly."""
+        self._m_host_copy_err.inc()
+        self._m_fault["host_copy_faults"].inc()
+        self._copy_suspect = True
+        logger.warning("device->host output copy failed: %s", exc)
+        if self.flightrec is not None:
+            self.flightrec.anomaly(
+                "host-copy-fault",
+                detail=f"{type(exc).__name__}: {exc}")
+
+    def _fail_closed(self, exc: BaseException, where: str) -> None:
+        """A card fault (:func:`is_card_error`, or the breaker's FALLBACK
+        level on a card): bisecting would dead-letter every row as poison,
+        and a sticky error has lost the context for every later launch.
+        Log it, write the flight recorder synchronously, and end the
+        process with :data:`STICKY_EXIT_CODE`; nothing is dead-lettered,
+        and the restart recovers through the checkpoint and the journal."""
+        logger.critical("card fault in %s, failing closed: %s: %s",
+                        where, type(exc).__name__, exc)
+        if self.flightrec is not None:
+            try:
+                self.flightrec.record(kind="sticky-cuda-error", where=where,
+                                      error=f"{type(exc).__name__}: {exc}")
+                self.flightrec.snapshot(
+                    "device-lost", detail=f"{where}: "
+                    f"{type(exc).__name__}: {exc}")
+            except Exception:
+                logger.exception("flight-recorder dump failed")
+        _exit_process(STICKY_EXIT_CODE)
+
+    # -- device-tier fault-containment callbacks (devguard wiring) --------
+
+    def _on_breaker_trip(self, level: int) -> None:
+        self._m_fault["breaker_trips"].inc()
+        self._m_breaker_state.set(level)
+        logger.warning("device breaker tripped to %s",
+                       BREAKER_LEVELS[level])
+        if self.flightrec is not None:
+            self.flightrec.anomaly(
+                "device-breaker",
+                detail=f"dispatch demoted to {BREAKER_LEVELS[level]}")
+        if (self.overload is not None
+                and self.overload.state == OverloadState.NORMAL):
+            # ride the overload ladder: a demoted device tier sheds the
+            # same way genuine pressure does
+            self.overload.force(OverloadState.DEGRADED,
+                                reason="device-breaker")
+
+    def _on_breaker_restore(self) -> None:
+        self._m_breaker_state.set(0)
+        logger.info("device breaker restored chained dispatch")
+        if (self.overload is not None
+                and self.overload.state == OverloadState.DEGRADED
+                and getattr(self.overload, "last_driver", None)
+                == "device-breaker"):
+            # release only our own demotion: a ladder driven by real
+            # pressure meanwhile keeps its state
+            self.overload.force(OverloadState.NORMAL,
+                                reason="device-breaker-recovered")
+
+    def _on_watchdog_soft(self, payload, elapsed_s: float) -> None:
+        """Soft budget tripped: dump the in-flight dispatch's plan records
+        to the flight recorder (``payload`` is the plan, or the ring's
+        plan list, handed to ``watchdog.begin``)."""
+        plans = payload if isinstance(payload, list) else [payload]
+        self._m_fault["watchdog_soft_trips"].inc()
+        logger.warning("device dispatch slow: %.3fs in flight (budget "
+                       "%.3fs), %d plan(s)", elapsed_s,
+                       self.watchdog.soft_s, len(plans))
+        if self.flightrec is not None:
+            for i, plan in enumerate(plans):
+                self.flightrec.record(
+                    kind="hung-step",
+                    **self._wd_record(plan,
+                                      slot=i if len(plans) > 1 else None))
+            self.flightrec.anomaly(
+                "device-hung-step",
+                detail=f"{elapsed_s:.3f}s in flight "
+                       f"(soft budget {self.watchdog.soft_s:.3f}s)")
+
+    def _on_watchdog_hard(self, payload, elapsed_s: float) -> None:
+        self._m_fault["watchdog_hard_trips"].inc()
+        logger.error("device tier unhealthy: dispatch wedged %.3fs "
+                     "(hard budget %.3fs)", elapsed_s,
+                     self.watchdog.hard_s)
+        if self.flightrec is not None:
+            self.flightrec.anomaly(
+                "device-wedged",
+                detail=f"{elapsed_s:.3f}s in flight "
+                       f"(hard budget {self.watchdog.hard_s:.3f}s)")
+
+    def _on_watchdog_recovered(self) -> None:
+        logger.info("device tier recovered: in-flight dispatches drained")
+
+    @property
+    def device_unhealthy(self) -> bool:
+        """True while the hung-step watchdog holds the tier unhealthy."""
+        return self.watchdog.unhealthy
+
+    def _wd_record(self, plan: BatchPlan,
+                   slot: Optional[int] = None) -> dict:
+        rec = {"seq": int(plan.seq), "rows": int(plan.n_events),
+               "reason": plan.reason}
+        if slot is not None:
+            rec["slot"] = slot
+        return rec
+
+    def _wd_end(self, plan: BatchPlan) -> None:
+        self.watchdog.end(self._wd_tokens.pop(id(plan), None))
+
+    def _on_egress_restart(self, exc) -> None:
+        """Supervisor restart of the egress worker: the same reason as the
+        worker's own crash dump, so the two coalesce into one snapshot
+        under the per-reason rate limit."""
+        if self.flightrec is not None:
+            self.flightrec.anomaly(
+                "egress-crash", detail=f"supervisor restart: {exc}")
+
+    @hot_path
+    def _flight_record(self, plan: BatchPlan, out, replay_depth: int,
+                       commit: str, e2e_s: float = 0.0,
+                       egress_s: float = 0.0, trace=None,
+                       error: Optional[str] = None) -> None:
+        """Append one structured per-batch record to the flight recorder:
+        sequence, ring slot, per-host-stage timings, overload state, trace
+        id, commit outcome.  Pure host dict work, no device access."""
+        rec = {
+            "seq": int(plan.seq),
+            "reason": plan.reason,
+            "rows": int(plan.n_events),
+            "fill": round(plan.fill, 4),
+            "slot": getattr(out, "slot", None),
+            "replay_depth": int(replay_depth),
+            "wait_ms": round(plan.max_wait_s * 1e3, 3),
+            "dispatch_ms": round(plan.dispatch_s * 1e3, 3),
+            "egress_ms": round(egress_s * 1e3, 3),
+            "e2e_ms": round(e2e_s * 1e3, 3),
+            "overload": (self.overload.state.name
+                         if self.overload is not None else "NORMAL"),
+            "trace_id": getattr(trace, "trace_id", None),
+            "commit": commit,
+        }
+        if error is not None:
+            rec["error"] = error
+        self.flightrec.record(**rec)
 
     @hot_path
     def _dispatch_plan(self, plan: BatchPlan, replay_depth: int = 0,
                        stall: bool = True) -> None:
         """The single-step path: one step over the live epoch, committed
         with ``read_epoch`` (a sweep between the read and the commit keeps
-        its flags).  A fault propagates with the plan outstanding."""
+        its flags).  A packed step's fault is contained by
+        :meth:`_contain_step_failure`; the breaker's FALLBACK level goes
+        through :meth:`_fallback_step`."""
+        # chaos hook: a step-dispatch failure before the step; the plan
+        # stays outstanding, so the commit gate fails closed
         faults.fire("dispatcher.step")
         if stall and replay_depth == 0:
             # re-injected plans (depth > 0, everything the egress worker
@@ -1104,20 +1695,36 @@ class PipelineDispatcher(LifecycleComponent):
         self._m_assemble.observe(plan.max_wait_s)
         t_dispatch = time.perf_counter()
         with self._step_lock:
-            if faults.device_active() and plan.packed_i is not None:
-                faults.device_fire("device.dispatch", values=plan.packed_f,
-                                   valid=plan.packed_i[0] != 0)
-            with trace.span("step.dispatch").tag("rows", plan.n_events):
-                if plan.packed_i is not None:
-                    tables = self._tables_packed()
-                    epoch = self.state_manager.current_packed
-                    bi, bf = plan.staged
-                    new_ps, oi, metrics, present = self._packed_step(
-                        tables, epoch, bi, bf)
-                    self.state_manager.commit_packed(
-                        new_ps, present_now=present, read_epoch=epoch)
-                else:
-                    batch = plan.batch
+            if plan.packed_i is not None:
+                tables = self._tables_packed()
+                epoch = self.state_manager.current_packed
+                bi, bf = plan.staged
+                step_fn = self._packed_step
+                if self.breaker.level >= FALLBACK:
+                    step_fn = self._fallback_step(plan)
+                wd = self.watchdog.begin(plan)
+                self._wd_tokens[id(plan)] = wd
+                try:
+                    if faults.device_active():
+                        # fires against the retained host copies
+                        faults.device_fire("device.dispatch",
+                                           values=plan.packed_f,
+                                           valid=plan.packed_i[0] != 0)
+                    with trace.span("step.dispatch").tag(
+                            "rows", plan.n_events):
+                        new_ps, oi, metrics, present = step_fn(
+                            tables, epoch, bi, bf)
+                        self.state_manager.commit_packed(
+                            new_ps, present_now=present, read_epoch=epoch)
+                except Exception as e:
+                    self._wd_end(plan)
+                    self._contain_step_failure(plan, e, replay_depth, trace)
+                    return
+                view = PackedView(None, None, present, copy=self._host_copy(
+                    HostCopy, oi, metrics))
+            else:
+                batch = plan.batch
+                with trace.span("step.dispatch").tag("rows", plan.n_events):
                     new_state, out = self._step(
                         self.registry_provider(), self.state_manager.current,
                         self.rules_provider(), self.zones_provider(), batch)
@@ -1127,9 +1734,156 @@ class PipelineDispatcher(LifecycleComponent):
                     oi, metrics, present = pack_outputs(out, batch)
                 view = PackedView(oi, metrics, present,
                                   on_fetch=self._m_host_syncs.inc)
-            self._m_stage["dispatch"].observe(
-                time.perf_counter() - t_dispatch)
+            dt = time.perf_counter() - t_dispatch
+            self._m_stage["dispatch"].observe(dt)
+            plan.dispatch_s = dt   # flight-record stage attribution
             self._window_step(plan, view, replay_depth, trace)
+
+    def _contain_step_failure(self, plan: BatchPlan, exc,
+                              replay_depth: int, trace) -> None:
+        """A single-step packed dispatch failed: bisect the batch on the
+        host until the poison rows are isolated (under ``_step_lock``).
+
+        The full valid-row set is retried FIRST: a transient fault
+        recovers in one extra dispatch with zero loss.  A subset that
+        still faults splits in half; singles that fault are poison and
+        dead-letter replayably as ``device-poison`` (the raw columns ride
+        the document).  Every CLEAN subset dispatches, commits and windows
+        normally.  Subsets mask rows with ``valid = 0`` (the device's
+        short-batch semantics), so disjoint subsets never double count.
+        A card error fails closed instead (:meth:`_fail_closed`)."""
+        if is_card_error(exc):
+            self._fail_closed(exc, f"step seq={plan.seq}")
+        self._m_fault["step_faults"].inc()
+        self.breaker.record_fault(plan.seq)
+        logger.warning("packed step failed for seq=%d (%d rows): %s; "
+                       "bisecting", plan.seq, plan.n_events, exc)
+        if self.flightrec is not None:
+            self._flight_record(
+                plan, None, replay_depth, commit="device-fault",
+                trace=trace, error=f"{type(exc).__name__}: {exc}")
+            self.flightrec.anomaly(
+                "device-fault",
+                detail=f"step seq={plan.seq} failed: "
+                       f"{type(exc).__name__}: {exc}")
+        try:
+            valid_rows = np.nonzero(np.asarray(plan.packed_i[0]) != 0)[0]
+            poison: List[int] = []
+            stack = [valid_rows]
+            while stack:
+                rows = stack.pop()
+                if rows.size == 0:
+                    continue
+                self._m_fault["bisect_rounds"].inc()
+                if self._try_subset(plan, rows, replay_depth, trace):
+                    continue
+                if rows.size == 1:
+                    poison.append(int(rows[0]))
+                    continue
+                mid = rows.size // 2
+                stack.append(rows[mid:])
+                stack.append(rows[:mid])
+            if poison:
+                self._m_fault["poison_rows"].inc(len(poison))
+                logger.warning("isolated %d poison row(s) in seq=%d; "
+                               "dead-lettering", len(poison), plan.seq)
+                self._dead_letter_poison(plan, poison, exc)
+        finally:
+            # the original plan never egresses: its outstanding slot
+            # retires here; clean subsets balanced their own increments
+            # through normal egress
+            with self._lock:
+                self._plans_outstanding -= 1
+
+    def _try_subset(self, plan: BatchPlan, rows: np.ndarray,
+                    replay_depth: int, trace) -> bool:
+        """Dispatch ``plan`` with only ``rows`` valid; True on success.
+
+        The batch is rebuilt from the retained HOST buffers (not
+        ``plan.staged``), so the masked columns are exactly what the
+        device sees.  The step's errors are forced out here, by a sync on
+        an event recorded after it (the containment path only), not at
+        the egress fetch."""
+        bi = np.array(plan.packed_i, copy=True)
+        mask = np.zeros(bi.shape[1], dtype=bool)
+        mask[rows] = True
+        bi[0] = np.where(mask, bi[0], 0)
+        bf = plan.packed_f
+        try:
+            if faults.device_active():
+                faults.device_fire("device.dispatch", values=bf,
+                                   valid=bi[0] != 0)
+            tables = self._tables_packed()
+            epoch = self.state_manager.current_packed
+            with self._lock:
+                self._plans_outstanding += 1
+            try:
+                sbi, sbf = stage_packed_batch(bi, bf, self.device)
+                new_ps, oi, metrics, present = self._packed_step(
+                    tables, epoch, sbi, sbf)
+                if self.device.type == "cuda":
+                    done = torch.cuda.Event()
+                    done.record(torch.cuda.current_stream(self.device))
+                    done.synchronize()
+                self.state_manager.commit_packed(
+                    new_ps, present_now=present, read_epoch=epoch)
+            except Exception:
+                with self._lock:
+                    self._plans_outstanding -= 1
+                raise
+        except Exception as e:
+            if is_card_error(e):
+                self._fail_closed(e, f"bisect of seq={plan.seq}")
+            return False
+        view = PackedView(None, None, present, copy=self._host_copy(
+            HostCopy, oi, metrics))
+        self._window_step(plan, view, replay_depth, trace)
+        return True
+
+    def _dead_letter_poison(self, plan: BatchPlan, rows: List[int],
+                            exc) -> None:
+        """Dead-letter isolated poison rows replayably: the document
+        carries the raw host columns, so the ``device-poison`` requeue
+        (``Instance.requeue_dead_letter``) rebuilds and re-ingests them."""
+        if self.dead_letters is None:
+            return
+        idx = np.asarray(rows, dtype=np.int64)
+        columns = {
+            field: np.asarray(col)[idx].tolist()
+            for field, col in plan.host_cols.items()
+        }
+        dead_letter(self.dead_letters, {
+            "kind": "device-poison",
+            "error": f"{type(exc).__name__}: {exc}",
+            "seq": int(plan.seq),
+            "count": len(rows),
+            "columns": columns,
+        }, metrics=self.metrics)
+        if self.usage_ledger is not None and "tenant_id" in columns:
+            self.usage_ledger.charge_rows_host(
+                np.asarray(columns["tenant_id"], np.int64),
+                "dead_letter_rows")
+
+    def _fallback_step(self, plan: BatchPlan):
+        """The breaker's FALLBACK level, reached after repeated faults of
+        distinct batches.  On a card it fails closed as a card fault does
+        (:meth:`_fail_closed`): no step moves the card's tables and state
+        to the CPU, and the restart replays the journal.  A dispatcher on
+        the CPU already steps there: its own step runs, counted in
+        ``device.fault.cpu_fallback_steps`` as the reference counts its
+        CPU steps, logged and flight-recorded."""
+        if self.device.type != "cpu":
+            self._fail_closed(RuntimeError(
+                f"device breaker at {self.breaker.level_name} after "
+                "repeated device faults"), f"step seq={plan.seq}")
+        self._m_fault["cpu_fallback_steps"].inc()
+        logger.warning("breaker at %s: seq=%d steps on the CPU",
+                       self.breaker.level_name, plan.seq)
+        if self.flightrec is not None:
+            self.flightrec.record(kind="cpu-fallback-step",
+                                  seq=int(plan.seq),
+                                  rows=int(plan.n_events))
+        return self._packed_step
 
     def _offloaded(self) -> bool:
         """Is the supervised egress worker accepting work?  False before
@@ -1191,13 +1945,40 @@ class PipelineDispatcher(LifecycleComponent):
 
     def _egress_guarded(self, item) -> None:
         """:meth:`_egress` with crash accounting, shared by the offload
-        worker and the inline paths."""
+        worker and the inline paths: the failure is counted and
+        flight-recorded (the failed plan's record, then the dump), a
+        failure after a host-copy fault re-dispatches the plan, and a
+        card error fails closed.  The plan's watchdog entry
+        retires here whatever the outcome."""
         try:
-            self._egress(*item)
-        except Exception:
-            self.egress_failures += 1
-            self._m_egress_fail.inc()
-            raise
+            try:
+                self._egress(*item)
+            except Exception as e:
+                if is_card_error(e):
+                    self._fail_closed(e, f"egress of seq={item[0].seq}")
+                self.egress_failures += 1
+                self._m_egress_fail.inc()
+                if self.flightrec is not None:
+                    self._flight_record(
+                        item[0], item[1], item[2], commit="failed",
+                        trace=item[3], error=f"{type(e).__name__}: {e}")
+                    self.flightrec.anomaly("egress-crash", detail=str(e))
+                plan = item[0]
+                if (self._copy_suspect and plan.packed_i is not None
+                        and item[2] == 0):
+                    # the plan's device-to-host copy faulted and its fetch
+                    # hit the dead buffer: re-dispatch it single-step (the
+                    # re-step is at-least-once, like journal replay).  Only
+                    # the FIRST faulted plan retries inline.
+                    self._copy_suspect = False
+                    logger.warning(
+                        "egress failed after host-copy fault; "
+                        "re-dispatching seq=%d single-step", plan.seq)
+                    self._dispatch_plan(plan, 1, stall=False)
+                    return
+                raise
+        finally:
+            self._wd_end(item[0])
 
     @hot_path
     def _egress(self, plan: BatchPlan, out, replay_depth: int,
@@ -1241,6 +2022,10 @@ class PipelineDispatcher(LifecycleComponent):
         if nf:
             self._m_quar_rows.inc(nf)
             self._scan_quarantine(plan, replay_depth)
+        # tenant metering: the packed tenant block of the same fetched
+        # metrics vector (no extra host sync)
+        if self.usage_ledger is not None:
+            self._meter_plan(out, host_cols)
         # monotonic receive time of the plan's oldest row
         ingest_t0 = plan.received_at
 
@@ -1317,7 +2102,31 @@ class PipelineDispatcher(LifecycleComponent):
             lat, trace_id=(trace.trace_id if trace.sampled else None))
         self._m_queue.set(self.batcher.pending)
         self._m_inflight.set(len(self._inflight))
-        self._m_stage["egress"].observe(time.perf_counter() - t_egress)
+        egress_dt = time.perf_counter() - t_egress
+        self._m_stage["egress"].observe(egress_dt)
+        if self.flightrec is not None:
+            self._flight_record(plan, out, replay_depth, commit="ok",
+                                e2e_s=lat, egress_s=egress_dt, trace=trace)
+
+    def _meter_plan(self, out, host_cols: Dict[str, np.ndarray]) -> None:
+        """Bill one egressed plan to its tenants.  The step bucketed the
+        accepted rows, state writes and nonfinite rows by ``tenant_id %
+        TENANT_METER_SLOTS``; the ledger resolves the buckets against the
+        plan's host tenant column.  The decode timer's running-total delta
+        rides along, so decode time is billed by row share."""
+        tenants = host_cols.get("tenant_id") if host_cols else None
+        if tenants is None:
+            return
+        block = out.tenant_meter
+        decode_total = self._m_stage["decode"].total
+        decode_s = max(0.0, decode_total - self._meter_decode_mark)
+        self._meter_decode_mark = decode_total
+        try:
+            self.usage_ledger.charge_device_block(
+                block, tenants, decode_s=decode_s)
+            self.usage_ledger.publish(min_interval_s=1.0)
+        except Exception:
+            logger.exception("tenant metering failed for one plan")
 
     def _scan_quarantine(self, plan: BatchPlan, replay_depth: int) -> None:
         """Per-device attribution of the plan's nonfinite rows (called
@@ -1351,6 +2160,15 @@ class PipelineDispatcher(LifecycleComponent):
         self._m_quar_changes.inc(len(newly))
         logger.warning("quarantined %d device(s) for nonfinite values: %s",
                        len(newly), [d for d, _ in newly])
+        if self.flightrec is not None:
+            self.flightrec.record(
+                kind="quarantine", seq=int(plan.seq),
+                rows=len(devs), devices=[d for d, _ in newly],
+                strikes=self.quarantine_after)
+            self.flightrec.anomaly(
+                "device-quarantine",
+                detail=f"devices {[d for d, _ in newly]} crossed "
+                       f"{self.quarantine_after} nonfinite rows")
         if replay_depth < self.max_replay_depth:
             batch = state_changes_for(
                 np.asarray([d for d, _ in newly], np.int32),
@@ -1496,6 +2314,43 @@ class PipelineDispatcher(LifecycleComponent):
             lambda: self.batcher.add_arrays(_copy=False, **cols)))
         return n
 
+    def requeue_rows(self, cols: Dict[str, np.ndarray]) -> int:
+        """Re-ingest raw event columns through the normal batch path (the
+        ``device-poison`` dead-letter requeue): the isolated rows re-enter
+        like fresh ingest.  Returns the row count."""
+        n = int(np.asarray(cols["device_id"]).size)
+        if n == 0:
+            return 0
+        self._run_plans(self._take(
+            lambda: self.batcher.add_arrays(_copy=False, **cols)))
+        return n
+
+    def oldest_unsealed_wait_s(self) -> float:
+        """The live ingest-to-seal watermark: the age of the oldest event
+        admitted but not yet through egress (the overload ladder's lag
+        signal).  It decays as work seals, unlike the last-value seal
+        gauge.  Lock-free reads (a torn read only skews one sample)."""
+        if self.steps == 0:
+            # warm-up gate: before the first step rows wait on the boot
+            return 0.0
+        now = time.monotonic()
+        wait = 0.0
+        oldest = self.batcher._oldest
+        if oldest is not None and self.batcher.pending > 0:
+            wait = now - oldest
+        try:
+            plan = self._inflight[0][0]
+            wait = max(wait, now - plan.created_at + plan.max_wait_s)
+        except IndexError:
+            pass
+        # ring-held plans are in flight too (emitted, not yet stepped)
+        try:
+            plan = self._ring[0]
+            wait = max(wait, now - plan.created_at + plan.max_wait_s)
+        except IndexError:
+            pass
+        return max(0.0, wait)
+
     def metrics_snapshot(self) -> Dict[str, object]:
         with self._lock:
             pending = self.batcher.pending
@@ -1508,6 +2363,11 @@ class PipelineDispatcher(LifecycleComponent):
             "ring_chains": int(self._m_ring_chains.value),
             "ring_flushed_plans": int(self._m_ring_flushes.value),
             "quarantined_devices": len(self._quarantined),
+            "device_fault": {
+                "breaker": self.breaker.snapshot(),
+                "watchdog": self.watchdog.snapshot(),
+                "quarantined_devices": len(self._quarantined),
+            },
             **self.totals,
         }
         if samples:

@@ -68,6 +68,7 @@ __all__ = [
     "device_fired",
     "device_fire",
     "device_injected",
+    "device_poison_rows",
 ]
 
 
@@ -357,6 +358,21 @@ def device_injected(point: str, exc: Optional[ExcSpec] = FaultInjected,
         yield
     finally:
         device_clear(point)
+
+
+def device_poison_rows(columns, rows, fields=("value",),
+                       value=float("nan")) -> None:
+    """Poison host-side staged columns in place (bench/test helper).
+
+    ``columns`` maps field name -> numpy array; each index in ``rows``
+    gets ``value`` written into every named field that exists.
+    """
+    for field in fields:
+        col = columns.get(field)
+        if col is None:
+            continue
+        for r in rows:
+            col[int(r)] = value
 
 
 # ---------------------------------------------------------------------------

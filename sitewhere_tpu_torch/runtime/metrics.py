@@ -3,9 +3,9 @@
 Counterpart of ``sitewhere_tpu/runtime/metrics.py`` as far as the
 dispatcher binds it: a lock-light registry of counters, gauges, reservoir
 timers and histograms with ``trace_id`` exemplars, under the reference's
-instrument names, so ``metrics_snapshot()`` keeps its keys.  The
-OpenMetrics exposition and the SLO burn-rate engine come with the
-``Instance`` slice.
+instrument names, so ``metrics_snapshot()`` keeps its keys, and the
+SLO burn-rate engine (:class:`BurnRateEngine`, the reference's
+:446-771).  The OpenMetrics exposition comes with the REST slice.
 
 Naming convention: lowercase dotted ``subsystem.noun[_verb][_unit]``
 segments (``pipeline.e2e_latency_s``, ``resilience.supervisor.x.restarts``)
@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import bisect
 import collections
+import dataclasses
 import logging
 import re
 import threading
@@ -273,6 +274,329 @@ class MetricsRegistry:
             },
             "histograms": {k: h.snapshot() for k, h in histograms.items()},
         }
+
+
+# -- SLO burn-rate engine -----------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SloTargets:
+    """The BASELINE.json objectives as runtime targets.
+
+    - ``throughput_eps``: the capacity target (1M ev/s/chip).  Judged
+      against min(target, OFFERED load): a healthy deployment receiving
+      200k ev/s and completing all of it is meeting demand, not
+      breaching — only completion falling behind what intake admitted
+      (a wedge, or demand above capacity going unserved) burns.  0
+      disables the objective.
+    - ``p99_ms``: end-to-end p99 ceiling (<10 ms).
+    - ``shed_rate``: admissible shed fraction of offered load.
+    """
+
+    throughput_eps: float = 1_000_000.0
+    p99_ms: float = 10.0
+    shed_rate: float = 0.01
+
+    def names(self) -> Tuple[str, ...]:
+        return tuple(f.name for f in dataclasses.fields(self))
+
+
+class _BurnWindow:
+    """One rolling window of (ts, bad?) samples per objective."""
+
+    __slots__ = ("span_s", "samples")
+
+    def __init__(self, span_s: float):
+        self.span_s = float(span_s)
+        self.samples: collections.deque = collections.deque()
+
+    def add(self, now: float, bad: bool) -> None:
+        self.samples.append((now, bool(bad)))
+        self.prune(now)
+
+    def prune(self, now: float) -> None:
+        cutoff = now - self.span_s
+        while self.samples and self.samples[0][0] < cutoff:
+            self.samples.popleft()
+
+    def bad_fraction(self) -> float:
+        if not self.samples:
+            return 0.0
+        return sum(1 for _, bad in self.samples if bad) / len(self.samples)
+
+    def __len__(self) -> int:
+        return len(self.samples)
+
+
+class BurnRateEngine:
+    """Multi-window SLO burn-rate evaluation (the SRE playbook shape).
+
+    Each :meth:`observe` sample is judged per objective (breaching or
+    not); the breach fraction over a FAST and a SLOW rolling window,
+    divided by ``error_budget``, is that window's burn rate — burn 1.0
+    means "breaching at exactly the budgeted rate", N means N× too
+    fast.  An alert arms when BOTH windows burn at ≥ ``alert_burn``
+    (the fast window reacts, the slow window confirms it isn't a blip)
+    with at least ``min_samples`` in the fast window, and clears when
+    the fast window's burn drops below 1.0.
+
+    Surfaces: ``slo.burn_rate.<objective>.{fast,slow}`` gauges +
+    ``slo.alert.<objective>`` gauges (pre-registered so the families
+    exist on the scrape surface before the first breach), an
+    ``slo.burn`` alert span through the wired :class:`Tracer` on every
+    arm/clear, and an ``on_alert(objective, burn)`` hook the instance
+    points at the flight recorder.  Injectable clock; ``tick()`` is
+    rate-limited so the dispatcher loop can call it every cycle.
+    """
+
+    def __init__(self, targets: Optional[SloTargets] = None,
+                 windows_s: Tuple[float, float] = (60.0, 600.0),
+                 error_budget: float = 0.05,
+                 alert_burn: float = 2.0,
+                 min_samples: int = 5,
+                 lag_tolerance_s: float = 2.0,
+                 sample_interval_s: float = 1.0,
+                 sample_fn=None,
+                 metrics: Optional[MetricsRegistry] = None,
+                 tracer=None,
+                 on_alert=None,
+                 clock=time.monotonic):
+        self.targets = targets or SloTargets()
+        if len(windows_s) != 2 or windows_s[0] >= windows_s[1]:
+            raise ValueError("windows_s must be (fast, slow), fast < slow")
+        self.windows_s = (float(windows_s[0]), float(windows_s[1]))
+        if not 0.0 < error_budget <= 1.0:
+            raise ValueError("error_budget must be in (0, 1]")
+        self.error_budget = float(error_budget)
+        self.alert_burn = float(alert_burn)
+        self.min_samples = max(1, int(min_samples))
+        # throughput lag allowance, in seconds of demand: work in
+        # flight (a full ring's chain) is not a breach until completion
+        # falls further behind offered load than this
+        self.lag_tolerance_s = float(lag_tolerance_s)
+        self._tp_deficit = 0.0
+        self.sample_interval_s = float(sample_interval_s)
+        self.sample_fn = sample_fn
+        self._metrics = metrics if metrics is not None else global_registry()
+        if tracer is None:
+            from sitewhere_tpu_torch.runtime.tracing import Tracer
+
+            tracer = Tracer(sample_rate=0.0)
+        self.tracer = tracer
+        self.on_alert = on_alert
+        self._clock = clock
+        self._lock = threading.Lock()
+        self._last_sample = float("-inf")
+        self._windows: Dict[str, Tuple[_BurnWindow, _BurnWindow]] = {
+            name: (_BurnWindow(self.windows_s[0]),
+                   _BurnWindow(self.windows_s[1]))
+            for name in self.targets.names()
+        }
+        self._alerting: Dict[str, bool] = {
+            name: False for name in self.targets.names()}
+        self.alerts_fired = 0
+        self.last_sample: Dict[str, float] = {}
+        # pre-register the gauge families: the scrape surface must show
+        # burn 0.0, not an absent family, before the first breach
+        self._g_burn = {
+            (name, label): self._metrics.gauge(
+                f"slo.burn_rate.{name}.{label}")
+            for name in self.targets.names()
+            for label in ("fast", "slow")
+        }
+        self._g_alert = {
+            name: self._metrics.gauge(f"slo.alert.{name}")
+            for name in self.targets.names()
+        }
+
+    # -- sampling ------------------------------------------------------------
+
+    def tick(self, now: Optional[float] = None) -> None:
+        """Pull one sample from ``sample_fn`` if one is due (cheap when
+        not).  The dispatcher loop calls this every cycle."""
+        if self.sample_fn is None:
+            return
+        now = self._clock() if now is None else now
+        if now - self._last_sample < self.sample_interval_s:
+            return
+        self._last_sample = now
+        try:
+            sample = self.sample_fn()
+        except Exception:
+            logger.exception("SLO sample collection failed")
+            return
+        if sample is not None:
+            self.observe(sample, now)
+
+    def _judge(self, sample: Dict[str, float]) -> Dict[str, Optional[bool]]:
+        """Per-objective breach verdicts for one sample; None = the
+        objective has no evidence this sample (idle window, no latency
+        percentile yet) — idleness is not burn."""
+        t = self.targets
+        verdicts: Dict[str, Optional[bool]] = {}
+        events = float(sample.get("events", 0.0))
+        elapsed = float(sample.get("elapsed_s", 0.0))
+        shed = float(sample.get("shed", 0.0))
+        admitted = float(sample.get("admitted", 0.0))
+        offered = admitted + shed
+        # Throughput judges completion against DEMAND, capped at the
+        # capacity target: a healthy instance offered 200k ev/s that
+        # completes 200k is meeting demand (never a breach), a wedged
+        # pipeline (0 completed while intake keeps admitting) is the
+        # highest-severity breach, and demand above capacity going
+        # unserved burns against the target.  The comparison runs on a
+        # RUNNING DEFICIT (offered minus completed, floored at zero),
+        # not per-sample rates: egress completes in chain-granularity
+        # bursts (a K-deep ring lands ~K·width rows at once), so
+        # per-sample deltas alternate 0 / 2× and would read a healthy
+        # full ring as 50% breaching.  The deficit tolerates
+        # ``lag_tolerance_s`` worth of demand in flight and only judges
+        # bad once completion has fallen further behind than that.  No
+        # offered-load evidence → None: true idle is never burn, and
+        # completion alone cannot prove under-delivery.
+        backlog = float(sample.get("backlog", 0.0))
+        if t.throughput_eps > 0 and elapsed > 0 and offered > 0:
+            demand_eps = min(t.throughput_eps, offered / elapsed)
+            # ADMITTED minus completed, not offered: shed rows are
+            # refused at intake and can never become completions, so
+            # counting them here would grow a deficit no healthy
+            # operation could ever drain — a shedding episode is the
+            # shed_rate objective's burn, not throughput's
+            self._tp_deficit = max(0.0,
+                                   self._tp_deficit + admitted - events)
+            verdicts["throughput_eps"] = (
+                self._tp_deficit > self.lag_tolerance_s * demand_eps)
+        elif (t.throughput_eps > 0 and events == 0 and backlog > 0):
+            # no admission-side evidence (deployments without the
+            # overload controller alias admitted to completed, so a
+            # wedge shows offered == events == 0) — but rows sitting in
+            # the queue with NOTHING completing all sample is a stall
+            # witness in its own right.  A queue SNAPSHOT, deliberately
+            # not folded into the deficit: re-adding it every wedged
+            # sample would double-count the same rows and leave a
+            # residual lag no later sample could ever drain.
+            verdicts["throughput_eps"] = True
+        else:
+            verdicts["throughput_eps"] = None
+            if offered == 0 and events > 0:
+                # completions with no new offered load drain the lag
+                self._tp_deficit = max(0.0, self._tp_deficit - events)
+        p99 = sample.get("p99_ms")
+        verdicts["p99_ms"] = (float(p99) > t.p99_ms
+                              if p99 is not None else None)
+        verdicts["shed_rate"] = ((shed / offered) > t.shed_rate
+                                 if offered > 0 else None)
+        return verdicts
+
+    def observe(self, sample: Dict[str, float],
+                now: Optional[float] = None) -> Dict[str, float]:
+        """Feed one sample dict (``events``, ``elapsed_s``, ``p99_ms``,
+        ``shed``, ``admitted``) and run the alert evaluation.  Returns
+        the per-objective fast-window burn rates."""
+        now = self._clock() if now is None else now
+        burns: Dict[str, float] = {}
+        events: List[Tuple[str, str, float, float]] = []
+        with self._lock:
+            self.last_sample = dict(sample)
+            for name, bad in self._judge(sample).items():
+                fast, slow = self._windows[name]
+                if bad is not None:
+                    fast.add(now, bad)
+                    slow.add(now, bad)
+                else:
+                    # no evidence this sample — but time still passes:
+                    # old breach samples must age out or an armed alert
+                    # on a now-idle instance would never clear
+                    fast.prune(now)
+                    slow.prune(now)
+                burn_fast = fast.bad_fraction() / self.error_budget
+                burn_slow = slow.bad_fraction() / self.error_budget
+                self._g_burn[(name, "fast")].set(round(burn_fast, 4))
+                self._g_burn[(name, "slow")].set(round(burn_slow, 4))
+                burns[name] = burn_fast
+                action = self._evaluate_locked(name, burn_fast,
+                                               burn_slow, len(fast))
+                if action is not None:
+                    events.append((name, action, burn_fast, burn_slow))
+        # spans + hooks OUTSIDE the lock: on_alert typically writes a
+        # flight-recorder dump to disk — holding the lock through it
+        # would wedge snapshot()/topology() (the read surface an
+        # operator is refreshing) during the very incident being
+        # reported, and pin the dispatcher loop thread with it
+        for name, action, burn_fast, burn_slow in events:
+            self._emit_span(name, action, burn_fast, burn_slow)
+            if action == "arm":
+                logger.warning(
+                    "SLO burn alert: %s burning %.1fx budget "
+                    "(slow %.1fx)", name, burn_fast, burn_slow)
+                if self.on_alert is not None:
+                    try:
+                        self.on_alert(name, burn_fast)
+                    except Exception:
+                        logger.exception("SLO alert hook failed")
+            else:
+                logger.warning("SLO burn alert cleared: %s", name)
+        return burns
+
+    def _evaluate_locked(self, name: str, burn_fast: float,
+                         burn_slow: float,
+                         fast_n: int) -> Optional[str]:
+        """Update the alert state machine for one objective; returns
+        "arm"/"clear" when the state changed (the caller emits spans and
+        hooks after releasing the lock), else None."""
+        alerting = self._alerting[name]
+        if (not alerting and fast_n >= self.min_samples
+                and burn_fast >= self.alert_burn
+                and burn_slow >= self.alert_burn):
+            self._alerting[name] = True
+            self.alerts_fired += 1
+            self._g_alert[name].set(1)
+            return "arm"
+        if alerting and burn_fast < 1.0:
+            self._alerting[name] = False
+            self._g_alert[name].set(0)
+            return "clear"
+        return None
+
+    def _emit_span(self, name: str, action: str,
+                   burn_fast: float, burn_slow: float) -> None:
+        """The alert as a span through the shared tracer: operators see
+        WHEN the budget started burning in the same place as pipeline
+        and overload-transition spans."""
+        trace = self.tracer.trace("slo.burn")
+        with trace.span(f"slo.{name}_{action}") as sp:
+            sp.tag("objective", name)
+            sp.tag("action", action)
+            sp.tag("burn_fast", round(burn_fast, 3))
+            sp.tag("burn_slow", round(burn_slow, 3))
+            if action == "arm":
+                sp.error = (f"{name} burning {burn_fast:.1f}x "
+                            "error budget")
+        trace.end()
+
+    # -- read side -----------------------------------------------------------
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {
+                "targets": dataclasses.asdict(self.targets),
+                "windows_s": list(self.windows_s),
+                "error_budget": self.error_budget,
+                "alert_burn": self.alert_burn,
+                "alerts_fired": self.alerts_fired,
+                "objectives": {
+                    name: {
+                        "burn_fast": round(
+                            fast.bad_fraction() / self.error_budget, 4),
+                        "burn_slow": round(
+                            slow.bad_fraction() / self.error_budget, 4),
+                        "samples_fast": len(fast),
+                        "alerting": self._alerting[name],
+                    }
+                    for name, (fast, slow) in self._windows.items()
+                },
+                "last_sample": dict(self.last_sample),
+            }
 
 
 # Process-wide registry for cross-cutting counters (resilience: retries,

@@ -5,9 +5,10 @@ Counterpart of the epoch plumbing of ``sitewhere_tpu/state/manager.py``:
 carry that the K-deep ring threads through its steps, the presence
 reconciliation on commit (``_merge_presence`` :198), the presence sweep
 with its tenant lookup, the single-device and summary queries, and the
-checkpoint's host snapshot of the epoch (:meth:`snapshot_host`).
-``TenantPartitions`` and the migration import/export wait for later
-slices.
+checkpoint's host snapshot of the epoch (:meth:`snapshot_host`), and
+the per-tenant partition views (:class:`TenantPartitions`, the
+reference's :53, attached through :meth:`attach_partitions`).  The
+migration import/export waits for the multi-host slice.
 
 Epochs are immutable: a commit or a sweep replaces the held tensors and
 never writes into them, so a snapshot taken under the lock stays valid
@@ -17,8 +18,9 @@ after the lock is released.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import threading
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,7 +34,170 @@ from sitewhere_tpu_torch.pipeline.packed import (
     unpack_state,
 )
 from sitewhere_tpu_torch.schema import DeviceState, EventBatch
+from sitewhere_tpu_torch.services.common import EntityNotFound, require
 from sitewhere_tpu_torch.state.presence import presence_sweep, state_changes_for
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, int(n) - 1).bit_length()
+
+
+def _take(a, idx: torch.Tensor) -> torch.Tensor:
+    t = torch.as_tensor(a)
+    return t.index_select(0, idx.to(t.device))
+
+
+@functools.lru_cache(maxsize=64)
+def _partition_gather(rung: int):
+    """The padded gather of one partition rung, shared by every tenant on
+    that rung (padding rows gather device 0; the caller's ``valid``
+    masks them).  The reference jits one gather per pow2 rung; here it is
+    one ``index_select`` per field of a :class:`DeviceState` or a dict of
+    columns."""
+    del rung  # the cache key, as in the reference
+
+    def gather(state, idx: torch.Tensor, valid: torch.Tensor):
+        if isinstance(state, dict):
+            rows = {k: _take(v, idx) for k, v in state.items()}
+        else:
+            rows = DeviceState(**{
+                f.name: _take(getattr(state, f.name), idx)
+                for f in dataclasses.fields(state)})
+        return rows, valid
+
+    return gather
+
+
+class TenantPartitions:
+    """Per-tenant pow2 capacity ladders over the shared state tensors.
+
+    The global :class:`DeviceState` epoch is one fixed-capacity tensor
+    set; tenant isolation at this layer means each tenant's query surface
+    runs through its own padded partition view: a gather of the tenant's
+    device rows padded to a pow2 rung.  Rungs ride a sticky ladder (grow
+    to the next pow2 when the tenant's device count exceeds the rung,
+    shrink only once the count falls to a quarter of it), so
+    registration churn inside one tenant moves only THAT tenant's rung.
+    ``compile_count`` counts a tenant's rung transitions, as the
+    reference counts its per-rung compiles: churn in a noisy tenant
+    leaves it flat for every other tenant.
+    """
+
+    def __init__(self, tenant_column_provider,
+                 min_capacity: int = 64, metrics=None):
+        self._provider = tenant_column_provider
+        self.min_capacity = _next_pow2(max(1, int(min_capacity)))
+        self._lock = threading.Lock()
+        # tenant_id -> {"count", "rung", "compile_count"}
+        self._parts: Dict[int, Dict[str, int]] = {}
+        self._column: Optional[np.ndarray] = None
+        self._m_tracked = None
+        self._m_compiles = None
+        self._m_resizes = None
+        if metrics is not None:
+            self.bind_metrics(metrics)
+
+    def bind_metrics(self, metrics) -> None:
+        self._m_tracked = metrics.gauge("tenant.partition.tracked")
+        self._m_compiles = metrics.counter("tenant.partition.compiles")
+        self._m_resizes = metrics.counter("tenant.partition.resizes")
+
+    def refresh(self) -> None:
+        """Re-derive per-tenant device counts from the registry mirror's
+        tenant column and walk each tenant's rung ladder (an O(capacity)
+        bincount, off the step path)."""
+        col = np.asarray(self._provider())
+        owned = col[col >= 0]
+        counts = (np.bincount(owned) if owned.size
+                  else np.zeros(0, np.int64))
+        tenants = np.nonzero(counts)[0]
+        with self._lock:
+            self._column = col
+            for t in tenants.tolist():
+                count = int(counts[t])
+                part = self._parts.get(t)
+                if part is None:
+                    self._parts[t] = {
+                        "count": count,
+                        "rung": max(self.min_capacity, _next_pow2(count)),
+                        "compile_count": 1,
+                    }
+                    if self._m_compiles is not None:
+                        self._m_compiles.inc()
+                    continue
+                part["count"] = count
+                rung = part["rung"]
+                if count > rung:
+                    part["rung"] = _next_pow2(count)
+                elif (count <= rung // 4
+                      and rung > self.min_capacity):
+                    # shrink-at-quarter hysteresis: a tenant oscillating
+                    # around a rung boundary never flaps its view
+                    part["rung"] = max(self.min_capacity,
+                                       _next_pow2(count))
+                if part["rung"] != rung:
+                    part["compile_count"] += 1
+                    if self._m_compiles is not None:
+                        self._m_compiles.inc()
+                    if self._m_resizes is not None:
+                        self._m_resizes.inc()
+            if self._m_tracked is not None:
+                self._m_tracked.set(len(self._parts))
+
+    def tenants(self) -> List[int]:
+        with self._lock:
+            return sorted(self._parts)
+
+    def compile_count(self, tenant_id: int) -> int:
+        with self._lock:
+            part = self._parts.get(int(tenant_id))
+            return 0 if part is None else part["compile_count"]
+
+    def partition_of(self, tenant_id: int) -> Optional[Dict[str, int]]:
+        with self._lock:
+            part = self._parts.get(int(tenant_id))
+            return None if part is None else dict(part)
+
+    def indices_of(self, tenant_id: int):
+        """``(idx, valid)`` for one tenant's partition view: the tenant's
+        device ids padded to its rung (padding gathers row 0, masked out
+        by ``valid``).  None if the tenant owns nothing."""
+        with self._lock:
+            part = self._parts.get(int(tenant_id))
+            col = self._column
+        if part is None or col is None:
+            return None
+        ids = np.nonzero(col == int(tenant_id))[0].astype(np.int32)
+        rung = part["rung"]
+        idx = np.zeros(rung, np.int32)
+        valid = np.zeros(rung, bool)
+        n = min(len(ids), rung)
+        idx[:n] = ids[:n]
+        valid[:n] = True
+        return idx, valid
+
+    def view(self, state: DeviceState, tenant_id: int):
+        """Padded per-tenant gather of ``state``: ``(rows, valid)`` on
+        the state's device."""
+        iv = self.indices_of(tenant_id)
+        if iv is None:
+            return None
+        idx, valid = iv
+        first = (next(iter(state.values())) if isinstance(state, dict)
+                 else state.last_event_type)
+        dev = torch.as_tensor(first).device
+        gather = _partition_gather(len(idx))
+        return gather(state, torch.from_numpy(idx.astype(np.int64)).to(dev),
+                      torch.from_numpy(valid).to(dev))
+
+    def snapshot(self) -> Dict[str, object]:
+        with self._lock:
+            return {
+                "tenants": len(self._parts),
+                "min_capacity": self.min_capacity,
+                "partitions": {str(t): dict(p)
+                               for t, p in sorted(self._parts.items())},
+            }
 
 
 def _merge_presence(new_si: torch.Tensor, cur_si: torch.Tensor,
@@ -82,8 +247,50 @@ class DeviceStateManager:
         # CPU): a host snapshot copies on it, ordered after the work that
         # produced the epoch
         self._stream = None
-        # count of lease_packed() calls
+        # count of lease_packed() calls: a failed chain is recovered by
+        # leasing AGAIN from the still-held epoch, so "re-leased without
+        # restart" is this count advancing on one live manager
         self.lease_generation = 0
+        # tenant-partitioned query views (attach_partitions)
+        self.partitions: Optional[TenantPartitions] = None
+
+    def attach_partitions(self, tenant_column_provider,
+                          min_capacity: int = 64,
+                          metrics=None) -> TenantPartitions:
+        """Wire the tenant-partition ladder (the instance passes the
+        registry mirror's tenant column provider)."""
+        self.partitions = TenantPartitions(
+            tenant_column_provider, min_capacity=min_capacity,
+            metrics=metrics)
+        return self.partitions
+
+    def tenant_state_summary(self, tenant_id: int) -> Dict[str, object]:
+        """Per-tenant state summary through the tenant's partition view:
+        the partitioned analog of :meth:`summary`."""
+        require(self.partitions is not None,
+                EntityNotFound("tenant partitions are not attached"))
+        self.partitions.refresh()
+        part = self.partitions.partition_of(tenant_id)
+        if part is None:
+            return {"devices": 0, "capacity": 0, "compile_count": 0,
+                    "devices_with_state": 0, "devices_missing": 0}
+        with self._lock:
+            s = self.current
+        view = self.partitions.view(s, tenant_id)
+        if view is None:   # raced a refresh that dropped the column
+            return {"devices": part["count"], "capacity": part["rung"],
+                    "compile_count": part["compile_count"],
+                    "devices_with_state": 0, "devices_missing": 0}
+        rows, valid = view
+        has = (rows.last_event_type != NULL_ID) & valid
+        missing = rows.presence_missing & valid
+        return {
+            "devices": part["count"],
+            "capacity": part["rung"],
+            "compile_count": part["compile_count"],
+            "devices_with_state": int(has.sum()),
+            "devices_missing": int(missing.sum()),
+        }
 
     def _note_stream(self) -> None:
         if self.device.type == "cuda":

@@ -448,10 +448,15 @@ def test_unsupported_config_is_refused(tmp_path):
                  {"pipeline": {"n_shards": 2}},
                  {"presence": {"scan_interval_s": 60.0}},
                  {"rpc": {"peers": ["a:1", "b:2"]}},
-                 {"overload": {"enabled": False}}):
+                 {"outbound": {"connectors": [{"id": "x"}]}}):
         with pytest.raises(NotImplementedError):
             refuse_unsupported(Config(tree, apply_env=False))
     refuse_unsupported(config(tmp_path))
+    # the control plane's sections are the Instance's since devguard and
+    # the control plane came
+    refuse_unsupported(Config({"overload": {"enabled": False},
+                               "metering": {"top_k": 8}},
+                              apply_env=False))
     # the analytics section is the runner's since streaming analytics
     refuse_unsupported(Config({"analytics": {"max_queries": 8,
                                              "enabled": False}},

@@ -106,7 +106,10 @@ def test_dispatcher_raises_without_a_card(monkeypatch):
 
 def test_port_has_no_cpu_step_fallback():
     """No counterpart of the reference's ``_cpu_packed_step`` and no
-    ``except`` that reroutes a device step: a device fault propagates."""
+    ``except`` that reroutes a device step: a failed step is contained on
+    its own device (re-dispatch, bisection through
+    ``_contain_step_failure``) or fails closed, and the breaker's
+    FALLBACK level fails closed on a card (``_fallback_step``)."""
     import ast
 
     src = REPO / "sitewhere_tpu_torch" / "runtime" / "dispatcher.py"
@@ -117,6 +120,7 @@ def test_port_has_no_cpu_step_fallback():
     for node in ast.walk(tree):
         if isinstance(node, ast.ExceptHandler):
             body = ast.dump(ast.Module(body=node.body, type_ignores=[]))
+            body = body.replace("'_contain_step_failure'", "")
             assert "_packed_step" not in body and "_step" not in body \
                 and "'cpu'" not in body, ast.get_source_segment(
                     src.read_text(), node)
@@ -287,6 +291,55 @@ def test_slice7_module_imports_without_jax(slice7_imports, name):
     out, bad = slice7_imports
     assert out[name] == "ok"
     assert bad == []
+
+
+# The device-fault containment and control-plane slice, each module
+# imported on its own with JAX and the reference blocked.
+SLICE8_MODULES = (
+    "runtime.devguard", "runtime.faults", "runtime.flightrec",
+    "runtime.overload", "runtime.metering", "runtime.metrics",
+    "state.manager", "runtime.dispatcher", "instance",
+)
+
+
+@pytest.fixture(scope="module")
+def slice8_imports():
+    import json
+
+    proc = subprocess.run(
+        [sys.executable, "-c", _ONE_BY_ONE, *SLICE8_MODULES], cwd=REPO,
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout.strip())
+
+
+@pytest.mark.parametrize("name", SLICE8_MODULES)
+def test_slice8_module_imports_without_jax(slice8_imports, name):
+    out, bad = slice8_imports
+    assert out[name] == "ok"
+    assert bad == []
+
+
+def test_devfault_tool_imports_without_jax():
+    """The port's containment bench imports nothing of JAX or the
+    reference."""
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['sitewhere_tpu'] = None; "
+            "sys.path.insert(0, 'tools'); import torch_devfault_bench")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_wire_ab_tool_imports_without_jax():
+    """The port's parent/change wire comparison imports nothing of JAX or
+    the reference."""
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['sitewhere_tpu'] = None; "
+            "sys.path.insert(0, 'tools'); import torch_wire_ab")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
 
 
 def test_registry_mirror_raises_without_a_card(monkeypatch):

@@ -452,3 +452,83 @@ def journal_files(journal):
     journal.flush()
     return {name: open(os.path.join(journal.dir, name), "rb").read()
             for name in sorted(os.listdir(journal.dir))}
+
+
+# -- the reference's own test modules, run against the port ------------------
+
+def port_test_module(path, replace=()):
+    """The reference test module at ``path`` with every ``sitewhere_tpu``
+    import pointing at the port: each port ``Instance`` on the CPU, and
+    the ``presence`` section (a component the port does not compose, so
+    its settings do not bear on a case) left out of every ``Config``.
+    ``replace``: ``(old, new)`` source edits applied first, for imports
+    of names the port does not have."""
+    import re
+    from pathlib import Path
+
+    path = Path(path)
+    src = path.read_text()
+    for old, new in replace:
+        assert old in src, old
+        src = src.replace(old, new)
+    src = re.sub(r"\bsitewhere_tpu\.", "sitewhere_tpu_torch.", src)
+    src = src.replace(
+        "from sitewhere_tpu_torch.instance import Instance",
+        "from torch_parity import CpuInstance as Instance")
+    src = src.replace(
+        "from sitewhere_tpu_torch.runtime.config import Config",
+        "from torch_parity import PortConfig as Config")
+    ns = {"__name__": f"port_{path.stem}", "__file__": str(path)}
+    exec(compile(src, f"<port {path.stem}>", "exec"), ns)
+    return ns
+
+
+def CpuInstance(config=None, **kw):
+    from sitewhere_tpu_torch.instance import Instance
+
+    kw.setdefault("device", "cpu")
+    return Instance(config, **kw)
+
+
+def PortConfig(tree=None, **kw):
+    from sitewhere_tpu_torch.runtime.config import Config
+
+    tree = {k: v for k, v in (tree or {}).items() if k != "presence"}
+    return Config(tree, **kw)
+
+
+def reference_cases(path, skip=()):
+    """``class.method`` / function ids of every test in the reference
+    module at ``path``, apart from the names in ``skip``."""
+    import re
+    from pathlib import Path
+
+    src = Path(path).read_text()
+    tests = re.findall(r"^def (test_\w+)\(", src, re.M)
+    for cls, body in re.findall(r"^class (Test\w+):\n((?:    .*\n|\n)+)",
+                                src, re.M):
+        tests += [f"{cls}.{m}" for m in
+                  re.findall(r"^    def (test_\w+)\(", body, re.M)]
+    return [t for t in tests
+            if t.split(".")[-1] not in skip and t.split(".")[0] not in skip]
+
+
+def run_port_case(ns, case, tmp_path, fixtures=None):
+    """Run one reference case from a :func:`port_test_module` namespace;
+    ``tmp_path`` and ``fixtures`` (name -> value) fill its parameters."""
+    import inspect
+
+    if "." in case:
+        cls, method = case.split(".")
+        fn = getattr(ns[cls](), method)
+    else:
+        fn = ns[case]
+    args = {}
+    for param in inspect.signature(fn).parameters:
+        if param == "tmp_path":
+            args[param] = tmp_path
+        elif fixtures and param in fixtures:
+            args[param] = fixtures[param]
+        else:
+            args[param] = ns[param].__wrapped__()
+    fn(**args)

@@ -176,7 +176,39 @@ script exits non-zero without printing a result:
    flight-recorder dumps and bytes, host syncs per batch with metering
    on and off (equal), the ``tenant-metering`` section saved and
    restored;
-12. a small input run on the card and on the CPU: identical int outputs.
+12. the ingest sources (phase ``ingest_sources``), declared in the
+   ``Instance`` config's ``sources`` section and built through
+   ``ingest/factory.py build_sources``, over the world checkpoint that
+   device_services used (2^20 slots, 1,000,000 devices, width 131072, 5
+   ms, ring off).  ``sources_wire``: one TCP source (length framing,
+   ``raw_wire``, decoder json); one sender connection sends 8 full-width
+   60/30/10 payloads, each as two frames of 65536 lines (a whole one
+   passes the receiver's 16 MiB frame cap), and 8 measurement-only ones,
+   each payload's devices distinct and disjoint from its neighbours'
+   (so the device state cannot depend on where the deadline cuts
+   plans), into a fresh ``Instance`` with ``ingest.decode_workers`` 2
+   (the decode pool) and again with 0 (synchronous): events/s from the
+   first byte sent to ``flush()``, latency per plan, the pool's jobs,
+   its depth and the ``decode_backlog`` signal's maximum, host ms per
+   stage, adopted plans; checks: the two runs store the same rows and
+   end in bitwise equal device state, committed offset == journal
+   records == frames, kernel launches == steps, ``native.build_fallbacks``
+   0, every frame a pool job and ``decode_backlog`` > 0 in the pooled
+   run.  ``sources_protocols``: one ``Instance`` (pool at its default,
+   2 workers) with a UDP (64 datagrams of 256 lines), an HTTP (16 POSTs
+   of 4096), a hosted MQTT broker (16 QoS-1 publishes of 4096 from the
+   port's ``MqttClient``), a CoAP (64 CON POSTs of 64) and a TCP source
+   (decoder ``jsonlines``, dedup at its default 2^20 window, 16 payloads
+   of 16384 lines with unique alternateIds, then 4 of them again);
+   payloads, rows stored, shed and failed counts and ms per payload by
+   source; checks: every line stored once, the 65,536 resent lines
+   refused as duplicates, ack-gated receivers (HTTP, MQTT broker, CoAP)
+   never through the pool, launches == steps.  ``sources_restart``:
+   after ``stop()`` a fresh ``Instance`` on the same directory restores
+   the ``runtime`` section (its bytes, save and restore ms), re-seeds
+   the dedup window through ``add_source`` and refuses the same 4
+   resent payloads, all 65,536 lines, storing nothing twice;
+13. a small input run on the card and on the CPU: identical int outputs.
 
 Every ``Instance`` run before ``control_plane`` turns the overload
 ladder and the SLO engine off (``instance_config``), as the reference's
@@ -203,6 +235,8 @@ import math
 import os
 import shutil
 import signal
+import socket
+import struct
 import subprocess
 import sys
 import tempfile
@@ -226,6 +260,11 @@ RING_K, TIMED_RINGS = 8, 16
 SEED = 20261016
 # the wire path (phase dispatcher_wire)
 WIRE_PAYLOADS = 3 * RING_K        # full-width payloads: 3 rings at K=8
+# The Instance's 60/30/10 wire runs of persist_recover and byo_rules take
+# the first 2 rings' worth of those payloads: with registration composed
+# each runs at 27k-47k events/s, and with all 24 the whole script took
+# 1,050 s of its 1,200 on an H100 host once ingest_sources joined it
+INSTANCE_WIRE_PAYLOADS = 2 * RING_K
 WIRE_GHOSTS = 0.005               # share of lines from unregistered tokens
 # The deployment's batcher deadline (README.md:99-105).  A ring lingers
 # one deadline at most, and even the native decode takes far longer than
@@ -780,13 +819,16 @@ _A_LINE = ('{"deviceToken":"%s","type":"DeviceAlert","request":'
            '{"type":"device-%d","level":"warning","eventDate":%d}}')
 
 
-def wire_payloads(rng, n_payloads, lines, ts0_ms):
+def wire_payloads(rng, n_payloads, lines, ts0_ms, devices=None):
     """NDJSON payloads of ``lines`` lines, 60/30/10 measurements,
     locations and alerts, a share of unregistered tokens; one second of
-    event time per payload.  Returns ``[(bytes, registered_lines)]``."""
+    event time per payload.  ``devices(p)``, when given, names payload
+    ``p``'s devices (else they are drawn with replacement).  Returns
+    ``[(bytes, registered_lines)]``."""
     out = []
     for p in range(n_payloads):
-        dev = rng.integers(0, N_ACTIVE, lines)
+        dev = (rng.integers(0, N_ACTIVE, lines) if devices is None
+               else devices(p))
         ghost = rng.random(lines) < WIRE_GHOSTS
         kind = rng.choice(3, lines, p=[0.6, 0.3, 0.1])
         value = rng.uniform(0, 100, lines)
@@ -808,15 +850,17 @@ def wire_payloads(rng, n_payloads, lines, ts0_ms):
     return out
 
 
-def measurement_payloads(rng, n_payloads, lines, ts0_ms):
+def measurement_payloads(rng, n_payloads, lines, ts0_ms, devices=None):
     """Measurement-only NDJSON payloads of ``lines`` lines (the fleet's
     dominant shape), values in MEAS_VALUE_BAND, the same share of
-    unregistered tokens; one second of event time per payload.  Returns
+    unregistered tokens; one second of event time per payload;
+    ``devices`` as in :func:`wire_payloads`.  Returns
     ``[(bytes, registered_lines)]``."""
     out = []
     lo, hi = MEAS_VALUE_BAND
     for p in range(n_payloads):
-        dev = rng.integers(0, N_ACTIVE, lines)
+        dev = (rng.integers(0, N_ACTIVE, lines) if devices is None
+               else devices(p))
         ghost = rng.random(lines) < WIRE_GHOSTS
         value = rng.uniform(lo, hi, lines)
         ts = ts0_ms + 1000 * p + 250 * rng.integers(0, 4, lines)
@@ -3651,21 +3695,589 @@ def ds_restore(device, data_dir, saved, saved_mirror, save_stats):
           "restored device types, commands or assignment index wrong")
 
 
-def phase_device_services(device, geo_cuda, mixed, logs):
+def phase_device_services(device, geo_cuda, mixed, logs, world):
     """The device system of record, auto-registration and command delivery
-    on the wire path (see the module docstring, phase 10); ``logs`` is
-    the run's :class:`LogTally`.  Returns the kernel's launches in the
-    wire run, by run name."""
+    on the wire path (see the module docstring, phase 10), over the
+    deployment's world checkpoint ``world``; ``logs`` is the run's
+    :class:`LogTally`.  Returns the kernel's launches in the wire run, by
+    run name."""
     t0 = time.perf_counter()
     root = tempfile.mkdtemp(prefix="devices-", dir=geo_cuda.BUILD_DIR)
     launches = {}
     try:
-        world = world_checkpoint(device, root, "full")
         launches["device_services_wire"] = device_services_run(
             device, geo_cuda, world, mixed[:DS_PAYLOADS], root, logs)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     emit({"phase": "device_services", "run": "done",
+          "seconds": time.perf_counter() - t0})
+    return launches
+
+
+# -- the ingest sources (phase ingest_sources) ----------------------------------
+
+IS_TS0_MS = WIRE_TS0_MS + 50_000_000
+IS_MIXED, IS_MEAS = 8, 8
+# length_prefixed_frames refuses a frame over 16 MiB (the reference's cap,
+# kept); a full-width 60/30/10 payload is about 16.8 MB, so it goes as two
+# frames of 65536 lines, a measurement-only one (about 15.7 MB) as one
+IS_FRAME_CAP = 16 << 20
+# sources_wire: each payload's devices are distinct, and disjoint from the
+# next six payloads' (blocks of a permutation of the fleet): no plan can
+# hold two rows of one device, wherever the 5 ms deadline and the
+# re-injected derived alerts cut the plans, so the pooled and the
+# synchronous runs must end in the same state, bit for bit
+IS_BLOCKS = N_ACTIVE // FULL_B
+# sources_protocols: (payloads, lines) per source; every line's device
+# distinct across the run (no rule can fire), every line's eventDate
+# distinct within its source's own window of event time
+IS_PROTOCOLS = (("udp", 64, 256), ("http", 16, 4096),
+                ("mqtt", 16, 4096), ("coap", 64, 64), ("tcp", 16, 16384))
+IS_RESENT = 4
+IS_WINDOW_MS = 10_000_000
+IS_SAMPLE_S = 0.002
+_MA_LINE = ('{"deviceToken":"d-%d","type":"DeviceMeasurements","request":'
+            '{"name":"m%d","value":%.3f,"eventDate":%d,"alternateId":'
+            '"alt-%d"}}')
+
+
+def is_sources(**receivers):
+    """The config's ``sources`` section: one source per named receiver
+    document, ``raw_wire`` with the json decoder unless the document
+    carries its own ``decoder`` / ``dedup``."""
+    out = []
+    for sid, doc in receivers.items():
+        doc = dict(doc)
+        src = {"id": sid, "decoder": doc.pop("decoder", "json"),
+               "receivers": [doc]}
+        if "dedup" in doc:
+            src["dedup"] = doc.pop("dedup")
+        else:
+            src["raw_wire"] = True
+        out.append(src)
+    return out
+
+
+def is_frames(payloads):
+    """Length-framed frames of ``payloads``: each whole when it fits the
+    cap, else halved at a line boundary.  Returns ``(frames, lines,
+    registered lines)``."""
+    frames, lines, registered = [], 0, 0
+    for payload, reg in payloads:
+        n = payload.count(b"\n") + 1
+        lines += n
+        registered += reg
+        if len(payload) <= IS_FRAME_CAP:
+            frames.append(payload)
+            continue
+        cut = -1
+        for _ in range(n // 2):
+            cut = payload.index(b"\n", cut + 1)
+        frames += [payload[:cut], payload[cut + 1:]]
+    check(all(len(f) <= IS_FRAME_CAP for f in frames),
+          "a frame over the receiver's 16 MiB cap")
+    return frames, lines, registered
+
+
+class BacklogSampler:
+    """The decode pool's depth gauge and the overload ladder's
+    ``decode_backlog`` signal, read every IS_SAMPLE_S while a run is on;
+    keeps the maxima."""
+
+    def __init__(self, inst):
+        self.inst = inst
+        self.depth = 0.0
+        self.backlog = 0.0
+        self.samples = 0
+        self._stop = threading.Event()
+        self._gauge = inst.metrics.gauge("ingest.decode_pool_depth")
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="backlog-sampler")
+        self._thread.start()
+
+    def _run(self):
+        while not self._stop.wait(IS_SAMPLE_S):
+            self.depth = max(self.depth, float(self._gauge.value))
+            self.backlog = max(
+                self.backlog, self.inst._overload_signals().decode_backlog)
+            self.samples += 1
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(timeout=5.0)
+
+
+def is_wait(cond, what, timeout_s=600.0):
+    deadline = time.monotonic() + timeout_s
+    while not cond():
+        check(time.monotonic() < deadline, f"timed out waiting: {what}")
+        time.sleep(0.001)
+
+
+def stored_rows_by(store, windows):
+    """Rows per event-time window (``{name: (lo_ms, hi_ms)}``), distinct
+    event times per window, and the order-independent checksum of every
+    stored row."""
+    counts = dict.fromkeys(windows, 0)
+    times = {k: [] for k in windows}
+    total = {"rows": 0, "sum": 0}
+    for cols in store.iter_chunks():
+        n, h = row_checksum(cols)
+        total["rows"] += n
+        total["sum"] = (total["sum"] + h) % (1 << 64)
+        # eventDate ms -> (s, ns) goes through a float: round, not floor
+        ms = (np.asarray(cols["ts_s"], np.int64) * 1000
+              + (np.asarray(cols["ts_ns"], np.int64) + 500_000) // 1_000_000)
+        for k, (lo, hi) in windows.items():
+            m = (ms >= lo) & (ms < hi)
+            counts[k] += int(m.sum())
+            times[k].append(ms[m])
+    distinct = {k: int(np.unique(np.concatenate(v)).size) if v else 0
+                for k, v in times.items()}
+    return counts, distinct, total
+
+
+def sources_wire_run(device, geo_cuda, world, frames, expect, root,
+                     workers):
+    """One config-declared TCP source (length framing, ``raw_wire``,
+    decoder json) in a fresh ``Instance`` restored from the world, with
+    ``ingest.decode_workers`` at ``workers``; one sender connection sends
+    every frame.  Timed from the first byte sent to the return of
+    ``flush()``.  Returns the run's record, its state and checksum."""
+    import torch
+
+    from sitewhere_tpu_torch import native
+
+    lines, registered = expect
+    data_dir = os.path.join(root, f"sources_wire-{workers}")
+    sources = is_sources(wire={"type": "tcp", "port": 0,
+                               "framing": "length"})
+    inst = instance_from_world(device, world, data_dir, CAPACITY, FULL_B, 0,
+                               WIRE_DEADLINE_MS, sources=sources,
+                               ingest={"decode_workers": workers})
+    disp = inst.dispatcher
+    adopted = count_adopted(inst.batcher)
+    inst.start()
+    spans = DeviceSpans(disp)
+    src = inst.sources[0]
+    pool = inst.decode_pool
+    check((pool is not None) == (workers > 0),
+          f"decode pool {pool} at decode_workers={workers}")
+    check(src._pool_usable() == (workers > 0),
+          "the TCP source's use of the decode pool")
+    jobs = inst.metrics.counter("ingest.decode_pool_jobs")
+    try:
+        torch.cuda.synchronize()
+        snap0 = disp.metrics_snapshot()
+        stages0 = _stage_totals(disp)
+        records0 = inst.ingest_journal.end_offset
+        jobs0 = jobs.value
+        rejected0 = inst.registration.rejected
+        disp.latencies_s.clear()
+        sampler = BacklogSampler(inst)
+        sent = {}
+
+        def send():
+            t = time.perf_counter()
+            with socket.create_connection(
+                    ("127.0.0.1", src.receivers[0].port), timeout=60) as s:
+                for f in frames:
+                    s.sendall(struct.pack(">I", len(f)) + f)
+            sent["s"] = time.perf_counter() - t
+
+        geo_cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        sender = threading.Thread(target=send, name="sources-wire-sender")
+        sender.start()
+        is_wait(lambda: src.decoded_count + src.failed_count
+                + src.shed_count >= lines, "the wire source's rows")
+        sender.join(timeout=60.0)
+        if pool is not None:
+            check(pool.flush(600.0), "decode pool did not drain")
+        settle(inst)
+        elapsed = time.perf_counter() - t0
+        sampler.stop()
+        launches = geo_cuda.launch_counts["pip_parity"]
+        snap = disp.metrics_snapshot()
+        stage_ms = _stage_ms(disp, stages0)
+        latency = _latency(disp, "max")
+        span_ms = spans.total_ms()
+        committed = disp.journal_reader.committed
+        records = inst.ingest_journal.end_offset - records0
+        rejected = inst.registration.rejected - rejected0
+        state = inst.device_state.snapshot_host()
+        inst.stop()
+        _, _, stored = stored_rows_by(inst.event_store, {})
+    finally:
+        inst.terminate()
+    delta = {k: snap[k] - snap0[k] for k in (
+        "steps", "processed", "accepted", "unregistered", "derived_alerts")}
+    rec = {"phase": "ingest_sources", "run": "sources_wire",
+           "decode_workers": workers, "frames": len(frames),
+           "lines": lines, "elapsed_s": elapsed,
+           "events_per_s": lines / elapsed, "send_s": sent.get("s"),
+           **latency, "stage_ms": stage_ms,
+           "decode_pool_jobs": jobs.value - jobs0,
+           "decode_pool_depth_max": sampler.depth,
+           "decode_backlog_max": sampler.backlog,
+           "backlog_samples": sampler.samples,
+           "adopted_plans": len(adopted),
+           # requests of the plans' journal records handed to registration
+           # and refused (no default device type): ghosts and straddles
+           "registration_rejected": rejected,
+           "source": {"received": src.receivers[0].received_count,
+                      "rows": src.decoded_count,
+                      "failed": src.failed_count, "shed": src.shed_count},
+           "pip_launches": launches, "committed": committed,
+           "journal_records": records, "rows_stored": stored["rows"],
+           "build_fallbacks": native.build_fallbacks, **delta}
+    rec.update(guard_counts(disp.metrics, "ingest_sources"))
+    emit(_busy(rec, span_ms, None, elapsed, delta["steps"]))
+    check(src.failed_count == 0 and src.shed_count == 0,
+          f"wire source: {src.failed_count} failed, {src.shed_count} shed")
+    check(src.decoded_count == lines,
+          f"wire source took {src.decoded_count} rows of {lines} lines")
+    check(launches == delta["steps"],
+          f"kernel launched {launches}x in {delta['steps']} dispatcher steps")
+    check(delta["accepted"] == registered + delta["derived_alerts"],
+          f"accepted {delta['accepted']} != registered {registered} + "
+          f"derived {delta['derived_alerts']}")
+    check(stored["rows"] == delta["accepted"],
+          f"stored {stored['rows']} rows of {delta['accepted']} accepted")
+    check(committed == records == len(frames),
+          f"committed offset {committed}, journal records {records}, "
+          f"frames {len(frames)}")
+    check(native.build_fallbacks == 0,
+          f"{native.build_fallbacks} payloads took the Python decode")
+    if workers:
+        check(rec["decode_pool_jobs"] == len(frames),
+              f"{rec['decode_pool_jobs']} pool jobs for {len(frames)} frames")
+        check(sampler.backlog > 0, "decode_backlog never rose above 0")
+    shutil.rmtree(data_dir, ignore_errors=True)
+    return rec, state, stored
+
+
+def is_protocol_lines(rng, devices, n, ts0_ms, alt0=None):
+    """``n`` measurement lines of the given devices (values where no rule
+    fires), eventDate ``ts0_ms + i``; with ``alt0``, alternateIds
+    ``alt-<alt0 + i>``."""
+    lo, hi = MEAS_VALUE_BAND
+    value = rng.uniform(lo, hi, n)
+    if alt0 is None:
+        return [_M_LINE % (f"d-{d}", d % M_SLOTS, v, ts0_ms + i)
+                for i, (d, v) in enumerate(zip(devices.tolist(),
+                                               value.tolist()))]
+    return [_MA_LINE % (d, d % M_SLOTS, v, ts0_ms + i, alt0 + i)
+            for i, (d, v) in enumerate(zip(devices.tolist(),
+                                           value.tolist()))]
+
+
+def is_protocol_traffic(rng):
+    """Payloads per source, each source's lines in its own event-time
+    window, every device once across the run."""
+    perm = rng.permutation(N_ACTIVE)
+    at, out, windows = 0, {}, {}
+    for k, (sid, n_payloads, n_lines) in enumerate(IS_PROTOCOLS):
+        ts0 = IS_TS0_MS + (k + 1) * IS_WINDOW_MS
+        windows[sid] = (ts0, ts0 + IS_WINDOW_MS)
+        payloads = []
+        for p in range(n_payloads):
+            devs = perm[at:at + n_lines]
+            at += n_lines
+            lines = is_protocol_lines(
+                rng, devs, n_lines, ts0 + p * n_lines,
+                alt0=p * n_lines if sid == "tcp" else None)
+            payloads.append("\n".join(lines).encode())
+        out[sid] = payloads
+    return out, windows
+
+
+def is_send_udp(rx, payloads):
+    """One datagram per payload, each sent once the receiver took the
+    previous one (a burst would overrun the socket's buffer)."""
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+        for p in payloads:
+            n = rx.received_count
+            s.sendto(p, ("127.0.0.1", rx.port))
+            is_wait(lambda: rx.received_count > n, "a UDP datagram",
+                    timeout_s=30.0)
+
+
+def is_send_http(rx, payloads):
+    import urllib.request
+
+    url = f"http://127.0.0.1:{rx.port}{rx.path}"
+    for p in payloads:
+        with urllib.request.urlopen(urllib.request.Request(
+                url, data=p, method="POST"), timeout=60) as resp:
+            check(resp.status == 202, f"HTTP answered {resp.status}")
+
+
+def is_send_mqtt(rx, payloads):
+    from sitewhere_tpu_torch.ingest.mqtt import MqttClient
+
+    client = MqttClient("127.0.0.1", rx.port, client_id="chip-smoke-device")
+    client.connect()
+    try:
+        for i, p in enumerate(payloads):
+            client.publish(f"sitewhere/input/dev-{i}", p, qos=1)
+            check(client.drain_publishes(timeout=60.0),
+                  "the hosted broker withheld a PUBACK")
+    finally:
+        client.disconnect()
+
+
+def is_send_coap(rx, payloads):
+    from sitewhere_tpu_torch.ingest import coap
+
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+        s.settimeout(60.0)
+        for mid, p in enumerate(payloads, 1):
+            s.sendto(coap.encode_post("events", p, mid, token=b"cs"),
+                     ("127.0.0.1", rx.port))
+            data, _ = s.recvfrom(65536)
+            reply = coap.parse_message(data)
+            check(reply.mtype == coap.ACK and reply.message_id == mid
+                  and reply.code == coap.CHANGED_204,
+                  f"CoAP answered {reply}")
+
+
+def is_send_tcp(rx, payloads):
+    with socket.create_connection(("127.0.0.1", rx.port), timeout=60) as s:
+        for p in payloads:
+            s.sendall(struct.pack(">I", len(p)) + p)
+
+
+IS_SENDERS = {"udp": is_send_udp, "http": is_send_http,
+              "mqtt": is_send_mqtt, "coap": is_send_coap,
+              "tcp": is_send_tcp}
+IS_RECEIVERS = {
+    "udp": {"type": "udp", "port": 0},
+    "http": {"type": "http", "port": 0},
+    "mqtt": {"type": "mqtt-broker", "port": 0},
+    "coap": {"type": "coap", "port": 0},
+    # the dedup window at its default size (2^20 alternate ids)
+    "tcp": {"type": "tcp", "port": 0, "decoder": "jsonlines", "dedup": {}},
+}
+
+
+def is_drive(inst, sid, payloads, resent=()):
+    """Send one source's payloads (then ``resent``) and wait until the
+    source took every line; returns the ms per payload and the decode
+    pool's jobs for it."""
+    src = {s.source_id: s for s in inst.sources}[sid]
+    jobs = inst.metrics.counter("ingest.decode_pool_jobs")
+    jobs0 = jobs.value
+    lines = sum(p.count(b"\n") + 1 for p in payloads)
+    dups = sum(p.count(b"\n") + 1 for p in resent)
+    took0 = (src.decoded_count, src.duplicate_count)
+    t0 = time.perf_counter()
+    IS_SENDERS[sid](src.receivers[0], list(payloads) + list(resent))
+    is_wait(lambda: (src.decoded_count - took0[0] + src.failed_count
+                     + src.shed_count >= lines
+                     and src.duplicate_count - took0[1] >= dups),
+            f"source {sid}'s lines")
+    if inst.decode_pool is not None:
+        check(inst.decode_pool.flush(600.0), "decode pool did not drain")
+    ms = (time.perf_counter() - t0) * 1e3
+    return {"payloads": len(payloads) + len(resent), "lines": lines,
+            "duplicates": src.duplicate_count - took0[1],
+            "failed": src.failed_count, "shed": src.shed_count,
+            "ms_per_payload": ms / max(1, len(payloads) + len(resent)),
+            "decode_pool_jobs": jobs.value - jobs0,
+            "acks_on_emit": any(getattr(r, "acks_on_emit", False)
+                                for r in src.receivers)}
+
+
+def sources_protocols_run(device, geo_cuda, world, root):
+    """Every source that needs no outside process in one ``Instance``
+    (see the module docstring, phase 12); then ``sources_restart``: a
+    fresh ``Instance`` on the same directory restores the dedup window
+    and refuses the same resent payloads.  Returns the kernel's launches
+    by run."""
+    import torch
+
+    from sitewhere_tpu_torch.instance import Instance
+
+    rng = np.random.default_rng(SEED + 90)
+    traffic, windows = is_protocol_traffic(rng)
+    n_tcp = IS_PROTOCOLS[-1][2]
+    resent = traffic["tcp"][:IS_RESENT]
+    data_dir = os.path.join(root, "sources_protocols")
+    sources = is_sources(**IS_RECEIVERS)
+    inst = instance_from_world(device, world, data_dir, CAPACITY, FULL_B, 0,
+                               WIRE_DEADLINE_MS, sources=sources)
+    disp = inst.dispatcher
+    inst.start()
+    by_sid = {s.source_id: s for s in inst.sources}
+    out, launches = {}, {}
+    try:
+        torch.cuda.synchronize()
+        snap0 = disp.metrics_snapshot()
+        geo_cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        for sid, _, _ in IS_PROTOCOLS:
+            out[sid] = is_drive(inst, sid, traffic[sid],
+                                resent if sid == "tcp" else ())
+        settle(inst)
+        elapsed = time.perf_counter() - t0
+        launches["sources_protocols"] = geo_cuda.launch_counts["pip_parity"]
+        snap = disp.metrics_snapshot()
+        keys = by_sid["tcp"].deduplicator.export_keys()
+        # the runtime section's snapshot, timed inside the final save
+        prov = inst.checkpointer._providers["runtime"]
+        snap_s = [0.0]
+        prov.snapshot_fn = _time_into(prov.snapshot_fn, snap_s)
+        inst.stop()
+        save = inst.checkpointer.last_save_stats
+        counts, distinct, _ = stored_rows_by(inst.event_store, windows)
+    finally:
+        inst.terminate()
+    delta = {k: snap[k] - snap0[k] for k in ("steps", "accepted",
+                                             "derived_alerts")}
+    lines = sum(r["lines"] for r in out.values())
+    for sid, r in out.items():
+        r["rows_stored"] = counts[sid]
+    rec = {"phase": "ingest_sources", "run": "sources_protocols",
+           "sources": out, "lines": lines, "elapsed_s": elapsed,
+           "events_per_s": lines / elapsed,
+           "pip_launches": launches["sources_protocols"], **delta}
+    rec.update(guard_counts(disp.metrics, "ingest_sources"))
+    emit(rec)
+    check(launches["sources_protocols"] == delta["steps"],
+          f"kernel launched {launches['sources_protocols']}x in "
+          f"{delta['steps']} dispatcher steps")
+    for sid, r in out.items():
+        check(r["failed"] == 0 and r["shed"] == 0,
+              f"source {sid}: {r['failed']} failed, {r['shed']} shed")
+        check(counts[sid] == distinct[sid] == r["lines"],
+              f"source {sid}: {counts[sid]} rows stored "
+              f"({distinct[sid]} distinct) of {r['lines']} lines")
+        if r["acks_on_emit"]:
+            check(r["decode_pool_jobs"] == 0,
+                  f"ack-gated source {sid} went through the decode pool")
+        else:
+            check(r["decode_pool_jobs"] == r["payloads"],
+                  f"source {sid}: {r['decode_pool_jobs']} pool jobs for "
+                  f"{r['payloads']} payloads")
+    check(out["mqtt"]["acks_on_emit"] and out["mqtt"]["decode_pool_jobs"] == 0,
+          "the hosted MQTT broker's intake left the synchronous path")
+    check(out["tcp"]["duplicates"] == IS_RESENT * n_tcp,
+          f"{out['tcp']['duplicates']} duplicates refused, want "
+          f"{IS_RESENT * n_tcp}")
+    check(delta["derived_alerts"] == 0 and delta["accepted"] == lines,
+          f"accepted {delta['accepted']} of {lines} lines, derived "
+          f"{delta['derived_alerts']}")
+    check(len(keys) == len(traffic["tcp"]) * n_tcp,
+          f"dedup window holds {len(keys)} keys")
+
+    # sources_restart: the same directory, the same sources; the dedup
+    # window comes back through add_source from the runtime section
+    restore_s = [0.0]
+    real_restore = Instance._restore_runtime_state
+    Instance._restore_runtime_state = _time_into(real_restore, restore_s)
+    try:
+        t0 = time.perf_counter()
+        inst = Instance(instance_config(data_dir, CAPACITY, FULL_B, 0,
+                                        WIRE_DEADLINE_MS, sources=sources),
+                        device=device)
+        boot_s = time.perf_counter() - t0
+    finally:
+        Instance._restore_runtime_state = real_restore
+    check(inst.restored, "sources_restart: nothing restored")
+    disp = inst.dispatcher
+    inst.start()
+    try:
+        torch.cuda.synchronize()
+        tcp = {s.source_id: s for s in inst.sources}["tcp"]
+        reseeded = tcp.deduplicator.export_keys()
+        snap0 = disp.metrics_snapshot()
+        geo_cuda.reset_launch_counts()
+        again = is_drive(inst, "tcp", (), resent)
+        settle(inst)
+        launches["sources_restart"] = geo_cuda.launch_counts["pip_parity"]
+        snap = disp.metrics_snapshot()
+        inst.stop()
+        counts, distinct, _ = stored_rows_by(inst.event_store,
+                                             {"tcp": windows["tcp"]})
+    finally:
+        inst.terminate()
+    steps = snap["steps"] - snap0["steps"]
+    rec = {"phase": "ingest_sources", "run": "sources_restart",
+           "runtime_section_bytes": save.get("runtime_bytes"),
+           "runtime_save_ms": (snap_s[0] + save.get("runtime_s", 0.0)) * 1e3,
+           "runtime_restore_ms": restore_s[0] * 1e3,
+           "restore_s": inst.checkpointer.restore_s, "boot_s": boot_s,
+           "dedup_keys": len(reseeded), "resent": again,
+           "rows_stored_tcp": counts["tcp"],
+           "accepted": snap["accepted"] - snap0["accepted"],
+           "steps": steps, "pip_launches": launches["sources_restart"]}
+    rec.update(guard_counts(disp.metrics, "ingest_sources"))
+    emit(rec)
+    check(reseeded == keys, "the restart's dedup window differs from the "
+          "saved one")
+    check(again["duplicates"] == IS_RESENT * n_tcp,
+          f"after the restart {again['duplicates']} duplicates refused, "
+          f"want {IS_RESENT * n_tcp}")
+    check(rec["accepted"] == 0,
+          f"the restart accepted {rec['accepted']} resent rows")
+    check(counts["tcp"] == distinct["tcp"] == len(keys),
+          f"tcp rows stored {counts['tcp']} ({distinct['tcp']} distinct) "
+          f"for {len(keys)} lines")
+    check(launches["sources_restart"] == steps,
+          f"kernel launched {launches['sources_restart']}x in {steps} steps")
+    shutil.rmtree(data_dir, ignore_errors=True)
+    return launches
+
+
+def phase_ingest_sources(device, geo_cuda, world):
+    """The ingest sources on the card (see the module docstring, phase
+    12), over the deployment's world checkpoint ``world``.  Returns the
+    kernel's launches by run."""
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="sources-", dir=geo_cuda.BUILD_DIR)
+    launches = {}
+    try:
+        rng = np.random.default_rng(SEED + 80)
+        perm = rng.permutation(N_ACTIVE)
+
+        def block(i):
+            b = i % IS_BLOCKS
+            return perm[b * FULL_B:(b + 1) * FULL_B]
+
+        mixed = wire_payloads(rng, IS_MIXED, FULL_B, IS_TS0_MS, devices=block)
+        meas = measurement_payloads(
+            rng, IS_MEAS, FULL_B, IS_TS0_MS + 1000 * IS_MIXED,
+            devices=lambda p: block(IS_MIXED + p))
+        frames, lines, registered = is_frames(mixed + meas)
+        del mixed, meas
+        emit({"phase": "ingest_sources", "run": "setup",
+              "frames": len(frames), "frame_mb_max":
+              max(len(f) for f in frames) / 1e6,
+              "seconds": time.perf_counter() - t0})
+        runs = {}
+        for workers in (2, 0):
+            runs[workers] = sources_wire_run(
+                device, geo_cuda, world, frames, (lines, registered), root,
+                workers)
+            launches[f"sources_wire.workers{workers}"] = \
+                runs[workers][0]["pip_launches"]
+        del frames
+        (pooled, s_pool, c_pool), (sync, s_sync, c_sync) = runs[2], runs[0]
+        check(c_pool == c_sync,
+              f"pooled and synchronous runs stored different rows: "
+              f"{c_pool} != {c_sync}")
+        check(sorted(s_pool) == sorted(s_sync) and all(
+            s_pool[k].tobytes() == s_sync[k].tobytes() for k in s_pool),
+            "pooled and synchronous runs left different device state")
+        emit({"phase": "ingest_sources", "run": "sources_wire.checks",
+              "rows_equal": True, "state_bitwise_equal": True,
+              "state_fields": len(s_pool)})
+        del runs, s_pool, s_sync
+        launches.update(sources_protocols_run(device, geo_cuda, world, root))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "ingest_sources", "run": "done",
           "seconds": time.perf_counter() - t0})
     return launches
 
@@ -4521,18 +5133,33 @@ def main() -> int:
     rec = phase_kernel(device, geo_cuda)
     main_launches = phase_main_path(device, geo_cuda)
     wire_launches, mixed, meas = phase_dispatcher_wire(device, geo_cuda)
-    persist_launches = phase_persist_recover(device, geo_cuda, mixed, meas)
+    persist_launches = phase_persist_recover(
+        device, geo_cuda, mixed[:INSTANCE_WIRE_PAYLOADS], meas)
     del meas
-    rules_launches = phase_byo_rules(device, geo_cuda, mixed)
+    rules_launches = phase_byo_rules(device, geo_cuda,
+                                     mixed[:INSTANCE_WIRE_PAYLOADS])
     an_launches = phase_streaming_analytics(device, geo_cuda)
-    ds_launches = phase_device_services(device, geo_cuda, mixed, logs)
-    del mixed
+    # one world checkpoint of the deployment (one tenant) serves
+    # device_services and ingest_sources
+    world_root = tempfile.mkdtemp(prefix="world-", dir=geo_cuda.BUILD_DIR)
+    try:
+        t0 = time.perf_counter()
+        world = world_checkpoint(device, world_root, "full")
+        emit({"phase": "world", "seconds": time.perf_counter() - t0})
+        ds_launches = phase_device_services(device, geo_cuda, mixed, logs,
+                                            world)
+        del mixed
+        is_launches = phase_ingest_sources(device, geo_cuda, world)
+    finally:
+        shutil.rmtree(world_root, ignore_errors=True)
     cp_launches = phase_control_plane(device, geo_cuda)
-    # this slice's path: containment and the control plane through the
-    # Instance (the devfault bench, the full-width chain fault and
-    # bisection, the overload run)
-    rec["launches"] = sum(cp_launches.values())
+    # this slice's path: the config-declared sources into the Instance
+    # (the TCP wire source pooled and synchronous, the protocol
+    # receivers, the restart)
+    rec["launches"] = sum(is_launches.values())
     rec["launches_by_path"] = {"main_path": main_launches,
+                               **{f"ingest_sources.{k}": v
+                                  for k, v in is_launches.items()},
                                **{f"control_plane.{k}": v
                                   for k, v in cp_launches.items()},
                                **{f"dispatcher_wire.{k}": v

@@ -2,15 +2,17 @@
 
 Counterpart of ``sitewhere_tpu/ids.py``, carried as far as the state
 manager, the batcher and the wire decode need it: the ``NULL_ID``
-sentinel, :class:`HandleSpace` (mint / free / lookup / bulk lookup /
-reverse lookup / in-place restore, and the ``TokenTable`` mirror the
-native resolved scanners read) and :class:`IdentityMap` with its
+sentinel, :func:`stable_hash64` (the ingest dedup key, the same 64-bit
+value in both packages), :class:`HandleSpace` (mint / free / lookup /
+bulk lookup / reverse lookup / in-place restore, and the ``TokenTable``
+mirror the native resolved scanners read) and :class:`IdentityMap` with its
 checkpoint serialization (:meth:`IdentityMap.save` /
 :meth:`IdentityMap.load_into`), which writes the reference's JSON.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import threading
@@ -36,6 +38,17 @@ def _tt_discard(table, token: str) -> None:
         pass
 
 
+def stable_hash64(token: str) -> int:
+    """Collision-safe 64-bit content hash of a token.
+
+    Used for cross-process-stable identity (e.g. alternate-id event
+    deduplication, reference ``AlternateIdDeduplicator.java``) — NOT for
+    registry indexing, which uses dense minted handles.
+    """
+    digest = hashlib.blake2b(token.encode("utf-8"), digest_size=8).digest()
+    return int.from_bytes(digest, "little", signed=True)
+
+
 class HandleSpace:
     """Mints dense int32 handles for one namespace of string tokens.
 
@@ -54,6 +67,9 @@ class HandleSpace:
 
     def __len__(self) -> int:
         return len(self._token_to_id)
+
+    def __contains__(self, token: str) -> bool:
+        return token in self._token_to_id
 
     def lookup(self, token: str) -> int:
         """The handle for ``token``, or ``NULL_ID`` if unknown."""

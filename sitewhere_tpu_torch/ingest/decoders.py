@@ -14,12 +14,13 @@ Here decoders are plain callables ``bytes -> list[DecodedRequest]``:
   "request": {...}}`` (the shape the reference's MQTT conformance senders
   emit, ``MqttTests.java:107-168``; ``hardwareId`` accepted as alias).
 - :class:`JsonBatchDecoder` — ``{"deviceToken": ..., "events": [...]}``.
-- :class:`JsonLinesDecoder` — NDJSON wire batches, scalar (journal
-  replay, unregistered-row re-decode).
+- :class:`BinaryDecoder` — a compact length-prefixed binary framing (the
+  protobuf-decoder analog, without a schema compiler dependency).
+- :class:`CompositeDecoder` — metadata extractor chooses a sub-decoder.
+- "Scripting" (the Groovy analog) = any user-supplied callable with the
+  same signature.
 
-Counterpart of the JSON half of ``sitewhere_tpu/ingest/decoders.py``;
-the binary framing and the composite decoder come with the slice that
-ports the protocol sources.
+Counterpart of ``sitewhere_tpu/ingest/decoders.py``, whole.
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ import dataclasses
 import datetime as _dt
 import enum
 import json
-from typing import List, Optional, Tuple
+import struct
+from typing import Callable, Dict, List, Optional, Tuple
 
 from sitewhere_tpu_torch.schema import AlertLevel, EventType
 
@@ -124,6 +126,18 @@ class DecodedRequest:
         if self.kind <= RequestKind.STATE_CHANGE:
             return EventType(int(self.kind))
         return None
+
+
+def _ts_from_seconds(value: float) -> Tuple[int, int]:
+    """Epoch-SECONDS float → (ts_s, ts_ns) with the int32 schema check.
+
+    No epoch-millis heuristic: callers whose wire format DEFINES the
+    field as seconds (the binary framing) must not reinterpret corrupt
+    values in (1e11, ~2.1e12] as milliseconds — they dead-letter."""
+    s = int(value)  # OverflowError (inf) / ValueError (nan) → DecodeError
+    if not -(1 << 31) <= s < (1 << 31):
+        raise DecodeError(f"timestamp out of range: {value!r}")
+    return s, int(round((value - s) * 1e9))
 
 
 def _parse_ts(value) -> Tuple[int, int]:
@@ -362,6 +376,72 @@ _KIND_WIRE_NAMES = {
 }
 
 
+def encode_envelope(req: DecodedRequest) -> bytes:
+    """:class:`DecodedRequest` → the JSON wire envelope
+    :func:`_decode_one` accepts — the inverse of decode for the fields
+    the pipeline carries.  Used when an already-decoded row must cross
+    DCN to its owning host (``rpc/forward.py``) and re-enter that host's
+    wire intake: re-encoding beats inventing a second serialization for
+    the same data (one wire format, as the reference keeps one protobuf
+    payload schema end to end)."""
+    kind_name = _KIND_WIRE_NAMES.get(req.kind)
+    if kind_name is None:
+        raise ValueError(f"kind {req.kind!r} has no wire envelope")
+    body: Dict[str, object] = {
+        "eventDate": (req.ts_s + req.ts_ns / 1e9) if req.ts_ns else req.ts_s,
+    }
+    if req.metadata:
+        body["metadata"] = req.metadata
+    if req.alternate_id:
+        body["alternateId"] = req.alternate_id
+    if not req.update_state:
+        body["updateState"] = False
+    if req.kind == RequestKind.MEASUREMENT:
+        body["name"] = req.mtype
+        body["value"] = req.value
+    elif req.kind == RequestKind.LOCATION:
+        body["latitude"] = req.lat
+        body["longitude"] = req.lon
+        if req.elevation:
+            body["elevation"] = req.elevation
+    elif req.kind == RequestKind.ALERT:
+        body["type"] = req.alert_type
+        body["level"] = int(req.alert_level)
+        if req.alert_message is not None:
+            body["message"] = req.alert_message
+    elif req.kind == RequestKind.COMMAND_RESPONSE:
+        if req.originating_event is not None:
+            body["originatingEventId"] = req.originating_event
+        if req.response is not None:
+            body["response"] = req.response
+    elif req.kind == RequestKind.COMMAND_INVOCATION:
+        if req.originating_event is not None:
+            body["invocationToken"] = req.originating_event
+    elif req.kind == RequestKind.REGISTRATION:
+        if req.device_type_token:
+            body["deviceTypeToken"] = req.device_type_token
+        if req.area_token:
+            body["areaToken"] = req.area_token
+        if req.customer_token:
+            body["customerToken"] = req.customer_token
+    elif req.kind in (RequestKind.STREAM_CREATE, RequestKind.STREAM_DATA,
+                      RequestKind.STREAM_SEND):
+        import base64 as _base64
+
+        body["streamId"] = req.stream_id
+        if req.kind == RequestKind.STREAM_CREATE:
+            if req.content_type:
+                body["contentType"] = req.content_type
+        else:
+            body["sequenceNumber"] = req.sequence_number
+        if req.kind == RequestKind.STREAM_DATA:
+            body["data"] = _base64.b64encode(
+                req.stream_data or b"").decode("ascii")
+    return json.dumps(
+        {"deviceToken": req.device_token, "type": kind_name, "request": body},
+        separators=(",", ":")).encode("utf-8")
+
+
 def envelope_fields(doc) -> Tuple[str, str, dict]:
     """Validate one envelope → ``(device_token, type_name, request)``."""
     if not isinstance(doc, dict):
@@ -391,3 +471,121 @@ class JsonLinesDecoder:
             _decode_one(*envelope_fields(doc))
             for doc in parse_envelopes(payload)
         ]
+
+
+# Compact binary framing:  magic "SW" | u8 kind | u8 token_len | token |
+# f64 ts | kind-specific payload.  The schema-compiled-protobuf analog.
+_BIN_MAGIC = b"SW"
+_BIN_HEAD = struct.Struct("<2sBB")
+_BIN_TS = struct.Struct("<d")
+_BIN_MEAS = struct.Struct("<Bd")       # mtype_len follows; value
+_BIN_LOC = struct.Struct("<ddd")       # lat, lon, elevation
+_BIN_ALERT = struct.Struct("<BB")      # level, type_len
+
+
+class BinaryDecoder:
+    """Compact binary event framing (see module source for layout)."""
+
+    def __call__(self, payload: bytes) -> List[DecodedRequest]:
+        try:
+            magic, kind, token_len = _BIN_HEAD.unpack_from(payload, 0)
+            if magic != _BIN_MAGIC:
+                raise DecodeError("bad magic")
+            pos = _BIN_HEAD.size
+            token = payload[pos : pos + token_len].decode("utf-8")
+            pos += token_len
+            (ts,) = _BIN_TS.unpack_from(payload, pos)
+            pos += _BIN_TS.size
+            # range/finiteness checks: wire bytes can encode inf/nan
+            # or out-of-int32 floats, which must dead-letter like the
+            # JSON paths, never escape as OverflowError (seconds-only:
+            # the binary field is DEFINED as epoch seconds, so no
+            # millis heuristic)
+            ts_s, ts_ns = _ts_from_seconds(ts)
+            kind = RequestKind(kind)
+            if kind == RequestKind.MEASUREMENT:
+                name_len, value = _BIN_MEAS.unpack_from(payload, pos)
+                pos += _BIN_MEAS.size
+                name = payload[pos : pos + name_len].decode("utf-8")
+                return [
+                    DecodedRequest(
+                        kind=kind, device_token=token, ts_s=ts_s, ts_ns=ts_ns,
+                        mtype=name, value=value,
+                    )
+                ]
+            if kind == RequestKind.LOCATION:
+                lat, lon, elev = _BIN_LOC.unpack_from(payload, pos)
+                return [
+                    DecodedRequest(
+                        kind=kind, device_token=token, ts_s=ts_s, ts_ns=ts_ns,
+                        lat=lat, lon=lon, elevation=elev,
+                    )
+                ]
+            if kind == RequestKind.ALERT:
+                level, type_len = _BIN_ALERT.unpack_from(payload, pos)
+                pos += _BIN_ALERT.size
+                atype = payload[pos : pos + type_len].decode("utf-8")
+                return [
+                    DecodedRequest(
+                        kind=kind, device_token=token, ts_s=ts_s, ts_ns=ts_ns,
+                        alert_type=atype, alert_level=level,
+                    )
+                ]
+            if kind == RequestKind.REGISTRATION:
+                (dt_len,) = struct.unpack_from("<B", payload, pos)
+                pos += 1
+                dt_token = payload[pos : pos + dt_len].decode("utf-8")
+                return [
+                    DecodedRequest(
+                        kind=kind, device_token=token, ts_s=ts_s, ts_ns=ts_ns,
+                        device_type_token=dt_token or None,
+                    )
+                ]
+            raise DecodeError(f"unsupported binary kind {int(kind)}")
+        except (struct.error, UnicodeDecodeError, ValueError,
+                OverflowError) as e:
+            raise DecodeError(f"bad binary payload: {e}") from e
+
+    @staticmethod
+    def encode(req: DecodedRequest) -> bytes:
+        """Inverse framing (used by tests and device simulators)."""
+        token = req.device_token.encode("utf-8")
+        ts = req.ts_s + req.ts_ns / 1e9
+        head = _BIN_HEAD.pack(_BIN_MAGIC, int(req.kind), len(token))
+        body = head + token + _BIN_TS.pack(ts)
+        if req.kind == RequestKind.MEASUREMENT:
+            name = (req.mtype or "").encode("utf-8")
+            return body + _BIN_MEAS.pack(len(name), req.value) + name
+        if req.kind == RequestKind.LOCATION:
+            return body + _BIN_LOC.pack(req.lat, req.lon, req.elevation)
+        if req.kind == RequestKind.ALERT:
+            atype = (req.alert_type or "").encode("utf-8")
+            return body + _BIN_ALERT.pack(req.alert_level, len(atype)) + atype
+        if req.kind == RequestKind.REGISTRATION:
+            dt = (req.device_type_token or "").encode("utf-8")
+            return body + struct.pack("<B", len(dt)) + dt
+        raise ValueError(f"cannot encode kind {req.kind}")
+
+
+class CompositeDecoder:
+    """Metadata extractor chooses a sub-decoder per payload.
+
+    Reference: ``BinaryCompositeDeviceEventDecoder`` — a metadata extractor
+    reads the payload, yields a key (there: the device type), and a keyed
+    sub-decoder decodes the body.
+    """
+
+    def __init__(
+        self,
+        extractor: Callable[[bytes], Tuple[str, bytes]],
+        decoders: Dict[str, Callable[[bytes], List[DecodedRequest]]],
+    ):
+        self.extractor = extractor
+        self.decoders = decoders
+
+    def __call__(self, payload: bytes) -> List[DecodedRequest]:
+        key, body = self.extractor(payload)
+        decoder = self.decoders.get(key)
+        if decoder is None:
+            raise DecodeError(f"no decoder for key {key!r}")
+        return decoder(body)

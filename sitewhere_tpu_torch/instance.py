@@ -28,9 +28,13 @@ per-tenant budgets from ``tenants.<token>.overload``; the tenant usage
 ledger and its quotas, ``metering.*``, with per-tenant quotas from
 ``tenants.<token>.quota``; the tenant partition views of the device
 state, ``state.partition_min_capacity``), the dead-letter listing and
-requeue (:meth:`list_dead_letters`, :meth:`requeue_dead_letter`) and the
-checkpointer (with the segment catalog's and the ``tenant-metering``
-sections).
+requeue (:meth:`list_dead_letters`, :meth:`requeue_dead_letter`), the
+ingest sources (the config's ``sources`` section, built through
+``ingest/factory.py build_sources`` at :meth:`start`, or attached with
+:meth:`add_source`) with the decode pool that decodes their payloads on
+its workers (``ingest.decode_workers``, 2 by default; 0 decodes on the
+receiver's thread) and the checkpointer (with the segment catalog's,
+the ``runtime`` and the ``tenant-metering`` sections).
 The attributes keep the reference's names, since the
 :class:`~sitewhere_tpu_torch.runtime.checkpoint.Checkpointer` reads
 them.
@@ -44,16 +48,18 @@ yet, so the port does less than the reference until their slices come
 - the fabric: :meth:`invoke_command` runs locally and has no peers to
   route an unknown assignment to, and the ``forward-shed`` requeue finds
   no forwarder;
-- the decode pool (:537-549): payloads decode on the caller's thread, so
-  the overload ladder's ``decode_backlog`` signal reads 0;
 - outbound connectors, the ``OutboundConnectorsManager`` (:432-434);
 - search providers (:692-706);
 - presence scans, the ``PresenceManager`` (:592-597);
 - the mesh's per-shard breakers (``ShardBreakers``);
 - the profiler endpoints that calibrate the watchdog's budgets
   (:1040-1060): the budgets stay at their defaults, soft 1 s, hard 10 s;
-- the ``runtime`` checkpoint section (:746-750), which holds the ingest
-  sources' dedup tables.
+- the device streams (``DeviceStreamManager``): every host-plane request
+  a source decodes (stream create, data, send) dead-letters as
+  ``unsupported-host-request``;
+- the script manager: a source whose decoder names a script fails boot
+  as an unknown decoder;
+- the forwarder, so the ``runtime`` section's ``spools`` stay empty.
 
 The runner's ``outbound`` hook (its match fan-out) stays ``None``; its
 and the rule engine's ``overload``, ``usage_ledger`` and ``quotas`` are
@@ -65,16 +71,19 @@ Lifecycle, as in the reference:
   checkpoint generation (identity, the management stores, mirror, rules,
   device state, catalog manifest, the analytics queries with their
   operator state, the rule programs) before anything starts;
-- :meth:`start` captures the journal end (``recover_upto``) before
-  anything ingests, starts the store, the analytics runner, the rule
+- :meth:`start` builds the config-declared sources, captures the
+  journal end (``recover_upto``) before anything ingests, starts the
+  store, the analytics runner, the rule
   engine, the dispatcher (whose warm-up builds the native scanners, the
   ``TokenTable`` mirror and the geofence kernel, and raises if any build
   fails) and the checkpointer, then replays the journal from the
-  checkpoint's replay floor up to ``recover_upto`` (the runner drops the
+  checkpoint's replay floor up to ``recover_upto`` while the sources
+  already receive (the runner drops the
   replayed rows already inside its restored state, row-exactly), and
   sets the ``recovery.restore_s``, ``recovery.replay_s`` and
   ``recovery.replay_events`` gauges;
-- :meth:`stop` stops the children in reverse: the dispatcher flushes
+- :meth:`stop` stops the sources, drains the decode pool, then stops
+  the other children in reverse: the dispatcher flushes
   (every row egressed and sealed, the offset committed) while the rule
   engine and the analytics runner still run, then they drain, then the
   store stops; a final generation is saved.
@@ -84,12 +93,12 @@ Configuration: the reference's keys and defaults
 ``pipeline.max_zones`` and ``pipeline.max_zone_verts`` (the registry
 mirror's zone table; defaults 256 and 32, the reference mirror's).  The
 keys in :data:`HONOURED` drive the instance.  Sections whose components
-the port does not have yet (``sources``, ``outbound``, ``rpc``,
-``presence``, the decode pool and the rest) are not composed: at their defaults the instance runs
-without them, and any other value raises :class:`NotImplementedError`,
-as does ``pipeline.n_shards`` above 1.  Events are ingested through
-``instance.dispatcher`` (``ingest_wire_lines`` and the other entry
-points) on the caller's thread.
+the port does not have yet (``outbound``, ``rpc``, ``presence`` and the
+rest) are not composed: at their defaults the instance runs without
+them, and any other value raises :class:`NotImplementedError`, as does
+``pipeline.n_shards`` above 1.  Events arrive through the sources, or
+through ``instance.dispatcher`` (``ingest_wire_lines`` and the other
+entry points) on the caller's thread.
 
 The instance runs on the card unless ``device="cpu"`` is named.
 """
@@ -99,6 +108,7 @@ from __future__ import annotations
 import json
 import logging
 import os
+import pickle
 import threading
 import time
 from typing import Any, Dict, Iterator, List, Optional, Tuple
@@ -122,18 +132,23 @@ from sitewhere_tpu_torch.ingest.decoders import (
     JsonLinesDecoder,
     RequestKind,
 )
+from sitewhere_tpu_torch.ingest.factory import build_sources
 from sitewhere_tpu_torch.ingest.journal import (
     CorruptJournal,
     Journal,
     JournalReader,
 )
+from sitewhere_tpu_torch.ingest.sources import DecodePool
 from sitewhere_tpu_torch.pipeline.rules import RuleManager
 from sitewhere_tpu_torch.rules.engine import RuleEngineRunner
 from sitewhere_tpu_torch.runtime.checkpoint import Checkpointer, StateProvider
 from sitewhere_tpu_torch.runtime.config import DEFAULTS, Config
 from sitewhere_tpu_torch.runtime.dispatcher import PipelineDispatcher
 from sitewhere_tpu_torch.runtime.flightrec import FlightRecorder
-from sitewhere_tpu_torch.runtime.lifecycle import LifecycleComponent
+from sitewhere_tpu_torch.runtime.lifecycle import (
+    LifecycleComponent,
+    LifecycleState,
+)
 from sitewhere_tpu_torch.runtime.metering import QuotaTable, UsageLedger
 from sitewhere_tpu_torch.runtime.metrics import (
     BurnRateEngine,
@@ -186,6 +201,7 @@ HONOURED = (
     "tracing.pending_capacity",
     "overload.*", "metering.*", "slo.*", "flightrec.*", "tenants.*",
     "state.partition_min_capacity",
+    "sources", "ingest.*",
 )
 
 
@@ -529,6 +545,19 @@ class Instance(LifecycleComponent):
             metrics=self.metrics,
             controller=controller,
         )
+        # Decode worker pool: wire payloads decode on these workers while
+        # earlier windows are on the card; per-source lanes keep delivery
+        # in submission order.  ingest.decode_workers=0 decodes on the
+        # receiver's thread.  The workers own no CUDA stream: a delivery
+        # that steps a plan launches on the thread's default stream, as
+        # every other intake does.
+        decode_workers = int(self.config.get("ingest.decode_workers", 2))
+        self.decode_pool = (
+            DecodePool(workers=decode_workers,
+                       max_pending=int(self.config.get(
+                           "ingest.decode_max_pending", 128)),
+                       metrics=self.metrics)
+            if decode_workers > 0 else None)
         ring_depth = self.config.get("pipeline.ring_depth")
         self.dispatcher = self.add_child(PipelineDispatcher(
             batcher=self.batcher,
@@ -544,6 +573,7 @@ class Instance(LifecycleComponent):
             journal=self.ingest_journal,
             dead_letters=self.dead_letters,
             resolve_tenant=self.identity.tenant.mint,
+            on_host_request=self._on_host_request,
             inflight_depth=int(self.config.get("pipeline.inflight_depth", 0)),
             egress_offload=self.config.get("pipeline.egress_offload"),
             ring_depth=int(ring_depth) if ring_depth is not None else None,
@@ -562,11 +592,14 @@ class Instance(LifecycleComponent):
             # fired tenant programs re-enter the pipeline as first-class
             # ALERT events through the dispatcher's derived-alert edge
             self.rule_engine.inject = self.dispatcher.inject_rule_alerts
+        self.sources: List[LifecycleComponent] = []
+        self._config_sources_built = False
 
         # checkpoint/resume: restore the newest complete snapshot BEFORE
         # start, so identity, registry, rules and device state survive a
         # restart; the journal replay in start() re-derives what was
         # journaled after each section's as-of offset
+        self._dedup_snapshot: Dict[str, list] = {}
         self.checkpointer = self.add_child(Checkpointer(
             self,
             interval_s=float(self.config.get("checkpoint.interval_s", 30.0)),
@@ -590,6 +623,13 @@ class Instance(LifecycleComponent):
                 snapshot_fn=self.rule_engine.snapshot_state,
                 restore_fn=self.rule_engine.restore_state,
                 version=1))
+        # the sources' dedup windows (and the forward-spool cursors,
+        # empty: the port has no forwarder)
+        self.checkpointer.register_provider(StateProvider(
+            name="runtime",
+            snapshot_fn=self._snapshot_runtime_state,
+            restore_fn=self._restore_runtime_state,
+            version=1))
         self.checkpointer.register_provider(
             catalog_state_provider(self.event_store))
         if self.usage_ledger is not None:
@@ -606,7 +646,14 @@ class Instance(LifecycleComponent):
     # -- lifecycle ----------------------------------------------------------
 
     def start(self) -> None:
-        # the journal end BEFORE anything ingests: the recovery replay
+        # Config-declared sources, attached before the lifecycle start
+        # below brings them up; a bad declaration fails boot
+        source_docs = self.config.get("sources")
+        if source_docs and not self._config_sources_built:
+            for src in build_sources(source_docs, scripts=None):
+                self.add_source(src)
+            self._config_sources_built = True
+        # the journal end BEFORE the sources start: the recovery replay
         # never re-ingests a fresh append racing it
         recover_upto = self.ingest_journal.end_offset
         super().start()
@@ -634,18 +681,35 @@ class Instance(LifecycleComponent):
                         f"{self.checkpointer.replay_floor}"))
 
     def stop(self) -> None:
-        # children stop in reverse: the checkpointer's interval thread,
-        # then the dispatcher (its flush egresses and seals every row and
-        # commits the final offset), then the rule engine and the analytics
-        # runner (each drains what the flush offered), then the store.  The final snapshot
-        # comes AFTER that flush and captures the committed offset before
-        # reading any component, so it never claims rows the journal
-        # offset has not sealed.
+        # Stop the receivers, THEN drain the decode pool: a payload a
+        # running receiver accepts after the drain would otherwise reach
+        # the dispatcher during (or after) its shutdown flush.  The
+        # sources are the last children, so super().stop() would stop
+        # them first too; it skips them now.
+        if self.decode_pool is not None:
+            for src in self.sources:
+                if src.state == LifecycleState.STARTED:
+                    try:
+                        src.stop()
+                    except Exception:  # keep stopping, like super().stop()
+                        logger.exception("error stopping %s", src.name)
+            self.decode_pool.flush()
+        # the other children stop in reverse: the checkpointer's interval
+        # thread, then the dispatcher (its flush egresses and seals every
+        # row and commits the final offset), then the rule engine and the
+        # analytics runner (each drains what the flush offered), then the
+        # store.  The final snapshot comes AFTER that flush and captures
+        # the committed offset before reading any component, so it never
+        # claims rows the journal offset has not sealed.
         super().stop()
         self.checkpointer.save()
 
     def terminate(self) -> None:
         super().terminate()
+        if self.decode_pool is not None:
+            # release the pool's worker threads
+            self.decode_pool.stop(timeout_s=2.0)
+            self.decode_pool = None
         self.ingest_journal.close()
         self.dead_letters.close()
 
@@ -657,14 +721,16 @@ class Instance(LifecycleComponent):
     def _overload_signals(self) -> OverloadSignals:
         """One sample of the pressure signals the overload controller
         watches, read lock-free (a stale read delays a transition by one
-        sample).  The port has no decode pool: payloads decode on the
-        caller's thread, so ``decode_backlog`` reads 0."""
+        sample)."""
         d = self.dispatcher
+        pool = self.decode_pool
+        decode_backlog = (pool.pending / pool.max_pending
+                          if pool is not None and pool.max_pending else 0.0)
         return OverloadSignals(
             # the LIVE watermark (the oldest unsealed event's age), which
             # decays as work seals
             seal_lag_s=d.oldest_unsealed_wait_s(),
-            decode_backlog=0.0,
+            decode_backlog=decode_backlog,
             # ring-held plans are emitted, unstepped work: in-flight
             # pressure all the same
             egress_inflight=((len(d._inflight) + len(d._ring))
@@ -672,6 +738,76 @@ class Instance(LifecycleComponent):
             batcher_backlog=self.batcher.pending / max(1, self.batcher.width),
             fsync_latency_s=float(self.ingest_journal.last_fsync_s),
         )
+
+    # -- ingest sources -------------------------------------------------------
+
+    def add_source(self, source: LifecycleComponent) -> LifecycleComponent:
+        """Attach an ingest source wired into the dispatcher (the
+        reference's single-host branch): requests to ``ingest`` /
+        ``ingest_many``, raw wire payloads to ``ingest_wire_lines`` with
+        its split halves for the decode pool, registrations, failed
+        decodes, host-plane requests, and the dedup window re-seeded from
+        the restored ``runtime`` section."""
+        d = self.dispatcher
+        source.on_event = d.ingest
+        if hasattr(source, "on_events"):
+            # batch forward: one columnar call per wire payload
+            source.on_events = d.ingest_many
+        if getattr(source, "raw_wire", False):
+            # raw lane: C columnar decode and in-scanner token
+            # resolution; decode errors come back to the source for its
+            # failure accounting
+            source.on_wire_payload = (
+                lambda p, sid: d.ingest_wire_lines(
+                    p, sid, raise_on_decode_error=True))
+            # split halves for the decode pool: decode on a worker,
+            # journal and batch in per-source order
+            source.on_wire_decode = d.decode_wire_lines
+            source.on_wire_decoded = d.ingest_wire_decoded
+        source.on_registration = d.ingest_registration
+        if self.decode_pool is not None and hasattr(source, "decode_pool"):
+            # the source itself keeps ack-gated receivers synchronous
+            source.decode_pool = self.decode_pool
+        # checkpoint resume: a restart keeps refusing the duplicates the
+        # window had caught
+        dedup_keys = self._dedup_snapshot.get(source.name)
+        if dedup_keys and getattr(source, "deduplicator", None) is not None \
+                and hasattr(source.deduplicator, "import_keys"):
+            source.deduplicator.import_keys(dedup_keys)
+        source.on_failed_decode = d.ingest_failed_decode
+        if getattr(source, "on_host_request", None) is None:
+            source.on_host_request = self._on_host_request
+        self.sources.append(self.add_child(source))
+        return source
+
+    def _on_host_request(self, req, payload: bytes = b"") -> None:
+        """Host-plane requests from sources (device stream create, data
+        and send).  The reference hands them to its
+        ``DeviceStreamManager``; the port has none yet, so each one
+        dead-letters as the reference's unroutable request does."""
+        self.dead_letters.append_json({
+            "kind": "unsupported-host-request",
+            "request_kind": req.kind.name,
+            "device_token": req.device_token,
+        })
+
+    def _snapshot_runtime_state(self):
+        """The ``runtime`` section: each source's dedup LRU (so a restart
+        does not re-admit the duplicates the window had caught) and the
+        forward-spool cursors, empty here.  The reference's payload, a
+        pickle of plain lists and ints, readable by either package."""
+        dedup: Dict[str, list] = {}
+        for src in self.sources:
+            d = getattr(src, "deduplicator", None)
+            if d is not None and hasattr(d, "export_keys"):
+                dedup[src.name] = d.export_keys()
+        return (pickle.dumps({"dedup": dedup, "spools": {}}, protocol=4),
+                None)
+
+    def _restore_runtime_state(self, header, payload) -> None:
+        doc = pickle.loads(payload)
+        # sources attach after __init__; add_source re-seeds from this
+        self._dedup_snapshot = dict(doc.get("dedup") or {})
 
     def _slo_sample(self):
         """One SLO burn-rate sample: counter DELTAS since the previous
@@ -846,13 +982,9 @@ class Instance(LifecycleComponent):
                 if r.kind == RequestKind.REGISTRATION:
                     self.dispatcher.ingest_registration(r)
                 else:
-                    # host-plane (stream) lines: the port routes none yet
-                    dead_letter(self.dead_letters, {
-                        "kind": "unsupported-wire-line",
-                        "request_kind": r.kind.name,
-                        "device_token": r.device_token,
-                        "payload_ref": NULL_ID,
-                    })
+                    # host-plane (stream) request: re-route; a repeat
+                    # failure dead-letters a fresh record
+                    self._on_host_request(r, payload)
                     rows += 1
             self._mark_requeued(offset)
             return {"requeued": True, "kind": kind, "rows": rows}

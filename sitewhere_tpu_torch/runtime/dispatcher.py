@@ -387,6 +387,7 @@ class PipelineDispatcher(LifecycleComponent):
         journal: Optional[Journal] = None,
         dead_letters: Optional[Journal] = None,
         resolve_tenant: Optional[Callable[[str], int]] = None,
+        on_host_request: Optional[Callable[[DecodedRequest, bytes], None]] = None,
         max_replay_depth: int = 4,
         inflight_depth: Optional[int] = None,
         journal_reader: Optional[JournalReader] = None,
@@ -414,6 +415,9 @@ class PipelineDispatcher(LifecycleComponent):
         self.event_store = event_store
         self.registration = registration
         self.on_command_rows = on_command_rows
+        # host-plane wire lines (device-stream requests) go to the
+        # instance's handler; without one they dead-letter here
+        self.on_host_request = on_host_request
         # Bring-your-own rules: egress offers every accepted batch to the
         # engine's bounded queue; its worker evaluates the tenant programs
         # and fired ones re-enter through inject_rule_alerts.
@@ -927,6 +931,8 @@ class PipelineDispatcher(LifecycleComponent):
         for req in host_reqs:
             if req.kind == RequestKind.REGISTRATION:
                 self.ingest_registration(req, b"")
+            elif self.on_host_request is not None:
+                self.on_host_request(req, payload)
             elif self.dead_letters is not None:
                 # host-plane lines must never silently mint devices
                 dead_letter(self.dead_letters, {

@@ -1,0 +1,1 @@
+"""web of the PyTorch port (see the package docstring)."""

@@ -444,8 +444,7 @@ def test_rules_section_equals_the_reference(both_saved):
 
 
 def test_unsupported_config_is_refused(tmp_path):
-    for tree in ({"sources": [{"type": "mqtt"}]},
-                 {"pipeline": {"n_shards": 2}},
+    for tree in ({"pipeline": {"n_shards": 2}},
                  {"presence": {"scan_interval_s": 60.0}},
                  {"rpc": {"peers": ["a:1", "b:2"]}},
                  {"outbound": {"connectors": [{"id": "x"}]}}):
@@ -460,6 +459,12 @@ def test_unsupported_config_is_refused(tmp_path):
     # the analytics section is the runner's since streaming analytics
     refuse_unsupported(Config({"analytics": {"max_queries": 8,
                                              "enabled": False}},
+                              apply_env=False))
+    # the sources section and the decode pool's keys are the Instance's
+    # since the ingest sources came
+    refuse_unsupported(Config({"sources": [{"type": "mqtt"}],
+                               "ingest": {"decode_workers": 0,
+                                          "decode_max_pending": 16}},
                               apply_env=False))
 
 

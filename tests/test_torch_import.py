@@ -45,6 +45,48 @@ def test_port_imports_no_jax_and_no_reference():
     assert int(count) == len(expected) >= 30
 
 
+#: the ingest sources' modules (named, so a rename cannot drop one from
+#: the walk above unnoticed)
+SOURCE_MODULES = (
+    "sitewhere_tpu_torch.ingest", "sitewhere_tpu_torch.ingest.sources",
+    "sitewhere_tpu_torch.ingest.dedup", "sitewhere_tpu_torch.ingest.factory",
+    "sitewhere_tpu_torch.ingest.coap", "sitewhere_tpu_torch.ingest.mqtt_broker",
+    "sitewhere_tpu_torch.ingest.stomp", "sitewhere_tpu_torch.ingest.amqp",
+    "sitewhere_tpu_torch.ingest.amqp10", "sitewhere_tpu_torch.ingest.decoders",
+    "sitewhere_tpu_torch.web", "sitewhere_tpu_torch.web.ws",
+)
+
+_SOURCES_PROBE = """
+import importlib, json, sys
+sys.modules["jax"] = None
+sys.modules["sitewhere_tpu"] = None
+for name in json.loads(sys.argv[1]):
+    importlib.import_module(name)
+from sitewhere_tpu_torch.ingest import (AmqpReceiver, BinaryDecoder,
+    CoapServerReceiver, CompositeDecoder, StompReceiver)
+from sitewhere_tpu_torch.ingest.amqp10 import EventHubReceiver
+from sitewhere_tpu_torch.ingest.mqtt_broker import MqttBrokerReceiver
+from sitewhere_tpu_torch.ingest.sources import DecodePool, WebSocketReceiver
+bad = sorted(m for m, v in sys.modules.items() if v is not None
+             and (m in ("jax", "sitewhere_tpu")
+                  or m.startswith(("jax.", "sitewhere_tpu."))))
+print(json.dumps(bad))
+"""
+
+
+def test_ingest_source_modules_import_without_jax_or_reference():
+    import json
+
+    proc = subprocess.run(
+        [sys.executable, "-c", _SOURCES_PROBE, json.dumps(SOURCE_MODULES)],
+        cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip()) == []
+    walked = {m.name for m in pkgutil.walk_packages(
+        sitewhere_tpu_torch.__path__, "sitewhere_tpu_torch.")}
+    assert set(SOURCE_MODULES) <= walked
+
+
 _NATIVE_PROBE = """
 import json, sys
 sys.modules["jax"] = None

@@ -33,13 +33,12 @@ TESTS = os.path.dirname(os.path.abspath(__file__))
 REF = os.path.join(TESTS, "test_overload.py")
 
 # cases needing a component the port does not compose yet: outbound
-# connectors, label generation, the protocol receivers, the RPC fabric,
-# and the reference's overload bench
+# connectors, label generation, the RPC fabric, and the reference's
+# overload bench
 SKIP = ("test_outbound_manager_sheds_only_non_priority",
         "test_label_generation_refuses_under_load",
         "test_outbound_drain_wakes_without_polling",
-        "TestProtocolBackpressure", "TestOverloadBenchSmoke",
-        "TestRpcBackpressure")
+        "TestOverloadBenchSmoke", "TestRpcBackpressure")
 CASES = reference_cases(REF, skip=SKIP)
 
 
@@ -49,7 +48,9 @@ def port_ns():
 
 
 def test_the_port_runs_the_reference_admission_cases():
-    assert len(CASES) >= 23
+    assert len(CASES) >= 28
+    assert sum(c.startswith("TestProtocolBackpressure.")
+               for c in CASES) == 6
     assert "TestDispatcherAdmission.test_full_shed_raises_dead_letters_" \
         "and_skips_journal" in CASES
 

@@ -462,7 +462,8 @@ def port_test_module(path, replace=()):
     the ``presence`` section (a component the port does not compose, so
     its settings do not bear on a case) left out of every ``Config``.
     ``replace``: ``(old, new)`` source edits applied first, for imports
-    of names the port does not have."""
+    of names the port does not have.  ``tests/test_instance.py``'s
+    helpers come from :func:`make_config` and :func:`seed_device` here."""
     import re
     from pathlib import Path
 
@@ -472,6 +473,8 @@ def port_test_module(path, replace=()):
         assert old in src, old
         src = src.replace(old, new)
     src = re.sub(r"\bsitewhere_tpu\.", "sitewhere_tpu_torch.", src)
+    src = src.replace("from tests.test_instance import",
+                      "from torch_parity import")
     src = src.replace(
         "from sitewhere_tpu_torch.instance import Instance",
         "from torch_parity import CpuInstance as Instance")
@@ -497,6 +500,26 @@ def PortConfig(tree=None, **kw):
     return Config(tree, **kw)
 
 
+def make_config(tmp_path, **pipeline):
+    """``tests/test_instance.py make_config`` for the port (without its
+    ``presence`` section)."""
+    return PortConfig({
+        "instance": {"id": "test-instance", "data_dir": str(tmp_path / "data")},
+        "pipeline": {
+            "width": 64, "registry_capacity": 1024, "mtype_slots": 4,
+            "deadline_ms": 5.0, "n_shards": 1, **pipeline,
+        },
+    }, apply_env=False)
+
+
+def seed_device(inst, token="dev-1", mtype=None):
+    """``tests/test_instance.py seed_device``: one device of type
+    ``sensor``, assigned."""
+    inst.device_management.create_device_type(token="sensor", name="Sensor")
+    inst.device_management.create_device(token=token, device_type="sensor")
+    inst.device_management.create_device_assignment(device=token)
+
+
 def reference_cases(path, skip=()):
     """``class.method`` / function ids of every test in the reference
     module at ``path``, apart from the names in ``skip``."""
@@ -513,22 +536,91 @@ def reference_cases(path, skip=()):
             if t.split(".")[-1] not in skip and t.split(".")[0] not in skip]
 
 
-def run_port_case(ns, case, tmp_path, fixtures=None):
-    """Run one reference case from a :func:`port_test_module` namespace;
-    ``tmp_path`` and ``fixtures`` (name -> value) fill its parameters."""
+def port_cases(ns, skip=()):
+    """Ids of every test in a :func:`port_test_module` namespace, apart
+    from the names in ``skip``: ``name`` or ``Class.method``, with
+    ``[i]`` for each parameter set of a parametrized test."""
     import inspect
 
+    found = []
+    for name, obj in ns.items():
+        if name.startswith("test_") and inspect.isfunction(obj):
+            found.append((name, obj))
+        elif name.startswith("Test") and inspect.isclass(obj):
+            found += [(f"{name}.{m}", fn) for m, fn in vars(obj).items()
+                      if m.startswith("test_") and inspect.isfunction(fn)]
+    out = []
+    for case, fn in found:
+        if case.split(".")[-1] in skip or case.split(".")[0] in skip:
+            continue
+        sets = _param_sets(fn)
+        out += ([case] if sets is None
+                else [f"{case}[{i}]" for i in range(len(sets))])
+    return out
+
+
+def _param_sets(fn):
+    """The parameter dicts of ``fn``'s ``pytest.mark.parametrize`` marks
+    (their product), or None when it has none."""
+    import itertools
+
+    marks = [m for m in getattr(fn, "pytestmark", [])
+             if m.name == "parametrize"]
+    if not marks:
+        return None
+    axes = []
+    for mark in marks:
+        names, values = mark.args[0], mark.args[1]
+        if isinstance(names, str):
+            names = [n.strip() for n in names.split(",")]
+        axes.append([dict(zip(names, _param_values(v, len(names))))
+                     for v in values])
+    return [{k: v for d in combo for k, v in d.items()}
+            for combo in itertools.product(*axes)]
+
+
+def _param_values(value, n_names):
+    if hasattr(value, "values") and hasattr(value, "marks"):
+        return value.values        # pytest.param(...)
+    return value if n_names > 1 else (value,)
+
+
+def run_port_case(ns, case, tmp_path, fixtures=None):
+    """Run one reference case from a :func:`port_test_module` namespace;
+    ``tmp_path`` and ``fixtures`` (name -> value) fill its parameters, a
+    ``[i]`` suffix picks a parameter set, and the module's own fixtures
+    (generators too, torn down afterwards) fill the rest."""
+    import inspect
+
+    case, _, index = case.partition("[")
     if "." in case:
         cls, method = case.split(".")
         fn = getattr(ns[cls](), method)
     else:
         fn = ns[case]
-    args = {}
-    for param in inspect.signature(fn).parameters:
-        if param == "tmp_path":
-            args[param] = tmp_path
-        elif fixtures and param in fixtures:
-            args[param] = fixtures[param]
-        else:
-            args[param] = ns[param].__wrapped__()
-    fn(**args)
+    params = _param_sets(fn)[int(index[:-1])] if index else {}
+    teardown = []
+
+    def resolve(func, given):
+        args = {}
+        for param in inspect.signature(func).parameters:
+            if param in given:
+                args[param] = given[param]
+            elif param == "tmp_path":
+                args[param] = tmp_path
+            elif fixtures and param in fixtures:
+                args[param] = fixtures[param]
+            else:
+                fixture = ns[param].__wrapped__
+                value = fixture(**resolve(fixture, {}))
+                if inspect.isgenerator(value):
+                    teardown.append(value)
+                    value = next(value)
+                args[param] = value
+        return args
+
+    try:
+        fn(**resolve(fn, params))
+    finally:
+        for gen in reversed(teardown):
+            next(gen, None)

@@ -208,7 +208,54 @@ script exits non-zero without printing a result:
    the ``runtime`` section (its bytes, save and restore ms), re-seeds
    the dedup window through ``add_source`` and refuses the same 4
    resent payloads, all 65,536 lines, storing nothing twice;
-13. a small input run on the card and on the CPU: identical int outputs.
+13. outbound, search, presence and device streams (phase
+   ``outbound_presence``), over the same world checkpoint.
+   ``outbound_wire``: 8 mixed and 8 measurement-only payloads of 131072
+   lines (each payload's devices a block of a permutation of the fleet,
+   as in ``sources_wire``) through ``ingest_wire_lines`` into a fresh
+   ``Instance`` with one window query (m0, 1 s mean over 99), ``off``
+   with no connectors and ``on`` with six: ``tap`` (a callback keeping
+   every row's columns), ``alerts`` (ALERT rows as JSON lines, priority),
+   ``webhook`` (HTTP to a loopback ``ThreadingHTTPServer``, 4,096
+   devices), ``index`` (bulk pushes of 500 rows or 0.5 s, the same
+   devices), ``mqtt`` (the port's ``MqttClient`` into its hosted
+   ``MqttBroker``, routed by device type, 1,024 devices, a subscriber
+   counting) and ``dead`` (HTTP to a path answering 500, with a circuit
+   breaker and the instance's dead letters); the runs drain the
+   dispatcher, the runner and the connectors before anything stops.
+   Reports events/s of both, ``egress.outbound`` ms per plan, the ack
+   latency's p50 and p99 bucket bounds, each connector's ingest-to-ack
+   gauge, processed, errors, dropped and shed, and the rows/s of each
+   row-by-row connector.  Checks: the tap's rows equal the stored rows
+   (``row_checksum``) with no batch dropped, its STATE_CHANGE rows equal
+   the query's live matches; the alerts file equals ``marshal_row`` over
+   the stored ALERT rows, the webhook's and the MQTT subscriber's
+   deliveries the stored rows of their devices, each once (the index's
+   after the final flush at ``stop()``); ``dead`` alone counts errors,
+   its breaker sheds rows into ``connector-shed`` letters;
+   ``outbound_rows`` equals the rows offered times the connectors;
+   ``off`` and ``on`` end in bitwise equal device state; launches ==
+   steps.  ``outbound_shed``: a fresh instance with the ladder forced to
+   SHEDDING takes a 4096-line ALERT payload: only the priority
+   connector receives rows, each other's ``outbound.overload_shed.<id>``
+   grows by the plans offered.  ``presence``, on the ``on`` instance:
+   the missing and seen scans against the store (ms each); one sweep
+   with the clock injected (card ms beside its byte bound, the repack
+   it forces, host ms), whose STATE_CHANGE rows mark exactly the devices
+   with events, re-enter, are stored once and reach the tap, leaving
+   every other state field bitwise unchanged; a second sweep marks none;
+   one payload re-arms exactly its devices; then the sweep thread
+   (0.25 s, an injected clock whose cut lies inside the payloads' event
+   times) beside 4 payloads: every flagged device stale for the sweep
+   that flagged it, every STATE_CHANGE row stored once.  ``search``: the
+   local provider against the store for 64 sampled devices, paged, and a
+   federated provider over two local legs against the numpy merge (ms
+   per query).  ``streams``: 16 DM-made devices each create a stream
+   over the dispatcher's host plane, send 64 chunks of 64 KiB out of
+   order and ask for 4 back; contents exact, send-backs exact, a chunk
+   for an unknown stream dead-lettered as ``failed-stream-request`` and
+   replayed by ``requeue_dead_letter`` once the stream exists;
+14. a small input run on the card and on the CPU: identical int outputs.
 
 Every ``Instance`` run before ``control_plane`` turns the overload
 ladder and the SLO engine off (``instance_config``), as the reference's
@@ -4282,6 +4329,917 @@ def phase_ingest_sources(device, geo_cuda, world):
     return launches
 
 
+# -- outbound, search, presence and device streams -------------------------------
+
+OP_TS0_MS = WIRE_TS0_MS + 60_000_000
+OP_MIXED, OP_MEAS = 8, 8
+# the webhook's and the index's devices, and the MQTT connector's; only
+# devices without an m0 measurement slot (d % 8 != 0), so the window
+# query's match rows (all m0) pass none of their filters
+OP_HOOK_DEVICES, OP_MQTT_DEVICES = 4096, 1024
+OP_MISSING_AFTER_S = 3600
+# matches on about 1% of the 1 s windows of m0 (values uniform in 0-100)
+OP_QUERY = {"kind": "window", "name": "hot", "mtype": "m0", "agg": "mean",
+            "op": "gt", "threshold": 99.0, "windowS": 1}
+OP_CONNECTORS = ("tap", "alerts", "webhook", "index", "mqtt", "dead")
+OP_SHED_LINES = 4096
+OP_CONCURRENT = 4
+OP_PRESENCE_INTERVAL_S = 0.25
+OP_SEARCH_DEVICES, OP_SEARCH_PAGE = 64, 4
+OP_STREAMS, OP_CHUNKS, OP_CHUNK_BYTES, OP_SEND_BACK = 16, 64, 64 << 10, 4
+OP_TAP_COLS = ("device_id", "event_type", "ts_s", "ts_ns", "payload_ref",
+               "mtype_id", "value")
+
+
+class OpSinks:
+    """What the outbound run's connectors deliver to: a loopback
+    ``ThreadingHTTPServer`` (the webhook's and the index's paths record
+    each body; ``/dead`` always answers 500), the port's hosted
+    ``MqttBroker`` with one subscribing ``MqttClient`` that keeps every
+    (topic, payload), and a tap that keeps the columns of every row."""
+
+    def __init__(self):
+        import http.server
+
+        from sitewhere_tpu_torch.ingest.mqtt import MqttClient
+        from sitewhere_tpu_torch.ingest.mqtt_broker import MqttBroker
+
+        self.bodies = collections.defaultdict(list)
+        self.lock = threading.Lock()
+        sinks = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def do_POST(self):  # noqa: N802
+                body = self.rfile.read(int(self.headers["Content-Length"]))
+                dead = self.path.endswith("/dead")
+                if not dead:
+                    with sinks.lock:
+                        sinks.bodies[self.path].append(body)
+                self.send_response(500 if dead else 200)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+            def log_message(self, *args):
+                pass
+
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                                      Handler)
+        self.server.daemon_threads = True
+        self._serve = threading.Thread(target=self.server.serve_forever,
+                                       daemon=True, name="op-http")
+        self._serve.start()
+        self.broker = MqttBroker(port=0)
+        self.broker.start()
+        self.received = collections.defaultdict(list)
+        self.subscriber = MqttClient("127.0.0.1", self.broker.port,
+                                     client_id="op-subscriber")
+        self.subscriber.on_message = self._on_message
+        self.subscriber.connect()
+        self.subscriber.subscribe("sw/#", qos=1)
+        self.clients = []
+
+    def _on_message(self, topic, payload):
+        tag = topic.split("/")[1]
+        with self.lock:
+            self.received[tag].append((topic, bytes(payload)))
+
+    def url(self, tag, leg):
+        return f"http://127.0.0.1:{self.server.server_port}/{tag}/{leg}"
+
+    def docs(self, tag, leg):
+        with self.lock:
+            bodies = list(self.bodies.get(f"/{tag}/{leg}", ()))
+        return [d for b in bodies for d in json.loads(b)]
+
+    def connectors(self, inst, tag, hook_devices, mqtt_devices):
+        """The six connectors, their deliver seconds and the tap's rows."""
+        from sitewhere_tpu_torch.ingest.mqtt import MqttClient
+        from sitewhere_tpu_torch.outbound.connectors import (
+            CallbackConnector, FileConnector, HttpConnector,
+            IndexPushConnector, MqttOutboundConnector)
+        from sitewhere_tpu_torch.outbound.filters import (
+            DeviceFilter, EventTypeFilter)
+        from sitewhere_tpu_torch.runtime.resilience import CircuitBreaker
+        from sitewhere_tpu_torch.schema import EventType
+
+        tap, lock = [], threading.Lock()
+
+        def keep(cols, mask):
+            rows = {k: np.asarray(cols[k])[mask].copy() for k in OP_TAP_COLS}
+            with lock:
+                tap.append(rows)
+
+        client = MqttClient("127.0.0.1", self.broker.port,
+                            client_id=f"op-publisher-{tag}")
+        client.connect()
+        self.clients.append(client)
+        path = os.path.join(inst.data_dir, "outbound", "alerts.jsonl")
+        conns = [
+            CallbackConnector("tap", keep),
+            FileConnector("alerts", path, identity=inst.identity,
+                          filters=[EventTypeFilter([int(EventType.ALERT)],
+                                                   include=True)],
+                          priority=True),
+            HttpConnector("webhook", self.url(tag, "hook"),
+                          identity=inst.identity,
+                          filters=[DeviceFilter(hook_devices, include=True)]),
+            IndexPushConnector("index", self.url(tag, "index"),
+                               bulk_rows=500, bulk_interval_s=0.5,
+                               filters=[DeviceFilter(hook_devices,
+                                                     include=True)]),
+            MqttOutboundConnector(
+                "mqtt", client, identity=inst.identity, qos=1,
+                multicaster=lambda doc: [f"type-{doc['deviceTypeId']}"],
+                route_builder=lambda route, doc:
+                    f"sw/{tag}/{route}/{doc['deviceId']}",
+                filters=[DeviceFilter(mqtt_devices, include=True)]),
+            HttpConnector("dead", self.url(tag, "dead"),
+                          filters=[DeviceFilter(hook_devices, include=True)],
+                          breaker=CircuitBreaker(
+                              f"op-dead-{tag}", window=8, min_calls=4,
+                              open_for_s=3600.0, metrics=inst.metrics),
+                          dead_letters=inst.dead_letters),
+        ]
+        deliver_s = {}
+        for c in conns:
+            acc = deliver_s[c.connector_id] = [0.0]
+            c.deliver = _time_into(c.deliver, acc)
+            inst.outbound.add_connector(c)
+        return conns, deliver_s, tap, path
+
+    def close(self):
+        for c in self.clients:
+            c.disconnect()
+        self.subscriber.disconnect()
+        self.broker.stop()
+        self.server.shutdown()
+        self.server.server_close()
+        self._serve.join(timeout=5.0)
+
+
+def op_stored(store, **filters):
+    """Every stored row (optionally filtered), as concatenated columns."""
+    parts = collections.defaultdict(list)
+    for cols in store.iter_chunks(**filters):
+        for k, v in cols.items():
+            parts[k].append(np.asarray(v))
+    return {k: np.concatenate(v) for k, v in parts.items()}
+
+
+def op_take(cols, mask):
+    return {k: v[mask] for k, v in cols.items()}
+
+
+def op_docs(cols, identity):
+    """``marshal_row`` of every row, as JSON strings (key order kept)."""
+    from sitewhere_tpu_torch.outbound.connectors import marshal_row
+
+    return [json.dumps(marshal_row(cols, r, identity))
+            for r in range(len(cols["ts_s"]))]
+
+
+def op_lines(devices, ts_s, seed, kind="m"):
+    """One NDJSON payload: a line per device, no unregistered tokens;
+    measurements in MEAS_VALUE_BAND or alerts, at ``ts_s`` plus 0-750 ms."""
+    rng = np.random.default_rng(seed)
+    lo, hi = MEAS_VALUE_BAND
+    body = []
+    for d, v, q in zip(np.asarray(devices).tolist(),
+                       rng.uniform(lo, hi, len(devices)).tolist(),
+                       rng.integers(0, 4, len(devices)).tolist()):
+        t = ts_s * 1000 + 250 * q
+        body.append(_M_LINE % (f"d-{d}", d % M_SLOTS, v, t) if kind == "m"
+                    else _A_LINE % (f"d-{d}", d % 4, t))
+    return "\n".join(body).encode()
+
+
+def op_hist_le(hist, q):
+    """The upper bound of the bucket holding the ``q`` quantile of a
+    histogram, in ms (its buckets' resolution), or None without samples."""
+    snap = hist.snapshot()
+    if not snap["count"]:
+        return None
+    for bound, cum in snap["buckets"].items():
+        if cum >= q * snap["count"]:
+            return bound * 1e3
+    return float("inf")
+
+
+def op_counts(inst):
+    return {cid: dict(s, shed=inst.metrics.counter(
+        f"outbound.overload_shed.{cid}").value)
+        for cid, s in inst.outbound.stats().items()}
+
+
+def op_state_equal(a, b, skip=()):
+    return sorted(a) == sorted(b) and all(
+        a[k].tobytes() == b[k].tobytes() for k in a if k not in skip)
+
+
+def outbound_wire_run(device, geo_cuda, world, payloads, root, sinks, run,
+                      blocks):
+    """One wire run of ``payloads`` through a fresh ``Instance`` from the
+    world, the window query registered: ``off`` with no connectors, ``on``
+    with the six.  Timed from the first payload to the outbound drain.
+    Returns ``(record, instance, context)``; the ``on`` instance stays
+    started for the presence, search and stream runs."""
+    import torch
+
+    data_dir = os.path.join(root, run)
+    inst = instance_from_world(
+        device, world, data_dir, CAPACITY, FULL_B, 0, WIRE_DEADLINE_MS,
+        presence={"scan_interval_s": 3600.0,
+                  "missing_after_s": OP_MISSING_AFTER_S})
+    disp, runner = inst.dispatcher, inst.analytics
+    runner.register(OP_QUERY)
+    matches = []
+    real_record = runner._record
+
+    def record(entry, found, live):
+        if live:
+            matches.extend((m.device_id, m.ts_s, m.value) for m in found)
+        return real_record(entry, found, live=live)
+
+    runner._record = record
+    ctx = {"matches": matches}
+    if run == "on":
+        # attached before start(), so the instance's lifecycle starts and
+        # stops each connector (the index's interval flusher and its
+        # final flush at stop)
+        ctx["conns"], ctx["deliver_s"], ctx["tap"], ctx["alerts_path"] = \
+            sinks.connectors(inst, run, blocks["hook"], blocks["mqtt"])
+    inst.start()
+    offers = []
+    real_submit = inst.outbound.submit
+
+    def submit(cols, mask, **kw):
+        offers.append(int(np.asarray(mask).sum()))
+        return real_submit(cols, mask, **kw)
+
+    inst.outbound.submit = submit
+    try:
+        torch.cuda.synchronize()
+        snap0 = disp.metrics_snapshot()
+        stages0 = _stage_totals(disp)
+        rejected0 = inst.registration.rejected
+        legs0 = disp.metrics.timer("pipeline.egress_outbound_s")
+        legs0 = (legs0.count, legs0.total)
+        disp.latencies_s.clear()
+        geo_cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        for payload, _ in payloads:
+            disp.ingest_wire_lines(payload)
+        settle(inst)
+        t_flushed = time.perf_counter() - t0
+        runner.drain(timeout_s=600.0)
+        inst.outbound.drain(60.0)
+        elapsed = time.perf_counter() - t0
+        launches = geo_cuda.launch_counts["pip_parity"]
+        snap = disp.metrics_snapshot()
+        timer = disp.metrics.timer("pipeline.egress_outbound_s")
+        latency = _latency(disp, "max")
+        stage_ms = _stage_ms(disp, stages0)
+        rejected = inst.registration.rejected - rejected0
+        state = inst.device_state.snapshot_host()
+    except BaseException:
+        inst.terminate()
+        raise
+    delta = {k: snap[k] - snap0[k] for k in (
+        "steps", "processed", "accepted", "unregistered", "derived_alerts")}
+    lines = sum(p.count(b"\n") + 1 for p, _ in payloads)
+    plans = timer.count - legs0[0]
+    ack = inst.metrics.histogram("outbound.ack_latency_s")
+    rec = {"phase": "outbound_presence", "run": f"outbound_wire.{run}",
+           "payloads": len(payloads), "lines": lines, "elapsed_s": elapsed,
+           "flushed_s": t_flushed, "events_per_s": lines / elapsed,
+           **latency, "stage_ms": stage_ms,
+           # requests of the plans' journal records handed to registration
+           # and refused: the ghost rows and every straddled record's rest
+           "registration_rejected": rejected,
+           "pip_launches": launches, **delta,
+           "outbound_offers": len(offers), "live_matches": len(matches),
+           "egress_outbound_ms_per_plan": (
+               (timer.total - legs0[1]) * 1e3 / plans if plans else None),
+           "ack_latency_p50_le_ms": op_hist_le(ack, 0.50),
+           "ack_latency_p99_le_ms": op_hist_le(ack, 0.99),
+           "acks": ack.snapshot()["count"]}
+    rec.update(guard_counts(disp.metrics, "outbound_presence"))
+    check(launches == delta["steps"],
+          f"{run}: kernel launched {launches}x in {delta['steps']} steps")
+    ctx.update(offers=offers, delta=delta, state=state)
+    return rec, inst, ctx
+
+
+def outbound_checks(inst, sinks, ctx, rec, blocks):
+    """The ``on`` run's deliveries against the store: see the module
+    docstring, phase 13."""
+    from sitewhere_tpu_torch.ids import NULL_ID
+    from sitewhere_tpu_torch.schema import EventType
+
+    counts = op_counts(inst)
+    rec["connectors"] = counts
+    rec["ingest_to_ack_s"] = {
+        cid: inst.metrics.gauge(
+            f"pipeline.ingest_to_outbound_ack_latency_s.{cid}").value
+        for cid in OP_CONNECTORS}
+    rec["rows_per_s"] = {
+        cid: (counts[cid]["processed"] / ctx["deliver_s"][cid][0]
+              if ctx["deliver_s"][cid][0] else None)
+        for cid in ("alerts", "webhook", "mqtt", "index")}
+    rec["deliver_s"] = {cid: acc[0] for cid, acc in ctx["deliver_s"].items()}
+    stored = op_stored(inst.event_store)
+    tap = {k: np.concatenate([b[k] for b in ctx["tap"]])
+           for k in OP_TAP_COLS}
+    sc = tap["event_type"] == int(EventType.STATE_CHANGE)
+    check(counts["tap"]["dropped"] == 0,
+          f"tap dropped {counts['tap']['dropped']} batches")
+    check(row_checksum(op_take(tap, ~sc)) == row_checksum(stored),
+          "the tap's rows != the stored rows")
+    check(not (tap["payload_ref"][sc] != NULL_ID).any(),
+          "a journaled STATE_CHANGE row reached the tap")
+    fanned = sorted(zip(tap["device_id"][sc].tolist(),
+                        tap["ts_s"][sc].tolist(),
+                        tap["value"][sc].tolist()))
+    check(fanned == sorted(ctx["matches"]),
+          f"{len(fanned)} match rows at the tap, {len(ctx['matches'])} "
+          "live matches")
+    check(len(fanned) > 0, "the window query matched nothing")
+    alerts = op_take(stored, stored["event_type"] == int(EventType.ALERT))
+    with open(ctx["alerts_path"]) as f:
+        lines = f.read().splitlines()
+    check(sorted(lines) == sorted(op_docs(alerts, inst.identity)),
+          "the alerts file != marshal_row over the stored ALERT rows")
+    hook = op_take(stored, np.isin(stored["device_id"], blocks["hook"]))
+    want = sorted(json.dumps(json.loads(d), sort_keys=True)
+                  for d in op_docs(hook, inst.identity))
+    got = sorted(json.dumps(d, sort_keys=True)
+                 for d in sinks.docs("on", "hook"))
+    check(got == want, f"webhook: {len(got)} rows, {len(want)} stored")
+    mqtt = op_take(stored, np.isin(stored["device_id"], blocks["mqtt"]))
+    want = sorted(
+        (f"sw/on/type-{d['deviceTypeId']}/{d['deviceId']}", s.encode())
+        for s, d in ((s, json.loads(s)) for s in op_docs(mqtt,
+                                                         inst.identity)))
+    deadline = time.monotonic() + 60.0
+    while len(sinks.received["on"]) < len(want) \
+            and time.monotonic() < deadline:
+        time.sleep(0.01)
+    got = sorted(sinks.received["on"])
+    check(got == want, f"mqtt: {len(got)} messages, {len(want)} stored")
+    letters = [d for d in inst.list_dead_letters(limit=1 << 20)
+               if d.get("kind") == "connector-shed"]
+    check(counts["dead"]["errors"] > 0 and ctx["conns"][-1].shed > 0
+          and letters and all(d["connector"] == "dead" for d in letters),
+          f"the dead connector's breaker: errors {counts['dead']['errors']},"
+          f" shed {ctx['conns'][-1].shed}, {len(letters)} letters")
+    check(all(counts[c]["errors"] == 0 for c in OP_CONNECTORS
+              if c != "dead"),
+          f"a live connector counted an error: {counts}")
+    billed = inst.usage_ledger.usage_of(0).get("usage", {}).get(
+        "outbound_rows", 0)
+    offered = len(OP_CONNECTORS) * sum(ctx["offers"])
+    check(billed == offered and sum(ctx["offers"])
+          == ctx["delta"]["accepted"] + len(ctx["matches"]),
+          f"outbound_rows {billed}, offered {offered}")
+    rec.update(rows_stored=int(stored["ts_s"].size),
+               match_rows=len(fanned), alert_rows=len(lines),
+               webhook_rows=len(hook["ts_s"]), mqtt_rows=len(want),
+               dead_shed_rows=ctx["conns"][-1].shed,
+               connector_shed_letters=len(letters),
+               outbound_rows_billed=billed)
+    return stored
+
+
+def outbound_shed_run(device, geo_cuda, world, root, sinks, blocks):
+    """``outbound_shed``: a fresh instance with the ladder on, forced to
+    SHEDDING; one 4096-line ALERT payload (CRITICAL, admitted at
+    SHEDDING) reaches only the priority connector."""
+    import torch
+
+    from sitewhere_tpu_torch.runtime.overload import OverloadState
+
+    data_dir = os.path.join(root, "shed")
+    inst = instance_from_world(
+        device, world, data_dir, CAPACITY, FULL_B, 0, WIRE_DEADLINE_MS,
+        overload={"enabled": True, "cooldown_s": 3600.0})
+    conns, _, tap, path = sinks.connectors(inst, "shed", blocks["hook"],
+                                           blocks["mqtt"])
+    inst.start()
+    try:
+        disp = inst.dispatcher
+        inst.overload.force(OverloadState.SHEDDING)
+        torch.cuda.synchronize()
+        snap0 = disp.metrics_snapshot()
+        offers = [0]
+        real_submit = inst.outbound.submit
+
+        def submit(cols, mask, **kw):
+            offers[0] += 1
+            return real_submit(cols, mask, **kw)
+
+        inst.outbound.submit = submit
+        geo_cuda.reset_launch_counts()
+        devices = blocks["hook"][:OP_SHED_LINES]
+        disp.ingest_wire_lines(op_lines(devices, OP_TS0_MS // 1000 + 40_000,
+                                        SEED + 91, kind="a"))
+        settle(inst)
+        inst.analytics.drain(timeout_s=60.0)
+        inst.outbound.drain(60.0)
+        launches = geo_cuda.launch_counts["pip_parity"]
+        snap = disp.metrics_snapshot()
+        counts = op_counts(inst)
+        state = inst.overload.state
+        inst.stop()
+        with open(path) as f:
+            alert_lines = len(f.read().splitlines())
+    finally:
+        inst.terminate()
+    steps = snap["steps"] - snap0["steps"]
+    accepted = snap["accepted"] - snap0["accepted"]
+    rec = {"phase": "outbound_presence", "run": "outbound_shed",
+           "ladder": state.name, "lines": OP_SHED_LINES,
+           "accepted": accepted, "plans_offered": offers[0],
+           "alerts_rows": counts["alerts"]["processed"],
+           "alerts_file_lines": alert_lines, "connectors": counts,
+           "pip_launches": launches, "steps": steps}
+    emit(rec)
+    check(state >= OverloadState.SHEDDING, f"the ladder left SHEDDING: {state}")
+    check(accepted >= OP_SHED_LINES and offers[0] > 0,
+          f"shed run: accepted {accepted}, offers {offers[0]}")
+    check(counts["alerts"]["processed"] == accepted == alert_lines,
+          f"priority connector got {counts['alerts']['processed']} of "
+          f"{accepted}")
+    for cid in OP_CONNECTORS:
+        if cid == "alerts":
+            continue
+        check(counts[cid]["shed"] == offers[0]
+              and counts[cid]["processed"] == 0,
+              f"{cid} at SHEDDING: {counts[cid]} for {offers[0]} offers")
+    check(not tap, "the tap received a row at SHEDDING")
+    check(launches == steps, f"shed: {launches} launches in {steps} steps")
+    return launches
+
+
+def presence_run(geo_cuda, inst, stored, blocks, tap):
+    """``presence`` on the ``on`` instance after its wire run: the scans,
+    one sweep with the clock injected, send-once, re-arming, and the
+    sweep thread beside 4 payloads.  Returns the launches by sub-run."""
+    import torch
+
+    from sitewhere_tpu_torch.pipeline.packed import pack_state
+    from sitewhere_tpu_torch.schema import EventType
+    from sitewhere_tpu_torch.state import manager as state_manager
+    from sitewhere_tpu_torch.state.presence import (
+        STATE_CHANGE_PRESENCE_MISSING, PresenceManager, presence_sweep)
+
+    mgr, disp, pm = inst.device_state, inst.dispatcher, inst.presence
+    after = OP_MISSING_AFTER_S
+    launches = {}
+    rec = {"phase": "outbound_presence", "run": "presence",
+           "missing_after_s": after}
+    # scans against the store
+    t0 = time.perf_counter()
+    missing = mgr.missing_device_ids()
+    rec["missing_scan_ms"] = (time.perf_counter() - t0) * 1e3
+    check(missing == [], f"{len(missing)} devices missing before a sweep")
+    ts = stored["ts_s"]
+    cut = int(np.percentile(ts, 50))
+    t0 = time.perf_counter()
+    seen = mgr.seen_since(cut)
+    rec["seen_since_scan_ms"] = (time.perf_counter() - t0) * 1e3
+    want = np.unique(stored["device_id"][ts >= cut]).tolist()
+    check(seen == want, f"seen_since: {len(seen)} devices, {len(want)} in "
+          "the store")
+    with_events = np.unique(stored["device_id"])
+    rec.update(devices_with_events=int(with_events.size),
+               seen_since_devices=len(seen))
+
+    # the sweep's card time beside its byte bound: last_event_type and
+    # last_event_ts_s (int32) and presence_missing (bool) read, the new
+    # presence_missing and the newly-missing mask written
+    state = mgr.current
+    now1 = int(ts.max()) + after + 1
+    rec["sweep_ms"] = cuda_ms(lambda: presence_sweep(state, now1, after), 20)
+    d = state.capacity
+    sweep_bytes = d * (4 + 4 + 1) + 2 * d
+    rec["sweep_bound_ms"] = sweep_bytes / PEAK_HBM_BYTES * 1e3
+    rec["sweep_bytes"] = sweep_bytes
+    rec["repack_ms"] = cuda_ms(lambda: pack_state(state), 5)
+    del state
+
+    emitted = []      # (now, device ids) of every sweep that marked any
+    before = mgr.snapshot_host()
+    real_cb = pm.on_state_changes
+    held = []
+    pm.on_state_changes = held.append
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    marked = pm.sweep_once(now_s=now1)
+    torch.cuda.synchronize()
+    rec["sweep_host_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    mgr.current_packed             # the sweep dropped the packed epoch
+    torch.cuda.synchronize()
+    rec["next_step_repack_ms"] = (time.perf_counter() - t0) * 1e3
+    pm.on_state_changes = real_cb
+    batch = held[0]
+    ids = batch.device_id.cpu().numpy()
+    check(marked == ids.size and np.array_equal(np.sort(ids), with_events),
+          f"the sweep marked {marked}, {with_events.size} devices have events")
+    check(bool((batch.alert_code == STATE_CHANGE_PRESENCE_MISSING).all())
+          and not bool(batch.update_state.any())
+          and bool((batch.event_type == int(EventType.STATE_CHANGE)).all()),
+          "the sweep's STATE_CHANGE rows")
+    emitted.append((now1, ids))
+    snap0 = disp.metrics_snapshot()
+    geo_cuda.reset_launch_counts()
+    tap0 = len(tap)
+    real_cb(batch)
+    settle(inst)
+    inst.analytics.drain(timeout_s=600.0)
+    inst.outbound.drain(60.0)
+    snap = disp.metrics_snapshot()
+    launches["presence_sweep"] = geo_cuda.launch_counts["pip_parity"]
+    steps = snap["steps"] - snap0["steps"]
+    rec.update(state_change_rows=int(ids.size), state_change_plans=steps,
+               state_change_launches=launches["presence_sweep"])
+    check(launches["presence_sweep"] == steps,
+          f"presence: {launches['presence_sweep']} launches in {steps} steps")
+    after_state = mgr.snapshot_host()
+    check(op_state_equal(before, after_state, skip=("presence_missing",)),
+          "the sweep changed a field other than presence_missing")
+    check(np.array_equal(np.nonzero(after_state["presence_missing"])[0],
+                         with_events), "presence_missing != devices with "
+          "events")
+    del before, after_state
+    rows = op_stored(inst.event_store, event_type=int(EventType.STATE_CHANGE))
+    mine = rows["ts_s"] == now1
+    check(np.array_equal(np.sort(rows["device_id"][mine]), with_events),
+          "the sweep's rows are not stored exactly once")
+    tapped = {k: np.concatenate([b[k] for b in tap[tap0:]])
+              for k in OP_TAP_COLS}
+    tap_sc = np.sort(tapped["device_id"][
+        (tapped["event_type"] == int(EventType.STATE_CHANGE))
+        & (tapped["ts_s"] == now1)])
+    check(np.array_equal(tap_sc, with_events),
+          f"tap got {tap_sc.size} of the sweep's {with_events.size} rows")
+    del tapped
+    check(pm.sweep_once(now_s=now1) == 0, "a second sweep marked devices")
+
+    # re-arm: one more payload clears exactly its block; a later sweep
+    # marks exactly that block again
+    block = blocks["rearm"]
+    t_re = int(ts.max()) + 10
+    geo_cuda.reset_launch_counts()
+    snap0 = disp.metrics_snapshot()
+    disp.ingest_wire_lines(op_lines(block, t_re, SEED + 92))
+    settle(inst)
+    snap = disp.metrics_snapshot()
+    launches["presence_rearm"] = geo_cuda.launch_counts["pip_parity"]
+    check(launches["presence_rearm"] == snap["steps"] - snap0["steps"],
+          "re-arm: launches != steps")
+    left = np.asarray(mgr.missing_device_ids())
+    check(np.array_equal(left, np.setdiff1d(with_events, block)),
+          f"the payload cleared {with_events.size - left.size} flags of "
+          f"{block.size}")
+    now2 = t_re + after + 1
+    held.clear()
+    pm.on_state_changes = held.append
+    marked2 = pm.sweep_once(now_s=now2)
+    pm.on_state_changes = real_cb
+    ids2 = held[0].device_id.cpu().numpy()
+    check(marked2 == block.size and np.array_equal(np.sort(ids2),
+                                                   np.sort(block)),
+          f"the re-armed sweep marked {marked2} of the block's {block.size}")
+    emitted.append((now2, ids2))
+    real_cb(held[0])
+    settle(inst)
+    rec.update(rearm_cleared=int(block.size), rearm_marked=int(marked2))
+
+    # the sweep thread beside 4 payloads: the injected clock's cut lies
+    # inside their event times
+    t_c = t_re + 100
+    cut = t_c + 2
+    merges = [0, 0]
+    real_merge = state_manager._merge_presence
+
+    def merge(*args):
+        merges[0] += 1
+        return real_merge(*args)
+
+    gauge = disp._m_occ["presence_merges"]
+
+    class Summed:
+        """The per-plan ``presence_merges`` gauge, summed over the run."""
+
+        def set(self, v):
+            merges[1] += int(v)
+            gauge.set(v)
+
+    sweeps = []
+
+    def on_changes(batch):
+        sweeps.append((cut + after, batch.device_id.cpu().numpy()))
+        real_cb(batch)
+
+    thread = PresenceManager(mgr, check_interval_s=OP_PRESENCE_INTERVAL_S,
+                             missing_after_s=after,
+                             on_state_changes=on_changes,
+                             clock=lambda: cut + after)
+    state_manager._merge_presence = merge
+    disp._m_occ["presence_merges"] = Summed()
+    geo_cuda.reset_launch_counts()
+    snap0 = disp.metrics_snapshot()
+    t0 = time.perf_counter()
+    thread.start()
+    try:
+        for p in range(OP_CONCURRENT):
+            disp.ingest_wire_lines(op_lines(blocks["concurrent"][p], t_c + p,
+                                            SEED + 93 + p))
+        settle(inst)
+        time.sleep(2 * OP_PRESENCE_INTERVAL_S)
+    finally:
+        thread.stop()
+        state_manager._merge_presence = real_merge
+        disp._m_occ["presence_merges"] = gauge
+    settle(inst)
+    inst.analytics.drain(timeout_s=600.0)
+    inst.outbound.drain(60.0)
+    elapsed = time.perf_counter() - t0
+    snap = disp.metrics_snapshot()
+    launches["presence_concurrent"] = geo_cuda.launch_counts["pip_parity"]
+    steps = snap["steps"] - snap0["steps"]
+    check(launches["presence_concurrent"] == steps,
+          f"concurrent: {launches['presence_concurrent']} launches in "
+          f"{steps} steps")
+    emitted += sweeps
+    flagged = np.asarray(mgr.missing_device_ids())
+    last = mgr.snapshot_host()["last_event_ts_s"]
+    flagged_at = {}
+    for now, dev in emitted:
+        for x in dev.tolist():
+            flagged_at[x] = now
+    check(all(flagged_at[int(x)] - int(last[x]) > after for x in flagged),
+          "a flagged device was seen within missing_after_s of its sweep")
+    check(merges[1] > 0, "no presence merge during the concurrent run")
+    rows = op_stored(inst.event_store, event_type=int(EventType.STATE_CHANGE))
+    keys = collections.Counter(zip(rows["device_id"].tolist(),
+                                   rows["ts_s"].tolist()))
+    want = collections.Counter((int(x), now) for now, dev in emitted
+                               for x in dev.tolist())
+    check(keys == want, f"{sum(keys.values())} STATE_CHANGE rows stored, "
+          f"{sum(want.values())} emitted (each once)")
+    rec.update(concurrent={
+        "payloads": OP_CONCURRENT, "elapsed_s": elapsed, "sweeps":
+        thread.sweeps, "sweeps_marking": len(sweeps), "marked":
+        thread.total_marked_missing, "presence_merges": merges[1],
+        "commit_merges": merges[0], "plans": steps,
+        "pip_launches": launches["presence_concurrent"]},
+        flagged_at_end=int(flagged.size),
+        state_change_rows_stored=int(rows["ts_s"].size))
+    emit(rec)
+    return launches
+
+
+def search_run(inst):
+    """``search``: the local provider against the store for 64 sampled
+    devices, paged; a federated provider over two local legs against the
+    numpy merge of the same rows."""
+    from sitewhere_tpu_torch.outbound.search import (
+        EventSearchProvider, FederatedSearchProvider)
+    from sitewhere_tpu_torch.services.common import SearchCriteria
+
+    stored = op_stored(inst.event_store)
+    rng = np.random.default_rng(SEED + 94)
+    devices = rng.choice(np.unique(stored["device_id"]), OP_SEARCH_DEVICES,
+                         replace=False)
+    tokens = [inst.identity.device.token_of(int(d)) for d in devices]
+    local = inst.search_providers.get_provider("local")
+    fed = FederatedSearchProvider("federated", [
+        EventSearchProvider("a", inst.event_store),
+        EventSearchProvider("b", inst.event_store)])
+
+    def rows_of(results):
+        return [(r.device_id, r.event_type, r.ts_s, r.ts_ns, r.mtype_id,
+                 np.float32(r.value).tobytes()) for r in results]
+
+    times = {"local": [], "federated": []}
+    pages = 0
+    for tok in tokens:
+        d = inst.identity.device.lookup(tok)
+        mine = op_take(stored, stored["device_id"] == d)
+        key = mine["ts_s"].astype(np.int64) * 10**9 + mine["ts_ns"]
+        want = sorted(zip(mine["device_id"].tolist(),
+                          mine["event_type"].tolist(), mine["ts_s"].tolist(),
+                          mine["ts_ns"].tolist(), mine["mtype_id"].tolist(),
+                          [v.tobytes() for v in mine["value"]]))
+        for name, provider, copies in (("local", local, 1),
+                                       ("federated", fed, 2)):
+            got, keys, page, total = [], [], 1, 1
+            while len(got) < total:
+                t0 = time.perf_counter()
+                res = provider.search(SearchCriteria(
+                    page=page, page_size=OP_SEARCH_PAGE), device_id=d)
+                times[name].append(time.perf_counter() - t0)
+                total = res.total
+                if not res.results:
+                    break
+                got += rows_of(res.results)
+                keys += [r.ts_s * 10**9 + r.ts_ns for r in res.results]
+                page += 1
+                pages += 1
+            check(total == copies * key.size and sorted(got) == sorted(
+                want * copies), f"{name} search of {tok}: {len(got)} rows, "
+                f"{key.size} stored")
+            check(keys == sorted(np.repeat(key, copies).tolist(),
+                                 reverse=True),
+                  f"{name} search of {tok} is not newest first")
+    rec = {"phase": "outbound_presence", "run": "search",
+           "devices": len(tokens), "page_size": OP_SEARCH_PAGE,
+           "pages": pages,
+           "local_ms_per_query": float(np.mean(times["local"])) * 1e3,
+           "federated_ms_per_query": float(np.mean(times["federated"])) * 1e3,
+           "rows_scanned": int(stored["ts_s"].size)}
+    emit(rec)
+
+
+def streams_run(inst):
+    """``streams``: stream lines through the dispatcher's host plane; 16
+    devices each create a stream, send 64 chunks of 64 KiB out of order
+    and ask for 4 back; one chunk for an unknown stream dead-letters and
+    its requeue replays it once the stream exists."""
+    import base64
+
+    dm = inst.device_management
+    dm.create_device_type(token="op-cam", name="Camera")
+    cams = [f"op-cam-{i}" for i in range(OP_STREAMS)]
+    for tok in cams:
+        dm.create_device(token=tok, device_type="op-cam")
+        dm.create_device_assignment(device=tok)
+    rng = np.random.default_rng(SEED + 95)
+    sent = {}
+    sendbacks = []
+    real_send = inst.stream_manager.handle_send_device_stream_data_request
+
+    def send_back(tok, sid, seq):
+        data = real_send(tok, sid, seq)
+        sendbacks.append((tok, sid, seq, data))
+        return data
+
+    inst.stream_manager.handle_send_device_stream_data_request = send_back
+    disp = inst.dispatcher
+
+    def line(tok, kind, **req):
+        return json.dumps({"deviceToken": tok, "type": kind,
+                           "request": req})
+
+    t0 = time.perf_counter()
+    nbytes = 0
+    for tok in cams:
+        chunks = [rng.bytes(OP_CHUNK_BYTES) for _ in range(OP_CHUNKS)]
+        sent[tok] = chunks
+        order = rng.permutation(OP_CHUNKS).tolist()
+        body = [line(tok, "DeviceStream", streamId="clip",
+                     contentType="video/mp4")]
+        body += [line(tok, "StreamData", streamId="clip", sequenceNumber=s,
+                      data=base64.b64encode(chunks[s]).decode())
+                 for s in order]
+        payload = "\n".join(body).encode()
+        nbytes += len(payload)
+        disp.ingest_wire_lines(payload)
+    t_data = time.perf_counter() - t0
+    asks = {tok: rng.choice(OP_CHUNKS, OP_SEND_BACK, replace=False).tolist()
+            for tok in cams}
+    disp.ingest_wire_lines("\n".join(
+        line(tok, "SendStreamData", streamId="clip", sequenceNumber=s)
+        for tok in cams for s in asks[tok]).encode())
+    disp.flush()
+    for tok in cams:
+        a = dm.get_active_assignment(tok)
+        stream = inst.streams.get_assignment_stream(a.token, "clip")
+        check(stream is not None and inst.streams.stream_content(
+            stream.token) == b"".join(sent[tok]),
+            f"{tok}: stream content != the chunks sent")
+    check(sorted(sendbacks) == sorted(
+        (tok, "clip", s, sent[tok][s]) for tok in cams for s in asks[tok]),
+        "send-back answers != the chunks asked for")
+    # a chunk for a stream that does not exist yet, then its requeue
+    late = base64.b64encode(b"late-chunk").decode()
+    disp.ingest_wire_lines(line(cams[0], "StreamData", streamId="late",
+                                sequenceNumber=0, data=late).encode())
+    disp.flush()
+    letters = [d for d in inst.list_dead_letters(limit=1 << 20)
+               if d.get("kind") == "failed-stream-request"]
+    check(len(letters) == 1 and letters[0]["stream_id"] == "late",
+          f"failed-stream-request letters: {letters}")
+    disp.ingest_wire_lines(line(cams[0], "DeviceStream",
+                                streamId="late").encode())
+    disp.flush()
+    out = inst.requeue_dead_letter(letters[0]["offset"])
+    a = dm.get_active_assignment(cams[0])
+    stream = inst.streams.get_assignment_stream(a.token, "late")
+    check(out.get("requeued") and inst.streams.stream_content(stream.token)
+          == b"late-chunk", f"requeue of the late chunk: {out}")
+    check(len([d for d in inst.list_dead_letters(limit=1 << 20)
+               if d.get("kind") == "failed-stream-request"]) == 1,
+          "the requeue dead-lettered again")
+    rec = {"phase": "outbound_presence", "run": "streams",
+           "devices": OP_STREAMS, "chunks": OP_STREAMS * OP_CHUNKS,
+           "chunk_bytes": OP_CHUNK_BYTES, "payload_mb": nbytes / 1e6,
+           "data_s": t_data, "mb_per_s": nbytes / 1e6 / t_data,
+           "ms_per_stream_payload": t_data * 1e3 / OP_STREAMS,
+           "send_backs": len(sendbacks), "requeued": bool(out["requeued"])}
+    emit(rec)
+
+
+def phase_outbound_presence(device, geo_cuda, world):
+    """Outbound, presence, search and device streams on the card (see the
+    module docstring, phase 13), over the deployment's world checkpoint.
+    Returns the kernel's launches by run."""
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="outbound-", dir=geo_cuda.BUILD_DIR)
+    launches = {}
+    sinks = OpSinks()
+    try:
+        rng = np.random.default_rng(SEED + 90)
+        perm = rng.permutation(N_ACTIVE)
+
+        def block(i):
+            b = i % IS_BLOCKS
+            return perm[b * FULL_B:(b + 1) * FULL_B]
+
+        mixed = wire_payloads(rng, OP_MIXED, FULL_B, OP_TS0_MS,
+                              devices=block)
+        meas = measurement_payloads(
+            rng, OP_MEAS, FULL_B, OP_TS0_MS + 1000 * OP_MIXED,
+            devices=lambda p: block(OP_MIXED + p))
+        payloads = mixed + meas
+        del mixed, meas
+        free = perm[perm % M_SLOTS != 0]
+        blocks = {"hook": np.sort(free[:OP_HOOK_DEVICES]),
+                  "mqtt": np.sort(free[:OP_MQTT_DEVICES]),
+                  "rearm": np.sort(block(0)),
+                  "concurrent": [block(1 + p) for p in range(OP_CONCURRENT)]}
+        emit({"phase": "outbound_presence", "run": "setup",
+              "lines": sum(p.count(b"\n") + 1 for p, _ in payloads),
+              "seconds": time.perf_counter() - t0})
+        off, inst, ctx = outbound_wire_run(device, geo_cuda, world, payloads,
+                                           root, sinks, "off", blocks)
+        try:
+            inst.stop()
+        finally:
+            inst.terminate()
+        emit(off)
+        launches["outbound_wire.off"] = off["pip_launches"]
+        state_off = ctx["state"]
+        on, inst, ctx = outbound_wire_run(device, geo_cuda, world, payloads,
+                                          root, sinks, "on", blocks)
+        launches["outbound_wire.on"] = on["pip_launches"]
+        try:
+            stored = outbound_checks(inst, sinks, ctx, on, blocks)
+            check(op_state_equal(state_off, ctx["state"]),
+                  "device state differs between off and on")
+            on["state_equal_off"] = True
+            on["events_per_s_off_over_on"] = (off["events_per_s"]
+                                              / on["events_per_s"])
+            emit(on)
+            del state_off, ctx["state"], payloads
+            launches.update(presence_run(geo_cuda, inst, stored, blocks,
+                                         ctx["tap"]))
+            del stored
+            search_run(inst)
+            streams_run(inst)
+            inst.stop()
+            stored = op_stored(inst.event_store)
+            hook = op_take(stored, np.isin(stored["device_id"],
+                                           blocks["hook"]))
+            want = sorted(json.dumps(json.loads(d), sort_keys=True)
+                          for d in op_docs(hook, None))
+            got = sorted(json.dumps(d, sort_keys=True)
+                         for d in sinks.docs("on", "index"))
+            index = ctx["conns"][3]
+            check(got == want,
+                  f"index: {len(got)} rows pushed, {len(want)} stored "
+                  f"(indexed {index.indexed}, dropped {index.dropped}, "
+                  f"errors {index.errors})")
+            emit({"phase": "outbound_presence", "run": "index_final",
+                  "rows": len(got), "bulks": len(sinks.bodies["/on/index"]),
+                  "indexed": ctx["conns"][3].indexed,
+                  "dropped": ctx["conns"][3].dropped})
+        finally:
+            inst.terminate()
+        launches["outbound_shed"] = outbound_shed_run(
+            device, geo_cuda, world, root, sinks, blocks)
+    finally:
+        sinks.close()
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "outbound_presence", "run": "done",
+          "seconds": time.perf_counter() - t0})
+    return launches
+
+
 # -- device-fault containment and the control plane ----------------------------
 
 CP_TS0_MS = WIRE_TS0_MS + 40_000_000
@@ -5140,7 +6098,7 @@ def main() -> int:
                                      mixed[:INSTANCE_WIRE_PAYLOADS])
     an_launches = phase_streaming_analytics(device, geo_cuda)
     # one world checkpoint of the deployment (one tenant) serves
-    # device_services and ingest_sources
+    # device_services, ingest_sources and outbound_presence
     world_root = tempfile.mkdtemp(prefix="world-", dir=geo_cuda.BUILD_DIR)
     try:
         t0 = time.perf_counter()
@@ -5150,14 +6108,17 @@ def main() -> int:
                                             world)
         del mixed
         is_launches = phase_ingest_sources(device, geo_cuda, world)
+        op_launches = phase_outbound_presence(device, geo_cuda, world)
     finally:
         shutil.rmtree(world_root, ignore_errors=True)
     cp_launches = phase_control_plane(device, geo_cuda)
-    # this slice's path: the config-declared sources into the Instance
-    # (the TCP wire source pooled and synchronous, the protocol
-    # receivers, the restart)
-    rec["launches"] = sum(is_launches.values())
+    # this slice's path: the wire runs with outbound off and on, the
+    # ladder's shed run, and the presence sweeps' re-injected STATE_CHANGE
+    # plans
+    rec["launches"] = sum(op_launches.values())
     rec["launches_by_path"] = {"main_path": main_launches,
+                               **{f"outbound_presence.{k}": v
+                                  for k, v in op_launches.items()},
                                **{f"ingest_sources.{k}": v
                                   for k, v in is_launches.items()},
                                **{f"control_plane.{k}": v

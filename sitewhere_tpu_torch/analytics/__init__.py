@@ -1,13 +1,13 @@
 """Batch + streaming analytics over event history, on one card.
 
 Counterpart of ``sitewhere_tpu/analytics``: the same exports, minus the
-sharded half (``detect_anomalies_window_sharded``) and ``EventTap``,
-whose connector comes with the outbound slice.
+sharded half (``detect_anomalies_window_sharded``).
 """
 
 from sitewhere_tpu_torch.analytics.runner import (  # noqa: F401
     AnalyticsJob,
     Anomaly,
+    EventTap,
     QueryRunner,
     WindowGrid,
     build_window_grid,

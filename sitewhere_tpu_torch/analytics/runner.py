@@ -26,11 +26,12 @@ Streams and threads (the rule engine's design, ``rules/engine.py``):
   calls while on its stream reaches back into the dispatcher: match
   fan-out goes to ``outbound``, after the worker has left its stream.
 
-The ``Instance`` wires ``overload`` (shed from SHEDDING as a
+The ``Instance`` wires ``outbound`` (match fan-out as STATE_CHANGE
+rows, ``fanout_matches``), ``overload`` (shed from SHEDDING as a
 non-priority consumer), ``usage_ledger`` (eval seconds billed by row
-share) and ``quotas`` (the metered-quota row gate, pure host work);
-``outbound`` (match fan-out as STATE_CHANGE rows) stays ``None`` until
-the outbound slice.
+share) and ``quotas`` (the metered-quota row gate, pure host work).
+:class:`EventTap` accumulates enriched batches from an outbound
+callback connector for the batch job.
 """
 
 from __future__ import annotations
@@ -819,5 +820,44 @@ class QueryRunner(LifecycleComponent):
         return report
 
 
-__all__ = ["AnalyticsJob", "Anomaly", "QueryRunner", "WindowGrid",
-           "build_window_grid", "detect_anomalies"]
+
+class EventTap:
+    """Streaming bridge: accumulate enriched event batches for analytics.
+
+    Register :meth:`connector` (an outbound callback connector) with the
+    outbound manager; batches accumulate on the host, at most
+    ``max_batches`` (the oldest dropped), until :meth:`drain`."""
+
+    def __init__(self, max_batches: int = 1024):
+        self.max_batches = max_batches
+        self._batches: List[Dict[str, np.ndarray]] = []
+        # on_batch runs on the outbound worker thread, drain on the
+        # caller's: the cap check, pop and append, and the drain swap,
+        # must be atomic or a concurrent append is lost
+        self._lock = threading.Lock()
+
+    def connector(self):
+        from sitewhere_tpu_torch.outbound.connectors import CallbackConnector
+
+        def on_batch(cols, mask):
+            batch = {k: np.asarray(v)[mask].copy() for k, v in cols.items()}
+            with self._lock:
+                if len(self._batches) >= self.max_batches:
+                    self._batches.pop(0)
+                self._batches.append(batch)
+
+        return CallbackConnector(connector_id="analytics-tap", fn=on_batch)
+
+    def drain(self) -> Dict[str, np.ndarray]:
+        with self._lock:
+            batches, self._batches = self._batches, []
+        if not batches:
+            return {}
+        return {
+            key: np.concatenate([b[key] for b in batches])
+            for key in batches[0]
+        }
+
+
+__all__ = ["AnalyticsJob", "Anomaly", "EventTap", "QueryRunner",
+           "WindowGrid", "build_window_grid", "detect_anomalies"]

@@ -34,7 +34,16 @@ ingest sources (the config's ``sources`` section, built through
 :meth:`add_source`) with the decode pool that decodes their payloads on
 its workers (``ingest.decode_workers``, 2 by default; 0 decodes on the
 receiver's thread) and the checkpointer (with the segment catalog's,
-the ``runtime`` and the ``tenant-metering`` sections).
+the ``runtime`` and the ``tenant-metering`` sections), the outbound
+connectors (``outbound``: the ``OutboundConnectorsManager``, which the
+dispatcher's egress offers every accepted batch after persistence and
+the analytics runner its matches; connectors are attached in code with
+``outbound.add_connector``), the presence manager (``presence.*``: its
+sweeps flag devices silent past ``missing_after_s`` and their
+STATE_CHANGE rows re-enter through the dispatcher's ``inject_batch``),
+the ``"local"`` event search provider (``search_providers``) and the
+device streams (``streams``, ``stream_manager``: host-plane stream
+create, data and send requests from the sources and the wire).
 The attributes keep the reference's names, since the
 :class:`~sitewhere_tpu_torch.runtime.checkpoint.Checkpointer` reads
 them.
@@ -46,24 +55,18 @@ yet, so the port does less than the reference until their slices come
 - the batch-operation and schedule managers (:414-426) and the tenant
   engines (:427-431);
 - the fabric: :meth:`invoke_command` runs locally and has no peers to
-  route an unknown assignment to, and the ``forward-shed`` requeue finds
-  no forwarder;
-- outbound connectors, the ``OutboundConnectorsManager`` (:432-434);
-- search providers (:692-706);
-- presence scans, the ``PresenceManager`` (:592-597);
+  route an unknown assignment to, the ``forward-shed`` requeue finds
+  no forwarder, and the federated and remote search providers
+  (:694-706) have no peers to search;
 - the mesh's per-shard breakers (``ShardBreakers``);
 - the profiler endpoints that calibrate the watchdog's budgets
   (:1040-1060): the budgets stay at their defaults, soft 1 s, hard 10 s;
-- the device streams (``DeviceStreamManager``): every host-plane request
-  a source decodes (stream create, data, send) dead-letters as
-  ``unsupported-host-request``;
 - the script manager: a source whose decoder names a script fails boot
   as an unknown decoder;
 - the forwarder, so the ``runtime`` section's ``spools`` stay empty.
 
-The runner's ``outbound`` hook (its match fan-out) stays ``None``; its
-and the rule engine's ``overload``, ``usage_ledger`` and ``quotas`` are
-wired.
+The runner's ``outbound`` hook (its match fan-out), and its and the rule
+engine's ``overload``, ``usage_ledger`` and ``quotas``, are wired.
 
 Lifecycle, as in the reference:
 
@@ -83,22 +86,26 @@ Lifecycle, as in the reference:
   sets the ``recovery.restore_s``, ``recovery.replay_s`` and
   ``recovery.replay_events`` gauges;
 - :meth:`stop` stops the sources, drains the decode pool, then stops
-  the other children in reverse: the dispatcher flushes
-  (every row egressed and sealed, the offset committed) while the rule
-  engine and the analytics runner still run, then they drain, then the
-  store stops; a final generation is saved.
+  the other children in reverse: the presence thread, then the
+  dispatcher flushes (every row egressed and sealed, the offset
+  committed) while the rule engine, the analytics runner and the
+  outbound workers still run, then those stop (a connector worker drops
+  what is still queued, as in the reference: call ``outbound.drain``
+  first to deliver it), then the store; a final generation is saved.
 
 Configuration: the reference's keys and defaults
 (:mod:`~sitewhere_tpu_torch.runtime.config`), plus two of the port's own,
 ``pipeline.max_zones`` and ``pipeline.max_zone_verts`` (the registry
 mirror's zone table; defaults 256 and 32, the reference mirror's).  The
 keys in :data:`HONOURED` drive the instance.  Sections whose components
-the port does not have yet (``outbound``, ``rpc``, ``presence`` and the
-rest) are not composed: at their defaults the instance runs without
-them, and any other value raises :class:`NotImplementedError`, as does
-``pipeline.n_shards`` above 1.  Events arrive through the sources, or
-through ``instance.dispatcher`` (``ingest_wire_lines`` and the other
-entry points) on the caller's thread.
+the port does not have yet (``rpc`` and the rest) are not composed: at
+their defaults the instance runs without them, and any other value
+raises :class:`NotImplementedError`, as does ``pipeline.n_shards`` above
+1.  The ``outbound`` section's ``connectors`` key is such a value: the
+reference builds no connector from config either.  Events arrive
+through the sources, or through ``instance.dispatcher``
+(``ingest_wire_lines`` and the other entry points) on the caller's
+thread.
 
 The instance runs on the card unless ``device="cpu"`` is named.
 """
@@ -131,6 +138,7 @@ from sitewhere_tpu_torch.ingest.decoders import (
     DecodeError,
     JsonLinesDecoder,
     RequestKind,
+    encode_envelope,
 )
 from sitewhere_tpu_torch.ingest.factory import build_sources
 from sitewhere_tpu_torch.ingest.journal import (
@@ -139,6 +147,11 @@ from sitewhere_tpu_torch.ingest.journal import (
     JournalReader,
 )
 from sitewhere_tpu_torch.ingest.sources import DecodePool
+from sitewhere_tpu_torch.outbound.manager import OutboundConnectorsManager
+from sitewhere_tpu_torch.outbound.search import (
+    EventSearchProvider,
+    SearchProvidersManager,
+)
 from sitewhere_tpu_torch.pipeline.rules import RuleManager
 from sitewhere_tpu_torch.rules.engine import RuleEngineRunner
 from sitewhere_tpu_torch.runtime.checkpoint import Checkpointer, StateProvider
@@ -168,6 +181,7 @@ from sitewhere_tpu_torch.schema import DEFAULT_EWMA_HALFLIVES_S
 from sitewhere_tpu_torch.services.assets import AssetManagement
 from sitewhere_tpu_torch.services.common import (
     EntityNotFound,
+    ServiceError,
     ValidationError,
     mint_token,
     now_s,
@@ -177,7 +191,12 @@ from sitewhere_tpu_torch.services.device_management import (
     RegistryMirror,
 )
 from sitewhere_tpu_torch.services.registration import RegistrationManager
+from sitewhere_tpu_torch.services.streams import (
+    DeviceStreamManagement,
+    DeviceStreamManager,
+)
 from sitewhere_tpu_torch.state.manager import DeviceStateManager
+from sitewhere_tpu_torch.state.presence import PresenceManager
 from sitewhere_tpu_torch.store.catalog import catalog_state_provider
 from sitewhere_tpu_torch.store.segmented import SegmentStore
 
@@ -201,7 +220,7 @@ HONOURED = (
     "tracing.pending_capacity",
     "overload.*", "metering.*", "slo.*", "flightrec.*", "tenants.*",
     "state.partition_min_capacity",
-    "sources", "ingest.*",
+    "sources", "ingest.*", "presence.*",
 )
 
 
@@ -295,6 +314,12 @@ class Instance(LifecycleComponent):
                 self.config["events.compact_interval_s"]),
             metrics=self.metrics,
         ))
+        # device streams: a journal-backed chunk store under the data
+        # directory, and the request-level manager the host plane routes
+        # stream create, data and send requests to
+        self.streams = self.add_child(DeviceStreamManagement(self.data_dir))
+        self.stream_manager = self.add_child(DeviceStreamManager(
+            self.device_management, self.streams))
         self.ingest_journal = Journal(
             self.data_dir, name="ingest",
             fsync_every=int(self.config["journal.fsync_every"]),
@@ -466,6 +491,16 @@ class Instance(LifecycleComponent):
             metrics=self.metrics,
         ))
 
+        # Outbound connectors: every accepted enriched batch fans out to
+        # each connector's worker after persistence; from SHEDDING up only
+        # priority connectors are offered batches.  Added before the
+        # analytics runner and the dispatcher, so the reverse-order stop
+        # keeps its workers alive through the dispatcher's shutdown flush
+        # and the runner's last match fan-out.
+        self.outbound = self.add_child(OutboundConnectorsManager(
+            metrics=self.metrics, overload=self.overload))
+        self.outbound.usage_ledger = self.usage_ledger
+
         # Streaming analytics: registered Window/Session/Pattern queries
         # evaluate live on every accepted batch (the dispatcher's egress
         # offers it to the runner's worker) and retrospectively over the
@@ -485,6 +520,7 @@ class Instance(LifecycleComponent):
                 queue_depth=int(self.config.get("analytics.queue_depth", 64)),
                 fanout_matches=bool(self.config.get(
                     "analytics.fanout_matches", True)),
+                outbound=self.outbound,
                 overload=self.overload,
                 device=dev,
             ))
@@ -568,6 +604,7 @@ class Instance(LifecycleComponent):
             event_store=self.event_store,
             registration=self.registration,
             on_command_rows=self._on_command_rows,
+            outbound=self.outbound,
             rules_engine=self.rule_engine,
             analytics=self.analytics,
             journal=self.ingest_journal,
@@ -592,8 +629,22 @@ class Instance(LifecycleComponent):
             # fired tenant programs re-enter the pipeline as first-class
             # ALERT events through the dispatcher's derived-alert edge
             self.rule_engine.inject = self.dispatcher.inject_rule_alerts
+        # Presence: a background sweep flags devices silent past
+        # missing_after_s, once per episode; their STATE_CHANGE rows
+        # re-enter the pipeline through the dispatcher
+        self.presence = self.add_child(PresenceManager(
+            self.device_state,
+            check_interval_s=float(self.config["presence.scan_interval_s"]),
+            missing_after_s=int(self.config["presence.missing_after_s"]),
+            on_state_changes=self._on_presence_changes,
+        ))
         self.sources: List[LifecycleComponent] = []
         self._config_sources_built = False
+
+        # event search: the local store is the built-in index (the
+        # federated provider over peers waits for the fabric)
+        self.search_providers = SearchProvidersManager(
+            [EventSearchProvider("local", self.event_store)])
 
         # checkpoint/resume: restore the newest complete snapshot BEFORE
         # start, so identity, registry, rules and device state survive a
@@ -781,10 +832,37 @@ class Instance(LifecycleComponent):
         return source
 
     def _on_host_request(self, req, payload: bytes = b"") -> None:
-        """Host-plane requests from sources (device stream create, data
-        and send).  The reference hands them to its
-        ``DeviceStreamManager``; the port has none yet, so each one
-        dead-letters as the reference's unroutable request does."""
+        """Route host-plane requests from sources and the wire to the
+        ``DeviceStreamManager`` (stream create, data and send-back,
+        handled by the receiving host).  A request the manager refuses
+        (no such stream, device not assigned) dead-letters as
+        ``failed-stream-request`` with the raw request, so the requeue
+        can replay it; any other kind as ``unsupported-host-request``."""
+        try:
+            if req.kind == RequestKind.STREAM_CREATE:
+                self.stream_manager.handle_device_stream_request(
+                    req.device_token, req.stream_id,
+                    req.content_type or "application/octet-stream")
+                return
+            if req.kind == RequestKind.STREAM_DATA:
+                self.stream_manager.handle_device_stream_data_request(
+                    req.device_token, req.stream_id,
+                    req.sequence_number, req.stream_data or b"")
+                return
+            if req.kind == RequestKind.STREAM_SEND:
+                self.stream_manager.handle_send_device_stream_data_request(
+                    req.device_token, req.stream_id, req.sequence_number)
+                return
+        except ServiceError as e:
+            self.dead_letters.append_json({
+                "kind": "failed-stream-request",
+                "request_kind": req.kind.name,
+                "device_token": req.device_token,
+                "stream_id": req.stream_id,
+                "error": str(e),
+                "payload": (payload or encode_envelope(req)).hex(),
+            })
+            return
         self.dead_letters.append_json({
             "kind": "unsupported-host-request",
             "request_kind": req.kind.name,
@@ -1039,6 +1117,12 @@ class Instance(LifecycleComponent):
                     **({} if ok else {"reason": "delivery failed again"})}
         return {"requeued": False, "kind": kind,
                 "reason": "record kind is not requeueable"}
+
+    def _on_presence_changes(self, batch) -> None:
+        """A sweep's STATE_CHANGE rows re-enter the pipeline (called on
+        the presence thread, which owns no CUDA stream: the plans step on
+        its current stream, as every other intake's do)."""
+        self.dispatcher.inject_batch(batch, batch.valid.cpu().numpy())
 
     # -- command delivery ---------------------------------------------------
 

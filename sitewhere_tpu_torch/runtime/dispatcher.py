@@ -315,6 +315,15 @@ class EgressColumns(collections.abc.Mapping):
                     self._out = None
         return fetched
 
+    def release_output(self) -> None:
+        """Memoize the enrichment columns and drop the step-output
+        reference.  Egress calls this before it hands the view to an
+        async consumer whenever no store path fetched the columns: a view
+        parked in a lagging outbound queue must never pin the step's
+        pinned host block, nor make a connector's thread wait on its
+        copy."""
+        self._enrichment()
+
     def __getitem__(self, name: str) -> np.ndarray:
         if name in self._ENRICH_SET:
             return self._enrichment()[name]
@@ -354,6 +363,9 @@ class PipelineDispatcher(LifecycleComponent):
     - ``on_command_rows(cols, mask, trace=None)`` -> command delivery of
       the accepted COMMAND_INVOCATION rows (``trace`` is the plan's, so
       the delivery span joins it); None = they are only stored
+    - ``outbound`` -> the outbound connectors manager (``submit(cols,
+      mask, trace=, ingest_t0=)``, a non-blocking offer to each
+      connector's queue); None = no outbound fan-out
     - ``analytics`` -> the streaming query runner (``submit_live`` with
       ``committed=``, a non-blocking bounded offer); None = no live
       queries
@@ -382,6 +394,7 @@ class PipelineDispatcher(LifecycleComponent):
         event_store=None,
         registration=None,
         on_command_rows: Optional[Callable[..., None]] = None,
+        outbound=None,
         rules_engine=None,
         analytics=None,
         journal: Optional[Journal] = None,
@@ -415,6 +428,9 @@ class PipelineDispatcher(LifecycleComponent):
         self.event_store = event_store
         self.registration = registration
         self.on_command_rows = on_command_rows
+        # Outbound connectors: egress offers every accepted enriched
+        # batch, after persistence, to each connector's bounded queue.
+        self.outbound = outbound
         # host-plane wire lines (device-stream requests) go to the
         # instance's handler; without one they dead-letter here
         self.on_host_request = on_host_request
@@ -526,8 +542,9 @@ class PipelineDispatcher(LifecycleComponent):
         # Egress legs and table republishes, host seconds each
         self._m_leg = {
             s: metrics.timer(f"pipeline.{s}_s")
-            for s in ("egress_registration", "egress_commands",
-                      "registry_publish", "tables_repack")
+            for s in ("egress_outbound", "egress_registration",
+                      "egress_commands", "registry_publish",
+                      "tables_repack")
         }
         # One inc per BLOCKING device-to-host wait on the dispatch/egress
         # path: a view's first read (single step) or a ring's shared
@@ -2053,8 +2070,24 @@ class PipelineDispatcher(LifecycleComponent):
                     "rows", int(store_mask.sum())):
                 self.event_store.append_columns(cols, mask=store_mask)
             self._m_seal.set(time.monotonic() - ingest_t0)
+        elif accepted.any() and (self.outbound is not None
+                                 or self.analytics is not None):
+            # the store path would have fetched the enrichment columns
+            # (releasing the step output); without it, fetch and release
+            # here, on this thread, so an async queue holding the view
+            # never pins the step's host block.  With no async consumer
+            # the view dies with this frame and the fetch is skipped.
+            cols.release_output()
         # chaos kill point: stored but the offset commit never runs
         faults.crosspoint("crash.mid_egress")
+
+        # 1a. enriched fan-out to the outbound connectors; the trace rides
+        # along so each async delivery span joins it
+        if self.outbound is not None and accepted.any():
+            with trace.span("egress.outbound"), \
+                    self._m_leg["egress_outbound"].time():
+                self.outbound.submit(cols, accepted, trace=trace,
+                                     ingest_t0=ingest_t0)
 
         # 1b. streaming analytics: live window/session/pattern queries on
         # the runner's own worker (non-blocking offer).  The committed

@@ -1,4 +1,4 @@
-"""Resilience primitives: retry, supervisor and dead letters.
+"""Resilience primitives: retry, breaker, supervisor and dead letters.
 
 Counterpart of the part of ``sitewhere_tpu/runtime/resilience.py`` this
 slice runs, reporting through one metrics surface
@@ -11,19 +11,22 @@ slice runs, reporting through one metrics surface
 - :func:`call_with_retry` — run a callable under a policy (the command
   destinations' transient-failure retry); exhausting it raises
   :class:`RetriesExhausted`.
+- :class:`CircuitBreaker` — closed/open/half-open with a failure-rate
+  threshold over a sliding outcome window; an open breaker SHEDS load
+  instead of queueing it unboundedly (the outbound connectors).
 - :class:`Supervisor` — restart-with-backoff for worker threads (the
   dispatcher's egress worker), escalating to a terminal failure after N
   consecutive restarts instead of spinning forever.
 - :class:`DeadLetterSink` — the protocol every dead-letter target speaks
   (``Journal.append_json`` already satisfies it); :func:`dead_letter`
-  records one.
-
-The circuit breaker the connectors use comes with the slices that port
-them.
+  records one, and :class:`CollectingSink` is the in-memory one for
+  tests and tools.
 
 Metric names (counters):
 
 - ``resilience.retries.<name>`` — retry attempts consumed
+- ``resilience.breaker.<name>.to_<state>`` — breaker transitions
+- ``resilience.breaker.<name>.shed`` — calls refused while open
 - ``resilience.supervisor.<name>.restarts`` — worker restarts
 - ``resilience.supervisor.<name>.escalated`` — terminal give-ups
 - ``resilience.dead_letters.<kind>`` — dead-lettered records
@@ -47,9 +50,12 @@ __all__ = [
     "Backoff",
     "call_with_retry",
     "RetriesExhausted",
+    "CircuitBreaker",
+    "BreakerOpen",
     "Supervisor",
     "DeadLetterSink",
     "dead_letter",
+    "CollectingSink",
 ]
 
 
@@ -204,6 +210,131 @@ def call_with_retry(fn: Callable[[], object], policy: RetryPolicy,
 
 
 # ---------------------------------------------------------------------------
+# circuit breaker
+# ---------------------------------------------------------------------------
+
+class BreakerOpen(Exception):
+    """The breaker refused the call — shed, don't queue."""
+
+
+class CircuitBreaker:
+    """Closed / open / half-open breaker over a sliding outcome window.
+
+    - CLOSED: calls flow; once at least ``min_calls`` of the last
+      ``window`` outcomes exist and the failure rate reaches
+      ``failure_threshold``, trip OPEN.
+    - OPEN: every call is shed (``allow()`` False / :meth:`call` raises
+      :class:`BreakerOpen`) until ``open_for_s`` elapses, then HALF_OPEN.
+    - HALF_OPEN: up to ``half_open_probes`` trial calls pass; a success
+      closes the breaker (window cleared), a failure re-opens it.
+
+    Thread-safe; transitions and sheds tick metrics counters.
+    """
+
+    CLOSED, OPEN, HALF_OPEN = "closed", "open", "half_open"
+
+    def __init__(self, name: str = "breaker", window: int = 32,
+                 failure_threshold: float = 0.5, min_calls: int = 8,
+                 open_for_s: float = 5.0, half_open_probes: int = 1,
+                 clock: Callable[[], float] = time.monotonic,
+                 metrics: Optional[MetricsRegistry] = None):
+        self.name = name
+        self.window = int(window)
+        self.failure_threshold = float(failure_threshold)
+        self.min_calls = int(min_calls)
+        self.open_for_s = float(open_for_s)
+        self.half_open_probes = int(half_open_probes)
+        self._clock = clock
+        self._metrics = metrics if metrics is not None else global_registry()
+        self._lock = threading.Lock()
+        self._state = self.CLOSED
+        self._outcomes: List[bool] = []   # True = failure
+        self._open_until = 0.0
+        self._probes = 0
+        self.shed = 0
+        self.transitions = 0
+
+    @property
+    def state(self) -> str:
+        with self._lock:
+            self._maybe_half_open_locked()
+            return self._state
+
+    def _to(self, state: str) -> None:
+        if state == self._state:
+            return
+        self._state = state
+        self.transitions += 1
+        self._metrics.counter(
+            f"resilience.breaker.{self.name}.to_{state}").inc()
+        logger.info("breaker %s -> %s", self.name, state)
+
+    def _maybe_half_open_locked(self) -> None:
+        if self._state == self.OPEN and self._clock() >= self._open_until:
+            self._to(self.HALF_OPEN)
+            self._probes = 0
+
+    def allow(self) -> bool:
+        """May one call proceed right now?  A False return IS the
+        shedding decision (counted)."""
+        with self._lock:
+            self._maybe_half_open_locked()
+            if self._state == self.CLOSED:
+                return True
+            if self._state == self.HALF_OPEN \
+                    and self._probes < self.half_open_probes:
+                self._probes += 1
+                return True
+            self.shed += 1
+        self._metrics.counter(
+            f"resilience.breaker.{self.name}.shed").inc()
+        return False
+
+    def record_success(self) -> None:
+        with self._lock:
+            if self._state == self.HALF_OPEN:
+                self._to(self.CLOSED)
+                self._outcomes = []
+            elif self._state == self.CLOSED:
+                self._push_locked(False)
+
+    def record_failure(self) -> None:
+        with self._lock:
+            if self._state == self.HALF_OPEN:
+                self._trip_locked()
+                return
+            if self._state != self.CLOSED:
+                return
+            self._push_locked(True)
+            n = len(self._outcomes)
+            if n >= self.min_calls \
+                    and sum(self._outcomes) / n >= self.failure_threshold:
+                self._trip_locked()
+
+    def _push_locked(self, failed: bool) -> None:
+        self._outcomes.append(failed)
+        if len(self._outcomes) > self.window:
+            del self._outcomes[0]
+
+    def _trip_locked(self) -> None:
+        self._to(self.OPEN)
+        self._open_until = self._clock() + self.open_for_s
+        self._outcomes = []
+
+    def call(self, fn: Callable[[], object], *args, **kwargs):
+        """Gate + record one call; raises :class:`BreakerOpen` when shed."""
+        if not self.allow():
+            raise BreakerOpen(self.name)
+        try:
+            out = fn(*args, **kwargs)
+        except Exception:
+            self.record_failure()
+            raise
+        self.record_success()
+        return out
+
+
+# ---------------------------------------------------------------------------
 # supervisor
 # ---------------------------------------------------------------------------
 
@@ -349,3 +480,20 @@ def dead_letter(sink: Optional[DeadLetterSink], doc: dict,
     reg.counter("resilience.dead_letters").inc()
     reg.counter(f"resilience.dead_letters.{kind}").inc()
     return sink is not None
+
+
+class CollectingSink:
+    """In-memory :class:`DeadLetterSink` for tests and tooling."""
+
+    def __init__(self):
+        self.records: List[dict] = []
+        self._lock = threading.Lock()
+
+    def append_json(self, doc: dict) -> int:
+        with self._lock:
+            self.records.append(doc)
+            return len(self.records) - 1
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self.records)

@@ -17,6 +17,7 @@ after the lock is released.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import threading
@@ -243,10 +244,11 @@ class DeviceStateManager:
         self._state: Optional[DeviceState] = DeviceState.empty(
             capacity, num_mtype_slots, num_ewma_scales, device=self.device)
         self._packed: Optional[PackedState] = None
-        # the CUDA stream the held epoch was committed from (None on the
-        # CPU): a host snapshot copies on it, ordered after the work that
-        # produced the epoch
+        # the CUDA stream the held epoch was made or committed from (None
+        # on the CPU): a host snapshot, a scan and a presence sweep run on
+        # it, ordered after the work that produced the epoch
         self._stream = None
+        self._note_stream()
         # count of lease_packed() calls: a failed chain is recovered by
         # leasing AGAIN from the still-held epoch, so "re-leased without
         # restart" is this count advancing on one live manager
@@ -291,6 +293,13 @@ class DeviceStateManager:
             "devices_with_state": int(has.sum()),
             "devices_missing": int(missing.sum()),
         }
+
+    def _on_stream(self):
+        """The stream the epoch was made or committed from, as a context
+        (a no-op on the CPU, where none is recorded)."""
+        if self._stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._stream)
 
     def _note_stream(self) -> None:
         if self.device.type == "cuda":
@@ -431,13 +440,19 @@ class DeviceStateManager:
                              missing_after_s: int) -> Optional[EventBatch]:
         """Run the sweep, adopt the flagged state, and build the
         STATE_CHANGE batch for newly-missing devices (None if none), each
-        row carrying its device's tenant."""
-        with self._lock:
-            new_state, newly_missing = presence_sweep(
-                self.current, now_s, missing_after_s)
-            self._state = new_state
-            self._packed = None
-        idx = torch.nonzero(newly_missing).flatten().cpu().numpy()
+        row carrying its device's tenant.
+
+        The sweep launches on the stream the epoch was committed from
+        (the caller is the presence thread, whose current stream is its
+        own default); the flagged ids come back to the host after the
+        lock is released."""
+        with self._on_stream():
+            with self._lock:
+                new_state, newly_missing = presence_sweep(
+                    self.current, now_s, missing_after_s)
+                self._state = new_state
+                self._packed = None
+            idx = torch.nonzero(newly_missing).flatten().cpu().numpy()
         if idx.size == 0:
             return None
         idx = idx.astype(np.int32)
@@ -451,16 +466,16 @@ class DeviceStateManager:
 
     def get_device_state(self, device_token: str) -> Dict[str, object]:
         device_id = self.identity.device.lookup(device_token)
-        if device_id == NULL_ID:
-            raise KeyError(f"no device {device_token!r}")
+        require(device_id != NULL_ID,
+                EntityNotFound(f"no device {device_token!r}"))
         return self.get_device_state_by_id(int(device_id))
 
     def get_device_state_by_id(self, device_id: int) -> Dict[str, object]:
         """Last-known state for one device, as a host dict."""
         with self._lock:
             s = self.current
-        if not 0 <= device_id < s.capacity:
-            raise KeyError(f"bad device id {device_id}")
+        require(0 <= device_id < s.capacity,
+                EntityNotFound(f"bad device id {device_id}"))
         r = {f: getattr(s, f)[device_id].cpu().numpy()
              for f in s.__dataclass_fields__}
         row = {
@@ -484,6 +499,42 @@ class DeviceStateManager:
         if row["last_event_type"] == NULL_ID:
             row["last_event_type"] = None
         return row
+
+    def missing_device_ids(self) -> List[int]:
+        """Devices currently flagged missing.
+
+        The lock covers only the epoch snapshot; the device-to-host copy
+        runs outside it (epochs are immutable: a commit replaces, never
+        mutates).  A scan must never hold the lock through a copy off the
+        card: ``commit_packed`` takes it on every batch."""
+        with self._lock:
+            s = self.current
+        with self._on_stream():
+            return torch.nonzero(s.presence_missing).flatten().tolist()
+
+    def missing_device_tokens(self) -> List[str]:
+        """Missing devices as tokens, the cross-host form (dense ids mean
+        something only inside their minting host's identity map)."""
+        return [t for t in (self.identity.device.token_of(i)
+                            for i in self.missing_device_ids())
+                if t is not None]
+
+    def seen_since_tokens(self, since_s: int) -> List[str]:
+        """Token form of :meth:`seen_since`."""
+        return [t for t in (self.identity.device.token_of(i)
+                            for i in self.seen_since(since_s))
+                if t is not None]
+
+    def seen_since(self, since_s: int) -> List[int]:
+        """Devices with any event at or after ``since_s``: snapshot under
+        the lock, mask and copy outside it (see
+        :meth:`missing_device_ids`)."""
+        with self._lock:
+            s = self.current
+        with self._on_stream():
+            mask = ((s.last_event_type != NULL_ID)
+                    & (s.last_event_ts_s >= since_s))
+            return torch.nonzero(mask).flatten().tolist()
 
     def summary(self) -> Dict[str, int]:
         with self._lock:

@@ -73,7 +73,8 @@ class PresenceManager(LifecycleComponent):
     ``on_state_changes`` receives the STATE_CHANGE :class:`EventBatch` of
     each sweep that found newly-missing devices; wire it to the
     dispatcher's ``inject_batch`` for re-injection.  The sweep runs under
-    the manager's lock on the manager's device.
+    the manager's lock, on the CUDA stream its epoch was committed from.
+    ``clock`` (seconds) is injectable, as in the reference.
     """
 
     def __init__(

@@ -19,6 +19,7 @@ from sitewhere_tpu.state.manager import DeviceStateManager as JaxManager
 from sitewhere_tpu_torch import convert
 from sitewhere_tpu_torch.pipeline import packed as tpacked
 from sitewhere_tpu_torch.runtime.ring import RingRunner
+from sitewhere_tpu_torch.services.common import EntityNotFound
 from sitewhere_tpu_torch.state.manager import DeviceStateManager
 from torch_parity import (
     CAP,
@@ -203,5 +204,5 @@ def test_identity_lookup_by_token(setup):
     assert mgr.identity.device.mint("dev-7") == hid
     assert mgr.identity.device.token_of(hid) == "dev-7"
     assert mgr.get_device_state("dev-7") == mgr.get_device_state_by_id(hid)
-    with pytest.raises(KeyError):
+    with pytest.raises(EntityNotFound):
         mgr.get_device_state("unknown")

@@ -444,8 +444,8 @@ def test_rules_section_equals_the_reference(both_saved):
 
 
 def test_unsupported_config_is_refused(tmp_path):
+    # the reference builds no connector from a config key either
     for tree in ({"pipeline": {"n_shards": 2}},
-                 {"presence": {"scan_interval_s": 60.0}},
                  {"rpc": {"peers": ["a:1", "b:2"]}},
                  {"outbound": {"connectors": [{"id": "x"}]}}):
         with pytest.raises(NotImplementedError):
@@ -465,6 +465,11 @@ def test_unsupported_config_is_refused(tmp_path):
     refuse_unsupported(Config({"sources": [{"type": "mqtt"}],
                                "ingest": {"decode_workers": 0,
                                           "decode_max_pending": 16}},
+                              apply_env=False))
+    # the presence section is the PresenceManager's since outbound,
+    # search and presence came
+    refuse_unsupported(Config({"presence": {"scan_interval_s": 60.0,
+                                            "missing_after_s": 1800}},
                               apply_env=False))
 
 

@@ -429,3 +429,30 @@ def test_instance_composes_the_device_services_by_default(tmp_path):
         assert children.index(inst.registration) < children.index(disp)
     finally:
         inst.terminate()
+
+
+# The outbound, search, presence and device-streams slice: each module
+# imported on its own with JAX and the reference blocked.
+SLICE10_MODULES = (
+    "outbound", "outbound.filters", "outbound.connectors",
+    "outbound.manager", "outbound.search", "services.streams",
+    "state.presence", "state.manager", "runtime.resilience",
+)
+
+
+@pytest.fixture(scope="module")
+def slice10_imports():
+    import json
+
+    proc = subprocess.run(
+        [sys.executable, "-c", _ONE_BY_ONE, *SLICE10_MODULES], cwd=REPO,
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout.strip())
+
+
+@pytest.mark.parametrize("name", SLICE10_MODULES)
+def test_slice10_module_imports_without_jax(slice10_imports, name):
+    out, bad = slice10_imports
+    assert out[name] == "ok"
+    assert bad == []

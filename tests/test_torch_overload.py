@@ -32,12 +32,9 @@ torch.set_num_threads(1)
 TESTS = os.path.dirname(os.path.abspath(__file__))
 REF = os.path.join(TESTS, "test_overload.py")
 
-# cases needing a component the port does not compose yet: outbound
-# connectors, label generation, the RPC fabric, and the reference's
-# overload bench
-SKIP = ("test_outbound_manager_sheds_only_non_priority",
-        "test_label_generation_refuses_under_load",
-        "test_outbound_drain_wakes_without_polling",
+# cases needing a component the port does not compose yet: label
+# generation, the RPC fabric, and the reference's overload bench
+SKIP = ("test_label_generation_refuses_under_load",
         "TestOverloadBenchSmoke", "TestRpcBackpressure")
 CASES = reference_cases(REF, skip=SKIP)
 
@@ -88,13 +85,12 @@ def _instance(pkg, data_dir, **overload):
         "overload": {"degraded_telemetry_rate_per_s": 20.0,
                      "degraded_telemetry_burst": 12.0, **overload},
         "slo": {"enabled": False},
+        "presence": {"scan_interval_s": 3600.0, "missing_after_s": 1800},
     }
     if pkg == "jax":
         from sitewhere_tpu.instance import Instance
         from sitewhere_tpu.runtime.config import Config
 
-        tree["presence"] = {"scan_interval_s": 3600.0,
-                            "missing_after_s": 1800}
         return Instance(Config(tree, apply_env=False))
     from sitewhere_tpu_torch.instance import Instance
     from sitewhere_tpu_torch.runtime.config import Config

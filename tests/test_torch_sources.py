@@ -10,8 +10,10 @@
   script manager) and the multi-host raw lane (no forwarder).
 - ``stable_hash64`` gives the same value in both packages.
 - The ``Instance``: ``decode_backlog`` is the pool's depth over its bound;
-  a host-plane request a source decodes dead-letters as
-  ``unsupported-host-request``; a pooled delivery steps its plan on the
+  a stream request a source decodes routes to the device streams (a
+  refused one dead-letters as ``failed-stream-request``, another
+  host-plane kind as ``unsupported-host-request``); a pooled delivery
+  steps its plan on the
   thread's current stream, never on a stream of its own (CUDA streams
   mocked); the ``runtime`` section reads across packages both ways, the
   port's side with ``jax`` and ``sitewhere_tpu`` unimportable.
@@ -194,16 +196,16 @@ def _tree(data_dir, **extra):
 
 def _instance(pkg, data_dir, **extra):
     tree = _tree(data_dir, **extra)
+    tree["presence"] = {"scan_interval_s": 3600.0, "missing_after_s": 1800}
     if pkg == "jax":
         from sitewhere_tpu.instance import Instance
         from sitewhere_tpu.runtime.config import Config
 
-        tree["presence"] = {"scan_interval_s": 3600.0,
-                            "missing_after_s": 1800}
         return Instance(Config(tree, apply_env=False))
-    from torch_parity import CpuInstance, PortConfig
+    from sitewhere_tpu_torch.runtime.config import Config
+    from torch_parity import CpuInstance
 
-    return CpuInstance(PortConfig(tree, apply_env=False))
+    return CpuInstance(Config(tree, apply_env=False))
 
 
 def test_decode_backlog_reads_the_pool_as_the_reference(tmp_path):
@@ -246,20 +248,35 @@ def _stream_lines():
         {"deviceToken": "d-1", "type": "DeviceStreamData",
          "request": {"streamId": "s-1", "sequenceNumber": 0,
                      "data": "AAEC"}},
+        {"deviceToken": "d-1", "type": "DeviceStreamData",
+         "request": {"streamId": "s-7", "sequenceNumber": 0,
+                     "data": "AAEC"}},
         {"deviceToken": "d-2", "type": "SendStreamData",
          "request": {"streamId": "s-9", "sequenceNumber": 3}},
     ]
 
 
 def test_host_plane_requests_dead_letter_as_unsupported(tmp_path):
-    """The port has no device streams: every stream request a source
-    decodes, on the scalar and the raw lane, dead-letters as the
-    reference's ``unsupported-host-request`` record; nothing is
-    journaled as an event and the receiver path keeps running."""
-    from sitewhere_tpu_torch.ingest.decoders import JsonLinesDecoder
+    """Stream requests a source decodes, on the scalar and the raw lane,
+    route to the ``DeviceStreamManager`` as in the reference: the stream
+    is created under the device's assignment and its chunk stored; a
+    chunk for an unknown stream and a request of an unknown device
+    dead-letter as ``failed-stream-request`` with the raw request.  Only
+    a host-plane kind the manager does not serve dead-letters as
+    ``unsupported-host-request``.  Nothing is journaled as an event and
+    the receiver path keeps running."""
+    from sitewhere_tpu_torch.ingest.decoders import (
+        DecodedRequest,
+        JsonLinesDecoder,
+        RequestKind,
+    )
     from sitewhere_tpu_torch.ingest.sources import InboundEventSource
 
     inst = _instance("torch", tmp_path, ingest={"decode_workers": 2})
+    dm = inst.device_management
+    dm.create_device_type(token="cam", name="Cam")
+    dm.create_device(token="d-1", device_type="cam")
+    assignment = dm.create_device_assignment(device="d-1")
     scalar = inst.add_source(InboundEventSource(
         "scalar", [], JsonLinesDecoder()))
     raw = inst.add_source(InboundEventSource(
@@ -274,19 +291,28 @@ def test_host_plane_requests_dead_letter_as_unsupported(tmp_path):
             src.on_encoded_payload(payload)
             assert inst.decode_pool.flush(5.0)
         inst.dispatcher.flush()
+        inst._on_host_request(DecodedRequest(
+            kind=RequestKind.MAPPING, device_token="d-1", ts_s=0))
         letters = [{k: v for k, v in d.items() if k != "offset"}
                    for d in inst.list_dead_letters()]
         assert scalar.failed_count == raw.failed_count == 0
-        assert scalar.decoded_count == 3
+        assert scalar.decoded_count == 4
+        stream = inst.streams.get_assignment_stream(assignment.token, "s-1")
+        assert stream is not None and stream.content_type == "video/mp4"
+        assert inst.streams.stream_content(stream.token) == b"\x00\x01\x02"
+        assert inst.streams.get_assignment_stream(
+            assignment.token, "s-7") is None
     finally:
         inst.stop()
         inst.terminate()
-    want = [{"kind": "unsupported-host-request", "request_kind": kind,
-             "device_token": token}
-            for kind, token in (("STREAM_CREATE", "d-1"),
-                                ("STREAM_DATA", "d-1"),
-                                ("STREAM_SEND", "d-2"))]
-    assert letters == want + want
+    failed = [(d["kind"], d["request_kind"], d["device_token"],
+               d["stream_id"]) for d in letters[:-1]]
+    assert failed == [
+        ("failed-stream-request", "STREAM_DATA", "d-1", "s-7"),
+        ("failed-stream-request", "STREAM_SEND", "d-2", "s-9")] * 2
+    assert all(bytes.fromhex(d["payload"]) for d in letters[:-1])
+    assert letters[-1] == {"kind": "unsupported-host-request",
+                           "request_kind": "MAPPING", "device_token": "d-1"}
     # the raw lane journals its payload once (as the reference's does);
     # the scalar lane forwards no event, so journals nothing
     assert inst.ingest_journal.end_offset == 1

@@ -8,9 +8,9 @@ The reference's own cases for the CoAP server and the WebSocket client
 the port with their imports rewritten (``tests/torch_parity.py
 port_test_module``): each drives the port's receiver against an
 in-process broker or client over loopback sockets, and the
-``Instance`` cases feed the port ``Instance`` on the CPU.  Left out: the
-outbound ``HttpConnector`` and index-push cases of
-``test_stomp_http.py``, which wait for the port's outbound connectors.
+``Instance`` cases feed the port ``Instance`` on the CPU, and the
+outbound ``HttpConnector`` and index-push cases of ``test_stomp_http.py``
+post to a loopback HTTP server.
 """
 
 from __future__ import annotations
@@ -31,18 +31,7 @@ MODULES = {
     "test_mqtt_broker.py": ((), ()),
     "test_amqp.py": ((), ()),
     "test_amqp10.py": ((), ()),
-    # the HttpConnector and index-push cases need the outbound
-    # connectors, which the port does not have yet
-    "test_stomp_http.py": (
-        ("test_http_connector_posts_surviving_rows_as_json_array",
-         "test_http_connector_counts_rejections",
-         "test_index_push_accumulates_and_flushes_bulk",
-         "test_index_push_interval_flush_and_final_flush_on_stop",
-         "test_index_push_retries_with_backoff_without_loss",
-         "test_index_push_bounded_buffer_drops_oldest",
-         "test_index_push_custom_bulk_format"),
-        (("from sitewhere_tpu.outbound.connectors import HttpConnector\n",
-          ""),)),
+    "test_stomp_http.py": ((), ()),
 }
 _NS = {}
 
@@ -66,7 +55,7 @@ def test_the_port_runs_the_reference_protocol_cases():
     assert by_module["test_mqtt_broker.py"] >= 14
     assert by_module["test_amqp.py"] >= 10
     assert by_module["test_amqp10.py"] >= 9
-    assert by_module["test_stomp_http.py"] >= 7
+    assert by_module["test_stomp_http.py"] >= 14
 
 
 @pytest.mark.parametrize("module,case", CASES,

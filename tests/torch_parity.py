@@ -458,9 +458,7 @@ def journal_files(journal):
 
 def port_test_module(path, replace=()):
     """The reference test module at ``path`` with every ``sitewhere_tpu``
-    import pointing at the port: each port ``Instance`` on the CPU, and
-    the ``presence`` section (a component the port does not compose, so
-    its settings do not bear on a case) left out of every ``Config``.
+    import pointing at the port, each port ``Instance`` on the CPU.
     ``replace``: ``(old, new)`` source edits applied first, for imports
     of names the port does not have.  ``tests/test_instance.py``'s
     helpers come from :func:`make_config` and :func:`seed_device` here."""
@@ -478,9 +476,6 @@ def port_test_module(path, replace=()):
     src = src.replace(
         "from sitewhere_tpu_torch.instance import Instance",
         "from torch_parity import CpuInstance as Instance")
-    src = src.replace(
-        "from sitewhere_tpu_torch.runtime.config import Config",
-        "from torch_parity import PortConfig as Config")
     ns = {"__name__": f"port_{path.stem}", "__file__": str(path)}
     exec(compile(src, f"<port {path.stem}>", "exec"), ns)
     return ns
@@ -493,22 +488,17 @@ def CpuInstance(config=None, **kw):
     return Instance(config, **kw)
 
 
-def PortConfig(tree=None, **kw):
+def make_config(tmp_path, **pipeline):
+    """``tests/test_instance.py make_config`` for the port."""
     from sitewhere_tpu_torch.runtime.config import Config
 
-    tree = {k: v for k, v in (tree or {}).items() if k != "presence"}
-    return Config(tree, **kw)
-
-
-def make_config(tmp_path, **pipeline):
-    """``tests/test_instance.py make_config`` for the port (without its
-    ``presence`` section)."""
-    return PortConfig({
+    return Config({
         "instance": {"id": "test-instance", "data_dir": str(tmp_path / "data")},
         "pipeline": {
             "width": 64, "registry_capacity": 1024, "mtype_slots": 4,
             "deadline_ms": 5.0, "n_shards": 1, **pipeline,
         },
+        "presence": {"scan_interval_s": 3600.0, "missing_after_s": 1800},
     }, apply_env=False)
 
 

@@ -255,7 +255,43 @@ script exits non-zero without printing a result:
    order and ask for 4 back; contents exact, send-backs exact, a chunk
    for an unknown stream dead-lettered as ``failed-stream-request`` and
    replayed by ``requeue_dead_letter`` once the stream exists;
-14. a small input run on the card and on the CPU: identical int outputs.
+14. tenant engines, users and tokens, scripts, labels, schedules and
+   batch operations (phase ``tenant_engines``), over a world of the
+   deployment's size whose 1,000,000 devices spread over 8 tenants
+   (``tenant_token``), ring off at 5 ms.  ``engines``: an ``Instance``
+   bootstrapped from an ``InstanceTemplate`` (an admin, an operator, the
+   8 tenants, a dataset initializer), two config-declared TCP sources
+   (decoder ``te-ndjson``, a script uploaded before ``start()``, and
+   ``jsonlines``); each tenant's engine makes 2,500 devices through its
+   own ``DeviceManagement`` (us per device); 8 full-width 60/30/10
+   payloads of pre-resolved columns, each a block of a permutation of
+   all 1,020,000 devices with every row stamped with its device's tenant
+   (``ingest_arrays``, the reference's multitenant intake), while tenant
+   ``t-3``'s engine restarts on a thread between payloads 3 and 4, then
+   2 full-width NDJSON payloads of the default tenant's devices through
+   ``ingest_wire_lines`` (the wire lane lands its rows in the default
+   tenant); 64 rows stamped ``t-5`` for devices of ``t-3``; a cron
+   schedule fired on demand with one ``CommandInvocation`` job and a
+   ``BatchCommandInvocation`` over 1,024 devices, delivered to a
+   callback; 4,096 PNG labels alone and beside the device streams of
+   phase 13; one 4,096-line payload through each TCP source.  Reports
+   events/s, latency p50 and max, the restart's ms, batch elements/s,
+   labels/s alone and beside the streams.  Checks: launches == steps,
+   the first plan rerun from its carry with the plain geofence bitwise;
+   per tenant, stored rows == lines sent + derived alerts == the tenant
+   block's accepted rows; ``t-3``'s devices all found after its
+   restart; the mismatch rows processed, none accepted; the scheduled
+   invocation and each batch element delivered once; every label decodes
+   (``png.read_png_size``, ``qr.decode_matrix``) to its device's URL;
+   the scripted source stores the jsonlines source's rows (their decoded
+   and registry columns; the derived alerts and the receive time differ
+   between the two copies).
+   ``restart``: after ``stop()`` a new ``Instance`` on the directory,
+   the ladder on: users, tenants, each engine's devices and assignments,
+   schedules, jobs and batch operations equal, ``bootstrapped`` and the
+   initializer not run again, ``topology()`` with the engine manager
+   started and its 8 engines started, labels refused at SHEDDING;
+15. a small input run on the card and on the CPU: identical int outputs.
 
 Every ``Instance`` run before ``control_plane`` turns the overload
 ladder and the SLO engine off (``instance_config``), as the reference's
@@ -307,11 +343,12 @@ RING_K, TIMED_RINGS = 8, 16
 SEED = 20261016
 # the wire path (phase dispatcher_wire)
 WIRE_PAYLOADS = 3 * RING_K        # full-width payloads: 3 rings at K=8
-# The Instance's 60/30/10 wire runs of persist_recover and byo_rules take
-# the first 2 rings' worth of those payloads: with registration composed
-# each runs at 27k-47k events/s, and with all 24 the whole script took
-# 1,050 s of its 1,200 on an H100 host once ingest_sources joined it
-INSTANCE_WIRE_PAYLOADS = 2 * RING_K
+# The Instance's 60/30/10 wire runs of persist_recover, byo_rules and
+# streaming_analytics take the first ring's worth of those payloads: with
+# registration composed each runs at 27k-47k events/s, and with 16 (24
+# for analytics_wire) the whole script took 1,195.6 s of its 1,200 on a
+# slow H100 host once tenant_engines joined it
+INSTANCE_WIRE_PAYLOADS = RING_K
 WIRE_GHOSTS = 0.005               # share of lines from unregistered tokens
 # The deployment's batcher deadline (README.md:99-105).  A ring lingers
 # one deadline at most, and even the native decode takes far longer than
@@ -3109,7 +3146,7 @@ def phase_streaming_analytics(device, geo_cuda):
                 (-175, 175, -85, 85), N_ACTIVE, SEED + 11)
 
         payloads = an_payloads(np.random.default_rng(SEED + 13),
-                               WIRE_PAYLOADS, FULL_B, WIRE_TS0_MS)
+                               INSTANCE_WIRE_PAYLOADS, FULL_B, WIRE_TS0_MS)
         rec = persist_throughput(
             device, geo_cuda, world, payloads, root, "analytics",
             rules=programs, phase="streaming_analytics",
@@ -5065,11 +5102,12 @@ def search_run(inst):
     emit(rec)
 
 
-def streams_run(inst):
+def streams_run(inst, phase="outbound_presence"):
     """``streams``: stream lines through the dispatcher's host plane; 16
     devices each create a stream, send 64 chunks of 64 KiB out of order
     and ask for 4 back; one chunk for an unknown stream dead-letters and
-    its requeue replays it once the stream exists."""
+    its requeue replays it once the stream exists.  Returns the record
+    it prints (under ``phase``)."""
     import base64
 
     dm = inst.device_management
@@ -5145,13 +5183,14 @@ def streams_run(inst):
     check(len([d for d in inst.list_dead_letters(limit=1 << 20)
                if d.get("kind") == "failed-stream-request"]) == 1,
           "the requeue dead-lettered again")
-    rec = {"phase": "outbound_presence", "run": "streams",
+    rec = {"phase": phase, "run": "streams",
            "devices": OP_STREAMS, "chunks": OP_STREAMS * OP_CHUNKS,
            "chunk_bytes": OP_CHUNK_BYTES, "payload_mb": nbytes / 1e6,
            "data_s": t_data, "mb_per_s": nbytes / 1e6 / t_data,
            "ms_per_stream_payload": t_data * 1e3 / OP_STREAMS,
            "send_backs": len(sendbacks), "requeued": bool(out["requeued"])}
     emit(rec)
+    return rec
 
 
 def phase_outbound_presence(device, geo_cuda, world):
@@ -5238,6 +5277,620 @@ def phase_outbound_presence(device, geo_cuda, world):
     emit({"phase": "outbound_presence", "run": "done",
           "seconds": time.perf_counter() - t0})
     return launches
+
+
+# -- tenant engines, users, scripts, labels, schedules, batch operations -------
+
+TE_TS0_MS = WIRE_TS0_MS + 70_000_000
+# devices each tenant's engine makes through its DeviceManagement, on top
+# of the world's 1,000,000 (device_services' scale, 20,000 in all)
+TE_ENGINE_DEVICES = 2_500
+# full-width 60/30/10 payloads of every tenant's devices (pre-resolved
+# columns with each row's tenant, the reference's multitenant intake),
+# then full-width NDJSON payloads of the default tenant's devices through
+# ingest_wire_lines (the wire lane lands rows in the default tenant)
+TE_ARRAY_PAYLOADS, TE_WIRE_PAYLOADS = 8, 2
+# tenant A's engine restarts between array payloads TE_RESTART_AT - 1 and
+# TE_RESTART_AT, while payload TE_RESTART_AT flows
+TE_RESTART_AT, TE_RESTART_TENANT, TE_MISMATCH_TENANT = 4, 3, 5
+TE_MISMATCH_ROWS = 64
+TE_BATCH_DEVICES = 1024
+TE_LABELS = 4096
+TE_SCRIPT_LINES = 4096
+# the stored columns a line's decode and the registry decide: the two
+# copies of the script payload differ in payload_ref, in received_s (the
+# wall clock at egress) and in what the device state makes of the second
+# copy (its derived alerts, its rule and zone hits)
+TE_SCRIPT_COLS = ("device_id", "tenant_id", "event_type", "ts_s", "ts_ns",
+                  "mtype_id", "value", "lat", "lon", "elevation",
+                  "alert_code", "alert_level", "device_type_id",
+                  "assignment_id", "area_id", "customer_id", "asset_id")
+TE_SCRIPT = (
+    "import json\n\n"
+    "def decode(payload):\n"
+    "    return [json.loads(line) for line in payload.splitlines()\n"
+    "            if line.strip()]\n")
+TE_SOURCES = [
+    {"id": "scripted", "decoder": "te-ndjson",
+     "receivers": [{"type": "tcp", "port": 0}]},
+    {"id": "plain", "decoder": "jsonlines",
+     "receivers": [{"type": "tcp", "port": 0}]},
+]
+
+
+def te_template(initialized):
+    """The bootstrap template: an admin and an operator, the 8 world
+    tenants (``tenant_token``), and one dataset initializer that counts
+    its runs into ``initialized``."""
+    from sitewhere_tpu_torch.instance import InstanceTemplate
+
+    return InstanceTemplate(
+        template_id="chip-smoke",
+        users=[{"username": "admin", "password": "password",
+                "first_name": "Admin", "last_name": "User",
+                "authorities": ["ROLE_ADMIN"]},
+               {"username": "operator", "password": "operator-pw",
+                "first_name": "Op", "last_name": "Erator",
+                "authorities": ["ROLE_OPERATOR"]}],
+        tenants=[{"token": tenant_token(k), "name": f"Tenant {k}",
+                  "auth_token": f"{tenant_token(k)}-auth"}
+                 for k in range(N_TENANTS)],
+        dataset_initializers=[lambda inst: initialized.append(1)])
+
+
+def te_instance(device, data_dir, template, **extra):
+    from sitewhere_tpu_torch.instance import Instance
+
+    return Instance(instance_config(data_dir, CAPACITY, FULL_B, 0,
+                                    WIRE_DEADLINE_MS, sources=TE_SOURCES,
+                                    **extra), template, device=device)
+
+
+def te_norm(obj):
+    """A comparable view of store records: dataclasses as field dicts."""
+    import dataclasses
+
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return {f.name: te_norm(getattr(obj, f.name))
+                for f in dataclasses.fields(obj)}
+    if isinstance(obj, dict):
+        return {k: te_norm(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [te_norm(v) for v in obj]
+    return obj
+
+
+def te_view(inst):
+    """Users, tenants, each engine's devices and assignments, schedules,
+    jobs and batch operations."""
+    return {
+        "users": te_norm(inst.users._users),
+        "authorities": te_norm(inst.users._authorities),
+        "tenants": te_norm(inst.tenants._tenants),
+        "engines": {e.tenant.token: {
+            "tenant_id": e.tenant_id,
+            "devices": te_norm(e.device_management.devices),
+            "assignments": te_norm(e.device_management.assignments)}
+            for e in inst.engines.list_engines()},
+        "schedules": te_norm(inst.schedules.schedules),
+        "jobs": te_norm(inst.schedules.jobs),
+        "batch_ops": te_norm(inst.batch_ops.operations),
+    }
+
+
+def te_populate(inst):
+    """Each tenant's engine makes TE_ENGINE_DEVICES devices ``e<k>-<i>``,
+    of its own device type ``sensor`` (with the command ``ping``), each
+    assigned.  Returns the seconds and their handles by tenant."""
+    t0 = time.perf_counter()
+    handles = {}
+    for k in range(N_TENANTS):
+        dm = inst.engines.get_engine(tenant_token(k)).device_management
+        dm.create_device_type(token="sensor", name="Sensor")
+        dm.create_device_command("sensor", token="ping", name="ping",
+                                 namespace="sw", parameters=[])
+        for i in range(TE_ENGINE_DEVICES):
+            dm.create_device(token=f"e{k}-{i}", device_type="sensor")
+            dm.create_device_assignment(token=f"e{k}-a{i}",
+                                        device=f"e{k}-{i}")
+        handles[k] = np.asarray(inst.identity.device.lookup_many(
+            [f"e{k}-{i}" for i in range(TE_ENGINE_DEVICES)]), np.int32)
+    return time.perf_counter() - t0, handles
+
+
+def te_columns(rng, inst, devices, owner, ts_s):
+    """One full-width payload of pre-resolved 60/30/10 columns: a row per
+    device of ``devices`` (handles), stamped with its owner tenant."""
+    n = len(devices)
+    kind = rng.choice(3, n, p=(0.6, 0.3, 0.1)).astype(np.int32)
+    alert = np.asarray([inst.identity.alert_type.mint(f"device-{a}")
+                        for a in range(4)], np.int32)
+    return dict(
+        device_id=devices.astype(np.int32),
+        tenant_id=owner[devices].astype(np.int32),
+        event_type=kind,
+        ts_s=np.full(n, ts_s, np.int32),
+        ts_ns=(250_000_000 * rng.integers(0, 4, n)).astype(np.int32),
+        mtype_id=(devices % M_SLOTS).astype(np.int32),
+        value=np.round(rng.uniform(0, 100, n), 3).astype(np.float32),
+        lat=rng.uniform(-85, 85, n).astype(np.float32),
+        lon=rng.uniform(-85, 85, n).astype(np.float32),
+        elevation=rng.uniform(0, 50, n).astype(np.float32),
+        alert_code=np.where(kind == 2, alert[devices % 4], -1).astype(
+            np.int32),
+        alert_level=np.ones(n, np.int32),
+    )
+
+
+def te_wire_payload(rng, tokens, ts_ms):
+    """One NDJSON payload, 60/30/10, a line per token."""
+    kind = rng.choice(3, len(tokens), p=(0.6, 0.3, 0.1))
+    value = rng.uniform(0, 100, len(tokens))
+    lat, lon = rng.uniform(-85, 85, (2, len(tokens)))
+    t = ts_ms + 250 * rng.integers(0, 4, len(tokens))
+    lines = []
+    for j, (tok, k, v, la, lo, tt) in enumerate(zip(
+            tokens, kind.tolist(), value.tolist(), lat.tolist(),
+            lon.tolist(), t.tolist())):
+        if k == 0:
+            lines.append(_M_LINE % (tok, j % M_SLOTS, v, tt))
+        elif k == 1:
+            lines.append(_L_LINE % (tok, la, lo, 10.0, tt))
+        else:
+            lines.append(_A_LINE % (tok, j % 4, tt))
+    return "\n".join(lines).encode()
+
+
+def te_drive(inst, sid, payload):
+    """Send one payload to source ``sid``'s TCP receiver and wait until
+    the source decoded it and the decode pool delivered it."""
+    src = {s.source_id: s for s in inst.sources}[sid]
+    lines = payload.count(b"\n") + 1
+    took0 = src.decoded_count
+    is_send_tcp(src.receivers[0], [payload])
+    is_wait(lambda: src.decoded_count - took0 + src.failed_count >= lines,
+            f"source {sid}'s lines")
+    check(src.failed_count == 0, f"source {sid} failed a payload")
+    if inst.decode_pool is not None:
+        check(inst.decode_pool.flush(600.0), "decode pool did not drain")
+
+
+def te_label_matrix(png_bytes, scale, border):
+    """The QR module matrix a label PNG shows (dark modules 1): the PNG's
+    size from its header (``png.read_png_size``), its one IDAT inflated,
+    each module's first pixel read."""
+    import zlib
+
+    from sitewhere_tpu_torch.labels import png
+
+    w, h = png.read_png_size(png_bytes)
+    pos, idat = 8, b""
+    while pos < len(png_bytes):
+        length = struct.unpack(">I", png_bytes[pos:pos + 4])[0]
+        tag = png_bytes[pos + 4:pos + 8]
+        if tag == b"IDAT":
+            idat += png_bytes[pos + 8:pos + 8 + length]
+        pos += 12 + length
+    img = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(
+        h, w + 1)[:, 1:]
+    n = w // scale - 2 * border
+    first = border * scale
+    cells = img[first:first + n * scale:scale, first:first + n * scale:scale]
+    return (cells == 0).astype(np.uint8)
+
+
+def te_labels(inst, tokens):
+    """One batch of PNG labels for ``tokens``; returns (seconds, pngs)."""
+    t0 = time.perf_counter()
+    pngs = inst.labels.generate_png_batch("default", "device", tokens)
+    return time.perf_counter() - t0, pngs
+
+
+def te_check_labels(inst, tokens, pngs):
+    from sitewhere_tpu_torch.labels import qr
+
+    gen = inst.labels.get_generator("default")
+    bad = [tok for tok, p in zip(tokens, pngs)
+           if qr.decode_matrix(te_label_matrix(p, gen.scale, gen.border))
+           != gen.url_for("device", tok).encode()]
+    check(len(pngs) == len(tokens) and not bad,
+          f"{len(bad)} labels of {len(pngs)} do not decode to their URL")
+
+
+def te_clone(obj):
+    """A step's tensors (a packed dataclass or a tuple of them) cloned."""
+    import dataclasses
+
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return obj.clone()
+    if isinstance(obj, tuple):
+        return tuple(te_clone(o) for o in obj)
+    return dataclasses.replace(obj, **{
+        f.name: getattr(obj, f.name).clone()
+        for f in dataclasses.fields(obj)
+        if isinstance(getattr(obj, f.name), torch.Tensor)})
+
+
+def tenant_engines_run(device, geo_cuda, world, root):
+    """The phase's one ``Instance`` life: bootstrap, devices per tenant,
+    mixed traffic with an engine restart, mismatch rows, schedules and
+    batch operations, labels beside streams, a scripted source.  Returns
+    ``(record, launches, view, data_dir, initialized)``."""
+    import torch
+
+    from sitewhere_tpu_torch.commands import (
+        BinaryCommandEncoder, CallbackDeliveryProvider, CommandDestination,
+        DeviceTypeMappingRouter, TopicParameterExtractor)
+    from sitewhere_tpu_torch.pipeline.packed import packed_pipeline_step
+    from sitewhere_tpu_torch.runtime.lifecycle import LifecycleState
+    from sitewhere_tpu_torch.schema import EventType
+
+    data_dir = os.path.join(root, "engines")
+    shutil.copytree(world, os.path.join(data_dir, "checkpoint"))
+    initialized = []
+    t0 = time.perf_counter()
+    inst = te_instance(device, data_dir, te_template(initialized))
+    check(inst.restored, "the 8-tenant world was not restored")
+    # the decoder script, uploaded before start() builds the sources
+    inst.scripts.upload("te-ndjson", "decoder", TE_SCRIPT)
+    inst.start()
+    boot_s = time.perf_counter() - t0
+    rec = {"phase": "tenant_engines", "run": "engines", "boot_s": boot_s}
+    try:
+        disp = inst.dispatcher
+        # 1. bootstrap: the template's users and tenants, the engines up
+        engines = {e.tenant.token: e for e in inst.engines.list_engines()}
+        check(sorted(engines) == sorted(tenant_token(k)
+                                        for k in range(N_TENANTS)),
+              f"engines {sorted(engines)}")
+        for k in range(N_TENANTS):
+            e = engines[tenant_token(k)]
+            check(e.state == LifecycleState.STARTED and e.tenant_id == k,
+                  f"engine {tenant_token(k)}: {e.state}, id {e.tenant_id}")
+        check(engines["default"].device_management is inst.device_management,
+              "the default engine is not the instance's services")
+        check(inst.bootstrapped and initialized == [1],
+              f"bootstrap ran the initializers {len(initialized)}x")
+        check(inst.users.authenticate("operator", "operator-pw").username
+              == "operator", "the template's operator cannot log in")
+        # 2. each engine's devices, through its own DeviceManagement
+        populate_s, engine_handles = te_populate(inst)
+        owner = np.full(CAPACITY, -1, np.int32)
+        owner[:N_ACTIVE] = np.arange(N_ACTIVE) % N_TENANTS
+        for k, h in engine_handles.items():
+            owner[h] = k
+        rec.update(engine_devices=N_TENANTS * TE_ENGINE_DEVICES,
+                   populate_s=populate_s,
+                   us_per_device=populate_s * 1e6 / (
+                       N_TENANTS * TE_ENGINE_DEVICES))
+
+        # 3. mixed traffic: every tenant's devices in blocks of a
+        # permutation, then the default tenant's on the wire
+        rng = np.random.default_rng(SEED + 110)
+        fleet = np.flatnonzero(owner >= 0).astype(np.int32)
+        perm = rng.permutation(fleet)
+        blocks = [perm[(p * FULL_B) % len(perm):][:FULL_B]
+                  for p in range(TE_ARRAY_PAYLOADS)]
+        arrays = [te_columns(rng, inst, b, owner, TE_TS0_MS // 1000 + 10 * p)
+                  for p, b in enumerate(blocks)]
+        del blocks, perm
+        t0_tokens = ([f"d-{i}" for i in range(0, N_ACTIVE, N_TENANTS)]
+                     + [f"e0-{i}" for i in range(TE_ENGINE_DEVICES)])
+        wires = [te_wire_payload(
+            rng, [t0_tokens[j % len(t0_tokens)]
+                  for j in range(p * FULL_B, (p + 1) * FULL_B)],
+            TE_TS0_MS + 10_000 * (TE_ARRAY_PAYLOADS + p))
+            for p in range(TE_WIRE_PAYLOADS)]
+        sent = np.zeros(N_TENANTS, np.int64)
+        for cols in arrays:
+            sent += np.bincount(cols["tenant_id"], minlength=N_TENANTS)
+        sent[0] += TE_WIRE_PAYLOADS * FULL_B
+        # the egress: every plan's tenant block, summed
+        block = np.zeros((3, 16), np.int64)
+        egress = disp._egress
+
+        def metered_egress(plan, out, replay_depth, trace=None):
+            block[:] += out.tenant_meter
+            return egress(plan, out, replay_depth, trace=trace)
+
+        disp._egress = metered_egress
+        # the first plan's step, captured for the plain-geofence rerun
+        captured = []
+        step = disp._packed_step
+
+        def capturing(tables, ps, bi, bf):
+            if captured:
+                return step(tables, ps, bi, bf)
+            inputs = (tables, te_clone(ps), te_clone(bi), te_clone(bf))
+            out = step(tables, ps, bi, bf)
+            captured.append((*inputs, te_clone(out)))
+            return out
+
+        disp._packed_step = capturing
+        torch.cuda.synchronize()
+        snap0 = disp.metrics_snapshot()
+        disp.latencies_s.clear()
+        geo_cuda.reset_launch_counts()
+        restart = {}
+        a_token = tenant_token(TE_RESTART_TENANT)
+        t_run = time.perf_counter()
+        for p, cols in enumerate(arrays):
+            if p == TE_RESTART_AT:
+                def restart_a():
+                    t = time.perf_counter()
+                    eng = inst.engines.restart_engine(a_token)
+                    restart["ms"] = (time.perf_counter() - t) * 1e3
+                    restart["state"] = eng.state
+
+                worker = threading.Thread(target=restart_a)
+                worker.start()
+                disp.ingest_arrays(**cols)
+                worker.join()
+            else:
+                disp.ingest_arrays(**cols)
+        for payload in wires:
+            disp.ingest_wire_lines(payload)
+        settle(inst)
+        elapsed = time.perf_counter() - t_run
+        disp._packed_step = step
+        latency = _latency(disp, "max")
+        snap1 = disp.metrics_snapshot()
+        lines = TE_ARRAY_PAYLOADS * FULL_B + TE_WIRE_PAYLOADS * FULL_B
+        del arrays, wires
+        check(restart.get("state") == LifecycleState.STARTED,
+              f"tenant {a_token}'s engine restart: {restart}")
+        a_dm = inst.engines.get_engine(a_token).device_management
+        a_lost = [i for i in range(TE_ENGINE_DEVICES)
+                  if f"e{TE_RESTART_TENANT}-{i}" not in a_dm.devices
+                  or a_dm.get_active_assignment(
+                      f"e{TE_RESTART_TENANT}-{i}") is None]
+        check(not a_lost, f"{len(a_lost)} of {a_token}'s devices lost "
+              "across its engine's restart")
+        # one plan again from its carry, plain geofence, on the card
+        launches_run = geo_cuda.launch_counts["pip_parity"]
+        tables, ps, bi, bf, (k_ps, k_oi, k_met, k_present) = captured[0]
+        p_ps, p_oi, p_met, p_present = packed_pipeline_step(
+            tables, ps, bi, bf, plain_chunked)
+        same = (torch.equal(p_oi, k_oi) and torch.equal(p_met, k_met)
+                and torch.equal(p_present, k_present)
+                and torch.equal(p_ps.si, k_ps.si)
+                and torch.equal(p_ps.sf, k_ps.sf))
+        check(same, "tenant_engines: plan != its plain-geofence rerun")
+        check(geo_cuda.launch_counts["pip_parity"] == launches_run,
+              "the plain rerun launched the kernel")
+        del captured, tables, ps, bi, bf, k_ps, k_oi, k_met, k_present
+        del p_ps, p_oi, p_met, p_present
+
+        # 4. rows stamped with tenant B for devices of tenant A
+        a_handles = engine_handles[TE_RESTART_TENANT][:TE_MISMATCH_ROWS]
+        before = disp.metrics_snapshot()
+        disp.ingest_arrays(
+            device_id=a_handles,
+            tenant_id=np.full(TE_MISMATCH_ROWS, TE_MISMATCH_TENANT, np.int32),
+            event_type=np.zeros(TE_MISMATCH_ROWS, np.int32),
+            ts_s=np.full(TE_MISMATCH_ROWS, TE_TS0_MS // 1000 + 500, np.int32),
+            mtype_id=np.zeros(TE_MISMATCH_ROWS, np.int32),
+            value=np.full(TE_MISMATCH_ROWS, 50.0, np.float32))
+        disp.flush()
+        after = disp.metrics_snapshot()
+        mismatch = {k: after[k] - before[k]
+                    for k in ("processed", "accepted", "unregistered")}
+        check(mismatch["processed"] == TE_MISMATCH_ROWS
+              and mismatch["accepted"] == 0,
+              f"tenant-mismatch rows: {mismatch}")
+
+        # 5. a scheduled invocation and a batch operation, delivered to a
+        # callback (the default tenant's devices)
+        delivered = []
+        encoder = BinaryCommandEncoder()
+        inst.commands.add_destination(CommandDestination(
+            "te-callback", encoder, TopicParameterExtractor(),
+            CallbackDeliveryProvider(
+                lambda ex, payload, params: delivered.append(
+                    (ex.invocation.target_assignment,
+                     ex.invocation.initiator,
+                     ex.invocation.initiator_id)))))
+        inst.commands.router = DeviceTypeMappingRouter(
+            {"sensor": "te-callback"})
+        # a yearly trigger, fired on demand (the REST trigger's path): the
+        # schedule's own ticker must not fire it again during the run
+        inst.schedules.create_schedule(token="te-cron", name="Yearly",
+                                       trigger_type="Cron", cron="0 0 1 1 *")
+        inst.schedules.create_job(
+            token="te-job", schedule="te-cron", job_type="CommandInvocation",
+            config={"commandToken": "ping", "assignmentToken": "e0-a0"})
+        check(inst.schedules.fire("te-cron") == 1, "the cron job did not run")
+        t0 = time.perf_counter()
+        op = inst.batch_ops.create_batch_command_invocation(
+            "ping", devices=[f"e0-{i}" for i in range(TE_BATCH_DEVICES)],
+            token="te-batch")
+        check(inst.batch_ops.wait_idle(120.0), "the batch did not finish")
+        batch_s = time.perf_counter() - t0
+        check(op.status == "FinishedSuccessfully"
+              and all(el.status == "Succeeded" for el in op.elements),
+              f"batch {op.status}: {op.counts}")
+        sched = [d for d in delivered if d[1] == "SCHEDULER"]
+        batch = sorted(d[0] for d in delivered if d[1] == "BatchOperation")
+        check(sched == [("e0-a0", "SCHEDULER", "te-job")],
+              f"scheduled deliveries {sched}")
+        check(batch == sorted(f"e0-a{i}" for i in range(TE_BATCH_DEVICES)),
+              f"{len(batch)} batch deliveries for {TE_BATCH_DEVICES}")
+
+        # 6. labels alone, then beside the device streams
+        tokens = [f"d-{i}" for i in range(TE_LABELS)]
+        alone_s, pngs = te_labels(inst, tokens)
+        te_check_labels(inst, tokens, pngs)
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            streams = pool.submit(streams_run, inst, "tenant_engines")
+            beside_s, pngs = te_labels(inst, tokens)
+            streams_rec = streams.result()
+        te_check_labels(inst, tokens, pngs)
+        del pngs
+
+        # 7. the scripted source against a jsonlines source, same bytes
+        script_payload = te_wire_payload(
+            rng, t0_tokens[:TE_SCRIPT_LINES], TE_TS0_MS + 900_000)
+        refs = {}
+        for sid in ("scripted", "plain"):
+            refs[sid] = inst.ingest_journal.end_offset
+            te_drive(inst, sid, script_payload)
+            disp.flush()
+        sent[0] += 2 * TE_SCRIPT_LINES
+        settle(inst)
+        inst.event_store.flush()
+        stored = op_stored(inst.event_store)
+        derived_codes = np.asarray(
+            [inst.identity.alert_type.lookup(f"rule-{r}") for r in range(4)]
+            + [inst.identity.alert_type.lookup(f"zone-{z}")
+               for z in range(8)], np.int32)
+        is_derived = ((stored["event_type"] == int(EventType.ALERT))
+                      & np.isin(stored["alert_code"], derived_codes))
+        by_ref = {}
+        for sid, ref in refs.items():
+            rows = op_take({k: stored[k] for k in TE_SCRIPT_COLS},
+                           (stored["payload_ref"] == ref) & ~is_derived)
+            order = np.lexsort(tuple(rows[k] for k in TE_SCRIPT_COLS))
+            by_ref[sid] = {k: v[order] for k, v in rows.items()}
+        check(len(by_ref["scripted"]["device_id"]) == TE_SCRIPT_LINES
+              and all(np.array_equal(by_ref["scripted"][k],
+                                     by_ref["plain"][k])
+                      for k in TE_SCRIPT_COLS),
+              "the scripted source's rows != the jsonlines source's")
+
+        # per tenant: stored == sent lines + derived alerts, and so are
+        # the tenant block's accepted rows (a derived alert re-enters
+        # the step as a row of its source row's tenant)
+        snap2 = disp.metrics_snapshot()
+        stored_by = np.bincount(stored["tenant_id"][
+            stored["tenant_id"] >= 0], minlength=N_TENANTS)[:N_TENANTS]
+        derived_by = np.bincount(stored["tenant_id"][is_derived],
+                                 minlength=N_TENANTS)[:N_TENANTS]
+        derived = snap2["derived_alerts"] - snap0["derived_alerts"]
+        check(int(derived_by.sum()) == derived,
+              f"derived alerts stored {derived_by.sum()}, counted {derived}")
+        check(np.array_equal(stored_by, sent + derived_by),
+              f"stored by tenant {stored_by.tolist()} != sent "
+              f"{sent.tolist()} + derived {derived_by.tolist()}")
+        check(np.array_equal(block[0][:N_TENANTS], sent + derived_by)
+              and not block[0][N_TENANTS:].any(),
+              f"tenant block {block[0].tolist()} != sent {sent.tolist()}"
+              f" + derived {derived_by.tolist()}")
+        steps = snap2["steps"] - snap0["steps"]
+        launches = geo_cuda.launch_counts["pip_parity"]
+        check(launches == steps,
+              f"kernel launched {launches}x in {steps} steps")
+        rec.update({
+            "array_payloads": TE_ARRAY_PAYLOADS,
+            "wire_payloads": TE_WIRE_PAYLOADS, "lines": lines,
+            "elapsed_s": elapsed, "events_per_s": lines / elapsed, **latency,
+            "steps": steps, "pip_launches": launches,
+            "derived_alerts": derived,
+            "accepted": snap1["accepted"] - snap0["accepted"],
+            "stored_by_tenant": stored_by.tolist(),
+            "tenant_block_rows": block[0].tolist(),
+            "restart_tenant": a_token, "restart_ms": restart["ms"],
+            "plain_rerun_identical": same,
+            "mismatch": mismatch,
+            "batch_elements": TE_BATCH_DEVICES,
+            "batch_elements_per_s": TE_BATCH_DEVICES / batch_s,
+            "scheduled_deliveries": len(sched),
+            "labels": TE_LABELS,
+            "labels_per_s_alone": TE_LABELS / alone_s,
+            "labels_per_s_beside_streams": TE_LABELS / beside_s,
+            "streams_mb_per_s": streams_rec["mb_per_s"],
+            "script_rows": len(by_ref["scripted"]["device_id"]),
+        })
+        rec.update(guard_counts(disp.metrics, "tenant_engines"))
+        del stored, by_ref
+        view = te_view(inst)
+        t0 = time.perf_counter()
+        inst.stop()
+        rec["stop_s"] = time.perf_counter() - t0
+    finally:
+        inst.terminate()
+    emit(rec)
+    return rec, launches, view, data_dir, initialized
+
+
+def tenant_engines_restart(device, data_dir, view, initialized):
+    """A new ``Instance`` on the same directory, the ladder on: every
+    record back, the template not run again, ``topology()`` naming the 8
+    engines, label generation refused at SHEDDING."""
+    from sitewhere_tpu_torch.runtime.overload import OverloadState
+    from sitewhere_tpu_torch.services.common import ServiceUnavailable
+
+    t0 = time.perf_counter()
+    again = te_instance(device, data_dir, te_template(initialized),
+                        overload={"enabled": True, "cooldown_s": 3600.0})
+    restore_s = time.perf_counter() - t0
+    try:
+        check(again.restored, "the restart restored no checkpoint")
+        again.start()
+        check(again.bootstrapped and initialized == [1],
+              f"the template ran again ({len(initialized)} runs)")
+        got = te_view(again)
+        for key in view:
+            check(got[key] == view[key], f"restart: {key} differ")
+        # topology(): the manager in the component tree (the reference's
+        # manager keeps its engines outside the lifecycle tree, so the
+        # engines themselves are named by its list)
+        states = {}
+
+        def walk(node):
+            states[node["name"]] = node["state"]
+            for child in node["children"]:
+                walk(child)
+
+        topo = again.topology()
+        walk(topo["components"])
+        check(topo["bootstrapped"]
+              and states.get("tenant-engine-manager") == "started",
+              f"topology: bootstrapped {topo['bootstrapped']}, manager "
+              f"{states.get('tenant-engine-manager')}")
+        engines = sorted(e.name for e in again.engines.list_engines()
+                         if e.state.value == "started")
+        check(engines == sorted(f"tenant-engine:{tenant_token(k)}"
+                                for k in range(N_TENANTS)),
+              f"started engines {engines}")
+        again.overload.force(OverloadState.SHEDDING)
+        try:
+            again.labels.generate_png_batch("default", "device", ["d-0"])
+            refused = False
+        except ServiceUnavailable:
+            refused = True
+        check(refused and again.labels.refused_under_load == 1,
+              "label generation was not refused at SHEDDING")
+    finally:
+        again.terminate()
+    rec = {"phase": "tenant_engines", "run": "restart",
+           "restore_s": restore_s,
+           "users": len(view["users"]), "tenants": len(view["tenants"]),
+           "engine_devices": {t: len(e["devices"])
+                              for t, e in view["engines"].items()},
+           "schedules": len(view["schedules"]), "jobs": len(view["jobs"]),
+           "batch_ops": len(view["batch_ops"]), "engines_started": engines,
+           "labels_refused_at_shedding": refused}
+    emit(rec)
+
+
+def phase_tenant_engines(device, geo_cuda):
+    """Tenant engines, users and tokens, scripts, labels, schedules and
+    batch operations on the card (see the module docstring, phase 14),
+    over an 8-tenant world.  Returns the kernel's launches by run."""
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="tenants-", dir=geo_cuda.BUILD_DIR)
+    try:
+        world = world_checkpoint(device, root, "full", N_TENANTS)
+        _, launches, view, data_dir, initialized = tenant_engines_run(
+            device, geo_cuda, world, root)
+        tenant_engines_restart(device, data_dir, view, initialized)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "tenant_engines", "run": "done",
+          "seconds": time.perf_counter() - t0})
+    return {"engines": launches}
 
 
 # -- device-fault containment and the control plane ----------------------------
@@ -6109,14 +6762,17 @@ def main() -> int:
         del mixed
         is_launches = phase_ingest_sources(device, geo_cuda, world)
         op_launches = phase_outbound_presence(device, geo_cuda, world)
+        te_launches = phase_tenant_engines(device, geo_cuda)
     finally:
         shutil.rmtree(world_root, ignore_errors=True)
     cp_launches = phase_control_plane(device, geo_cuda)
-    # this slice's path: the wire runs with outbound off and on, the
-    # ladder's shed run, and the presence sweeps' re-injected STATE_CHANGE
-    # plans
-    rec["launches"] = sum(op_launches.values())
+    # this slice's path: the multitenant run (array and wire payloads of
+    # every tenant, the engine restart, the mismatch rows, the scripted
+    # sources)
+    rec["launches"] = sum(te_launches.values())
     rec["launches_by_path"] = {"main_path": main_launches,
+                               **{f"tenant_engines.{k}": v
+                                  for k, v in te_launches.items()},
                                **{f"outbound_presence.{k}": v
                                   for k, v in op_launches.items()},
                                **{f"ingest_sources.{k}": v

@@ -6,8 +6,8 @@ Reference: ``ICommandRouter`` impls — ``DeviceTypeMappingCommandRouter``
 (device-type token → destination id with a default fallback) and the
 scripted router (``service-command-delivery/.../routing/``).  The scripted
 variant is any callable taking an execution and returning a destination
-id (the reference registers one through ``runtime.scripting``, which
-comes with the control plane).
+id, such as a router script's live handle from
+:meth:`sitewhere_tpu_torch.runtime.scripting.ScriptManager.as_router`.
 """
 
 from __future__ import annotations

@@ -5,9 +5,10 @@ manager, the batcher and the wire decode need it: the ``NULL_ID``
 sentinel, :func:`stable_hash64` (the ingest dedup key, the same 64-bit
 value in both packages), :class:`HandleSpace` (mint / free / lookup /
 bulk lookup / reverse lookup / in-place restore, and the ``TokenTable``
-mirror the native resolved scanners read) and :class:`IdentityMap` with its
-checkpoint serialization (:meth:`IdentityMap.save` /
-:meth:`IdentityMap.load_into`), which writes the reference's JSON.
+mirror the native resolved scanners read) and :class:`IdentityMap` with
+its checkpoint serialization (:meth:`IdentityMap.save`,
+:meth:`IdentityMap.load` and :meth:`IdentityMap.load_into`), which
+writes the reference's JSON.
 """
 
 from __future__ import annotations
@@ -212,6 +213,16 @@ class IdentityMap:
             f.flush()
             os.fsync(f.fileno())
         os.replace(tmp, path)
+
+    @classmethod
+    def load(cls, path: str) -> "IdentityMap":
+        """A new map holding every space of a :meth:`save` file."""
+        with open(path) as f:
+            payload = json.load(f)
+        im = cls()
+        for name, data in payload.items():
+            im.spaces[name] = HandleSpace.from_dict(data)
+        return im
 
     def load_into(self, path: str) -> None:
         """Restore every space IN PLACE (see :meth:`HandleSpace.load_state`):

@@ -24,9 +24,11 @@ to :mod:`sitewhere_tpu_torch.ingest.decoders`.  Unknown types raise
 silently drop a source (the reference's schema-validated XML gives the
 same guarantee).
 
-Counterpart of ``sitewhere_tpu/ingest/factory.py``, whole.  The port
-has no script manager yet, so its ``Instance`` passes ``scripts=None``
-and a decoder named after a script fails boot as an unknown decoder.
+Counterpart of ``sitewhere_tpu/ingest/factory.py``, whole.  The
+``Instance`` passes its
+:class:`~sitewhere_tpu_torch.runtime.scripting.ScriptManager`, so a
+decoder named after an uploaded decoder script resolves to its live
+handle (the active version on every call).
 """
 
 from __future__ import annotations

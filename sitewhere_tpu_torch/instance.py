@@ -41,10 +41,23 @@ the analytics runner its matches; connectors are attached in code with
 ``outbound.add_connector``), the presence manager (``presence.*``: its
 sweeps flag devices silent past ``missing_after_s`` and their
 STATE_CHANGE rows re-enter through the dispatcher's ``inject_batch``),
-the ``"local"`` event search provider (``search_providers``) and the
+the ``"local"`` event search provider (``search_providers``), the
 device streams (``streams``, ``stream_manager``: host-plane stream
-create, data and send requests from the sources and the wire).
-The attributes keep the reference's names, since the
+create, data and send requests from the sources and the wire), the users
+and their JWTs (``users``, ``tokens``; ``security.jwt_secret``), the
+tenants with one engine each (``tenants``, ``engines``: the
+``MultitenantEngineManager`` builds every tenant's engine as service
+façades over the shared identity map and mirror, so an engine's
+``tenant_id`` keys its rows in the shared tensors; the ``default``
+tenant's engine is the instance's own services), the QR label generators
+(``labels``, switched off by the overload ladder from DEGRADED up), the
+uploadable scripts (``scripts``: decoders named after a script in a
+``sources`` entry, routers, encoders and processors), the schedules with
+their jobs and the batch command operations (``schedules``,
+``batch_ops``; ``batch.throttle_delay_ms``), and the bootstrap from an
+:class:`InstanceTemplate` (users and tenants ensured on every
+:meth:`start`, its dataset initializers run once, gated by a marker
+file).  The attributes keep the reference's names, since the
 :class:`~sitewhere_tpu_torch.runtime.checkpoint.Checkpointer` reads
 them.
 
@@ -52,8 +65,6 @@ Components the reference composes by default and this instance does NOT
 yet, so the port does less than the reference until their slices come
 (line numbers in ``sitewhere_tpu/instance.py`` unless named):
 
-- the batch-operation and schedule managers (:414-426) and the tenant
-  engines (:427-431);
 - the fabric: :meth:`invoke_command` runs locally and has no peers to
   route an unknown assignment to, the ``forward-shed`` requeue finds
   no forwarder, and the federated and remote search providers
@@ -61,9 +72,9 @@ yet, so the port does less than the reference until their slices come
 - the mesh's per-shard breakers (``ShardBreakers``);
 - the profiler endpoints that calibrate the watchdog's budgets
   (:1040-1060): the budgets stay at their defaults, soft 1 s, hard 10 s;
-- the script manager: a source whose decoder names a script fails boot
-  as an unknown decoder;
-- the forwarder, so the ``runtime`` section's ``spools`` stay empty.
+- the forwarder, so the ``runtime`` section's ``spools`` stay empty,
+  and :meth:`topology` gives the local view only (no
+  ``cluster_topology``, no ``forwarding`` entry).
 
 The runner's ``outbound`` hook (its match fan-out), and its and the rule
 engine's ``overload``, ``usage_ledger`` and ``quotas``, are wired.
@@ -74,7 +85,9 @@ Lifecycle, as in the reference:
   checkpoint generation (identity, the management stores, mirror, rules,
   device state, catalog manifest, the analytics queries with their
   operator state, the rule programs) before anything starts;
-- :meth:`start` builds the config-declared sources, captures the
+- :meth:`start` bootstraps from the template, builds the
+  config-declared sources (decoder scripts resolved through
+  ``scripts``), captures the
   journal end (``recover_upto``) before anything ingests, starts the
   store, the analytics runner, the rule
   engine, the dispatcher (whose warm-up builds the native scanners, the
@@ -112,13 +125,14 @@ The instance runs on the card unless ``device="cpu"`` is named.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import os
 import pickle
 import threading
 import time
-from typing import Any, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -147,6 +161,7 @@ from sitewhere_tpu_torch.ingest.journal import (
     JournalReader,
 )
 from sitewhere_tpu_torch.ingest.sources import DecodePool
+from sitewhere_tpu_torch.labels.manager import LabelGeneratorManager
 from sitewhere_tpu_torch.outbound.manager import OutboundConnectorsManager
 from sitewhere_tpu_torch.outbound.search import (
     EventSearchProvider,
@@ -154,7 +169,11 @@ from sitewhere_tpu_torch.outbound.search import (
 )
 from sitewhere_tpu_torch.pipeline.rules import RuleManager
 from sitewhere_tpu_torch.rules.engine import RuleEngineRunner
-from sitewhere_tpu_torch.runtime.checkpoint import Checkpointer, StateProvider
+from sitewhere_tpu_torch.runtime.checkpoint import (
+    Checkpointer,
+    StateProvider,
+    merge_store,
+)
 from sitewhere_tpu_torch.runtime.config import DEFAULTS, Config
 from sitewhere_tpu_torch.runtime.dispatcher import PipelineDispatcher
 from sitewhere_tpu_torch.runtime.flightrec import FlightRecorder
@@ -167,6 +186,7 @@ from sitewhere_tpu_torch.runtime.metrics import (
     BurnRateEngine,
     MetricsRegistry,
     SloTargets,
+    global_registry,
 )
 from sitewhere_tpu_torch.runtime.overload import (
     OverloadController,
@@ -176,9 +196,13 @@ from sitewhere_tpu_torch.runtime.overload import (
     Watermarks,
 )
 from sitewhere_tpu_torch.runtime.resilience import dead_letter
+from sitewhere_tpu_torch.runtime.scripting import ScriptManager
 from sitewhere_tpu_torch.runtime.tracing import Tracer
 from sitewhere_tpu_torch.schema import DEFAULT_EWMA_HALFLIVES_S
+from sitewhere_tpu_torch.security.jwt import TokenManagement
+from sitewhere_tpu_torch.security.users import UserManagement
 from sitewhere_tpu_torch.services.assets import AssetManagement
+from sitewhere_tpu_torch.services.batch_ops import BatchOperationManager
 from sitewhere_tpu_torch.services.common import (
     EntityNotFound,
     ServiceError,
@@ -191,9 +215,15 @@ from sitewhere_tpu_torch.services.device_management import (
     RegistryMirror,
 )
 from sitewhere_tpu_torch.services.registration import RegistrationManager
+from sitewhere_tpu_torch.services.schedules import ScheduleManager
 from sitewhere_tpu_torch.services.streams import (
     DeviceStreamManagement,
     DeviceStreamManager,
+)
+from sitewhere_tpu_torch.services.tenants import (
+    MultitenantEngineManager,
+    TenantEngine,
+    TenantManagement,
 )
 from sitewhere_tpu_torch.state.manager import DeviceStateManager
 from sitewhere_tpu_torch.state.presence import PresenceManager
@@ -221,6 +251,7 @@ HONOURED = (
     "overload.*", "metering.*", "slo.*", "flightrec.*", "tenants.*",
     "state.partition_min_capacity",
     "sources", "ingest.*", "presence.*",
+    "security.jwt_secret", "batch.throttle_delay_ms",
 )
 
 
@@ -259,14 +290,46 @@ def refuse_unsupported(config: Config) -> None:
             "sharded paths come with a later slice")
 
 
+@dataclasses.dataclass
+class InstanceTemplate:
+    """Bootstrap template (the reference's instance templates: default
+    users, tenants, and dataset initializers, Python callables in place
+    of Groovy scripts)."""
+
+    template_id: str = "default"
+    users: List[Dict[str, object]] = dataclasses.field(
+        default_factory=lambda: [
+            {
+                "username": "admin",
+                "password": "password",
+                "first_name": "Admin",
+                "last_name": "User",
+                "authorities": ["ROLE_ADMIN"],
+            }
+        ]
+    )
+    tenants: List[Dict[str, object]] = dataclasses.field(
+        default_factory=lambda: [
+            {"token": "default", "name": "Default Tenant",
+             "auth_token": "sitewhere1234567890"}
+        ]
+    )
+    # dataset initializers run once per instance with the Instance as arg
+    # (the GroovyDeviceModelInitializer analog)
+    dataset_initializers: List[Callable[["Instance"], None]] = \
+        dataclasses.field(default_factory=list)
+
+
 class Instance(LifecycleComponent):
     """One configured instance of the port on one card."""
 
     def __init__(self, config: Optional[Config] = None,
+                 template: Optional[InstanceTemplate] = None,
                  device: DeviceLike = None):
         super().__init__("instance")
         self.config = config or Config()
         refuse_unsupported(self.config)
+        self.template = template or InstanceTemplate()
         self.device = resolve_device(device)
         dev = self.device
         self.instance_id = self.config["instance.id"]
@@ -278,7 +341,15 @@ class Instance(LifecycleComponent):
         ewma_halflives = tuple(self.config.get(
             "pipeline.ewma_halflives_s", DEFAULT_EWMA_HALFLIVES_S))
 
+        # identity and security (a shared JWT secret lets hosts verify
+        # each other's service tokens, as the reference's one
+        # instance-wide secret does)
         self.identity = IdentityMap(capacity=cap)
+        self.users = UserManagement()
+        jwt_secret = self.config.get("security.jwt_secret")
+        self.tokens = TokenManagement(
+            secret=jwt_secret.encode("utf-8") if jwt_secret else None)
+        self.tenants = TenantManagement()
         self.mirror = RegistryMirror(
             capacity=cap,
             max_zones=int(self.config.get("pipeline.max_zones", 256)),
@@ -320,6 +391,8 @@ class Instance(LifecycleComponent):
         self.streams = self.add_child(DeviceStreamManagement(self.data_dir))
         self.stream_manager = self.add_child(DeviceStreamManager(
             self.device_management, self.streams))
+        # QR label generation, on the host
+        self.labels = self.add_child(LabelGeneratorManager())
         self.ingest_journal = Journal(
             self.data_dir, name="ingest",
             fsync_every=int(self.config["journal.fsync_every"]),
@@ -336,6 +409,9 @@ class Instance(LifecycleComponent):
                             if tail_ms is not None else None),
             pending_capacity=int(
                 self.config.get("tracing.pending_capacity", 512)))
+        # runtime-uploadable scripts (the ScriptSynchronizer analog),
+        # versioned under data_dir/scripts/
+        self.scripts = ScriptManager(self.data_dir)
 
         # Flight recorder: an always-on bounded ring of per-batch records,
         # snapshotted to JSONL on anomaly (SLO burn alert, egress crash,
@@ -416,6 +492,8 @@ class Instance(LifecycleComponent):
             # ledger's measured-share scaling
             self.overload.set_tenant_budgets(
                 TenantBudgets.from_config(self.config.get("tenants")))
+            # label rendering is optional work: refused from DEGRADED up
+            self.labels.load_gate = self.overload.allow_optional
             if self.flightrec is not None:
                 # every ladder move dumps the recorder
                 self.overload.on_transition(
@@ -489,6 +567,23 @@ class Instance(LifecycleComponent):
             self.device_management,
             on_undelivered=self._on_undelivered_command,
             metrics=self.metrics,
+        ))
+        self.batch_ops = self.add_child(BatchOperationManager(
+            self.device_management, self.commands,
+            throttle_delay_ms=int(self.config.get(
+                "batch.throttle_delay_ms", 0)),
+        ))
+        self.schedules = self.add_child(ScheduleManager(executors={
+            "CommandInvocation": self._run_scheduled_invocation,
+            "BatchCommandInvocation": self._run_scheduled_batch,
+        }))
+        # one engine per tenant over the SHARED tensors, each restartable
+        # on its own; the engines share the instance's identity map, so
+        # their dense tenant ids are the pipeline's tenant column
+        self.engines = self.add_child(MultitenantEngineManager(
+            self.tenants,
+            engine_factory=self._make_tenant_engine,
+            tenant_ids=self.identity,
         ))
 
         # Outbound connectors: every accepted enriched batch fans out to
@@ -609,7 +704,7 @@ class Instance(LifecycleComponent):
             analytics=self.analytics,
             journal=self.ingest_journal,
             dead_letters=self.dead_letters,
-            resolve_tenant=self.identity.tenant.mint,
+            resolve_tenant=self._tenant_dense_id,
             on_host_request=self._on_host_request,
             inflight_depth=int(self.config.get("pipeline.inflight_depth", 0)),
             egress_offload=self.config.get("pipeline.egress_offload"),
@@ -649,7 +744,9 @@ class Instance(LifecycleComponent):
         # checkpoint/resume: restore the newest complete snapshot BEFORE
         # start, so identity, registry, rules and device state survive a
         # restart; the journal replay in start() re-derives what was
-        # journaled after each section's as-of offset
+        # journaled after each section's as-of offset.  The tenant
+        # engines' façades wait in _engine_snapshots for their factory.
+        self._engine_snapshots: Dict[str, dict] = {}
         self._dedup_snapshot: Dict[str, list] = {}
         self.checkpointer = self.add_child(Checkpointer(
             self,
@@ -694,14 +791,58 @@ class Instance(LifecycleComponent):
                 version=1))
         self.restored = self.checkpointer.restore()
 
+    # -- bootstrap (service-instance-management) ----------------------------
+
+    @property
+    def _marker_path(self) -> str:
+        return os.path.join(self.data_dir, ".bootstrapped")
+
+    @property
+    def bootstrapped(self) -> bool:
+        return os.path.exists(self._marker_path)
+
+    def bootstrap(self) -> bool:
+        """Ensure the template's users and tenants exist (on every start:
+        the management stores live in memory until a checkpoint restores
+        them) and run its dataset initializers ONCE; the marker file gates
+        only the initializers, as the reference's bootstrapped marker
+        gates its Groovy scripts.  Returns True if the initializers ran."""
+        for spec in self.template.users:
+            spec = dict(spec)
+            authorities = list(spec.pop("authorities", []))
+            existing = {a.authority
+                        for a in self.users.list_granted_authorities()}
+            for auth in authorities:
+                if auth not in existing:
+                    self.users.create_granted_authority(auth)
+            if not any(u.username == spec["username"] for u in
+                       self.users.list_users()):
+                self.users.create_user(authorities=authorities, **spec)
+        known = {t.token for t in self.tenants.list_tenants()}
+        for spec in self.template.tenants:
+            if spec["token"] not in known:
+                self.tenants.create_tenant(**spec)
+            self._tenant_dense_id(spec["token"])
+        if self.bootstrapped:
+            logger.info("instance %s already bootstrapped", self.instance_id)
+            return False
+        for initializer in self.template.dataset_initializers:
+            initializer(self)
+        with open(self._marker_path, "w") as f:
+            json.dump({"template": self.template.template_id}, f)
+        logger.info("bootstrapped instance %s from template %s",
+                    self.instance_id, self.template.template_id)
+        return True
+
     # -- lifecycle ----------------------------------------------------------
 
     def start(self) -> None:
+        self.bootstrap()
         # Config-declared sources, attached before the lifecycle start
         # below brings them up; a bad declaration fails boot
         source_docs = self.config.get("sources")
         if source_docs and not self._config_sources_built:
-            for src in build_sources(source_docs, scripts=None):
+            for src in build_sources(source_docs, scripts=self.scripts):
                 self.add_source(src)
             self._config_sources_built = True
         # the journal end BEFORE the sources start: the recovery replay
@@ -764,10 +905,73 @@ class Instance(LifecycleComponent):
         self.ingest_journal.close()
         self.dead_letters.close()
 
+    # -- topology (admin surface) -------------------------------------------
+
+    def topology(self) -> dict:
+        """The live component tree and counters of this host (the
+        reference's ``TopologyStateAggregator`` feed).  The port has no
+        fabric, so no ``forwarding`` entry."""
+        topo = {
+            "instance": self.instance_id,
+            "bootstrapped": self.bootstrapped,
+            "components": self.status_tree(),
+            "pipeline": self.dispatcher.metrics_snapshot(),
+            "devices": len(self.identity.device),
+            "events_stored": self.event_store.total_events,
+            "store": self.event_store.store_stats(),
+            "tracing": self.tracer.stats(),
+            # cross-cutting resilience counters (retries, breaker
+            # transitions, supervisor restarts, dead-letter totals)
+            "resilience": {
+                k: v for k, v in
+                global_registry().snapshot()["counters"].items()
+                if k.startswith("resilience.")
+            },
+        }
+        if self.overload is not None:
+            topo["overload"] = self.overload.snapshot()
+        if self.flightrec is not None:
+            topo["flightrec"] = self.flightrec.stats()
+        if self.slo is not None:
+            topo["slo"] = self.slo.snapshot()
+        return topo
+
     # -- control-plane wiring -----------------------------------------------
 
     def _tenant_dense_id(self, token: str) -> int:
         return self.identity.tenant.mint(token)
+
+    def _make_tenant_engine(self, tenant, tenant_id: int,
+                            config: Dict[str, object]) -> TenantEngine:
+        """Engine factory: per-tenant service façades over the instance's
+        shared identity map and registry mirror, with the per-tenant
+        overlay ``tenants.<token>`` of the instance config."""
+        overlay = dict(config)
+        per_tenant = self.config.get(f"tenants.{tenant.token}", None)
+        if isinstance(per_tenant, dict):
+            overlay.update(per_tenant)
+        if tenant.token == "default":
+            # the instance-level services ARE the default tenant's engine
+            return TenantEngine(
+                tenant, tenant_id, overlay,
+                identity=self.identity, mirror=self.mirror,
+                device_management=self.device_management,
+                asset_management=self.assets,
+            )
+        engine = TenantEngine(
+            tenant, tenant_id, overlay,
+            identity=self.identity, mirror=self.mirror,
+        )
+        # checkpoint resume: hydrate the engine's host dicts (its rows in
+        # the shared tensors came back with the mirror).  ``get``, not
+        # ``pop``: a rebuild restart or a retried start hydrates again.
+        snap = self._engine_snapshots.get(tenant.token)
+        if snap:
+            merge_store(engine.device_management,
+                        snap.get("device_management", {}))
+            merge_store(engine.asset_management, snap.get("assets", {}))
+            engine.device_management.reindex()
+        return engine
 
     def _overload_signals(self) -> OverloadSignals:
         """One sample of the pressure signals the overload controller
@@ -1189,6 +1393,27 @@ class Instance(LifecycleComponent):
             "reason": str(reason),
         })
 
+    def _run_scheduled_invocation(self, job) -> None:
+        """Executor of CommandInvocation jobs (the reference's
+        ``jobs/CommandInvocationJob.java``)."""
+        self.commands.invoke(CommandInvocation(
+            command_token=str(job.config["commandToken"]),
+            target_assignment=str(job.config["assignmentToken"]),
+            parameter_values=dict(job.config.get("parameterValues", {})),
+            initiator="SCHEDULER",
+            initiator_id=job.token,
+        ))
+
+    def _run_scheduled_batch(self, job) -> None:
+        """Executor of BatchCommandInvocation jobs (the reference's
+        ``jobs/BatchCommandInvocationJob.java``)."""
+        self.batch_ops.create_batch_command_invocation(
+            command_token=str(job.config["commandToken"]),
+            parameter_values=dict(job.config.get("parameterValues", {})),
+            devices=list(job.config.get("devices", [])) or None,
+            group=job.config.get("group"),
+        )
+
     def create_command_invocation(
             self, assignment_token: str, command_token: str,
             parameter_values: Optional[Dict[str, str]] = None,
@@ -1248,4 +1473,4 @@ class Instance(LifecycleComponent):
             initiator_id=initiator_id, ts_s=ts_s)
 
 
-__all__ = ["HONOURED", "Instance", "refuse_unsupported"]
+__all__ = ["HONOURED", "Instance", "InstanceTemplate", "refuse_unsupported"]

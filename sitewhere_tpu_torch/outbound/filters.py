@@ -4,7 +4,11 @@ Counterpart of ``sitewhere_tpu/outbound/filters.py``.  A filter maps a
 column batch to a boolean mask in one numpy expression;
 ``include=True`` passes only matching events, ``include=False``
 (exclude) blocks them.  A connector's chain ANDs its filters.
-:class:`CallbackFilter` takes any callable over the columns.
+:class:`CallbackFilter` takes any callable over the columns (the
+script filter).  The scripted processor is the other outbound extension
+point: the handle of
+:meth:`sitewhere_tpu_torch.runtime.scripting.ScriptManager.as_processor`
+is a ``CallbackConnector``'s ``fn``.
 """
 
 from __future__ import annotations

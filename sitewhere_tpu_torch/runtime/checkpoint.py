@@ -4,9 +4,10 @@ Counterpart of ``sitewhere_tpu/runtime/checkpoint.py``.  The registry,
 rules and identity live in host dicts and numpy rows and the device
 state lives on the card, so durability is explicit:
 
-- a :class:`Checkpointer` snapshots the management stores the instance
-  has (device management, assets and the rule manager), the
-  registry-mirror columns, the
+- a :class:`Checkpointer` snapshots the management stores (device
+  management, assets, users, tenants, schedules and jobs, batch
+  operations and the rule manager, plus each non-default tenant engine's
+  device-management and asset façades), the registry-mirror columns, the
   ``DeviceState`` tensors, the identity map and every registered
   per-component :class:`StateProvider` (the segment catalog) into
   ``data_dir/checkpoint/`` on an interval and at shutdown;
@@ -66,17 +67,18 @@ from sitewhere_tpu_torch.pipeline.rules import ThresholdRule
 from sitewhere_tpu_torch.runtime import faults, refpickle
 from sitewhere_tpu_torch.runtime.lifecycle import LifecycleComponent
 from sitewhere_tpu_torch.schema import AlertLevel, ComparisonOp, RuleKind
+from sitewhere_tpu_torch.security import users as _users
 from sitewhere_tpu_torch.services import assets as _assets
+from sitewhere_tpu_torch.services import batch_ops as _batch
 from sitewhere_tpu_torch.services import device_management as _dm
+from sitewhere_tpu_torch.services import schedules as _schedules
+from sitewhere_tpu_torch.services import tenants as _tenants
 
 logger = logging.getLogger("sitewhere_tpu_torch.checkpoint")
 
 # Host-dict state per Instance attribute: (attr name on Instance, attrs to
 # snapshot).  Entities are plain dataclasses — pickled by value.  The
-# reference's table; save and restore skip the attributes an instance does
-# not have (the port's has ``device_management``, ``assets`` and
-# ``rules``; the users, tenants, schedules and batch operations come with
-# the control plane).
+# reference's table.
 _STORE_ATTRS = {
     "device_management": (
         "device_types", "devices", "assignments", "area_types", "areas",
@@ -98,15 +100,12 @@ STORE_CLASSES = (
     _dm.DeviceAssignment, _dm.AreaType, _dm.Area, _dm.CustomerType,
     _dm.Customer, _dm.Zone, _dm.DeviceGroupElement, _dm.DeviceGroup,
     _dm.DeviceAlarm, _assets.AssetType, _assets.Asset,
+    _users.GrantedAuthority, _users.User,
+    _tenants.Tenant, _tenants.TenantTemplate, _tenants.DatasetTemplate,
+    _schedules.Schedule, _schedules.ScheduledJob,
+    _batch.BatchOperation, _batch.BatchElement,
 )
 _STORE_NAMES = refpickle.reference_names(STORE_CLASSES)
-#: the modules of the reference's stores this instance does not compose
-#: (users, tenants, schedules, batch operations): a reference section's
-#: records of them load inert and are skipped with their store
-_UNPORTED_STORE_MODULES = (
-    "sitewhere_tpu.security.users", "sitewhere_tpu.services.tenants",
-    "sitewhere_tpu.services.schedules", "sitewhere_tpu.services.batch_ops",
-)
 
 _MIRROR_ARRAYS = (
     "active", "tenant_id", "device_type_id", "assignment_id",
@@ -359,6 +358,21 @@ class Checkpointer(LifecycleComponent):
                 for attr, keys in _STORE_ATTRS.items()
                 if getattr(inst, attr, None) is not None
             }
+            # the non-default tenant engines' façades (the default
+            # engine's are the instance's own, above)
+            engines = getattr(inst, "engines", None)
+            if engines is not None:
+                stores["__engines__"] = {
+                    eng.tenant.token: {
+                        "device_management": snap_store(
+                            eng.device_management,
+                            _STORE_ATTRS["device_management"]),
+                        "assets": snap_store(
+                            eng.asset_management, _STORE_ATTRS["assets"]),
+                    }
+                    for eng in engines.list_engines()
+                    if eng.tenant.token != "default"
+                }
             names["stores"] = f"stores-{gen:08d}.swsnap"
             t0 = time.perf_counter()
             blob = refpickle.dumps(stores, _STORE_NAMES)
@@ -593,8 +607,7 @@ class Checkpointer(LifecycleComponent):
     @staticmethod
     def _unpickle(payload: bytes, path: str):
         try:
-            return refpickle.loads(payload, _STORE_NAMES,
-                                   inert=_UNPORTED_STORE_MODULES)
+            return refpickle.loads(payload, _STORE_NAMES)
         except Exception as e:  # noqa: BLE001 — unpickling raises anything
             raise SnapshotCorrupt(f"{path}: unpicklable ({e})") from e
 
@@ -617,10 +630,12 @@ class Checkpointer(LifecycleComponent):
         inst.identity.load_into(os.path.join(self.dir, names["identity"]))
         lap("identity")
 
-        # management stores the instance has (the others wait for their
-        # components); restored rules rebuild their device table
+        # management stores; restored rules rebuild their device table.
+        # The tenant engines' façades wait in ``_engine_snapshots`` for
+        # the engine factory, which hydrates each engine as it is built.
         stores = sections.get("stores")
         if stores is not None:
+            inst._engine_snapshots = stores.pop("__engines__", {})
             for attr, values in stores.items():
                 obj = getattr(inst, attr, None)
                 if obj is None:

@@ -13,11 +13,7 @@ and the caller passes the classes of its section:
   holds those classes);
 - :func:`loads` maps exactly those reference names onto the port's
   classes and refuses every other ``sitewhere_tpu`` global, so restoring
-  a reference section imports nothing of the reference (or of JAX).  The
-  one exception is a record of a reference store the port does not
-  compose yet (the caller names those modules in ``inert``): it loads as
-  an :class:`Unported` stand-in, its module never imported, and the
-  caller drops it with its store.
+  a reference section imports nothing of the reference (or of JAX).
 """
 
 from __future__ import annotations
@@ -35,27 +31,13 @@ def reference_names(classes: Iterable[type]) -> Names:
     return {cls._PICKLE_AS: cls for cls in classes}
 
 
-class Unported:
-    """A record of a reference store the port does not compose yet,
-    loaded inert: whatever the pickle passes is kept, nothing runs."""
-
-    def __init__(self, *args, **kwargs):
-        self.args = args
-
-    def __setstate__(self, state):
-        self.state = state
-
-
 class _Unpickler(pickle.Unpickler):
-    def __init__(self, file, names: Names, inert: Tuple[str, ...]):
+    def __init__(self, file, names: Names):
         super().__init__(file)
         self._names = names
-        self._inert = inert
 
     def find_class(self, module, name):
         if module == "sitewhere_tpu" or module.startswith("sitewhere_tpu."):
-            if module in self._inert:
-                return Unported
             cls = self._names.get((module, name))
             if cls is None:
                 raise pickle.UnpicklingError(
@@ -84,8 +66,8 @@ def dumps(obj, names: Names) -> bytes:
     return buf.getvalue()
 
 
-def loads(payload: bytes, names: Names, inert: Tuple[str, ...] = ()):
-    return _Unpickler(io.BytesIO(payload), names, tuple(inert)).load()
+def loads(payload: bytes, names: Names):
+    return _Unpickler(io.BytesIO(payload), names).load()
 
 
-__all__ = ["Names", "Unported", "dumps", "loads", "reference_names"]
+__all__ = ["Names", "dumps", "loads", "reference_names"]

@@ -471,6 +471,16 @@ def test_unsupported_config_is_refused(tmp_path):
     refuse_unsupported(Config({"presence": {"scan_interval_s": 60.0,
                                             "missing_after_s": 1800}},
                               apply_env=False))
+    # the JWT secret and the batch pacing are the Instance's since the
+    # tenant engines, users and batch operations came
+    refuse_unsupported(Config({"security": {"jwt_secret": "s3cret"},
+                               "batch": {"throttle_delay_ms": 5}},
+                              apply_env=False))
+    for tree in ({"rpc": {"server": {"enabled": True}}},
+                 {"api": {"port": 9090}},
+                 {"web": {"port": 8080}}):
+        with pytest.raises(NotImplementedError):
+            refuse_unsupported(Config(tree, apply_env=False))
 
 
 # -- the stores section across packages ---------------------------------------
@@ -587,7 +597,11 @@ def test_port_stores_section_restores_into_the_reference(stores_both,
     # every class is written under the reference's module name
     assert b"sitewhere_tpu_torch" not in payload
     stores = ref_ckpt.Checkpointer._unpickle(payload, path)
-    assert sorted(stores) == ["assets", "device_management", "rules"]
+    assert sorted(stores) == ["__engines__", "assets", "batch_ops",
+                              "device_management", "rules", "schedules",
+                              "tenants", "users"]
+    # no tenant engine is up before start()
+    assert stores.pop("__engines__") == {}
     ref = _ref_instance(tmp_path / "ref")
     try:
         for attr, values in stores.items():
@@ -648,8 +662,9 @@ def test_reference_stores_section_restores_into_the_port_without_jax(
         stores_both, tmp_path):
     """A port instance whose newest generation carries the stores section
     a reference ``Instance`` wrote (users, tenants, schedules and batch
-    operations among it, which the port skips) restores it in a process
-    where ``jax`` and ``sitewhere_tpu`` cannot be imported."""
+    operations among it, restored since the port composes them) restores
+    it in a process where ``jax`` and ``sitewhere_tpu`` cannot be
+    imported."""
     import shutil
     import subprocess
     import sys
@@ -681,8 +696,11 @@ def test_stores_section_refuses_other_reference_globals():
               b"sitewhere_tpu.instance\x94\x8c\x08Instance\x94\x93\x94.")
     with pytest.raises(port_ckpt.SnapshotCorrupt):
         port_ckpt.Checkpointer._unpickle(forged, "forged")
-    inert = (b"\x80\x04\x95\x00\x00\x00\x00\x00\x00\x00\x00\x8c\x1c"
-             b"sitewhere_tpu.security.users\x94\x8c\x04User\x94\x93\x94"
-             b")\x81\x94.")
-    obj = port_ckpt.Checkpointer._unpickle(inert, "inert")
-    assert type(obj).__name__ == "Unported"
+    # a record of a store the port composes loads as the port's class
+    user = (b"\x80\x04\x95\x00\x00\x00\x00\x00\x00\x00\x00\x8c\x1c"
+            b"sitewhere_tpu.security.users\x94\x8c\x04User\x94\x93\x94"
+            b")\x81\x94.")
+    from sitewhere_tpu_torch.security.users import User
+
+    obj = port_ckpt.Checkpointer._unpickle(user, "user")
+    assert type(obj) is User

@@ -14,8 +14,8 @@
   the MQTT provider over an injected client, and the MQTT client's
   packet helpers equal.
 - The reference's own ``tests/test_commands.py`` cases run against the
-  port (its two ``Instance`` cases are held against the reference in
-  ``test_torch_registration_wire.py``).
+  port, its two ``Instance`` cases among them (each on a CPU
+  ``Instance``).
 """
 
 import http.server
@@ -485,9 +485,7 @@ def test_mqtt_client_round_trip_over_loopback():
 
 # -- the reference's own command tests, run against the port -----------------
 
-CASES = reference_cases("test_commands", skip=(
-    "test_invocation_response_correlation_and_replay",
-    "test_response_correlation_on_columnar_wire_path"))
+CASES = reference_cases("test_commands")
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -498,7 +496,7 @@ def test_reference_commands_case_on_the_port(case, tmp_path):
 
 
 def test_reference_command_cases_were_found_and_run_the_port():
-    assert len(CASES) == 10
+    assert len(CASES) == 12
     ns = port_test_module("test_commands")
     assert ns["CommandProcessor"] is port_cmd.CommandProcessor
     assert CommandExecution is port_cmd.CommandExecution

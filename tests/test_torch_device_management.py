@@ -13,9 +13,8 @@
   a second tenant over the same identity and mirror.
 - The reference's own tests of ``tests/test_device_management.py`` and
   ``tests/test_assets.py`` run against the port: the same source with
-  its ``sitewhere_tpu`` imports pointing at the port (the tenants engine
-  of ``test_engine_wires_asset_management`` comes with the control
-  plane).
+  its ``sitewhere_tpu`` imports pointing at the port, each ``Instance``
+  and tenant engine on the CPU.
 """
 
 import dataclasses
@@ -425,6 +424,10 @@ def port_test_module(name):
     the port, and each ``RegistryMirror`` on the CPU."""
     src = (TESTS / f"{name}.py").read_text()
     src = re.sub(r"\bsitewhere_tpu\.", "sitewhere_tpu_torch.", src)
+    src = src.replace("from sitewhere_tpu_torch.instance import Instance",
+                      "from torch_parity import CpuInstance as Instance")
+    src = src.replace("MultitenantEngineManager(tm)",
+                      "MultitenantEngineManager(tm, device='cpu')")
     ns = {"__name__": f"port_{name}", "__file__": str(TESTS / f"{name}.py")}
     exec(compile(src, f"<port {name}>", "exec"), ns)
     if "RegistryMirror" in ns:
@@ -462,8 +465,7 @@ def run_port_case(name, case, tmp_path):
 
 
 DM_CASES = reference_cases("test_device_management")
-ASSET_CASES = reference_cases(
-    "test_assets", skip=("test_engine_wires_asset_management",))
+ASSET_CASES = reference_cases("test_assets")
 
 
 @pytest.mark.parametrize("case", DM_CASES)
@@ -477,7 +479,7 @@ def test_reference_assets_case_on_the_port(case, tmp_path):
 
 
 def test_reference_cases_were_found_and_run_the_port():
-    assert len(DM_CASES) == 17 and len(ASSET_CASES) == 10
+    assert len(DM_CASES) == 17 and len(ASSET_CASES) == 11
     ns = port_test_module("test_assets")
     assert ns["DeviceManagement"] is port_dm.DeviceManagement
     assert ns["AssetManagement"] is port_assets.AssetManagement

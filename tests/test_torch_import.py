@@ -456,3 +456,88 @@ def test_slice10_module_imports_without_jax(slice10_imports, name):
     out, bad = slice10_imports
     assert out[name] == "ok"
     assert bad == []
+
+
+#: the tenant engines', users', scripts', labels', schedules' and batch
+#: operations' modules (named, so a rename cannot drop one from the walk
+#: above unnoticed)
+TENANT_MODULES = (
+    "sitewhere_tpu_torch.security", "sitewhere_tpu_torch.security.users",
+    "sitewhere_tpu_torch.security.jwt",
+    "sitewhere_tpu_torch.security.context",
+    "sitewhere_tpu_torch.runtime.scripting",
+    "sitewhere_tpu_torch.services.tenants",
+    "sitewhere_tpu_torch.services.schedules",
+    "sitewhere_tpu_torch.services.batch_ops",
+    "sitewhere_tpu_torch.labels", "sitewhere_tpu_torch.labels.qr",
+    "sitewhere_tpu_torch.labels.png", "sitewhere_tpu_torch.labels.manager",
+    "sitewhere_tpu_torch.instance", "sitewhere_tpu_torch.runtime.checkpoint",
+)
+
+_TENANTS_PROBE = """
+import importlib, json, sys
+sys.modules["jax"] = None
+sys.modules["sitewhere_tpu"] = None
+for name in json.loads(sys.argv[1]):
+    importlib.import_module(name)
+import sitewhere_tpu_torch
+from sitewhere_tpu_torch.instance import InstanceTemplate
+from sitewhere_tpu_torch.labels import LabelGeneratorManager, decode_matrix
+from sitewhere_tpu_torch.security import TokenManagement, UserManagement
+from sitewhere_tpu_torch.services.tenants import MultitenantEngineManager
+assert callable(sitewhere_tpu_torch.make_instance)
+bad = sorted(m for m, v in sys.modules.items() if v is not None
+             and (m in ("jax", "sitewhere_tpu")
+                  or m.startswith(("jax.", "sitewhere_tpu."))))
+print(json.dumps(bad))
+"""
+
+
+def test_tenant_modules_import_without_jax_or_reference():
+    import json
+
+    proc = subprocess.run(
+        [sys.executable, "-c", _TENANTS_PROBE, json.dumps(TENANT_MODULES)],
+        cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip()) == []
+    walked = {m.name for m in pkgutil.walk_packages(
+        sitewhere_tpu_torch.__path__, "sitewhere_tpu_torch.")}
+    assert set(TENANT_MODULES) <= walked
+
+
+def test_make_instance_builds_the_port_instance(tmp_path):
+    """``make_instance(config, template)``, as the reference's; the port's
+    on the CPU only when named, and importing the package builds
+    nothing."""
+    from sitewhere_tpu_torch.instance import Instance, InstanceTemplate
+    from sitewhere_tpu_torch.runtime.config import Config
+
+    cfg = Config({"instance": {"data_dir": str(tmp_path)},
+                  "pipeline": {"width": 64, "registry_capacity": 128}},
+                 apply_env=False)
+    template = InstanceTemplate(tenants=[{"token": "acme", "name": "Acme"}])
+    inst = sitewhere_tpu_torch.make_instance(cfg, template, device="cpu")
+    try:
+        assert isinstance(inst, Instance) and inst.template is template
+        assert inst.device == torch.device("cpu")
+    finally:
+        inst.terminate()
+
+
+def test_standalone_tenant_engine_raises_without_a_card(monkeypatch):
+    from sitewhere_tpu_torch.services.tenants import (
+        MultitenantEngineManager,
+        TenantManagement,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tm = TenantManagement()
+    tm.create_tenant("acme", name="Acme")
+    mgr = MultitenantEngineManager(tm)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mgr.start()
+    cpu = MultitenantEngineManager(tm, device="cpu")
+    cpu.start()
+    assert cpu.get_engine("acme").mirror.device == torch.device("cpu")
+    cpu.stop()

@@ -32,10 +32,9 @@ torch.set_num_threads(1)
 TESTS = os.path.dirname(os.path.abspath(__file__))
 REF = os.path.join(TESTS, "test_overload.py")
 
-# cases needing a component the port does not compose yet: label
-# generation, the RPC fabric, and the reference's overload bench
-SKIP = ("test_label_generation_refuses_under_load",
-        "TestOverloadBenchSmoke", "TestRpcBackpressure")
+# cases needing a component the port does not compose yet: the RPC
+# fabric, and the reference's overload bench
+SKIP = ("TestOverloadBenchSmoke", "TestRpcBackpressure")
 CASES = reference_cases(REF, skip=SKIP)
 
 

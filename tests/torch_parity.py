@@ -13,6 +13,7 @@ dispatcher, ingest and registry tests.
 
 from __future__ import annotations
 
+import functools
 import json
 
 import jax.numpy as jnp
@@ -458,7 +459,9 @@ def journal_files(journal):
 
 def port_test_module(path, replace=()):
     """The reference test module at ``path`` with every ``sitewhere_tpu``
-    import pointing at the port, each port ``Instance`` on the CPU.
+    import pointing at the port, each port ``Instance``, and each
+    ``RegistryMirror``, ``TenantEngine`` and ``MultitenantEngineManager``
+    the module imports at its top, on the CPU.
     ``replace``: ``(old, new)`` source edits applied first, for imports
     of names the port does not have.  ``tests/test_instance.py``'s
     helpers come from :func:`make_config` and :func:`seed_device` here."""
@@ -474,18 +477,25 @@ def port_test_module(path, replace=()):
     src = src.replace("from tests.test_instance import",
                       "from torch_parity import")
     src = src.replace(
-        "from sitewhere_tpu_torch.instance import Instance",
-        "from torch_parity import CpuInstance as Instance")
+        "from sitewhere_tpu_torch.instance import Instance, InstanceTemplate",
+        "from sitewhere_tpu_torch.instance import InstanceTemplate\n"
+        "from sitewhere_tpu_torch.instance import Instance")
+    src = src.replace(
+        "from sitewhere_tpu_torch.instance import Instance\n",
+        "from torch_parity import CpuInstance as Instance\n")
     ns = {"__name__": f"port_{path.stem}", "__file__": str(path)}
     exec(compile(src, f"<port {path.stem}>", "exec"), ns)
+    for name in ("RegistryMirror", "TenantEngine", "MultitenantEngineManager"):
+        if name in ns:
+            ns[name] = functools.partial(ns[name], device="cpu")
     return ns
 
 
-def CpuInstance(config=None, **kw):
+def CpuInstance(config=None, template=None, **kw):
     from sitewhere_tpu_torch.instance import Instance
 
     kw.setdefault("device", "cpu")
-    return Instance(config, **kw)
+    return Instance(config, template, **kw)
 
 
 def make_config(tmp_path, **pipeline):

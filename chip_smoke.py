@@ -53,7 +53,8 @@ script exits non-zero without printing a result:
    defaults (registration composed, with no default device type, so
    rows of unknown devices are re-decoded and rejected, as in the
    reference), under a temporary directory that is removed afterwards.
-   ``persist_throughput``: the same two kinds of full-width payloads,
+   ``persist_throughput``: the same two kinds of full-width payloads (the
+   first 8 of each),
    ring off at 5 ms, with the real store: events/s, latency, persist ms
    per plan, ``flush`` ms per commit, segments sealed, bytes on disk and
    the step span; checks: rows stored == rows accepted (registered lines
@@ -181,9 +182,9 @@ script exits non-zero without printing a result:
    ``ingest/factory.py build_sources``, over the world checkpoint that
    device_services used (2^20 slots, 1,000,000 devices, width 131072, 5
    ms, ring off).  ``sources_wire``: one TCP source (length framing,
-   ``raw_wire``, decoder json); one sender connection sends 8 full-width
+   ``raw_wire``, decoder json); one sender connection sends 4 full-width
    60/30/10 payloads, each as two frames of 65536 lines (a whole one
-   passes the receiver's 16 MiB frame cap), and 8 measurement-only ones,
+   passes the receiver's 16 MiB frame cap), and 4 measurement-only ones,
    each payload's devices distinct and disjoint from its neighbours'
    (so the device state cannot depend on where the deadline cuts
    plans), into a fresh ``Instance`` with ``ingest.decode_workers`` 2
@@ -291,7 +292,38 @@ script exits non-zero without printing a result:
    schedules, jobs and batch operations equal, ``bootstrapped`` and the
    initializer not run again, ``topology()`` with the engine manager
    started and its 8 engines started, labels refused at SHEDDING;
-15. a small input run on the card and on the CPU: identical int outputs.
+15. the REST/WS gateway and device-stage telemetry (phase
+   ``rest_gateway``), over the one-tenant world checkpoint of phases
+   10-13: an ``Instance`` and a ``WebServer`` on 127.0.0.1 port 0; a JWT
+   login as the template's admin; a device type, 256 devices and their
+   assignments made over REST (us per device), and one small GET timed
+   over a kept-alive connection and over fresh ones; 1,024 event POSTs
+   (60/30/10 measurements, locations and alerts to
+   ``/api/assignments/{token}/{kind}``, each a ``DecodedRequest`` that
+   ``dispatcher.ingest`` queues and ``flush()`` steps at full width) from
+   8 client threads: POSTs/s, POST latency p50, p99 and max, steps,
+   kernel launches, store seals on the POST path.  Checks: every answer
+   2xx, steps == launches, stored rows == 2xx answers by kind (no derived
+   alert: values in the band where no rule fires, locations north of
+   every zone), 16 assignments' measurements read back over REST equal to
+   what was sent and their ``/api/devicestates/{token}`` equal to the
+   newest stored rows.  ``geofence``: one location inside zone 0 and one
+   outside, each step captured and rerun from its carry with the plain
+   geofence, bitwise; one derived zone alert for the inside POST, none for
+   the outside one, the state holding each location.
+   ``device_profile``: ``POST /api/instance/profile/device`` (admin) at
+   width 131072 with the world's 64 rules and 512 zones of 16 vertices:
+   each stage's ms beside the kernel's own, the watchdog's budgets and
+   trips before and after; checks: the kernel launched by the zones and
+   full stages only, each stage's ``device.stage_ms`` histogram in
+   ``/api/instance/metrics.prom`` (read unauthenticated, parsed with
+   ``parse_exposition``) holding the profile's samples.  ``capture``:
+   ``POST /api/instance/profile/xla`` start and stop from two threads
+   around 8 POSTs: the trace directory holds a non-empty trace naming
+   ``pip_parity_kernel``.  ``topology``: ``/ws/topology`` sends its
+   greeting snapshot and one broadcast; ``openapi.json`` lists 132
+   routes;
+16. a small input run on the card and on the CPU: identical int outputs.
 
 Every ``Instance`` run before ``control_plane`` turns the overload
 ladder and the SLO engine off (``instance_config``), as the reference's
@@ -3801,7 +3833,9 @@ def phase_device_services(device, geo_cuda, mixed, logs, world):
 # -- the ingest sources (phase ingest_sources) ----------------------------------
 
 IS_TS0_MS = WIRE_TS0_MS + 50_000_000
-IS_MIXED, IS_MEAS = 8, 8
+# 4 mixed and 4 measurement-only payloads (8 and 8 until the
+# rest_gateway phase came: the script's time limit)
+IS_MIXED, IS_MEAS = 4, 4
 # length_prefixed_frames refuses a frame over 16 MiB (the reference's cap,
 # kept); a full-width 60/30/10 payload is about 16.8 MB, so it goes as two
 # frames of 65536 lines, a measurement-only one (about 15.7 MB) as one
@@ -5893,6 +5927,522 @@ def phase_tenant_engines(device, geo_cuda):
     return {"engines": launches}
 
 
+# -- the REST/WS gateway and device telemetry ---------------------------------
+
+GW_TS0_S = (WIRE_TS0_MS + 80_000_000) // 1000
+GW_DEVICES = 256
+GW_POSTS = 1024
+GW_CLIENTS = 8
+GW_KINDS = ("measurements", "locations", "alerts")
+GW_MIX = (0.6, 0.3, 0.1)
+GW_SAMPLED = 16             # assignments read back over REST
+GW_CAPTURE_POSTS = 8        # POSTs inside the profiler capture
+GW_RTT_GETS = 32            # GETs timed per connection kind
+# bulk locations in a band north of every world zone (the polygons lie
+# within 82 degrees of the equator), measurement values in the band where
+# no world rule fires: the bulk run derives no alert, so stored rows ==
+# 2xx answers
+GW_LAT_BAND = (83.0, 89.0)
+
+
+class GwClient:
+    """One HTTP/1.1 connection to the gateway with the admin's bearer
+    token; ``call`` returns ``(status, JSON body or text)``."""
+
+    def __init__(self, port, token=None, timeout=120.0):
+        import http.client
+
+        self.conn = http.client.HTTPConnection("127.0.0.1", port,
+                                               timeout=timeout)
+        self.token = token
+
+    def call(self, method, path, body=None):
+        headers = ({"Authorization": f"Bearer {self.token}"}
+                   if self.token else {})
+        if body is not None:
+            headers["Content-Type"] = "application/json"
+        self.conn.request(method, path, headers=headers,
+                          body=json.dumps(body).encode()
+                          if body is not None else None)
+        resp = self.conn.getresponse()
+        data = resp.read()
+        ctype = resp.getheader("Content-Type") or ""
+        if ctype.startswith("application/json"):
+            return resp.status, json.loads(data)
+        return resp.status, data.decode("utf-8")
+
+    def close(self):
+        self.conn.close()
+
+
+def gw_event_posts(rng, n, tokens, ts0_s):
+    """``n`` event POSTs, 60/30/10 measurements, locations and alerts, over
+    ``tokens`` (assignment tokens), each device's event time rising by one
+    second a POST: ``[(token, kind, body)]``."""
+    kind = rng.choice(3, n, p=list(GW_MIX))
+    which = rng.integers(0, len(tokens), n)
+    seen = collections.Counter()
+    posts = []
+    for k, w in zip(kind.tolist(), which.tolist()):
+        tok = tokens[w]
+        ts = ts0_s + seen[tok]
+        seen[tok] += 1
+        if k == 0:
+            body = {"name": f"m{w % M_SLOTS}", "ts": ts,
+                    "value": round(float(rng.uniform(*MEAS_VALUE_BAND)), 3)}
+        elif k == 1:
+            body = {"latitude": round(float(rng.uniform(*GW_LAT_BAND)), 5),
+                    "longitude": round(float(rng.uniform(-179, 179)), 5),
+                    "elevation": 5.0, "ts": ts}
+        else:
+            body = {"type": f"gw-{w % 4}", "level": 1, "message": "door",
+                    "ts": ts}
+        posts.append((tok, GW_KINDS[k], body))
+    return posts
+
+
+def gw_inside_point(inst):
+    """A (lat, lon) inside zone 0 of the world (the default tenant's, no
+    area, alert if inside), checked with the plain geofence on the host."""
+    import torch
+
+    from sitewhere_tpu_torch.ops.geo import points_in_polygons
+
+    verts = inst.mirror.publish_zones().verts.cpu()
+    v0 = verts[0]
+    centre = v0.mean(dim=0)
+    for f in (0.0, 0.25, 0.5, 0.75):
+        for vx, vy in v0.tolist():
+            x = float(centre[0]) * (1 - f) + vx * f
+            y = float(centre[1]) * (1 - f) + vy * f
+            pt = torch.tensor([[x, y]], dtype=torch.float32)
+            if bool(points_in_polygons(pt, verts[:1])[0, 0]):
+                return y, x
+    raise AssertionError("no point inside zone 0")
+
+
+def rest_gateway_run(device, geo_cuda, world, root, kernel_rec):
+    """The phase's one ``Instance`` and ``WebServer``.  Returns the
+    kernel's launches by run."""
+    import torch
+
+    from sitewhere_tpu_torch.pipeline.packed import packed_pipeline_step
+    from sitewhere_tpu_torch.runtime.metrics import parse_exposition
+    from sitewhere_tpu_torch.schema import EventType
+    from sitewhere_tpu_torch.web import WebServer
+    from sitewhere_tpu_torch.web.ws import ClientWebSocket
+
+    data_dir = os.path.join(root, "gateway")
+    # no presence sweep inside the run: its STATE_CHANGE rows would join
+    # the stored rows the checks count
+    inst = instance_from_world(device, world, data_dir, CAPACITY, FULL_B, 0,
+                               WIRE_DEADLINE_MS,
+                               presence={"scan_interval_s": 3600.0,
+                                         "missing_after_s": 8 * 3600})
+    disp, store = inst.dispatcher, inst.event_store
+    launches = {}
+    t_boot = time.perf_counter()
+    inst.start()
+    web = WebServer(inst, port=0, topology_interval_s=3600.0)
+    web.start()
+    boot_s = time.perf_counter() - t_boot
+    try:
+        # 1. log in as the template's admin
+        anon = GwClient(web.port)
+        status, login = anon.call(
+            "POST", "/api/jwt", {"username": "admin", "password": "password"})
+        check(status == 200 and "ROLE_ADMIN" in login["authorities"],
+              f"rest_gateway: admin login {status} {login}")
+        token = login["token"]
+        admin = GwClient(web.port, token)
+
+        # 2. CRUD: a device type, devices and their assignments
+        t0 = time.perf_counter()
+        status, _ = admin.call("POST", "/api/devicetypes",
+                               {"token": "gw-sensor", "name": "GW sensor"})
+        check(status == 200, f"rest_gateway: device type {status}")
+        tokens = []
+        for i in range(GW_DEVICES):
+            status, doc = admin.call("POST", "/api/devices", {
+                "token": f"gw-{i}", "device_type": "gw-sensor"})
+            check(status == 200, f"rest_gateway: device gw-{i}: {doc}")
+            status, doc = admin.call("POST", "/api/assignments", {
+                "token": f"gwa-{i}", "device": f"gw-{i}"})
+            check(status == 200, f"rest_gateway: assignment gwa-{i}: {doc}")
+            tokens.append(doc["token"])
+        crud_s = time.perf_counter() - t0
+        status, page = admin.call("GET", "/api/devices?pageSize=1")
+        check(status == 200 and page["numResults"] == GW_DEVICES,
+              f"rest_gateway: device list {status} {page}")
+        # one small GET over this keep-alive connection and over a fresh
+        # connection each: the server writes a response's headers and body
+        # in two sends, so a kept-alive client waits out its own delayed
+        # ACK (Nagle) on every answer
+        rtt = {}
+        for how, conn_of in (("keepalive", lambda: admin),
+                             ("fresh", lambda: GwClient(web.port, token))):
+            t0 = time.perf_counter()
+            for _ in range(GW_RTT_GETS):
+                c = conn_of()
+                status, _ = c.call("GET", "/api/devicetypes/gw-sensor")
+                check(status == 200, "rest_gateway: device type GET")
+                if c is not admin:
+                    c.close()
+            rtt[how] = (time.perf_counter() - t0) * 1e3 / GW_RTT_GETS
+
+        # 3. event POSTs from GW_CLIENTS threads
+        rng = np.random.default_rng(SEED + 80)
+        posts = gw_event_posts(rng, GW_POSTS, tokens, GW_TS0_S)
+        chunks = [posts[c::GW_CLIENTS] for c in range(GW_CLIENTS)]
+        results = [[] for _ in range(GW_CLIENTS)]
+        commits = []
+        real_flush = store.flush
+
+        def timed_flush(sync=True):
+            t = time.perf_counter()
+            try:
+                return real_flush(sync=sync)
+            finally:
+                if sync:
+                    commits.append(time.perf_counter() - t)
+
+        def client(c):
+            conn = GwClient(web.port, token)
+            try:
+                for tok, kind, body in chunks[c]:
+                    t = time.perf_counter()
+                    status, doc = conn.call(
+                        "POST", f"/api/assignments/{tok}/{kind}", body)
+                    results[c].append((tok, kind, body, status,
+                                       time.perf_counter() - t, doc))
+            finally:
+                conn.close()
+
+        store.flush = timed_flush
+        torch.cuda.synchronize()
+        snap0 = disp.metrics_snapshot()
+        soft0 = disp.watchdog.soft_trips
+        geo_cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        workers = [threading.Thread(target=client, args=(c,))
+                   for c in range(GW_CLIENTS)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join()
+        elapsed = time.perf_counter() - t0
+        launches["posts"] = geo_cuda.launch_counts["pip_parity"]
+        snap1 = disp.metrics_snapshot()
+        store.flush = real_flush
+        done = [r for rs in results for r in rs]
+        ok = [r for r in done if 200 <= r[3] < 300]
+        check(len(done) == GW_POSTS, f"rest_gateway: {len(done)} answers")
+        check(len(ok) == GW_POSTS, "rest_gateway: non-2xx answers "
+              f"{collections.Counter(r[3] for r in done)}: "
+              f"{[r[5] for r in done if r[3] >= 300][:3]}")
+        steps = snap1["steps"] - snap0["steps"]
+        check(steps == launches["posts"],
+              f"rest_gateway: {steps} steps != {launches['posts']} launches")
+        derived = (snap1.get("derived_alerts", 0)
+                   - snap0.get("derived_alerts", 0))
+        lat_ms = np.asarray([r[4] for r in done]) * 1e3
+        commit_ms = np.asarray(commits) * 1e3
+        # stored rows == 2xx answers, by kind, and read back over REST
+        store.flush()
+        names = {"measurements": EventType.MEASUREMENT,
+                 "locations": EventType.LOCATION, "alerts": EventType.ALERT}
+        a_ids = {tok: inst.device_management.handle_for("assignment", tok)
+                 for tok in tokens}
+        rows = op_stored(store)
+        mine = np.isin(rows["assignment_id"], list(a_ids.values()))
+        sent = collections.Counter(r[1] for r in ok)
+        for kind, etype in names.items():
+            n = int((mine & (rows["event_type"] == int(etype))).sum())
+            check(n == sent[kind],
+                  f"rest_gateway: {n} {kind} stored, {sent[kind]} 2xx")
+        check(int(mine.sum()) == len(ok) and derived == 0,
+              f"rest_gateway: stored {int(mine.sum())}, 2xx {len(ok)}, "
+              f"derived {derived}")
+        by_tok = collections.defaultdict(list)
+        for tok, kind, body, *_ in ok:
+            by_tok[tok].append((kind, body))
+        sampled = sorted(by_tok)[:GW_SAMPLED]
+        t0 = time.perf_counter()
+        for tok in sampled:
+            want = [b for k, b in by_tok[tok] if k == "measurements"]
+            status, page = admin.call(
+                "GET", f"/api/assignments/{tok}/measurements?pageSize=1000")
+            check(status == 200 and page["numResults"] == len(want),
+                  f"rest_gateway: {tok} measurements {page.get('numResults')}"
+                  f" != {len(want)}")
+            got = sorted((r["ts_s"], np.float32(r["value"]))
+                         for r in page["results"])
+            check(got == sorted((b["ts"], np.float32(b["value"]))
+                                for b in want),
+                  f"rest_gateway: {tok} measurement rows differ")
+            status, state = admin.call(
+                "GET", f"/api/devicestates/gw-{tok.split('-')[1]}")
+            check(status == 200, f"rest_gateway: state of {tok}: {state}")
+            newest = max(b["ts"] for _, b in by_tok[tok])
+            check(state["last_event_ts_s"] == newest,
+                  f"rest_gateway: {tok} state ts {state['last_event_ts_s']} "
+                  f"!= newest {newest}")
+            locs = [b for k, b in by_tok[tok] if k == "locations"]
+            if locs:
+                last = max(locs, key=lambda b: b["ts"])
+                check((state["last_location"]["lat"],
+                       state["last_location"]["lon"]) == (
+                    float(np.float32(last["latitude"])),
+                    float(np.float32(last["longitude"]))),
+                    f"rest_gateway: {tok} state location")
+            for k, b in by_tok[tok]:
+                if k != "measurements":
+                    continue
+                newest_m = max((bb for kk, bb in by_tok[tok]
+                                if kk == k and bb["name"] == b["name"]),
+                               key=lambda bb: bb["ts"])
+                slot = inst.identity.mtype.lookup(b["name"])
+                check(state["last_values"][slot] == float(
+                    np.float32(newest_m["value"])),
+                    f"rest_gateway: {tok} state value of {b['name']}")
+        readback_ms = (time.perf_counter() - t0) * 1e3 / len(sampled)
+        emit({"phase": "rest_gateway", "run": "posts",
+              "boot_s": boot_s, "crud_s": crud_s,
+              "crud_us_per_device": crud_s / GW_DEVICES * 1e6,
+              "get_ms_keepalive": rtt["keepalive"],
+              "get_ms_fresh_connection": rtt["fresh"],
+              "posts": GW_POSTS, "clients": GW_CLIENTS,
+              "posts_per_s": GW_POSTS / elapsed, "seconds": elapsed,
+              "latency_p50_ms": float(np.percentile(lat_ms, 50)),
+              "latency_p99_ms": float(np.percentile(lat_ms, 99)),
+              "latency_max_ms": float(lat_ms.max()),
+              "steps": steps, "kernel_launches": launches["posts"],
+              "posts_per_step": GW_POSTS / max(1, steps),
+              "commits": int(commit_ms.size),
+              "commit_ms_p50": float(np.percentile(commit_ms, 50))
+              if commit_ms.size else None,
+              "commit_ms_max": float(commit_ms.max())
+              if commit_ms.size else None,
+              "stored": int(mine.sum()), "stored_by_kind": dict(sent),
+              "derived_alerts": derived,
+              "watchdog_soft_trips": disp.watchdog.soft_trips - soft0,
+              "readback_ms_per_assignment": readback_ms})
+
+        # 4. the geofence: one location inside zone 0, one outside; each
+        # step captured and rerun from its carry with the plain geofence
+        lat_in, lon_in = gw_inside_point(inst)
+        captured = []
+        step = disp._packed_step
+
+        def capturing(tables, ps, bi, bf):
+            inputs = (tables, te_clone(ps), te_clone(bi), te_clone(bf))
+            out = step(tables, ps, bi, bf)
+            captured.append((*inputs, te_clone(out)))
+            return out
+
+        geo_tok, alerts0 = tokens[0], {}
+        rows0 = op_stored(store)
+        a0 = a_ids[geo_tok]
+        disp._packed_step = capturing
+        geo_cuda.reset_launch_counts()
+        try:
+            for where, (la, lo) in (("inside", (lat_in, lon_in)),
+                                    ("outside", (89.5, 179.5))):
+                before = len(captured)
+                status, doc = admin.call(
+                    "POST", f"/api/assignments/{geo_tok}/locations",
+                    {"latitude": la, "longitude": lo, "ts": GW_TS0_S + 10_000
+                     + (where == "outside")})
+                check(status == 200, f"rest_gateway: {where} POST {doc}")
+                store.flush()
+                rows1 = op_stored(store)
+                new = ((rows1["assignment_id"] == a0)
+                       & (rows1["event_type"] == int(EventType.ALERT)))
+                alerts0[where] = (int(new.sum()) - int(
+                    ((rows0["assignment_id"] == a0)
+                     & (rows0["event_type"] == int(EventType.ALERT))).sum()))
+                rows0 = rows1
+                alerts0[f"{where}_steps"] = len(captured) - before
+                status, state = admin.call("GET", "/api/devicestates/gw-0")
+                check((state["last_location"]["lat"],
+                       state["last_location"]["lon"]) == (
+                    float(np.float32(la)), float(np.float32(lo))),
+                    f"rest_gateway: {where} location not in the state")
+        finally:
+            disp._packed_step = step
+        launches["geofence"] = geo_cuda.launch_counts["pip_parity"]
+        check(alerts0["inside"] == 1 and alerts0["outside"] == 0,
+              f"rest_gateway: derived zone alerts {alerts0}")
+        check(launches["geofence"] == len(captured),
+              f"rest_gateway: {launches['geofence']} launches, "
+              f"{len(captured)} steps")
+        launches_run = geo_cuda.launch_counts["pip_parity"]
+        same = True
+        for tables, ps, bi, bf, (k_ps, k_oi, k_met, k_present) in captured:
+            p_ps, p_oi, p_met, p_present = packed_pipeline_step(
+                tables, ps, bi, bf, plain_chunked)
+            same = same and (torch.equal(p_oi, k_oi)
+                             and torch.equal(p_met, k_met)
+                             and torch.equal(p_present, k_present)
+                             and torch.equal(p_ps.si, k_ps.si)
+                             and torch.equal(p_ps.sf, k_ps.sf))
+        check(same, "rest_gateway: geofence steps != plain-geofence rerun")
+        check(geo_cuda.launch_counts["pip_parity"] == launches_run,
+              "the plain rerun launched the kernel")
+        emit({"phase": "rest_gateway", "run": "geofence",
+              "inside": [lat_in, lon_in], **alerts0,
+              "steps": len(captured), "plain_rerun_identical": same})
+        del captured
+
+        # 5. the device profile over REST, against the exposition
+        wd = disp.watchdog
+        before = {"soft_s": wd.soft_s, "hard_s": wd.hard_s,
+                  "soft_trips": wd.soft_trips, "hard_trips": wd.hard_trips}
+        geo_cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        status, prof = admin.call("POST", "/api/instance/profile/device", {})
+        profile_s = time.perf_counter() - t0
+        launches["device_profile"] = geo_cuda.launch_counts["pip_parity"]
+        check(status == 200, f"rest_gateway: device profile {prof}")
+        after = {"soft_s": wd.soft_s, "hard_s": wd.hard_s,
+                 "soft_trips": wd.soft_trips, "hard_trips": wd.hard_trips}
+        check(prof["width"] == FULL_B, f"rest_gateway: profile {prof}")
+        # zones and full launch the kernel once an iteration, warm-up
+        # included
+        per_stage = prof["iters"] * (prof["repeats"] + 1)
+        check(launches["device_profile"] == 2 * per_stage,
+              f"rest_gateway: profile launched the kernel "
+              f"{launches['device_profile']} times, not {2 * per_stage}")
+        # unauthenticated, as a scraper reads it
+        status, text = anon.call("GET", "/api/instance/metrics.prom")
+        check(status == 200, "rest_gateway: metrics.prom")
+        fams = parse_exposition(text)
+        from sitewhere_tpu_torch.pipeline.telemetry import DEVICE_STAGES
+
+        for stage in DEVICE_STAGES:
+            fam = fams.get(f"device_stage_ms_{stage}")
+            check(fam is not None and fam["type"] == "histogram",
+                  f"rest_gateway: no device.stage_ms.{stage} family")
+            s = fam["samples"]
+            n = s[f"device_stage_ms_{stage}_count"]
+            check(n == prof["repeats"],
+                  f"rest_gateway: {stage} histogram count {n}")
+            # the first bucket at or above the median holds at least half
+            # of the samples
+            med = prof[f"{stage}_ms"]
+            above = [(float(k.split('"')[1]), k) for k in s
+                     if k.startswith(f"device_stage_ms_{stage}_bucket")
+                     and float(k.split('"')[1]) >= med]
+            check(s[min(above)[1]] >= (n + 1) // 2,
+                  f"rest_gateway: {stage} median {med} beyond its buckets")
+        emit({"phase": "rest_gateway", "run": "device_profile",
+              "width": prof["width"], "iters": prof["iters"],
+              "repeats": prof["repeats"],
+              "stage_ms": {st: prof[f"{st}_ms"] for st in DEVICE_STAGES},
+              "kernel_ms": kernel_rec["ms"],
+              "host_rtt_ms": prof["host_rtt_ms"],
+              "device_events_per_s": prof.get("device_events_per_s"),
+              "seconds": profile_s, "kernel_launches":
+              launches["device_profile"],
+              "watchdog_before": before, "watchdog_after": after})
+
+        # 6. a profiler capture, started and stopped on two threads
+        replies = {}
+
+        def capture(action):
+            c = GwClient(web.port, token)
+            try:
+                replies[action] = c.call("POST", "/api/instance/profile/xla",
+                                         {"action": action})
+            finally:
+                c.close()
+
+        geo_cuda.reset_launch_counts()
+        t = threading.Thread(target=capture, args=("start",))
+        t.start()
+        t.join()
+        check(replies["start"][0] == 200,
+              f"rest_gateway: capture start {replies['start']}")
+        for j in range(GW_CAPTURE_POSTS):
+            status, _ = admin.call(
+                "POST", f"/api/assignments/{tokens[j]}/measurements",
+                {"name": "m0", "value": 30.0, "ts": GW_TS0_S + 20_000 + j})
+            check(status == 200, "rest_gateway: POST inside the capture")
+        t = threading.Thread(target=capture, args=("stop",))
+        t.start()
+        t.join()
+        launches["capture"] = geo_cuda.launch_counts["pip_parity"]
+        status, doc = replies["stop"]
+        check(status == 200 and not doc["capturing"],
+              f"rest_gateway: capture stop {replies['stop']}")
+        traces = [os.path.join(dp, f) for dp, _, fs in os.walk(
+            doc["trace_dir"]) for f in fs]
+        sizes = {os.path.basename(p): os.path.getsize(p) for p in traces}
+        named = [p for p in traces if os.path.getsize(p) > 0
+                 and b"pip_parity_kernel" in open(p, "rb").read()]
+        check(named, f"rest_gateway: no trace names the kernel: {sizes}")
+        emit({"phase": "rest_gateway", "run": "capture",
+              "trace_files": sizes, "names_kernel": len(named),
+              "kernel_launches": launches["capture"]})
+
+        # 7. the topology feed: its greeting snapshot and one broadcast
+        ws = ClientWebSocket("127.0.0.1", web.port, "/ws/topology",
+                             timeout=60.0,
+                             headers={"Authorization": f"Bearer {token}"})
+        try:
+            _, greeting = ws.recv()
+            # the feed greets a client before it lists it (the
+            # reference's order: no broadcast interleaves with the
+            # greeting), so broadcast until one reaches it
+            deadline = time.monotonic() + 30.0
+            sent_to = 0
+            while not sent_to and time.monotonic() < deadline:
+                t0 = time.perf_counter()
+                sent_to = web.topology.broadcast()
+                broadcast_ms = (time.perf_counter() - t0) * 1e3
+                if not sent_to:
+                    time.sleep(0.01)
+            check(sent_to >= 1, "rest_gateway: no broadcast reached the "
+                  "topology client")
+            _, pushed = ws.recv()
+        finally:
+            ws.close()
+        g, p = json.loads(greeting), json.loads(pushed)
+        check(g["instance"] == p["instance"] == "chip-smoke",
+              f"rest_gateway: topology feed {g['instance']}")
+        check(p["devices"] == g["devices"] >= N_ACTIVE + GW_DEVICES,
+              f"rest_gateway: topology devices {p['devices']}")
+        status, spec = admin.call("GET", "/api/openapi.json")
+        n_routes = sum(len(ops) for ops in spec["paths"].values())
+        check(n_routes == 132, f"rest_gateway: {n_routes} routes")
+        emit({"phase": "rest_gateway", "run": "topology",
+              "greeting_bytes": len(greeting), "broadcast_ms": broadcast_ms,
+              "clients": sent_to, "routes": n_routes})
+        admin.close()
+        anon.close()
+    finally:
+        web.stop()
+        inst.stop()
+        inst.terminate()
+    return launches
+
+
+def phase_rest_gateway(device, geo_cuda, world, kernel_rec):
+    """The REST/WS gateway and device-stage telemetry over the port
+    ``Instance`` on the card (see the module docstring, phase 15), over
+    the one-tenant world.  Returns the kernel's launches by run."""
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="gateway-", dir=geo_cuda.BUILD_DIR)
+    try:
+        launches = rest_gateway_run(device, geo_cuda, world, root,
+                                    kernel_rec)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "rest_gateway", "run": "done",
+          "seconds": time.perf_counter() - t0})
+    return launches
+
+
 # -- device-fault containment and the control plane ----------------------------
 
 CP_TS0_MS = WIRE_TS0_MS + 40_000_000
@@ -6745,7 +7295,8 @@ def main() -> int:
     main_launches = phase_main_path(device, geo_cuda)
     wire_launches, mixed, meas = phase_dispatcher_wire(device, geo_cuda)
     persist_launches = phase_persist_recover(
-        device, geo_cuda, mixed[:INSTANCE_WIRE_PAYLOADS], meas)
+        device, geo_cuda, mixed[:INSTANCE_WIRE_PAYLOADS],
+        meas[:INSTANCE_WIRE_PAYLOADS])
     del meas
     rules_launches = phase_byo_rules(device, geo_cuda,
                                      mixed[:INSTANCE_WIRE_PAYLOADS])
@@ -6762,15 +7313,17 @@ def main() -> int:
         del mixed
         is_launches = phase_ingest_sources(device, geo_cuda, world)
         op_launches = phase_outbound_presence(device, geo_cuda, world)
+        gw_launches = phase_rest_gateway(device, geo_cuda, world, rec)
         te_launches = phase_tenant_engines(device, geo_cuda)
     finally:
         shutil.rmtree(world_root, ignore_errors=True)
     cp_launches = phase_control_plane(device, geo_cuda)
-    # this slice's path: the multitenant run (array and wire payloads of
-    # every tenant, the engine restart, the mismatch rows, the scripted
-    # sources)
-    rec["launches"] = sum(te_launches.values())
+    # this slice's path: the REST gateway's event POSTs, the geofence
+    # POSTs, the device profile's zones and full stages, the capture
+    rec["launches"] = sum(gw_launches.values())
     rec["launches_by_path"] = {"main_path": main_launches,
+                               **{f"rest_gateway.{k}": v
+                                  for k, v in gw_launches.items()},
                                **{f"tenant_engines.{k}": v
                                   for k, v in te_launches.items()},
                                **{f"outbound_presence.{k}": v

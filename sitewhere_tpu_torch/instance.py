@@ -232,6 +232,13 @@ from sitewhere_tpu_torch.store.segmented import SegmentStore
 
 logger = logging.getLogger("sitewhere_tpu_torch.instance")
 
+
+class MultiHostUnavailable(ServiceError):
+    """A call that needs the multi-host fabric (501 over REST)."""
+
+    http_status = 501
+
+
 #: Config keys this instance reads (dotted paths; a trailing ``.*`` takes
 #: the whole section).
 HONOURED = (
@@ -252,6 +259,7 @@ HONOURED = (
     "state.partition_min_capacity",
     "sources", "ingest.*", "presence.*",
     "security.jwt_secret", "batch.throttle_delay_ms",
+    "telemetry.device_profile_on_start",
 )
 
 
@@ -335,6 +343,9 @@ class Instance(LifecycleComponent):
         self.instance_id = self.config["instance.id"]
         self.data_dir = os.path.abspath(self.config["instance.data_dir"])
         os.makedirs(self.data_dir, exist_ok=True)
+        # one on-demand torch.profiler capture at a time
+        self._profiler_lock = threading.Lock()
+        self._profiler = None
 
         cap = int(self.config["pipeline.registry_capacity"])
         width = int(self.config["pipeline.width"])
@@ -849,6 +860,19 @@ class Instance(LifecycleComponent):
         # never re-ingests a fresh append racing it
         recover_upto = self.ingest_journal.end_offset
         super().start()
+        if bool(self.config.get("telemetry.device_profile_on_start",
+                                False)):
+            # boot-time device-stage calibration off the data path: the
+            # probes run on a background thread (on a stream of their
+            # own) and land in the device.stage_ms.* histograms when done
+            def _calibrate():
+                try:
+                    self.run_device_profile()
+                except Exception:
+                    logger.exception("device-stage calibration failed")
+
+            threading.Thread(target=_calibrate, daemon=True,
+                             name="device-profile").start()
         t0 = time.perf_counter()
         replayed = self.dispatcher.replay_journal(
             upto=recover_upto,
@@ -935,6 +959,92 @@ class Instance(LifecycleComponent):
         if self.slo is not None:
             topo["slo"] = self.slo.snapshot()
         return topo
+
+    def cluster_topology(self) -> dict:
+        """Every host's topology (the reference's :1900).  The port runs
+        one host and polls no peers, so this is the single-host view."""
+        return {"local": self.topology(), "peers": {}}
+
+    def apply_membership_change(self, new_peers: List[str],
+                                process_id: Optional[int] = None) -> dict:
+        """Cluster grow or shrink (the reference's :842) needs the
+        multi-host fabric, which the port does not compose yet: refused,
+        never a silent success."""
+        raise MultiHostUnavailable(
+            "cluster membership changes need the multi-host fabric, which "
+            "this instance does not have (ROADMAP.md queue 1 item 10)")
+
+    # -- device telemetry (on-demand profiling) -------------------------------
+
+    def run_device_profile(self, iters: int = 16,
+                           repeats: int = 3) -> dict:
+        """On-demand device-stage calibration at this instance's width
+        and its live table capacities: records ``device.stage_ms.*``
+        histogram samples, re-anchors the watchdog's budgets to the
+        measured full step and returns the stage medians."""
+        from sitewhere_tpu_torch.pipeline.telemetry import (
+            profile_device_stages,
+        )
+
+        # the LIVE table shapes: the dense rule and zone passes cost what
+        # this deployment's capacities make them cost
+        rules = self.rules.publish()
+        zones = self.mirror.publish_zones()
+        result = profile_device_stages(
+            width=int(self.config["pipeline.width"]),
+            capacity=int(self.config["pipeline.registry_capacity"]),
+            rules_capacity=int(rules.threshold.shape[0]),
+            zones_capacity=int(zones.nvert.shape[0]),
+            zone_verts=int(zones.verts.shape[1]),
+            iters=iters, repeats=repeats, metrics=self.metrics,
+            device=self.device)
+        full_ms = result.get("full_ms")
+        if full_ms:
+            # the hung-step watchdog's soft/hard budgets from the
+            # MEASURED step (floored inside calibrate)
+            self.dispatcher.watchdog.calibrate(float(full_ms))
+        return result
+
+    def start_profiler_capture(self) -> dict:
+        """Start an on-demand ``torch.profiler`` trace (host ops and, on a
+        card, its kernels) into ``<data_dir>/profiles/capture-<t>``.  One
+        capture at a time, owned by a thread of its own, so a stop from
+        any thread ends it; returns the trace directory."""
+        from sitewhere_tpu_torch.pipeline.telemetry import ProfilerCapture
+
+        # the lock makes check-then-start atomic: two racing starts yield
+        # one capture and one honest "already running" error
+        with self._profiler_lock:
+            if self._profiler is not None:
+                raise ValidationError(
+                    "profiler capture already running: "
+                    f"{self._profiler.trace_dir}")
+            trace_dir = os.path.join(
+                self.data_dir, "profiles", f"capture-{int(time.time())}")
+            os.makedirs(trace_dir, exist_ok=True)
+            try:
+                self._profiler = ProfilerCapture(
+                    trace_dir, cuda=self.device.type == "cuda")
+            except Exception as e:
+                raise ValidationError(f"torch profiler unavailable: {e}")
+        logger.info("torch profiler capture started -> %s", trace_dir)
+        return {"capturing": True, "trace_dir": trace_dir}
+
+    def stop_profiler_capture(self) -> dict:
+        """Stop the running capture and write its trace."""
+        with self._profiler_lock:
+            if self._profiler is None:
+                raise ValidationError("no profiler capture running")
+            trace_dir = self._profiler.trace_dir
+            try:
+                self._profiler.stop()
+            except Exception as e:
+                # keep the capture: a failed stop stays retryable (clearing
+                # it first would wedge both endpoints)
+                raise ValidationError(f"profiler stop failed: {e}")
+            self._profiler = None
+        logger.info("torch profiler capture stopped (%s)", trace_dir)
+        return {"capturing": False, "trace_dir": trace_dir}
 
     # -- control-plane wiring -----------------------------------------------
 

@@ -1,0 +1,1 @@
+"""rpc of the PyTorch port (see the package docstring)."""

@@ -5,7 +5,10 @@ dispatcher binds it: a lock-light registry of counters, gauges, reservoir
 timers and histograms with ``trace_id`` exemplars, under the reference's
 instrument names, so ``metrics_snapshot()`` keeps its keys, and the
 SLO burn-rate engine (:class:`BurnRateEngine`, the reference's
-:446-771).  The OpenMetrics exposition comes with the REST slice.
+:446-771), and the OpenMetrics exposition (the reference's :288-443):
+:func:`render_openmetrics` serializes registries for
+``/api/instance/metrics.prom``, first registry wins on a family name,
+and :func:`parse_exposition` is the matching scrape-side parser.
 
 Naming convention: lowercase dotted ``subsystem.noun[_verb][_unit]``
 segments (``pipeline.e2e_latency_s``, ``resilience.supervisor.x.restarts``)
@@ -19,6 +22,7 @@ import bisect
 import collections
 import dataclasses
 import logging
+import math
 import re
 import threading
 import time
@@ -274,6 +278,159 @@ class MetricsRegistry:
             },
             "histograms": {k: h.snapshot() for k, h in histograms.items()},
         }
+
+
+# -- OpenMetrics exposition ---------------------------------------------------
+
+_PROM_INVALID = re.compile(r"[^a-zA-Z0-9_]")
+
+
+def _prom_name(name: str) -> str:
+    return _PROM_INVALID.sub("_", name)
+
+
+def _fmt(v: float) -> str:
+    f = float(v)
+    # non-finite first: int(nan) raises, int(inf) overflows — and one
+    # bad sample must never take down the whole scrape surface
+    if f != f:
+        return "NaN"
+    if math.isinf(f):
+        return "+Inf" if f > 0 else "-Inf"
+    if f == int(f) and abs(f) < 1e15:
+        return str(int(f))
+    return repr(f)
+
+
+def _exemplar(ex: Optional[Tuple[str, float, float]]) -> str:
+    if not ex:
+        return ""
+    trace_id, value, ts = ex
+    return f' # {{trace_id="{trace_id}"}} {_fmt(value)} {ts:.3f}'
+
+
+def _claim(seen: Dict[str, Tuple[str, str]], prom_name: str, dotted: str,
+           kind: str) -> bool:
+    """Reserve a flattened family name; False = already emitted.  A
+    DIFFERENT dotted name (e.g. ``x.a-1`` vs ``x.a.1``) or a different
+    instrument kind (``counter('a.b')`` + ``gauge('a.b')``) collapsing
+    onto one already-emitted family would silently hide the loser —
+    warn.  Same dotted name + kind stays silent: that's the documented
+    first-registry-wins shadowing."""
+    prior = seen.get(prom_name)
+    if prior is None:
+        seen[prom_name] = (dotted, kind)
+        return True
+    if prior != (dotted, kind):
+        logger.warning(
+            "metric %r (%s) hidden from exposition: flattens to %r, "
+            "already emitted as %s for %r",
+            dotted, kind, prom_name, prior[1], prior[0])
+    return False
+
+
+def render_openmetrics(*registries: MetricsRegistry) -> str:
+    """Serialize registries as OpenMetrics text (the ``.prom`` surface).
+
+    Families merge first-registry-wins on name collisions (the instance
+    registry shadows the process-global one).  Histogram buckets carry
+    ``trace_id`` exemplars when the hot path supplied them; timers render
+    as summaries (quantiles are host-local, not aggregatable — the
+    histograms exist for cross-host aggregation).
+    """
+    lines: List[str] = []
+    seen: Dict[str, Tuple[str, str]] = {}
+    for reg in registries:
+        with reg._lock:
+            counters = dict(reg._counters)
+            gauges = dict(reg._gauges)
+            timers = dict(reg._timers)
+            histograms = dict(reg._histograms)
+        for name, c in sorted(counters.items()):
+            n = _prom_name(name)
+            if not _claim(seen, n, name, "counter"):
+                continue
+            lines.append(f"# TYPE {n} counter")
+            lines.append(f"{n}_total {_fmt(c.value)}")
+        for name, g in sorted(gauges.items()):
+            n = _prom_name(name)
+            if not _claim(seen, n, name, "gauge"):
+                continue
+            lines.append(f"# TYPE {n} gauge")
+            lines.append(f"{n} {_fmt(g.value)}")
+        for name, t in sorted(timers.items()):
+            n = _prom_name(name)
+            if not _claim(seen, n, name, "summary"):
+                continue
+            lines.append(f"# TYPE {n} summary")
+            for q in (0.5, 0.95, 0.99):
+                lines.append(f'{n}{{quantile="{q}"}} {_fmt(t.percentile(q))}')
+            lines.append(f"{n}_sum {_fmt(t.total)}")
+            lines.append(f"{n}_count {_fmt(t.count)}")
+        for name, h in sorted(histograms.items()):
+            n = _prom_name(name)
+            if not _claim(seen, n, name, "histogram"):
+                continue
+            counts, count, total, exemplars = h._render_state()
+            lines.append(f"# TYPE {n} histogram")
+            cum = 0
+            for i, bound in enumerate(h.buckets):
+                cum += counts[i]
+                lines.append(f'{n}_bucket{{le="{_fmt(bound)}"}} {cum}'
+                             + _exemplar(exemplars.get(i)))
+            lines.append(f'{n}_bucket{{le="+Inf"}} {count}'
+                         + _exemplar(exemplars.get(len(h.buckets))))
+            lines.append(f"{n}_sum {_fmt(total)}")
+            lines.append(f"{n}_count {_fmt(count)}")
+    lines.append("# EOF")
+    return "\n".join(lines) + "\n"
+
+
+_SAMPLE_RE = re.compile(
+    r"^(?P<name>[a-zA-Z_:][a-zA-Z0-9_:]*)"
+    r"(?P<labels>\{[^}]*\})?"
+    r" (?P<value>[^ #]+)"
+    r"(?P<exemplar> # \{[^}]*\} [^ ]+( [^ ]+)?)?$"
+)
+
+
+def parse_exposition(text: str) -> Dict[str, dict]:
+    """Minimal OpenMetrics scrape-side parser (smoke tooling + tests).
+
+    Returns ``{family: {"type": ..., "samples": {sample_key: value}}}``
+    where ``sample_key`` is the sample name plus its label string.
+    Raises ``ValueError`` on malformed lines, samples without a
+    preceding TYPE declaration, or a missing ``# EOF`` terminator —
+    i.e. it VALIDATES, it doesn't best-effort skip.
+    """
+    families: Dict[str, dict] = {}
+    stripped = text.rstrip("\n").split("\n")
+    if not stripped or stripped[-1] != "# EOF":
+        raise ValueError("exposition not terminated with # EOF")
+    for line in stripped[:-1]:
+        if not line:
+            raise ValueError("blank line in exposition")
+        if line.startswith("#"):
+            parts = line.split(" ", 3)
+            if len(parts) < 3 or parts[1] not in ("TYPE", "HELP", "UNIT"):
+                raise ValueError(f"malformed comment line: {line!r}")
+            if parts[1] == "TYPE":
+                if len(parts) < 4:
+                    raise ValueError(f"TYPE line missing type: {line!r}")
+                families[parts[2]] = {"type": parts[3], "samples": {}}
+            continue
+        m = _SAMPLE_RE.match(line)
+        if m is None:
+            raise ValueError(f"malformed sample line: {line!r}")
+        name = m.group("name")
+        family = next(
+            (f for f in (name, name.rsplit("_", 1)[0]) if f in families),
+            None)
+        if family is None:
+            raise ValueError(f"sample {name!r} without a TYPE declaration")
+        value = float(m.group("value"))
+        families[family]["samples"][name + (m.group("labels") or "")] = value
+    return families
 
 
 # -- SLO burn-rate engine -----------------------------------------------------

@@ -278,20 +278,23 @@ class DeviceStateManager:
                     "devices_with_state": 0, "devices_missing": 0}
         with self._lock:
             s = self.current
-        view = self.partitions.view(s, tenant_id)
-        if view is None:   # raced a refresh that dropped the column
-            return {"devices": part["count"], "capacity": part["rung"],
-                    "compile_count": part["compile_count"],
-                    "devices_with_state": 0, "devices_missing": 0}
-        rows, valid = view
-        has = (rows.last_event_type != NULL_ID) & valid
-        missing = rows.presence_missing & valid
+        # the gather and the counts run on the stream the epoch was
+        # committed from, never on the calling thread's own
+        with self._on_stream():
+            view = self.partitions.view(s, tenant_id)
+            if view is None:   # raced a refresh that dropped the column
+                return {"devices": part["count"], "capacity": part["rung"],
+                        "compile_count": part["compile_count"],
+                        "devices_with_state": 0, "devices_missing": 0}
+            rows, valid = view
+            has = int(((rows.last_event_type != NULL_ID) & valid).sum())
+            missing = int((rows.presence_missing & valid).sum())
         return {
             "devices": part["count"],
             "capacity": part["rung"],
             "compile_count": part["compile_count"],
-            "devices_with_state": int(has.sum()),
-            "devices_missing": int(missing.sum()),
+            "devices_with_state": has,
+            "devices_missing": missing,
         }
 
     def _on_stream(self):
@@ -476,8 +479,11 @@ class DeviceStateManager:
             s = self.current
         require(0 <= device_id < s.capacity,
                 EntityNotFound(f"bad device id {device_id}"))
-        r = {f: getattr(s, f)[device_id].cpu().numpy()
-             for f in s.__dataclass_fields__}
+        # a REST handler's thread reads on the stream the epoch was
+        # committed from, never on its own
+        with self._on_stream():
+            r = {f: getattr(s, f)[device_id].cpu().numpy()
+                 for f in s.__dataclass_fields__}
         row = {
             "device_id": device_id,
             "last_event_ts_s": int(r["last_event_ts_s"]),
@@ -539,7 +545,9 @@ class DeviceStateManager:
     def summary(self) -> Dict[str, int]:
         with self._lock:
             s = self.current
-        return {
-            "devices_with_state": int((s.last_event_type != NULL_ID).sum()),
-            "devices_missing": int(s.presence_missing.sum()),
-        }
+        with self._on_stream():
+            return {
+                "devices_with_state": int(
+                    (s.last_event_type != NULL_ID).sum()),
+                "devices_missing": int(s.presence_missing.sum()),
+            }

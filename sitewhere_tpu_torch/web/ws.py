@@ -12,8 +12,9 @@ encode/decode with client masking, text/binary/ping/pong/close opcodes,
 and fragmented-message reassembly with interleaved control frames
 (RFC 6455 §5.4).  No extensions (permessage-deflate etc.).
 
-Counterpart of ``sitewhere_tpu/web/ws.py``, whole; the port has no
-admin feed yet, so only the ingest ``WebSocketReceiver`` uses it.
+Counterpart of ``sitewhere_tpu/web/ws.py``, whole; the port's
+``WebServer`` serves ``/ws/topology`` over it and the ingest
+``WebSocketReceiver`` connects with it.
 """
 
 from __future__ import annotations

@@ -36,6 +36,7 @@ from sitewhere_tpu_torch.analytics import runner as port_runner
 from sitewhere_tpu_torch.analytics.runner import QueryRunner as PortRunner
 from sitewhere_tpu_torch.instance import Instance as PortInstance
 from sitewhere_tpu_torch.runtime.config import Config as PortConfig
+from torch_parity import FakeStreams
 
 torch.set_num_threads(1)
 
@@ -333,35 +334,10 @@ def test_restart_replays_from_the_floor_row_exactly(both, tmp_path):
             sorted(control[n], key=_key), n
 
 
-class _FakeStreams:
-    """Thread-local "current stream" stand-in for ``torch.cuda``."""
-
-    def __init__(self):
-        import threading
-
-        self.local = threading.local()
-
-    def current(self, *args, **kw):
-        return getattr(self.local, "stream", "dispatcher-stream")
-
-    def stream(self, s):
-        import contextlib
-
-        @contextlib.contextmanager
-        def ctx():
-            prev = self.current()
-            self.local.stream = s
-            try:
-                yield
-            finally:
-                self.local.stream = prev
-
-        return ctx()
-
 
 def test_worker_evaluates_on_its_stream_and_fans_out_off_it(
         tmp_path, monkeypatch):
-    fakes = _FakeStreams()
+    fakes = FakeStreams("dispatcher-stream")
     monkeypatch.setattr(port_runner, "_new_stream", lambda device: "runner")
     monkeypatch.setattr(torch.cuda, "stream", fakes.stream)
     monkeypatch.setattr(torch.cuda, "current_stream", fakes.current)

@@ -40,10 +40,7 @@ REF_METERING = os.path.join(TESTS, "test_metering.py")
 REF_ISOLATION = os.path.join(TESTS, "test_tenant_isolation.py")
 
 METERING_CASES = reference_cases(REF_METERING)
-# the usage drill-down is a REST route over the tenants service, neither
-# of which the port composes yet
-ISOLATION_CASES = reference_cases(
-    REF_ISOLATION, skip=("test_usage_drilldown_carries_budget_and_quota",))
+ISOLATION_CASES = reference_cases(REF_ISOLATION)
 
 
 @pytest.fixture(scope="module")

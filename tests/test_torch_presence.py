@@ -41,6 +41,7 @@ from torch_parity import (
     CPU,
     K,
     M,
+    FakeStreams,
     make_state,
     np_of,
     port_test_module,
@@ -208,29 +209,6 @@ def test_sweeps_and_scans_equal_across_packages(seed):
 # CUDA streams on the presence path, mocked
 # ---------------------------------------------------------------------------
 
-class _FakeStreams:
-    """Thread-local "current stream" stand-in for ``torch.cuda``."""
-
-    def __init__(self):
-        self.local = threading.local()
-
-    def current(self, *args, **kw):
-        return getattr(self.local, "stream", "default-stream")
-
-    def stream(self, s):
-        import contextlib
-
-        @contextlib.contextmanager
-        def ctx():
-            prev = self.current()
-            self.local.stream = s
-            try:
-                yield
-            finally:
-                self.local.stream = prev
-
-        return ctx()
-
 
 def test_presence_path_streams(tmp_path, monkeypatch):
     """With CUDA streams mocked, on the port ``Instance``: the presence
@@ -245,7 +223,7 @@ def test_presence_path_streams(tmp_path, monkeypatch):
     from torch_parity import CpuInstance
 
     N_DEV = 70
-    fakes = _FakeStreams()
+    fakes = FakeStreams()
     monkeypatch.setattr(port_engine, "_new_stream", lambda device: "engine")
     monkeypatch.setattr(port_runner, "_new_stream",
                         lambda device: "analytics")

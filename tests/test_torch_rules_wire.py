@@ -27,7 +27,12 @@ from sitewhere_tpu_torch.rules import compile as port_compile
 from sitewhere_tpu_torch.rules import engine as port_engine
 from sitewhere_tpu_torch.runtime.config import Config as PortConfig
 from test_torch_rules import KEYS, program_doc
-from torch_parity import WIRE_MTYPES, WIRE_TS0_MS, wire_payload
+from torch_parity import (
+    WIRE_MTYPES,
+    WIRE_TS0_MS,
+    FakeStreams,
+    wire_payload,
+)
 
 torch.set_num_threads(1)
 
@@ -199,37 +204,12 @@ def test_stored_is_accepted_plus_derived_plus_program_alerts(both):
     assert sum(stored.values()) == program
 
 
-class _FakeStreams:
-    """Thread-local "current stream" stand-in for ``torch.cuda``."""
-
-    def __init__(self):
-        import threading
-
-        self.local = threading.local()
-
-    def current(self, *args, **kw):
-        return getattr(self.local, "stream", "dispatcher-stream")
-
-    def stream(self, s):
-        import contextlib
-
-        @contextlib.contextmanager
-        def ctx():
-            prev = self.current()
-            self.local.stream = s
-            try:
-                yield
-            finally:
-                self.local.stream = prev
-
-        return ctx()
-
 
 def test_injected_alert_step_runs_on_the_dispatchers_stream(
         tmp_path, monkeypatch):
     import threading
 
-    fakes = _FakeStreams()
+    fakes = FakeStreams("dispatcher-stream")
     monkeypatch.setattr(port_engine, "_new_stream", lambda device: "engine")
     monkeypatch.setattr(torch.cuda, "stream", fakes.stream)
     monkeypatch.setattr(torch.cuda, "current_stream", fakes.current)

@@ -7,14 +7,14 @@ rewritten (``tests/torch_parity.py port_test_module``), each port
 
 - ``test_security.py``, ``test_tenants.py``, ``test_batch_and_schedules.py``,
   ``test_labels.py``, ``test_multitenant_instance.py`` and
-  ``test_instance.py``, whole but for the cases named in ``MODULES``;
+  ``test_instance.py``, whole;
 - the script cases of ``test_tracing_scripts.py`` and ``test_charts.py``,
   the script case of ``test_source_factory.py``, the ``users`` and
   ``tenants`` cases of ``test_checkpoint.py`` and
   ``test_schema.py::test_identity_map_roundtrip`` (``IdentityMap.load``).
 
-Every case left out waits on a component the port does not compose yet,
-named beside it.
+The script REST cases of ``test_tracing_scripts.py`` run here too; the
+REST cases of ``test_charts.py`` run in ``tests/test_torch_web.py``.
 """
 
 from __future__ import annotations
@@ -29,15 +29,13 @@ from torch_parity import port_cases, port_test_module, run_port_case
 torch.set_num_threads(1)
 TESTS = os.path.dirname(os.path.abspath(__file__))
 
-# the REST/WS gateway (``sitewhere_tpu.web``) comes with a later slice
-_REST = "needs the REST gateway"
 # module -> {case left out: why}; every other case of the module runs
 MODULES = {
     "test_security.py": {},
     "test_tenants.py": {},
     "test_batch_and_schedules.py": {},
     "test_labels.py": {},
-    "test_multitenant_instance.py": {"test_engine_rest_endpoints": _REST},
+    "test_multitenant_instance.py": {},
     "test_instance.py": {},
 }
 # module -> the cases that run (the rest of the module belongs to other
@@ -49,6 +47,9 @@ ONLY = {
         "test_bad_script_rejected",
         "test_scripted_decoder_feeds_source_end_to_end",
         "test_script_audit_survives_restart",
+        "test_script_rest_endpoints",
+        "test_script_upload_requires_admin_authority",
+        "test_script_activate_requires_admin_and_audit_is_logged",
     ),
     "test_charts.py": (
         "test_scripted_router_and_encoder",
@@ -60,14 +61,6 @@ ONLY = {
         "test_replay_columnar_fast_path_matches_scalar_semantics",
     ),
     "test_schema.py": ("test_identity_map_roundtrip",),
-}
-# the script cases of test_tracing_scripts.py and test_charts.py left out,
-# with why (the REST routes over the script manager)
-REST_SCRIPT_CASES = {
-    "test_tracing_scripts.py": (
-        "test_script_rest_endpoints",
-        "test_script_upload_requires_admin_authority",
-        "test_script_activate_requires_admin_and_audit_is_logged"),
 }
 _NS = {}
 
@@ -97,11 +90,11 @@ def test_the_port_runs_the_reference_cases_of_this_slice():
     assert by_module == {
         "test_security.py": 21, "test_tenants.py": 14,
         "test_batch_and_schedules.py": 16, "test_labels.py": 42,
-        "test_multitenant_instance.py": 6, "test_instance.py": 14,
-        "test_tracing_scripts.py": 5, "test_charts.py": 2,
+        "test_multitenant_instance.py": 7, "test_instance.py": 14,
+        "test_tracing_scripts.py": 8, "test_charts.py": 2,
         "test_source_factory.py": 1, "test_checkpoint.py": 2,
         "test_schema.py": 1}
-    # every script case of the two modules runs or is named as REST
+    # every script case of the two modules runs
     import re
 
     for module, names in ONLY.items():
@@ -111,8 +104,7 @@ def test_the_port_runs_the_reference_cases_of_this_slice():
         scripted = {name for name, body in re.findall(
             r"^def (test_\w+)\(.*?\n((?:    .*\n|\n)+)", src, re.M)
             if "scripts" in body}
-        assert scripted == set(names) | set(
-            REST_SCRIPT_CASES.get(module, ())), module
+        assert scripted == set(names), module
 
 
 @pytest.mark.parametrize("module,case", CASES,

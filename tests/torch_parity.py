@@ -491,6 +491,36 @@ def port_test_module(path, replace=()):
     return ns
 
 
+class FakeStreams:
+    """Thread-local "current stream" stand-in for ``torch.cuda``: patch
+    ``torch.cuda.stream`` with :meth:`stream` and
+    ``torch.cuda.current_stream`` with :meth:`current`.  A thread's
+    current stream is ``default`` until it enters another."""
+
+    def __init__(self, default="default-stream"):
+        import threading
+
+        self.default = default
+        self.local = threading.local()
+
+    def current(self, *args, **kw):
+        return getattr(self.local, "stream", self.default)
+
+    def stream(self, s):
+        import contextlib
+
+        @contextlib.contextmanager
+        def ctx():
+            prev = self.current()
+            self.local.stream = s
+            try:
+                yield
+            finally:
+                self.local.stream = prev
+
+        return ctx()
+
+
 def CpuInstance(config=None, template=None, **kw):
     from sitewhere_tpu_torch.instance import Instance
 

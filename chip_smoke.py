@@ -323,7 +323,33 @@ script exits non-zero without printing a result:
    ``pip_parity_kernel``.  ``topology``: ``/ws/topology`` sends its
    greeting snapshot and one broadcast; ``openapi.json`` lists 132
    routes;
-16. a small input run on the card and on the CPU: identical int outputs.
+16. the sharded pipeline at 8 shards on the one card (phase
+   ``sharded_mesh``; 16384 batch rows and 131072 registry rows per
+   shard): ``kernel_per_shard``, the kernel at B=16384 against the plain
+   version and its bound (added to the kernels record as ``per_shard``);
+   ``mesh_chain``, shard-block-ordered 60/30/10 rings over the main
+   path's world through the sharded K=8 chain, the sharded single step
+   and the unsharded chain from the same empty carry: events/s, ms per
+   ring, host syncs per batch, launches; checks: every output row, the
+   metrics and the final carry bitwise equal across the three, host
+   syncs 1/8 on the chain, launches == steps x 8 on the sharded paths,
+   the chain's last ring rerun from its carry with the plain geofence
+   bitwise.  ``mesh_instance.wire``: the world checkpoint restored into
+   an ``Instance`` with ``n_shards: 8`` (re-placed on the mesh), 8 mixed
+   payloads, ring off at 5 ms, through the batcher's counted gather
+   lane, then ``checkpoint_full`` (the restored state on 8 shards,
+   bitwise the saved one); checks as ``persist_throughput``'s, launches
+   == steps x 8.  ``mesh_instance.fill_direct``: 8 segment-ordered
+   full-width reservations at K=8 (``bench.py:979-995``): every plan
+   adopted, ``pipeline.bytes_copied.batch`` 0, one host sync, launches
+   == steps x 8.  ``shard_containment``: the devfault bench's phase at 8
+   shards (width 128, 64 devices, K=2): only shard 2 demotes, the poison
+   rows dead-letter, every clean row stored once, shard 2 at FALLBACK
+   side-steps through the mesh with no CPU step and no exit.
+   ``sharded_analytics``: ``build_window_grid_sharded`` over 1,000,000
+   devices and 2^22 events against the unsharded grid: counts exact,
+   means and variances within the reference test's bounds;
+17. a small input run on the card and on the CPU: identical int outputs.
 
 Every ``Instance`` run before ``control_plane`` turns the overload
 ladder and the SLO engine off (``instance_config``), as the reference's
@@ -374,13 +400,17 @@ M_SLOTS, K_SCALES, N_RULES = 8, 3, 64
 RING_K, TIMED_RINGS = 8, 16
 SEED = 20261016
 # the wire path (phase dispatcher_wire)
-WIRE_PAYLOADS = 3 * RING_K        # full-width payloads: 3 rings at K=8
-# The Instance's 60/30/10 wire runs of persist_recover, byo_rules and
-# streaming_analytics take the first ring's worth of those payloads: with
-# registration composed each runs at 27k-47k events/s, and with 16 (24
-# for analytics_wire) the whole script took 1,195.6 s of its 1,200 on a
-# slow H100 host once tenant_engines joined it
-INSTANCE_WIRE_PAYLOADS = RING_K
+# full-width payloads: 2 rings at K=8 (3 until the sharded_mesh phase
+# came: the script's time limit)
+WIRE_PAYLOADS = 2 * RING_K
+# The Instance's 60/30/10 wire runs of persist_recover and byo_rules take
+# the first half ring of those payloads, streaming_analytics a ring of its
+# own: with registration composed each runs at 27k-47k events/s, and with
+# 16 (24 for analytics_wire) the whole script took 1,195.6 s of its 1,200
+# on a slow H100 host once tenant_engines joined it; with 8 (until the
+# sharded_mesh phase came) 1,161.2 s on another
+INSTANCE_WIRE_PAYLOADS = RING_K // 2
+AN_WIRE_PAYLOADS = RING_K
 WIRE_GHOSTS = 0.005               # share of lines from unregistered tokens
 # The deployment's batcher deadline (README.md:99-105).  A ring lingers
 # one deadline at most, and even the native decode takes far longer than
@@ -1540,7 +1570,7 @@ EWMA_MAX_ULP, EWMA_SCALE = 4.0, 128.0
 
 
 def instance_config(data_dir, capacity, width, ring_depth, deadline_ms,
-                    **extra):
+                    n_shards=1, **extra):
     """The deployment as an ``Instance`` config: the reference's keys; the
     journal and the segment store at the Config defaults; ``extra``
     sections on top (``registration`` in device_services, the control
@@ -1554,7 +1584,8 @@ def instance_config(data_dir, capacity, width, ring_depth, deadline_ms,
     both off for the same reason (``tools/crashrec_bench.py:116-119``).
     The flight recorder, metering, the breaker and the watchdog stay at
     their defaults; phase ``control_plane`` runs the ladder and the SLO
-    engine at theirs."""
+    engine at theirs.  ``n_shards`` > 1 runs the sharded pipeline, every
+    shard on the instance's one device."""
     from sitewhere_tpu_torch.runtime.config import Config
 
     return Config({
@@ -1562,7 +1593,8 @@ def instance_config(data_dir, capacity, width, ring_depth, deadline_ms,
         "pipeline": {"width": width, "registry_capacity": capacity,
                      "mtype_slots": M_SLOTS, "deadline_ms": deadline_ms,
                      "adaptive_deadline": False, "ring_depth": ring_depth,
-                     "max_zones": FULL_Z, "max_zone_verts": FULL_V},
+                     "max_zones": FULL_Z, "max_zone_verts": FULL_V,
+                     "n_shards": n_shards},
         "checkpoint": {"interval_s": 0},
         # the rule engine's asset table covers the world's 5000 assets
         "rules": {"asset_capacity": RULE_ASSET_CAPACITY},
@@ -1595,14 +1627,15 @@ def world_checkpoint(device, root, size, n_tenants=1):
 
 
 def instance_from_world(device, world_ckpt, data_dir, capacity, width,
-                        ring_depth, deadline_ms, **extra):
+                        ring_depth, deadline_ms, n_shards=1, **extra):
     """A fresh instance whose checkpoint directory is a copy of the
     world's: construction restores the deployment."""
     from sitewhere_tpu_torch.instance import Instance
 
     shutil.copytree(world_ckpt, os.path.join(data_dir, "checkpoint"))
     inst = Instance(instance_config(data_dir, capacity, width, ring_depth,
-                                    deadline_ms, **extra), device=device)
+                                    deadline_ms, n_shards=n_shards, **extra),
+                    device=device)
     check(inst.restored, f"world checkpoint not restored in {data_dir}")
     return inst
 
@@ -1631,7 +1664,7 @@ def row_checksum(cols, mask=None):
 
 def persist_throughput(device, geo_cuda, world_ckpt, payloads, root, run,
                        meas=False, rules=None, phase="persist_recover",
-                       name=None, analytics=None):
+                       name=None, analytics=None, n_shards=1):
     """The wire path through the port ``Instance``: its ``SegmentStore``
     and journal at the Config defaults, ring off, the deployment's 5 ms
     deadline.  Timed from the first byte to the return of the
@@ -1648,12 +1681,16 @@ def persist_throughput(device, geo_cuda, world_ckpt, payloads, root, run,
     starts; the run then waits for the runner to drain, reports the
     ``analytics.*`` metrics, and after ``flush_live()`` and ``stop()``
     checks every query's live matches against ``run_retrospective`` over
-    the sealed store (which needs ``analytics.live_dropped`` 0)."""
+    the sealed store (which needs ``analytics.live_dropped`` 0).
+
+    ``n_shards`` > 1 runs the sharded pipeline over that many shards on
+    the one card: each dispatcher step then launches the geofence kernel
+    once per shard."""
     import torch
 
     data_dir = os.path.join(root, run)
     inst = instance_from_world(device, world_ckpt, data_dir, CAPACITY,
-                               FULL_B, 0, WIRE_DEADLINE_MS)
+                               FULL_B, 0, WIRE_DEADLINE_MS, n_shards=n_shards)
     store, disp, eng = inst.event_store, inst.dispatcher, inst.rule_engine
     load = rules(inst) if rules is not None else None
     runner = inst.analytics
@@ -1796,6 +1833,9 @@ def persist_throughput(device, geo_cuda, world_ckpt, payloads, root, run,
            "commits": len(commit_ms), "segments_sealed": sealed,
            "segments_on_disk": stats["segments"], "bytes_on_disk": disk,
            "rows_stored": stored["rows"], "store_shards": store.n_shards,
+           "pipeline_shards": n_shards,
+           "bytes_copied_batch": int(disp.metrics.counter(
+               "pipeline.bytes_copied.batch").value),
            "seal_workers": store.sealer.n_workers,
            "pip_launches": launches, "committed": committed,
            "journal_records": records, **delta,
@@ -1837,8 +1877,9 @@ def persist_throughput(device, geo_cuda, world_ckpt, payloads, root, run,
         rec["program_alerts_stored"] = sum(stored_alerts.values())
     rec.update(guard_counts(disp.metrics, rec["phase"]))
     emit(_busy(rec, span_ms, None, elapsed, delta["steps"]))
-    check(launches == delta["steps"],
-          f"kernel launched {launches}x in {delta['steps']} dispatcher steps")
+    check(launches == delta["steps"] * n_shards,
+          f"kernel launched {launches}x in {delta['steps']} dispatcher steps"
+          f" of {n_shards} shard(s)")
     if load is not None:
         n_fired = sum(fired.values())
         check(n_fired > 0 and rec["rule_program_alerts"] == n_fired
@@ -1876,7 +1917,7 @@ def persist_throughput(device, geo_cuda, world_ckpt, payloads, root, run,
                      phase=phase,
                      run="checkpoint_full" + (".analytics" if analytics
                                               else ".rules" if load else ""),
-                     saved_analytics=saved_analytics)
+                     saved_analytics=saved_analytics, n_shards=n_shards)
     shutil.rmtree(data_dir, ignore_errors=True)
     return rec
 
@@ -1991,20 +2032,29 @@ def rules_metrics(inst):
 
 def restore_full(device, data_dir, saved_state, save_stats, saved_rules,
                  phase="persist_recover", run="checkpoint_full",
-                 saved_analytics=None):
+                 saved_analytics=None, n_shards=1):
     """checkpoint_full: a fresh instance restores the saved instance's
     newest generation; the state must equal the saved one bitwise, the
     rule programs and attribute tables must come back as saved, and so
-    must every analytics query's operator state."""
+    must every analytics query's operator state.  With ``n_shards`` > 1
+    the restored state is re-placed on the mesh first, and read back
+    from its shards."""
     from sitewhere_tpu_torch.instance import Instance
 
     ckpt = os.path.join(data_dir, "checkpoint")
     t0 = time.perf_counter()
     inst = Instance(instance_config(data_dir, CAPACITY, FULL_B, 0,
-                                    WIRE_DEADLINE_MS), device=device)
+                                    WIRE_DEADLINE_MS, n_shards=n_shards),
+                    device=device)
     construct_s = time.perf_counter() - t0
+    placed_shards = 1
     try:
         check(inst.restored, "checkpoint_full: nothing restored")
+        if n_shards > 1:
+            placed_shards = inst.device_state.current_packed.si.n_shards
+            check(placed_shards == n_shards,
+                  f"restored state on {placed_shards} shards, not "
+                  f"{n_shards}")
         got = inst.device_state.snapshot_host()
         unequal = sorted(k for k in saved_state
                          if got[k].dtype != saved_state[k].dtype
@@ -2041,6 +2091,7 @@ def restore_full(device, data_dir, saved_state, save_stats, saved_rules,
           "save": save_stats, "restore_s": restore_s,
           "restore": restore, "instance_construct_s": construct_s,
           "generation": gen, "unequal_fields": unequal,
+          "state_shards": placed_shards,
           "analytics_queries": len(got_an),
           "analytics_state_bytes": an_bytes,
           "analytics_unequal_fields": an_unequal})
@@ -3178,7 +3229,7 @@ def phase_streaming_analytics(device, geo_cuda):
                 (-175, 175, -85, 85), N_ACTIVE, SEED + 11)
 
         payloads = an_payloads(np.random.default_rng(SEED + 13),
-                               INSTANCE_WIRE_PAYLOADS, FULL_B, WIRE_TS0_MS)
+                               AN_WIRE_PAYLOADS, FULL_B, WIRE_TS0_MS)
         rec = persist_throughput(
             device, geo_cuda, world, payloads, root, "analytics",
             rules=programs, phase="streaming_analytics",
@@ -3833,9 +3884,10 @@ def phase_device_services(device, geo_cuda, mixed, logs, world):
 # -- the ingest sources (phase ingest_sources) ----------------------------------
 
 IS_TS0_MS = WIRE_TS0_MS + 50_000_000
-# 4 mixed and 4 measurement-only payloads (8 and 8 until the
-# rest_gateway phase came: the script's time limit)
-IS_MIXED, IS_MEAS = 4, 4
+# 2 mixed and 2 measurement-only payloads (8 and 8 until the
+# rest_gateway phase came, 4 and 4 until the sharded_mesh phase: the
+# script's time limit)
+IS_MIXED, IS_MEAS = 2, 2
 # length_prefixed_frames refuses a frame over 16 MiB (the reference's cap,
 # kept); a full-width 60/30/10 payload is about 16.8 MB, so it goes as two
 # frames of 65536 lines, a measurement-only one (about 15.7 MB) as one
@@ -7213,6 +7265,402 @@ def phase_control_plane(device, geo_cuda):
     return launches
 
 
+# -- the sharded pipeline -------------------------------------------------------
+
+SM_SHARDS = 8
+SM_RINGS = 4                # timed rings of each mesh_chain path
+SM_WIRE_PAYLOADS = RING_K
+SM_RESERVATIONS = RING_K    # fill-direct reservations: one ring of K
+SM_CONTAIN = {"n_shards": SM_SHARDS, "k": 2, "width": 128, "capacity": 64}
+SM_AN_EVENTS = 1 << 22
+SM_AN_WINDOWS = 16
+
+
+def sm_routed_cols(rng, width, n_active, capacity, ts_s, n_shards):
+    """``make_batch_cols`` in the sharded batcher's layout: segment ``s``
+    of the batch holds devices of shard ``s``'s registry block; its
+    0.5% unregistered rows are NULL_ID, as the batcher rewrites them."""
+    cols = make_batch_cols(rng, width, n_active, capacity, ts_s)
+    seg, rps = width // n_shards, capacity // n_shards
+    dev = np.concatenate([
+        rng.integers(s * rps, min((s + 1) * rps, n_active), seg)
+        for s in range(n_shards)]).astype(np.int32)
+    dev[cols["device_id"] >= n_active] = -1
+    tenant = (dev % N_TENANTS).astype(np.int32)
+    mism = rng.random(width) < 0.002
+    tenant[mism] = (tenant[mism] + 1) % N_TENANTS
+    cols["device_id"], cols["tenant_id"] = dev, tenant
+    return cols
+
+
+def sm_kernel_per_shard(device, geo_cuda, rec):
+    """The kernel at the shape each shard's step gives it (B = width /
+    shards), against the plain version and its bound; added to the
+    kernel record beside the full-width row."""
+    import torch
+
+    b = FULL_B // SM_SHARDS
+    gen = torch.Generator(device=device).manual_seed(SEED + 42)
+    verts = random_polygons(gen, FULL_Z, FULL_V, -50, 50, 1, 20, device)
+    points = (-60 + 120 * torch.rand((b, 2), generator=gen,
+                                     device=device)).contiguous()
+    ref = plain_chunked(points, verts)
+    px, py = points[:, 0].contiguous(), points[:, 1].contiguous()
+    planes = geo_cuda.edge_planes(verts)
+    out = torch.empty((b, FULL_Z), dtype=torch.bool, device=device)
+    ms = cuda_ms(lambda: geo_cuda.launch_pip(px, py, planes, out), 50)
+    mismatches = int((out != ref).sum())
+    check(mismatches == 0, f"kernel != plain at B={b}: {mismatches}")
+    plain_ms = cuda_ms(lambda: plain_chunked(points, verts), 3)
+    tests = b * FULL_Z * FULL_V
+    bytes_moved = b * 2 * 4 + 4 * FULL_V * FULL_Z * 4 + b * FULL_Z
+    ops_ms = max(PIP_FLOAT_PER_TEST * tests / PEAK_FP32_INSTR,
+                 PIP_LOGIC_PER_TEST * tests / PEAK_INT32_INSTR) * 1e3
+    bytes_ms = bytes_moved / PEAK_HBM_BYTES * 1e3
+    shard = {"shape": [b, FULL_Z, FULL_V], "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": max(ops_ms, bytes_ms),
+             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+             "max_abs_err": float(mismatches)}
+    rec["per_shard"] = shard
+    emit({"phase": "sharded_mesh", "run": "kernel_per_shard", **shard,
+          "ops_bound_ms": ops_ms, "bytes_bound_ms": bytes_ms})
+
+
+def sm_mesh_chain(device, geo_cuda, mesh):
+    """Shard-block-ordered traffic through the sharded K-chain, the
+    sharded single step and the unsharded chain of ``main_path``, on the
+    same inputs from the same empty carry: every output row, the metrics
+    and the final carry bitwise equal; then the chain's last ring rerun
+    from its carry with the plain geofence."""
+    import torch
+
+    from sitewhere_tpu_torch.pipeline.packed import (
+        PackedView, pack_batch_host, pack_tables)
+    from sitewhere_tpu_torch.pipeline.sharded import (
+        build_sharded_packed_chain, build_sharded_packed_step,
+        place_packed_batch, place_packed_tables)
+    from sitewhere_tpu_torch.runtime.ring import RingRunner
+    from sitewhere_tpu_torch.state.manager import DeviceStateManager
+
+    t0 = time.perf_counter()
+    tables = pack_tables(*make_world(device, CAPACITY, N_ACTIVE, N_RULES,
+                                     FULL_Z, FULL_V, SEED + 1))
+    rng = np.random.default_rng(SEED + 40)
+    rings = [[pack_batch_host(sm_routed_cols(
+        rng, FULL_B, N_ACTIVE, CAPACITY, 1_700_000_000 + r * RING_K + s,
+        SM_SHARDS), FULL_B) for s in range(RING_K)]
+        for r in range(1 + SM_RINGS)]
+
+    def manager(m):
+        return DeviceStateManager(CAPACITY, num_mtype_slots=M_SLOTS,
+                                  num_ewma_scales=K_SCALES, device=device,
+                                  mesh=m)
+
+    setup_s = time.perf_counter() - t0
+    n_steps = SM_RINGS * RING_K
+    runs, outs, carries = {}, {}, {}
+    last_ring = None
+    for path in ("mesh_chain", "mesh_step", "unsharded_chain"):
+        on_mesh = path != "unsharded_chain"
+        mgr = manager(mesh if on_mesh else None)
+        syncs = [0]
+        seen = []
+        if path == "mesh_step":
+            step = build_sharded_packed_step(mesh)
+            mtables = place_packed_tables(mesh, tables)
+
+            def ring_views(ring):
+                views = []
+                for bi, bf in ring:
+                    sbi, sbf = place_packed_batch(mesh, bi, bf)
+                    epoch = mgr.current_packed
+                    ps, oi, met, pres = step(mtables, epoch, sbi, sbf)
+                    mgr.commit_packed(ps, present_now=pres,
+                                      read_epoch=epoch)
+                    views.append(PackedView(
+                        oi, met, pres,
+                        on_fetch=lambda: syncs.__setitem__(0, syncs[0] + 1)))
+                return views
+        else:
+            runner = RingRunner(mgr, tables, RING_K,
+                                mesh=mesh if on_mesh else None)
+            ring_views = runner.dispatch
+        for view in ring_views(rings[0]):          # warm-up ring
+            seen.append((view.oi.copy(), view.metrics_vector.copy()))
+        torch.cuda.synchronize()
+        geo_cuda.reset_launch_counts()
+        t1 = time.perf_counter()
+        for ring in rings[1:]:
+            if path == "mesh_chain":
+                before_last = mgr.current_packed
+            views = ring_views(ring)
+            for view in views:
+                seen.append((view.oi, view.metrics_vector))
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t1
+        launches = geo_cuda.launch_counts["pip_parity"]
+        if path == "mesh_chain":
+            last_ring = (before_last, views, runner)
+        processed = sum(int(m[0]) for _, m in seen[RING_K:])
+        per_batch = (runner.host_syncs_per_batch if path != "mesh_step"
+                     else syncs[0] / ((1 + SM_RINGS) * RING_K))
+        shards = SM_SHARDS if on_mesh else 1
+        runs[path] = {
+            "elapsed_s": elapsed, "events_per_s": processed / elapsed,
+            "ms_per_ring": elapsed / SM_RINGS * 1e3,
+            "ms_per_step": elapsed / n_steps * 1e3,
+            "host_syncs_per_batch": per_batch, "pip_launches": launches,
+            "steps": n_steps, "shards": shards}
+        check(launches == n_steps * shards,
+              f"{path}: kernel launched {launches}x in {n_steps} steps of "
+              f"{shards} shard(s)")
+        outs[path] = seen
+        cur = mgr.current_packed
+        if on_mesh:
+            check(cur.si.n_shards == SM_SHARDS,
+                  f"{path}: carry on {cur.si.n_shards} shards")
+            carries[path] = (cur.si.gather(), cur.sf.gather())
+        else:
+            carries[path] = (cur.si, cur.sf)
+        del mgr
+    check(runs["mesh_chain"]["host_syncs_per_batch"] == 1 / RING_K,
+          f"mesh chain host syncs per batch "
+          f"{runs['mesh_chain']['host_syncs_per_batch']}")
+    ref = outs["unsharded_chain"]
+    equal = {}
+    for path in ("mesh_chain", "mesh_step"):
+        same_out = all(np.array_equal(a[0], b[0])
+                       and np.array_equal(a[1], b[1])
+                       for a, b in zip(outs[path], ref))
+        same_carry = (torch.equal(carries[path][0],
+                                  carries["unsharded_chain"][0])
+                      and torch.equal(carries[path][1],
+                                      carries["unsharded_chain"][1]))
+        equal[path] = {"outputs": same_out, "carry": same_carry}
+        check(same_out and len(outs[path]) == len(ref),
+              f"{path} outputs != the unsharded chain's")
+        check(same_carry, f"{path} carry != the unsharded chain's")
+    accepted = sum(int(m[1]) for _, m in ref[RING_K:])
+    alerts = sum(int(m[4]) + int(m[5]) for _, m in ref[RING_K:])
+    check(accepted > 0 and alerts > 0, "no row accepted or no alert fired")
+
+    # the chain's last ring again, from its carry, with the plain geofence
+    before_last, views, runner = last_ring
+    launches = geo_cuda.launch_counts["pip_parity"]
+    plain = build_sharded_packed_chain(mesh, RING_K, geofence=plain_chunked)
+    staged = [place_packed_batch(mesh, bi, bf) for bi, bf in rings[-1]]
+    ps, ois, mets, _ = plain(runner.tables, before_last,
+                             *[s[0] for s in staged],
+                             *[s[1] for s in staged])
+    ois, mets = ois.gather().cpu().numpy(), mets.gather().cpu().numpy()
+    same_out = all(np.array_equal(v.oi, ois[i])
+                   and np.array_equal(v.metrics_vector, mets[i])
+                   for i, v in enumerate(views))
+    same_carry = (torch.equal(ps.si.gather(), carries["mesh_chain"][0])
+                  and torch.equal(ps.sf.gather(), carries["mesh_chain"][1]))
+    check(same_out and same_carry,
+          "mesh chain plain-geofence rerun differs")
+    check(geo_cuda.launch_counts["pip_parity"] == launches,
+          "the plain rerun launched the kernel")
+    emit({"phase": "sharded_mesh", "run": "mesh_chain",
+          "shards": SM_SHARDS, "width": FULL_B,
+          "shard_width": FULL_B // SM_SHARDS, "capacity": CAPACITY,
+          "shard_rows": CAPACITY // SM_SHARDS, "ring_k": RING_K,
+          "rings": SM_RINGS, "setup_s": setup_s, "paths": runs,
+          "accepted": accepted, "alerts": alerts,
+          "equal_to_unsharded_chain": equal,
+          "plain_rerun": {"identical_outputs": same_out,
+                          "identical_carry": same_carry},
+          "max_memory_gib": torch.cuda.max_memory_allocated() / 2**30})
+    return {"mesh_chain": runs["mesh_chain"]["pip_launches"],
+            "mesh_step": runs["mesh_step"]["pip_launches"]}
+
+
+def sm_fill_direct(device, geo_cuda, world, root):
+    """Segment-ordered full-width fill-direct reservations into the
+    sharded ``Instance`` at K=8 (as ``bench.py:979-995`` builds them):
+    every plan adopted, nothing copied by the batcher, one host sync per
+    ring, the kernel launched once per shard per step."""
+    import torch
+
+    data_dir = os.path.join(root, "fill")
+    inst = instance_from_world(device, world, data_dir, CAPACITY, FULL_B,
+                               RING_K, RING_DIAG_DEADLINE_MS,
+                               n_shards=SM_SHARDS)
+    try:
+        inst.start()
+        disp, store = inst.dispatcher, inst.event_store
+        handles = np.asarray(inst.identity.device.lookup_many(
+            [f"d-{i}" for i in range(N_ACTIVE)]), np.int32)
+        rps, seg = CAPACITY // SM_SHARDS, FULL_B // SM_SHARDS
+        by_shard = [handles[(handles // rps) == s] for s in range(SM_SHARDS)]
+        rng = np.random.default_rng(SEED + 43)
+        devs = [np.concatenate([rng.choice(by_shard[s], seg)
+                                for s in range(SM_SHARDS)]).astype(np.int32)
+                for _ in range(SM_RESERVATIONS)]
+        vals = [rng.uniform(20, 40, FULL_B).astype(np.float32)
+                for _ in range(SM_RESERVATIONS)]
+        adopted = count_adopted(disp.batcher)
+        copied = disp.metrics.counter("pipeline.bytes_copied.batch")
+        torch.cuda.synchronize()
+        snap0, copied0 = disp.metrics_snapshot(), int(copied.value)
+        geo_cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        for r in range(SM_RESERVATIONS):
+            res = disp.batcher.reserve(FULL_B)
+            res.device_id[:FULL_B] = devs[r]
+            res.mtype_id[:FULL_B] = 0
+            res.value[:FULL_B] = vals[r]
+            res.ts_s[:FULL_B] = 1_760_000_000 + r
+            res.ts_ns[:FULL_B] = 0
+            res.update_state[:FULL_B] = 1
+            res.n = FULL_B
+            disp.ingest_wire_decoded(b"", res, [], source_id="fill")
+        disp.flush()
+        store.flush()
+        elapsed = time.perf_counter() - t0
+        launches = geo_cuda.launch_counts["pip_parity"]
+        snap = disp.metrics_snapshot()
+        delta = {k: snap[k] - snap0[k] for k in (
+            "steps", "processed", "accepted", "host_syncs", "ring_chains")}
+        rec = {"phase": "sharded_mesh", "run": "mesh_instance.fill_direct",
+               "reservations": SM_RESERVATIONS, "ring_k": RING_K,
+               "elapsed_s": elapsed,
+               "events_per_s": SM_RESERVATIONS * FULL_B / elapsed,
+               "adopted": len(adopted),
+               "bytes_copied_batch": int(copied.value) - copied0,
+               "pip_launches": launches, "stored": store.total_events,
+               **delta}
+        rec.update(guard_counts(disp.metrics, "sharded_mesh"))
+        emit(rec)
+        check(len(adopted) == delta["steps"] == SM_RESERVATIONS,
+              f"{len(adopted)} of {delta['steps']} plans adopted")
+        check(rec["bytes_copied_batch"] == 0,
+              f"the batcher copied {rec['bytes_copied_batch']} bytes")
+        check(delta["host_syncs"] * RING_K == delta["steps"]
+              and delta["ring_chains"] == SM_RESERVATIONS // RING_K,
+              f"host syncs {delta['host_syncs']} for {delta['steps']} steps")
+        check(launches == delta["steps"] * SM_SHARDS,
+              f"kernel launched {launches}x in {delta['steps']} steps")
+        check(delta["accepted"] == SM_RESERVATIONS * FULL_B
+              == store.total_events,
+              f"accepted {delta['accepted']}, stored {store.total_events}")
+        inst.stop()
+    finally:
+        inst.terminate()
+        shutil.rmtree(data_dir, ignore_errors=True)
+    return launches
+
+
+def sm_shard_containment(device, geo_cuda, root):
+    """The port devfault bench's ``shard_containment`` phase at 8 shards
+    on the card (a small world, ``SM_CONTAIN``): only shard 2 demotes,
+    the healthy shards keep chaining, the poison rows dead-letter, every
+    clean row is stored once; shard 2 at FALLBACK side-steps through the
+    mesh, the process does not exit and no step runs on the CPU."""
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tools"))
+    import torch_devfault_bench as bench
+
+    failures = []
+
+    def bench_check(ok, msg):
+        if not ok and msg:
+            failures.append(msg)
+
+    geo_cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = bench.phase_shard_containment(root, bench_check, device,
+                                        **SM_CONTAIN)
+    rep.pop("flightrec_dump", None)
+    launches = geo_cuda.launch_counts["pip_parity"]
+    emit({"phase": "sharded_mesh", "run": "shard_containment",
+          **SM_CONTAIN, "seconds": time.perf_counter() - t0,
+          "pip_launches": launches, **rep, "failures": failures})
+    check(not failures, f"shard_containment: {failures}")
+    check(rep["shard_levels"][2] >= 1 and all(
+        lv == 0 for s, lv in enumerate(rep["shard_levels"]) if s != 2),
+        f"shard levels {rep['shard_levels']}")
+    check(rep["cpu_fallback_steps"] == 0, "a side step ran on the CPU")
+    check(launches > 0 and launches % SM_SHARDS == 0,
+          f"{launches} launches for {SM_SHARDS} shards")
+    return launches
+
+
+def sm_analytics(device, mesh):
+    """``build_window_grid_sharded`` over the world's devices against the
+    unsharded grid: counts exact, means and variances within the
+    reference test's bounds (``tests/test_analytics.py:199-226``)."""
+    import torch
+
+    from sitewhere_tpu_torch.analytics.runner import (
+        build_window_grid, build_window_grid_sharded)
+
+    rng = np.random.default_rng(SEED + 44)
+    dev = rng.integers(0, N_ACTIVE, SM_AN_EVENTS).astype(np.int32)
+    win = rng.integers(0, SM_AN_WINDOWS, SM_AN_EVENTS).astype(np.int32)
+    val = rng.normal(10.0, 2.0, SM_AN_EVENTS).astype(np.float32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sharded = build_window_grid_sharded(mesh, dev, win, val, N_ACTIVE,
+                                        SM_AN_WINDOWS)
+    torch.cuda.synchronize()
+    sharded_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = build_window_grid(
+        torch.from_numpy(dev).to(device), torch.from_numpy(win).to(device),
+        torch.from_numpy(val).to(device),
+        torch.ones(SM_AN_EVENTS, dtype=torch.bool, device=device),
+        N_ACTIVE, SM_AN_WINDOWS)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    counts = torch.equal(sharded.counts.gather(), ref.counts)
+    means = float((sharded.means.gather() - ref.means).abs().max())
+    var = float((sharded.variances.gather() - ref.variances).abs().max())
+    emit({"phase": "sharded_mesh", "run": "sharded_analytics",
+          "devices": N_ACTIVE, "windows": SM_AN_WINDOWS,
+          "events": SM_AN_EVENTS, "shards": sharded.counts.n_shards,
+          "counts_equal": counts, "means_max_abs_diff": means,
+          "variances_max_abs_diff": var, "sharded_s": sharded_s,
+          "unsharded_s": plain_s})
+    check(counts, "sharded grid counts differ")
+    check(means <= 1e-4 and var <= 1e-3,
+          f"sharded grid means off {means}, variances off {var}")
+
+
+def phase_sharded_mesh(device, geo_cuda, world, kernel_rec):
+    """The sharded pipeline at 8 shards on the one card: the kernel at
+    the per-shard shape, mesh_chain, mesh_instance (the wire run with
+    checkpoint_full, the fill-direct ring), shard_containment and the
+    sharded analytics grid.  Returns the kernel's launches by run."""
+    from sitewhere_tpu_torch.parallel import make_mesh
+
+    t0 = time.perf_counter()
+    mesh = make_mesh(devices=[device] * SM_SHARDS)
+    sm_kernel_per_shard(device, geo_cuda, kernel_rec)
+    launches = sm_mesh_chain(device, geo_cuda, mesh)
+    root = tempfile.mkdtemp(prefix="mesh-", dir=geo_cuda.BUILD_DIR)
+    try:
+        rng = np.random.default_rng(SEED + 41)
+        payloads = wire_payloads(rng, SM_WIRE_PAYLOADS, FULL_B,
+                                 WIRE_TS0_MS + 30_000_000)
+        rec = persist_throughput(device, geo_cuda, world, payloads, root,
+                                 "mesh_wire", phase="sharded_mesh",
+                                 name="mesh_instance.wire",
+                                 n_shards=SM_SHARDS)
+        launches["mesh_instance.wire"] = rec["pip_launches"]
+        launches["mesh_instance.fill_direct"] = sm_fill_direct(
+            device, geo_cuda, world, root)
+        launches["shard_containment"] = sm_shard_containment(
+            device, geo_cuda, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    sm_analytics(device, mesh)
+    emit({"phase": "sharded_mesh", "run": "done",
+          "seconds": time.perf_counter() - t0, "launches": launches})
+    return launches
+
+
 def phase_small_reference(device):
     """A small deployment stepped on the card (kernel) and on the CPU
     (plain versions): int outputs and metrics identical, EWMAs close."""
@@ -7314,14 +7762,17 @@ def main() -> int:
         is_launches = phase_ingest_sources(device, geo_cuda, world)
         op_launches = phase_outbound_presence(device, geo_cuda, world)
         gw_launches = phase_rest_gateway(device, geo_cuda, world, rec)
+        sm_launches = phase_sharded_mesh(device, geo_cuda, world, rec)
         te_launches = phase_tenant_engines(device, geo_cuda)
     finally:
         shutil.rmtree(world_root, ignore_errors=True)
     cp_launches = phase_control_plane(device, geo_cuda)
-    # this slice's path: the REST gateway's event POSTs, the geofence
-    # POSTs, the device profile's zones and full stages, the capture
-    rec["launches"] = sum(gw_launches.values())
+    # this slice's path: the sharded pipeline's runs, each step one
+    # launch per shard at the shard's width
+    rec["launches"] = sum(sm_launches.values())
     rec["launches_by_path"] = {"main_path": main_launches,
+                               **{f"sharded_mesh.{k}": v
+                                  for k, v in sm_launches.items()},
                                **{f"rest_gateway.{k}": v
                                   for k, v in gw_launches.items()},
                                **{f"tenant_engines.{k}": v

@@ -9,7 +9,9 @@ Importing the package does nothing else: submodules are imported by the
 caller, the one hand-written kernel (``csrc/pip_kernel.cu``) is built at
 its first launch and the native wire scanners (``native/swwire.c``) at
 their first use, never at import.  Entry points run on ``cuda:0``
-unless the caller passes ``device="cpu"`` (see :mod:`.device`).
+unless the caller passes ``device="cpu"`` (see :mod:`.device`); the
+sharded pipeline (``pipeline.n_shards`` > 1, :mod:`.parallel`) runs its
+shards over a mesh of devices, which may all be one.
 :func:`make_instance` builds a wired ``Instance``, importing it at the
 call.
 """

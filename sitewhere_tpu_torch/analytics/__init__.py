@@ -1,7 +1,6 @@
-"""Batch + streaming analytics over event history, on one card.
+"""Batch + streaming analytics over event history.
 
-Counterpart of ``sitewhere_tpu/analytics``: the same exports, minus the
-sharded half (``detect_anomalies_window_sharded``).
+Counterpart of ``sitewhere_tpu/analytics``: the same exports.
 """
 
 from sitewhere_tpu_torch.analytics.runner import (  # noqa: F401
@@ -12,6 +11,7 @@ from sitewhere_tpu_torch.analytics.runner import (  # noqa: F401
     WindowGrid,
     build_window_grid,
     detect_anomalies,
+    detect_anomalies_window_sharded,
 )
 from sitewhere_tpu_torch.analytics.query import (  # noqa: F401
     PatternQuery,

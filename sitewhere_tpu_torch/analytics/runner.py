@@ -1,9 +1,12 @@
 """Batch analytics over event history, and the streaming query runner.
 
-Counterpart of ``sitewhere_tpu/analytics/runner.py`` on one card, without
-its sharded half (``detect_anomalies_window_sharded``,
-``build_window_grid_sharded``, ``route_events_by_shard`` and their mesh
-functions wait for the multi-device slice).
+Counterpart of ``sitewhere_tpu/analytics/runner.py``, its sharded half
+included: :func:`build_window_grid_sharded` routes events to the shard
+owning their device block (:func:`route_events_by_shard`) and builds each
+shard's grid block locally; :func:`detect_anomalies_window_sharded`
+shards the window (history) axis instead, with a one-hop halo of the
+left neighbour's trailing windows.  Both run through
+:func:`~sitewhere_tpu_torch.parallel.shmap.shard_map`.
 
 - :func:`build_window_grid` and :func:`detect_anomalies`: per-(device,
   window) statistics of stored measurements and the windows deviating
@@ -158,6 +161,176 @@ def _flag_from_trailing(counts, means, variances, base_n, base_sum,
     return anomalous, torch.where(ready, z, 0.0)
 
 
+def detect_anomalies_window_sharded(mesh, grid: WindowGrid,
+                                    baseline_windows: int = 8,
+                                    z_threshold: float = 3.0,
+                                    min_baseline_count: int = 8,
+                                    std_floor: float = 1e-3):
+    """:func:`detect_anomalies` with the WINDOW (history) axis sharded
+    over the mesh, the long-context leg of the analytics job.
+
+    The ``[D, W]`` grid block-shards along windows, and each trailing
+    baseline crossing a shard boundary needs the tail of the LEFT
+    neighbour's block: one halo exchange
+    (:func:`~sitewhere_tpu_torch.parallel.shmap.ppermute`) shifts every
+    shard's last ``L`` windows, packed, to its right neighbour; shard 0
+    receives zeros, the local path's empty left edge.  Results agree with
+    :func:`detect_anomalies` up to float32 summation order (each shard
+    prefix-sums ``L + W/S`` windows, not the whole history).
+
+    Requires ``baseline_windows <= W // n_shards`` (one-hop halo).
+    Returns ``(anomalous, z)`` sharded like the input grid."""
+    from sitewhere_tpu_torch.parallel.mesh import SHARD_AXIS
+
+    n_shards = mesh.shape[SHARD_AXIS]
+    w = grid.n_windows
+    if w % n_shards != 0:
+        raise ValueError(f"n_windows={w} not divisible by {n_shards} shards")
+    w_local = w // n_shards
+    if baseline_windows > w_local:
+        raise ValueError(
+            f"baseline_windows={baseline_windows} exceeds the per-shard "
+            f"window block {w_local}: the one-hop halo cannot cover it")
+    fn = _window_sharded_flagger(
+        mesh, baseline_windows, z_threshold, min_baseline_count, std_floor,
+        n_shards)
+    return fn(grid.counts, grid.means, grid.variances)
+
+
+def _window_sharded_flagger(mesh, baseline_windows, z_threshold,
+                            min_baseline_count, std_floor, n_shards):
+    from sitewhere_tpu_torch.parallel.mesh import SHARD_AXIS, P
+    from sitewhere_tpu_torch.parallel.shmap import ppermute, shard_map
+
+    L = baseline_windows
+    spec = P(None, SHARD_AXIS)
+
+    def local_pack(counts_i, means, variances):
+        counts = counts_i.to(torch.float32)
+        sums = means * counts
+        m2 = variances * counts
+        msq = counts * means * means
+        return torch.stack([counts, sums, msq, m2], dim=-1)  # [D, Wl, 4]
+
+    def local(pack, halo, counts_i, means, variances):
+        counts = counts_i.to(torch.float32)
+        ext = torch.cat([halo, pack], dim=1)        # [D, L + Wl, 4]
+        c = torch.cumsum(ext, dim=1)
+        cpad = F.pad(c, (0, 0, 1, 0))
+        w_local = counts.shape[1]
+        # trailing-L sum ending just before local window w:
+        # cpad[w + L] - cpad[w]
+        tr = cpad[:, L:L + w_local, :] - cpad[:, :w_local, :]
+        return _flag_from_trailing(
+            counts, means, variances,
+            tr[..., 0], tr[..., 1], tr[..., 2], tr[..., 3],
+            z_threshold, min_baseline_count, std_floor)
+
+    packer = shard_map(local_pack, mesh=mesh, in_specs=(spec,) * 3,
+                       out_specs=spec)
+    flagger = shard_map(local, mesh=mesh, in_specs=(spec,) * 5,
+                        out_specs=(spec, spec))
+
+    def run(counts, means, variances):
+        pack = packer(counts, means, variances)
+        # the ring halo: every shard ships its last L windows right;
+        # shard 0 receives zeros (the global left edge)
+        halo = ppermute(pack.map(lambda b: b[:, -L:, :]),
+                        [(i, i + 1) for i in range(n_shards - 1)])
+        return flagger(pack, halo, counts, means, variances)
+
+    return run
+
+
+def route_events_by_shard(device_id: np.ndarray, window_idx: np.ndarray,
+                          value: np.ndarray, n_devices: int, n_shards: int):
+    """Host-side routing for the sharded grid build: order events by the
+    mesh shard owning their device block (the pipeline registry's block
+    sharding) and pad every shard segment to a common length.
+
+    Returns ``(dev, win, val, ok)`` arrays of shape ``[S * L]`` whose
+    leading axis block-shards cleanly over the mesh."""
+    if n_devices % n_shards != 0:
+        raise ValueError(
+            f"n_devices={n_devices} not divisible by n_shards={n_shards}")
+    rows_per_shard = n_devices // n_shards
+    keep = (device_id >= 0) & (device_id < n_devices)
+    device_id = device_id[keep]
+    window_idx = window_idx[keep]
+    value = value[keep]
+    shard = device_id // rows_per_shard
+    order = np.argsort(shard, kind="stable")
+    counts = np.bincount(shard, minlength=n_shards)
+    # padding to the hottest shard's load: under heavy device skew the
+    # padded layout approaches S x max-load, mostly padding rows
+    seg = max(int(counts.max()), 1)
+    if counts.sum() and seg * n_shards > 4 * int(counts.sum()):
+        _LOG.debug("shard skew: hottest segment %d vs mean %.0f; the "
+                   "sharded grid build is mostly padding", seg,
+                   counts.mean())
+    dev = np.full(n_shards * seg, 0, np.int32)
+    win = np.zeros(n_shards * seg, np.int32)
+    val = np.zeros(n_shards * seg, np.float32)
+    ok = np.zeros(n_shards * seg, np.bool_)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    for s in range(n_shards):
+        lo, n = int(starts[s]), int(counts[s])
+        rows = order[lo:lo + n]
+        base = s * seg
+        dev[base:base + n] = device_id[rows]
+        win[base:base + n] = window_idx[rows]
+        val[base:base + n] = value[rows]
+        ok[base:base + n] = True
+    return dev, win, val, ok
+
+
+def build_window_grid_sharded(mesh, device_id: np.ndarray,
+                              window_idx: np.ndarray, value: np.ndarray,
+                              n_devices: int, n_windows: int) -> WindowGrid:
+    """Multi-shard grid build: events routed by device block, each
+    shard's grid block built locally (no cross-shard traffic on the
+    scatter), the result left block-sharded on the device axis: a
+    :class:`WindowGrid` of :class:`~sitewhere_tpu_torch.parallel.mesh.Sharded`
+    fields.  Float sums stay segmented reductions, never atomics."""
+    from sitewhere_tpu_torch.parallel.mesh import SHARD_AXIS
+
+    n_shards = mesh.shape[SHARD_AXIS]
+    rows_local = n_devices // n_shards
+    dev, win, val, ok = route_events_by_shard(
+        device_id, window_idx, value, n_devices, n_shards)
+    builder = _sharded_grid_builder(mesh, rows_local, n_windows)
+    counts, means, variances = builder(dev, win, val, ok)
+    return WindowGrid(counts=counts, means=means, variances=variances)
+
+
+def _sharded_grid_builder(mesh, rows_local: int, n_windows: int):
+    from sitewhere_tpu_torch.parallel.mesh import SHARD_AXIS, P
+    from sitewhere_tpu_torch.parallel.shmap import axis_index, shard_map
+
+    def local(dev, win, val, ok):
+        offset = axis_index(SHARD_AXIS) * rows_local
+        grid = build_window_grid(dev - offset, win, val, ok,
+                                 n_devices=rows_local, n_windows=n_windows)
+        return grid.counts, grid.means, grid.variances
+
+    return shard_map(local, mesh=mesh, in_specs=(P(SHARD_AXIS),) * 4,
+                     out_specs=(P(SHARD_AXIS, None),) * 3)
+
+
+def _detect_sharded(mesh, grid: WindowGrid, **kw):
+    """:func:`detect_anomalies` on a device-sharded grid, shard by shard
+    (the detection is row-independent): ``(anomalous, z)`` gathered."""
+    from sitewhere_tpu_torch.parallel.mesh import SHARD_AXIS, P
+    from sitewhere_tpu_torch.parallel.shmap import shard_map
+
+    spec = P(SHARD_AXIS, None)
+    anomalous, z = shard_map(
+        lambda c, m, v: detect_anomalies(WindowGrid(c, m, v), **kw),
+        mesh=mesh, in_specs=(spec,) * 3, out_specs=(spec, spec),
+    )(grid.counts, grid.means, grid.variances)
+    return anomalous.gather(), z.gather()
+
+
 @dataclasses.dataclass
 class Anomaly:
     device_id: int
@@ -213,7 +386,7 @@ class AnalyticsJob:
                     value: np.ndarray, n_devices: int,
                     t0_s: Optional[int] = None,
                     n_windows: Optional[int] = None,
-                    token_of=None) -> Dict[str, object]:
+                    token_of=None, mesh=None) -> Dict[str, object]:
         if len(ts_s) == 0:
             return {"anomalies": [], "windows": 0, "events": 0,
                     "devices_seen": 0}
@@ -226,19 +399,31 @@ class AnalyticsJob:
         center = float(values64.mean())
         global_std = float(values64.std())
         centered = (values64 - center).astype(np.float32)
-        dev = self.device
-        grid = build_window_grid(
-            torch.from_numpy(device_id.astype(np.int32)).to(dev),
-            torch.from_numpy(win).to(dev),
-            torch.from_numpy(centered).to(dev),
-            torch.ones(len(ts_s), dtype=torch.bool, device=dev),
-            n_devices=n_devices, n_windows=n_windows)
-        anomalous, z = detect_anomalies(
-            grid, baseline_windows=self.baseline_windows,
+        detect = dict(
+            baseline_windows=self.baseline_windows,
             z_threshold=self.z_threshold,
             min_baseline_count=self.min_baseline_count,
             std_floor=float(np.float32(max(
                 self.min_std, self.min_std_fraction * global_std))))
+        if mesh is not None:
+            # shard-routed build; the row-independent detection runs on
+            # the sharded grid as is
+            grid = build_window_grid_sharded(
+                mesh, device_id.astype(np.int32), win, centered,
+                n_devices=n_devices, n_windows=n_windows)
+            anomalous, z = _detect_sharded(mesh, grid, **detect)
+            grid = WindowGrid(counts=grid.counts.gather(),
+                              means=grid.means.gather(),
+                              variances=grid.variances.gather())
+        else:
+            dev = self.device
+            grid = build_window_grid(
+                torch.from_numpy(device_id.astype(np.int32)).to(dev),
+                torch.from_numpy(win).to(dev),
+                torch.from_numpy(centered).to(dev),
+                torch.ones(len(ts_s), dtype=torch.bool, device=dev),
+                n_devices=n_devices, n_windows=n_windows)
+            anomalous, z = detect_anomalies(grid, **detect)
         host_anom = anomalous.cpu().numpy()
         host_z = z.cpu().numpy()
         host_means = grid.means.cpu().numpy()
@@ -257,12 +442,13 @@ class AnalyticsJob:
                 "devices_seen": int((host_counts.sum(axis=1) > 0).sum())}
 
     def run(self, store, n_devices: int, mtype_id: Optional[int] = None,
-            token_of=None) -> Dict[str, object]:
-        """Full job: store -> columns -> windowed anomaly detection."""
+            token_of=None, mesh=None) -> Dict[str, object]:
+        """Full job: store -> columns -> windowed anomaly detection
+        (``mesh`` shards the device axis over the pipeline's mesh)."""
         cols = self.columns_from_store(store, mtype_id)
         return self.run_columns(cols["device_id"], cols["ts_s"],
                                 cols["value"], n_devices=n_devices,
-                                token_of=token_of)
+                                token_of=token_of, mesh=mesh)
 
 
 class _LiveQuery:

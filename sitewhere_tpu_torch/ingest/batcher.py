@@ -8,8 +8,12 @@ variable-rate host world and the fixed-width step.
   field; the scalar ``add`` appends into a growable staging chunk)
   and copied exactly once more at emission, by slice, into the
   fixed-shape batch;
-- a batch is emitted when the segment fills (``width`` rows) or when the
-  oldest pending event exceeds the deadline;
+- events are ROUTED to the shard owning their device's registry row
+  (:func:`~sitewhere_tpu_torch.parallel.mesh.shard_for_device`), so shard
+  ``k`` owns batch rows ``[k*seg, (k+1)*seg)`` with ``seg = width /
+  n_shards``; rows of unknown devices go round-robin;
+- a batch is emitted when ANY shard's segment fills or when the oldest
+  pending event exceeds the deadline;
 - rows that don't fit carry over to the next batch (no drops);
 - unknown devices are rewritten to ``NULL_ID`` and flagged unregistered
   on the device.
@@ -20,9 +24,9 @@ host buffers the packed step takes (``pipeline/packed.py``); otherwise
 :class:`~sitewhere_tpu_torch.schema.EventBatch` on the dispatcher's
 device.  :meth:`Batcher.reserve` hands the fill-direct wire scanner a
 :class:`Reservation`: packed rows it writes in place, adopted as the
-plan's packed buffers when they fill a batch alone.  One shard only: the
-sharded batcher and the sharded reservation commit come with the
-sharded slice.
+plan's packed buffers when they fill a batch alone; a sharded batcher
+commits a segment-ordered reservation as per-shard views of its buffers,
+so a full-width one is adopted with no copy too.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from sitewhere_tpu_torch.analysis.markers import hot_path
 from sitewhere_tpu_torch.device import DeviceLike, resolve_device
 from sitewhere_tpu_torch.ids import NULL_ID
 from sitewhere_tpu_torch.ingest.decoders import DecodedRequest, RequestKind
+from sitewhere_tpu_torch.parallel.mesh import shard_for_device
 from sitewhere_tpu_torch.pipeline.packed import BATCH_F, BATCH_I
 from sitewhere_tpu_torch.schema import EventBatch
 
@@ -80,18 +85,6 @@ _BF = {f: i for i, f in enumerate(BATCH_F)}
 _SCANNED_I = ("device_id", "mtype_id", "ts_s", "ts_ns", "update_state")
 
 
-def shard_for_device(device_id: int, capacity: int, n_shards: int) -> int:
-    """Host-side routing: which shard owns this device's registry row
-    (shard ``k`` owns rows ``[k*capacity/n_shards,
-    (k+1)*capacity/n_shards)``); copied from ``parallel/mesh.py:87``."""
-    if capacity < n_shards or capacity % n_shards != 0:
-        raise ValueError(
-            f"registry capacity={capacity} must be a positive multiple of "
-            f"n_shards={n_shards}"
-        )
-    return device_id // (capacity // n_shards)
-
-
 @dataclasses.dataclass
 class _Chunk:
     """A columnar run of pending rows.
@@ -113,6 +106,10 @@ class _Chunk:
     # only; the deadline counts from ``arrival``); None = ``arrival``
     received: Optional[float] = None
     reserved: Optional["Reservation"] = None
+    # Row offset of this chunk inside its reservation's buffers (sharded
+    # commits enqueue per-shard VIEWS of one buffer; adoption needs each
+    # view to sit exactly at its shard's segment).
+    res_off: int = 0
 
     @property
     def capacity(self) -> int:
@@ -216,24 +213,75 @@ class Reservation:
         # ours, so no defensive copy
         d = self.device_id[:n]
         bad = (d < 0) | (d >= b.capacity)
+        if b.n_shards > 1:
+            # the scanner wrote RESOLVED ids, so the routing is known
+            # here: segment-ordered payloads enqueue views of this
+            # buffer, anything else takes the add_arrays gather lane
+            return self._commit_sharded(b, n, bad, received_at)
         if bad.any():
             d[bad] = NULL_ID
+        now = b.clock()
+        b._pending[0].append(_Chunk(
+            cols=self._cols(0, n), length=n, arrival=now,
+            received=received_at, reserved=self))
+        b._counts[0] += n
+        if b._oldest is None:
+            b._oldest = now
+        plans: List[BatchPlan] = []
+        while max(b._counts) >= b.seg:
+            plans.append(b._emit())
+        return plans
+
+    def _cols(self, lo: int, hi: int) -> Dict[str, np.ndarray]:
+        """Column views of scanned rows ``[lo, hi)``; the constants and
+        the fills as 0-stride broadcasts."""
+        n = hi - lo
         cols: Dict[str, np.ndarray] = {
-            f: self.ibuf[_BI[f]][:n] for f in _SCANNED_I}
-        cols["value"] = self.value[:n]
+            f: self.ibuf[_BI[f]][lo:hi] for f in _SCANNED_I}
+        cols["value"] = self.value[lo:hi]
         cols["tenant_id"] = np.broadcast_to(np.int32(self.tenant_id), n)
         cols["payload_ref"] = np.broadcast_to(np.int32(self.payload_ref), n)
         for f in _COL_FIELDS:
             if f not in cols:
                 cols[f] = np.broadcast_to(_FILL_0D[f], n)
+        return cols
+
+    def _commit_sharded(self, b: "Batcher", n: int, bad: np.ndarray,
+                        received_at: Optional[float]) -> List[BatchPlan]:
+        """Sharded enqueue of the scanned rows.  The zero-copy lane needs
+        every id in range and the shard sequence non-decreasing: then
+        shard ``s``'s rows are one contiguous run, and the chunk is a
+        VIEW (``res_off`` records its buffer position, so a full-width
+        segment-aligned reservation is adopted outright by ``_emit``)."""
+        d = self.device_id[:n]
+        segmented = not bad.any()
+        if segmented:
+            shard = d // b.rows_per_shard
+            if n > 1:
+                segmented = bool((shard[:-1] <= shard[1:]).all())
+        if not segmented:
+            # the gather lane: same routing and copy contract as columnar
+            # intake (bad ids rewritten and round-robined there); the
+            # buffers are ours and never touched again
+            cols = self._cols(0, n)
+            return b.add_arrays(
+                _copy=False, received_at=received_at,
+                **{f: cols[f] for f in _SCANNED_I + (
+                    "value", "tenant_id", "payload_ref")})
         now = b.clock()
-        b._pending.append(_Chunk(cols=cols, length=n, arrival=now,
-                                 received=received_at, reserved=self))
-        b._count += n
+        bounds = np.searchsorted(shard, np.arange(b.n_shards + 1))
+        for s in range(b.n_shards):
+            lo, hi = int(bounds[s]), int(bounds[s + 1])
+            if lo == hi:
+                continue
+            b._pending[s].append(_Chunk(
+                cols=self._cols(lo, hi), length=hi - lo, arrival=now,
+                received=received_at, reserved=self, res_off=lo))
+            b._counts[s] += hi - lo
         if b._oldest is None:
             b._oldest = now
         plans: List[BatchPlan] = []
-        while b._count >= b.seg:
+        while max(b._counts) >= b.seg:
             plans.append(b._emit())
         return plans
 
@@ -436,16 +484,16 @@ class Batcher:
         metrics=None,
         controller: Optional[AdaptiveBatchController] = None,
     ):
-        if n_shards != 1:
-            raise NotImplementedError(
-                "the port's batcher runs one shard; the sharded batcher "
-                "comes with the sharded-paths slice")
+        if width % n_shards != 0:
+            raise ValueError(
+                f"width={width} not divisible by n_shards={n_shards}")
+        # the routing invariant, checked at construction
         shard_for_device(0, registry_capacity, n_shards)
         self.width = width
         self.n_shards = n_shards
-        self.seg = width
+        self.seg = width // n_shards
         self.capacity = registry_capacity
-        self.rows_per_shard = registry_capacity
+        self.rows_per_shard = registry_capacity // n_shards
         self.resolve_device = resolve_device
         self.resolve_mtype = resolve_mtype
         self.resolve_alert = resolve_alert
@@ -456,9 +504,11 @@ class Batcher:
         self.controller = controller
         self.clock = clock
         self.emit_packed = emit_packed
-        self._pending: Deque[_Chunk] = collections.deque()
-        self._count = 0
+        self._pending: List[Deque[_Chunk]] = [
+            collections.deque() for _ in range(n_shards)]
+        self._counts = [0] * n_shards
         self._oldest: Optional[float] = None
+        self._rr = 0  # round-robin shard for unknown devices
         self.emitted_batches = 0
         self.emitted_events = 0
         # Bytes memcpy'd during batch assembly (intake copies + emission
@@ -522,11 +572,15 @@ class Batcher:
         )
 
     def _enqueue_row(self, **values) -> Optional[BatchPlan]:
-        """Append/deadline/emit tail of the scalar path."""
-        if not 0 <= values["device_id"] < self.capacity:
+        """Routing/append/deadline/emit tail of the scalar path."""
+        device_id = values["device_id"]
+        if 0 <= device_id < self.capacity:
+            shard = device_id // self.rows_per_shard
+        else:
             values["device_id"] = NULL_ID
+            shard = self._rr = (self._rr + 1) % self.n_shards
         now = self.clock()
-        q = self._pending
+        q = self._pending[shard]
         tail = q[-1] if q else None
         if tail is None or tail.length >= tail.capacity:
             tail = _Chunk(
@@ -539,10 +593,10 @@ class Batcher:
         for f in _COL_FIELDS:
             tail.cols[f][i] = values[f]
         tail.length = i + 1
-        self._count += 1
+        self._counts[shard] += 1
         if self._oldest is None:
             self._oldest = now
-        if self._count >= self.seg:
+        if self._counts[shard] >= self.seg:
             return self._emit()
         return None
 
@@ -593,32 +647,55 @@ class Batcher:
             raise ValueError(f"unknown columns {sorted(unknown_keys)}")
 
         in_range = (device_id >= 0) & (device_id < self.capacity)
-        if not in_range.all():
-            cols["device_id"] = np.where(in_range, device_id, NULL_ID)
+        if self.n_shards == 1:
+            shard = None  # everything lands on shard 0
+            if not in_range.all():
+                cols["device_id"] = np.where(in_range, device_id, NULL_ID)
+        else:
+            shard = device_id // self.rows_per_shard
+            bad = ~in_range
+            if bad.any():
+                k = int(bad.sum())
+                shard[bad] = (self._rr + np.arange(k)) % self.n_shards
+                self._rr = (self._rr + k) % self.n_shards
+                cols["device_id"] = np.where(bad, NULL_ID, device_id)
 
         now = self.clock()
-        # Copy caller-backed columns: rows can sit queued past this call
-        # (up to the deadline), and a caller refilling its buffers must
-        # not corrupt queued events.
-        if _copy:
-            copied = {
-                f for f, c in cols.items()
-                if f not in filled
-                and (c is columns.get(f) or c.base is not None)
-            }
-            self._count_copied(sum(cols[f].nbytes for f in copied))
-            cols = {
-                f: (np.array(c, copy=True) if f in copied else c)
-                for f, c in cols.items()
-            }
-        self._pending.append(_Chunk(cols=cols, length=n, arrival=now,
-                                    received=received_at))
-        self._count += n
+        if self.n_shards == 1:
+            # Copy caller-backed columns: rows can sit queued past this
+            # call (up to the deadline), and a caller refilling its
+            # buffers must not corrupt queued events.  (The sharded path
+            # copies through its mask gathers.)
+            if _copy:
+                copied = {
+                    f for f, c in cols.items()
+                    if f not in filled
+                    and (c is columns.get(f) or c.base is not None)
+                }
+                self._count_copied(sum(cols[f].nbytes for f in copied))
+                cols = {
+                    f: (np.array(c, copy=True) if f in copied else c)
+                    for f, c in cols.items()
+                }
+            self._pending[0].append(_Chunk(cols=cols, length=n, arrival=now,
+                                           received=received_at))
+            self._counts[0] += n
+        else:
+            for s in range(self.n_shards):
+                m = shard == s
+                c = int(m.sum())
+                if c == 0:
+                    continue
+                self._pending[s].append(_Chunk(
+                    cols={f: cols[f][m] for f in _COL_FIELDS},
+                    length=c, arrival=now, received=received_at))
+                self._count_copied(c * (_ROW_BYTES - 1))  # mask gathers
+                self._counts[s] += c
         if self._oldest is None:
             self._oldest = now
 
         plans: List[BatchPlan] = []
-        while self._count >= self.seg:
+        while max(self._counts) >= self.seg:
             plans.append(self._emit())
         return plans
 
@@ -702,7 +779,7 @@ class Batcher:
 
     @property
     def pending(self) -> int:
-        return self._count
+        return sum(self._counts)
 
     # -- emission -----------------------------------------------------------
 
@@ -712,7 +789,11 @@ class Batcher:
         now = self.clock()
         wait = now - self._oldest if self._oldest is not None else 0.0
         # carried-over rows keep their chunk arrival time for the deadline
-        self._oldest = self._pending[0].arrival if self._pending else None
+        oldest = None
+        for q in self._pending:
+            if q and (oldest is None or q[0].arrival < oldest):
+                oldest = q[0].arrival
+        self._oldest = oldest
         self.emitted_batches += 1
         self.emitted_events += n
         if self.metrics is not None:
@@ -750,15 +831,44 @@ class Batcher:
         out["valid"][:] = False
         return ibuf, fbuf, out
 
+    def _adoptable_sharded(self) -> bool:
+        """True when every shard's sole pending chunk is the matching
+        segment of ONE full-width reservation: ``_commit_sharded`` left
+        segment-aligned views, so the reserved buffers already ARE the
+        batch."""
+        res = None
+        for s in range(self.n_shards):
+            q = self._pending[s]
+            if len(q) != 1:
+                return False
+            ch = q[0]
+            if ch.reserved is None or ch.start != 0 \
+                    or ch.length != self.seg \
+                    or ch.res_off != s * self.seg:
+                return False
+            if res is None:
+                res = ch.reserved
+            elif ch.reserved is not res:
+                return False
+        return res is not None and res.cap == self.width
+
     @hot_path
     def _emit_adopted(self, reason: str) -> BatchPlan:
-        """Zero-copy emission: the sole pending chunk is a full-width
+        """Zero-copy emission: the pending chunk(s) are a full-width
         reserved segment, and its packed buffers become the batch.  Only
         validity, the per-payload constants and any padding are written;
-        no row data moves."""
-        ch = self._pending.popleft()
-        res, n = ch.reserved, ch.length
-        self._count -= n
+        no row data moves.  (Sharded: one view-chunk per shard, all of
+        the same reservation, popped together.)"""
+        res = None
+        n = 0
+        received = None
+        for s in range(self.n_shards):
+            ch = self._pending[s].popleft()
+            res = ch.reserved
+            n += ch.length
+            self._counts[s] -= ch.length
+            got = ch.arrival if ch.received is None else ch.received
+            received = got if received is None else min(received, got)
         host_cols = res.finalize_adopted(n)
         now, wait = self._emit_tail(n, reason)
         return BatchPlan(
@@ -766,35 +876,46 @@ class Batcher:
             max_wait_s=wait, host_cols=host_cols,
             packed_i=res.ibuf, packed_f=res.fbuf,
             seq=self.emitted_batches - 1, reason=reason,
-            received_at=ch.arrival if ch.received is None else ch.received,
+            received_at=received,
         )
 
     @hot_path
     def _emit(self, reason: str = "fill") -> BatchPlan:
-        q = self._pending
-        if self.emit_packed and len(q) == 1 and q[0].reserved is not None \
-                and q[0].start == 0 and q[0].reserved.cap == self.width:
-            return self._emit_adopted(reason)
+        if self.emit_packed:
+            q = self._pending[0]
+            if self.n_shards == 1:
+                if len(q) == 1 and q[0].reserved is not None \
+                        and q[0].start == 0 \
+                        and q[0].reserved.cap == self.width:
+                    return self._emit_adopted(reason)
+            elif q and q[0].reserved is not None \
+                    and self._adoptable_sharded():
+                return self._emit_adopted(reason)
         ibuf, fbuf, out = self._assemble_buffers()
-        filled = 0
+        n = 0
         received = None
-        while filled < self.seg and q:
-            ch = q[0]
-            got = ch.arrival if ch.received is None else ch.received
-            received = got if received is None else min(received, got)
-            take = min(ch.length - ch.start, self.seg - filled)
-            lo, hi = filled, filled + take
-            for f in _COL_FIELDS:
-                out[f][lo:hi] = ch.cols[f][ch.start:ch.start + take]
-            out["valid"][lo:hi] = True
-            ch.start += take
-            filled += take
-            if ch.start >= ch.length:
-                # fully drained (staging chunks included: dropping them
-                # keeps a later append from resurrecting emitted rows)
-                q.popleft()
-        self._count -= filled
-        n = filled
+        for s in range(self.n_shards):
+            base = s * self.seg
+            filled = 0
+            q = self._pending[s]
+            while filled < self.seg and q:
+                ch = q[0]
+                got = ch.arrival if ch.received is None else ch.received
+                received = got if received is None else min(received, got)
+                take = min(ch.length - ch.start, self.seg - filled)
+                lo, hi = base + filled, base + filled + take
+                for f in _COL_FIELDS:
+                    out[f][lo:hi] = ch.cols[f][ch.start:ch.start + take]
+                out["valid"][lo:hi] = True
+                ch.start += take
+                filled += take
+                if ch.start >= ch.length:
+                    # fully drained (staging chunks included: dropping
+                    # them keeps a later append from resurrecting
+                    # emitted rows)
+                    q.popleft()
+            self._counts[s] -= filled
+            n += filled
         self._count_copied(n * _ROW_BYTES)
 
         now, wait = self._emit_tail(n, reason)

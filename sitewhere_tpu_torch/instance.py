@@ -113,14 +113,19 @@ mirror's zone table; defaults 256 and 32, the reference mirror's).  The
 keys in :data:`HONOURED` drive the instance.  Sections whose components
 the port does not have yet (``rpc`` and the rest) are not composed: at
 their defaults the instance runs without them, and any other value
-raises :class:`NotImplementedError`, as does ``pipeline.n_shards`` above
-1.  The ``outbound`` section's ``connectors`` key is such a value: the
+raises :class:`NotImplementedError`.  The ``outbound`` section's ``connectors`` key is such a value: the
 reference builds no connector from config either.  Events arrive
 through the sources, or through ``instance.dispatcher``
 (``ingest_wire_lines`` and the other entry points) on the caller's
 thread.
 
-The instance runs on the card unless ``device="cpu"`` is named.
+The instance runs on the card unless ``device="cpu"`` is named.  With
+``pipeline.n_shards`` above 1 it runs the sharded pipeline over a mesh of
+that many shards (the reference's ``make_mesh``): ``device`` may then be
+one device, which hosts every shard, or a sequence of ``n_shards``
+devices; ``None`` takes ``cuda:0`` and up and raises when fewer cards
+are visible.  ``pipeline.packed_step`` (then ``SW_TPU_PACKED_STEP``)
+chooses the packed or the unpacked step interface; packed by default.
 """
 
 from __future__ import annotations
@@ -139,7 +144,7 @@ import numpy as np
 from sitewhere_tpu_torch.analytics.runner import QueryRunner
 from sitewhere_tpu_torch.commands.model import CommandInvocation
 from sitewhere_tpu_torch.commands.processing import CommandProcessor
-from sitewhere_tpu_torch.device import DeviceLike, resolve_device
+from sitewhere_tpu_torch.device import resolve_device
 from sitewhere_tpu_torch.ids import NULL_ID, IdentityMap
 from sitewhere_tpu_torch.ingest.batcher import (
     _COL_FIELDS,
@@ -161,12 +166,14 @@ from sitewhere_tpu_torch.ingest.journal import (
     JournalReader,
 )
 from sitewhere_tpu_torch.ingest.sources import DecodePool
+from sitewhere_tpu_torch.parallel.mesh import make_mesh
 from sitewhere_tpu_torch.labels.manager import LabelGeneratorManager
 from sitewhere_tpu_torch.outbound.manager import OutboundConnectorsManager
 from sitewhere_tpu_torch.outbound.search import (
     EventSearchProvider,
     SearchProvidersManager,
 )
+from sitewhere_tpu_torch.pipeline.packed import packed_env_override
 from sitewhere_tpu_torch.pipeline.rules import RuleManager
 from sitewhere_tpu_torch.rules.engine import RuleEngineRunner
 from sitewhere_tpu_torch.runtime.checkpoint import (
@@ -249,7 +256,7 @@ HONOURED = (
     "pipeline.egress_offload", "pipeline.ring_depth",
     "pipeline.inflight_depth", "pipeline.quarantine_after",
     "pipeline.ewma_halflives_s", "pipeline.max_zones",
-    "pipeline.max_zone_verts",
+    "pipeline.max_zone_verts", "pipeline.n_shards", "pipeline.packed_step",
     "journal.*", "events.*", "checkpoint.interval_s", "rules.*",
     "analytics.*", "registration.*",
     "dead_letters.retain_records",
@@ -281,7 +288,7 @@ def _honoured(path: str) -> bool:
 def refuse_unsupported(config: Config) -> None:
     """Raise :class:`NotImplementedError` for a setting this instance
     cannot honour: a key outside :data:`HONOURED` whose value differs from
-    the default, or more than one pipeline shard."""
+    the default."""
     defaults = dict(_leaves(DEFAULTS))
     for path, value in _leaves(config.as_dict()):
         if _honoured(path):
@@ -292,10 +299,6 @@ def refuse_unsupported(config: Config) -> None:
                 f"config {path}={value!r}: the port's Instance does not "
                 f"compose the {section!r} component yet (see "
                 "sitewhere_tpu_torch/instance.py)")
-    if int(config["pipeline.n_shards"]) != 1:
-        raise NotImplementedError(
-            "config pipeline.n_shards > 1: the port runs one card; the "
-            "sharded paths come with a later slice")
 
 
 @dataclasses.dataclass
@@ -328,16 +331,43 @@ class InstanceTemplate:
         dataclasses.field(default_factory=list)
 
 
+def _mesh_for(n_shards: int, device):
+    """The instance's mesh: None for one shard, else ``n_shards`` shards
+    over ``device`` (one device hosts them all; a sequence names each
+    shard's; None takes the visible cards and raises when too few)."""
+    if n_shards <= 1:
+        return None
+    if device is None:
+        devices = None
+    elif isinstance(device, (list, tuple)):
+        devices = list(device)
+    else:
+        devices = [device] * n_shards
+    return make_mesh(n_devices=n_shards, devices=devices)
+
+
 class Instance(LifecycleComponent):
-    """One configured instance of the port on one card."""
+    """One configured instance of the port, on one card or over a mesh."""
 
     def __init__(self, config: Optional[Config] = None,
                  template: Optional[InstanceTemplate] = None,
-                 device: DeviceLike = None):
+                 device=None):
         super().__init__("instance")
         self.config = config or Config()
         refuse_unsupported(self.config)
         self.template = template or InstanceTemplate()
+        n_shards = int(self.config["pipeline.n_shards"])
+        # Multi-shard: one (shard, model) mesh; the dispatcher runs the
+        # sharded step and the batcher routes rows to the owning shard
+        # (the Kafka-partitioning analog)
+        self.mesh = _mesh_for(n_shards, device)
+        if self.mesh is not None:
+            device = self.mesh.shard_devices[0]
+        elif isinstance(device, (list, tuple)):
+            if len(device) != 1:
+                raise ValueError(
+                    f"{len(device)} devices for a pipeline of one shard")
+            device = device[0]
         self.device = resolve_device(device)
         dev = self.device
         self.instance_id = self.config["instance.id"]
@@ -376,20 +406,32 @@ class Instance(LifecycleComponent):
             cap, self.identity,
             num_mtype_slots=int(self.config["pipeline.mtype_slots"]),
             tenant_id_of_device=lambda ids: mirror.tenant_id[ids],
-            num_ewma_scales=len(ewma_halflives), device=dev)
+            num_ewma_scales=len(ewma_halflives), device=dev,
+            mesh=self.mesh)
         self.metrics = MetricsRegistry()
 
         # durable stores: the log-structured segment store (parallel
         # background seal off the egress worker, catalog-governed
         # retention and compaction, packed hot tier), the ingest journal
         # and the dead letters, which also take a store's terminal seal
-        # failures
+        # failures.  On a mesh, segment shards key to MESH shards (the
+        # registry block owning each device), so one egress segment's
+        # columns append into one shard buffer.
+        if self.mesh is not None:
+            rows_per_shard = max(1, cap // n_shards)
+
+            def store_shard_key(dev_ids, ten_ids, _r=rows_per_shard):
+                return np.asarray(dev_ids, np.int64) // _r
+        else:
+            store_shard_key = None
         self.event_store = self.add_child(SegmentStore(
             self.data_dir,
             flush_interval_s=0.25,
             retention_s=self.config.get("events.retention_s"),
             resident_bytes=int(self.config["events.resident_bytes"]),
-            n_shards=int(self.config["events.shards"]),
+            n_shards=(n_shards if self.mesh is not None
+                      else int(self.config["events.shards"])),
+            shard_key=store_shard_key,
             seal_workers=int(self.config["events.seal_workers"]),
             hot_bytes=int(self.config["events.hot_bytes"]),
             compact_interval_s=float(
@@ -676,14 +718,14 @@ class Instance(LifecycleComponent):
             )
         self.batcher = Batcher(
             width=width,
-            n_shards=1,
+            n_shards=n_shards,
             registry_capacity=cap,
             resolve_device=self.identity.device.lookup,
             resolve_mtype=self.identity.mtype.mint,
             resolve_alert=self.identity.alert_type.mint,
             invocations=self.identity.invocation,
             deadline_ms=float(self.config["pipeline.deadline_ms"]),
-            emit_packed=True,
+            emit_packed=self._packed_step_enabled(),
             metrics=self.metrics,
             controller=controller,
         )
@@ -730,6 +772,7 @@ class Instance(LifecycleComponent):
             slo=self.slo,
             usage_ledger=self.usage_ledger,
             device=dev,
+            mesh=self.mesh,
         ))
         if self.rule_engine is not None:
             # fired tenant programs re-enter the pipeline as first-class
@@ -803,6 +846,20 @@ class Instance(LifecycleComponent):
         self.restored = self.checkpointer.restore()
 
     # -- bootstrap (service-instance-management) ----------------------------
+
+    def _packed_step_enabled(self) -> bool:
+        """Config ``pipeline.packed_step`` (true/false) pins the step
+        interface; otherwise ``SW_TPU_PACKED_STEP``; the default is the
+        packed step, on every backend, as in the reference: the
+        dispatcher's egress reads one ``[10, B]`` block per step instead
+        of many output buffers."""
+        cfg = self.config.get("pipeline.packed_step", "auto")
+        if isinstance(cfg, bool):
+            return cfg
+        if str(cfg).lower() in ("true", "false"):
+            return str(cfg).lower() == "true"
+        env = packed_env_override()
+        return True if env is None else env
 
     @property
     def _marker_path(self) -> str:

@@ -302,6 +302,38 @@ def ring_depth_default() -> int:
     return 0
 
 
+def packed_env_override() -> Optional[bool]:
+    """``SW_TPU_PACKED_STEP`` as a tristate (None = unset): the one parser
+    for every consumer, so the dispatcher default and the pure-step
+    choice never disagree on what the variable means."""
+    env = os.environ.get("SW_TPU_PACKED_STEP")
+    if env is None:
+        return None
+    return env.strip().lower() not in ("0", "false", "")
+
+
+def packed_step_default() -> bool:
+    """Interface choice for the PURE step (microbenchmarks).
+
+    The reference packs on a TPU and not elsewhere; the port takes the
+    non-TPU branch, unpacked, until an H100 measurement chooses.  The
+    dispatcher packs on every backend regardless
+    (``Instance._packed_step_enabled``).  ``SW_TPU_PACKED_STEP=0/1``
+    overrides both."""
+    env = packed_env_override()
+    return False if env is None else env
+
+
+def packed_presence_sweep(ps: PackedState, now_s, missing_after_s
+                          ) -> Tuple[PackedState, torch.Tensor]:
+    """Presence sweep over the packed carry (one unpack -> sweep -> pack):
+    ``(ps', newly_missing bool[D])``."""
+    from sitewhere_tpu_torch.state.presence import presence_sweep
+
+    state, newly = presence_sweep(unpack_state(ps), now_s, missing_after_s)
+    return pack_state(state), newly
+
+
 # -- host side --------------------------------------------------------------
 
 
@@ -343,32 +375,63 @@ class HostCopy:
     event is recorded after the copies; :meth:`fetch` waits on that event
     alone, never on the whole card (``torch.cuda.synchronize`` would also
     wait for the steps dispatched after this one).  On the CPU the
-    tensors are their own host copy.  ``on_fetch`` is called once, at the
-    first :meth:`fetch` (the dispatcher counts its host syncs there).
+    tensors are their own host copy.  A mesh-placed
+    :class:`~sitewhere_tpu_torch.parallel.mesh.Sharded` tensor copies
+    block by block (one event per device) and is joined on the host at
+    fetch; a replicated one copies shard 0's block.  ``on_fetch`` is
+    called once, at the first :meth:`fetch` (the dispatcher counts its
+    host syncs there).
     """
 
-    def __init__(self, *tensors: torch.Tensor, on_fetch=None):
+    def __init__(self, *tensors, on_fetch=None):
+        from sitewhere_tpu_torch.parallel.mesh import Sharded
+
         self._on_fetch = on_fetch
         self._host: Optional[Tuple[np.ndarray, ...]] = None
-        if tensors and tensors[0].is_cuda:
-            self._bufs = tuple(torch.empty(t.shape, dtype=t.dtype,
-                                           pin_memory=True) for t in tensors)
-            for buf, t in zip(self._bufs, tensors):
-                buf.copy_(t, non_blocking=True)
-            self._done = torch.cuda.Event()
-            self._done.record(torch.cuda.current_stream(tensors[0].device))
-        else:
-            self._bufs = tensors
-            self._done = None
+        # per tensor: (blocks, dim); dim None = a single block
+        self._parts = []
+        for t in tensors:
+            if isinstance(t, Sharded):
+                if t.dim is None:
+                    self._parts.append(((t.shards[0],), None))
+                else:
+                    self._parts.append((t.shards, t.dim))
+            else:
+                self._parts.append(((t,), None))
+        self._done = []
+        devices = {}
+        for blocks, _ in self._parts:
+            for b in blocks:
+                if b.is_cuda:
+                    devices[b.device] = True
+        if devices:
+            self._parts = [
+                (tuple(self._pinned(b) for b in blocks), dim)
+                for blocks, dim in self._parts]
+            for dev in devices:
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(dev))
+                self._done.append(done)
+
+    @staticmethod
+    def _pinned(t: torch.Tensor) -> torch.Tensor:
+        if not t.is_cuda:
+            return t
+        buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        buf.copy_(t, non_blocking=True)
+        return buf
 
     def fetch(self) -> Tuple[np.ndarray, ...]:
         if self._host is None:
             if self._on_fetch is not None:
                 self._on_fetch()
-            if self._done is not None:
-                self._done.synchronize()
-            self._host = tuple(b.numpy() for b in self._bufs)
-            self._bufs = ()
+            for done in self._done:
+                done.synchronize()
+            self._host = tuple(
+                blocks[0].numpy() if dim is None
+                else np.concatenate([b.numpy() for b in blocks], axis=dim)
+                for blocks, dim in self._parts)
+            self._parts = ()
         return self._host
 
 

@@ -1,7 +1,7 @@
 """Bring-your-own-rules: per-tenant rule and enrichment programs, bucketed
 into a bounded set of batched passes.  Counterpart of
-``sitewhere_tpu/rules`` on one card (its mesh half comes with the sharded
-slice).
+``sitewhere_tpu/rules``, its mesh half (``compile.sharded_prepare``)
+included.
 
 - ``dsl``       declarative program documents, validation, canonical form,
                 and the structure key that buckets programs;

@@ -1,7 +1,7 @@
 """The bucketing compiler: structure-shared passes over operand tables.
 
-Counterpart of ``sitewhere_tpu/rules/compile.py`` without its mesh half
-(``sharded_prepare`` comes with the sharded slice).  Programs sharing a
+Counterpart of ``sitewhere_tpu/rules/compile.py``, its mesh half
+(:func:`sharded_prepare`) included.  Programs sharing a
 :func:`~sitewhere_tpu_torch.rules.dsl.structure_key` share ONE group-eval
 pass; everything that distinguishes them (thresholds, comparison ops,
 window choices, polygon rings, attribute ids, alert codes) is data in
@@ -323,6 +323,76 @@ def rules_prepare_batch(
     return feats, (trail_ts, trail_ns, trail_v, trail_ewma)
 
 
+# -- mesh-sharded prepare ----------------------------------------------------
+
+def sharded_prepare(mesh, rows_per_shard: int) -> Callable:
+    """The prepare pass over ``mesh``: the trail and the device-attribute
+    table sharded by ``device_id // rows_per_shard`` exactly like device
+    state, the batch and the (small) asset table replicated, the
+    features summed over the shards.  Same arguments and results as
+    :func:`prepare_kernel`'s callable.
+
+    Each shard computes features only for the rows whose device it owns.
+    Elsewhere it contributes an exact zero: ``-0.0``, the additive
+    identity of an IEEE sum, through ``torch.where`` and never a product
+    (``0 * inf`` is NaN), so the summed features equal the unsharded
+    pass's bitwise, ``-0.0``, infinities and NaNs included.  The NULL_ID
+    attribute fill rides an ``x + 1`` shift, so rows no shard owns still
+    read as unset.  Trail updates stay shard-local, in place."""
+    from sitewhere_tpu_torch.parallel.mesh import SHARD_AXIS, P
+    from sitewhere_tpu_torch.parallel.shmap import PSUM, axis_index, shard_map
+
+    shard1 = P(SHARD_AXIS)
+    rep = P()
+    in_specs = (
+        shard1, shard1, shard1, shard1,          # trail ts/ns/v/ewma
+        shard1, rep,                             # dev_attr, asset_attr
+        rep, rep, rep, rep, rep, rep, rep, rep,  # batch columns
+        rep,                                     # taus
+    )
+    out_specs = (PSUM, (shard1, shard1, shard1, shard1))
+    n_shards = mesh.n_shards
+
+    def local_prepare(trail_ts, trail_ns, trail_v, trail_ewma,
+                      dev_attr, asset_attr, device_id, asset_id,
+                      ts_s, ts_ns, mtype_id, value, event_type,
+                      accepted, taus):
+        offset = axis_index(SHARD_AXIS) * rows_per_shard
+        local_id = device_id - offset
+        owned = (local_id >= 0) & (local_id < rows_per_shard)
+        feats, trail = rules_prepare_batch(
+            trail_ts, trail_ns, trail_v, trail_ewma, dev_attr, asset_attr,
+            torch.where(owned, local_id, NULL_ID), asset_id, ts_s, ts_ns,
+            mtype_id, value, event_type, accepted & owned, taus)
+        zero = torch.tensor(-0.0, dtype=torch.float32,
+                            device=device_id.device)
+        shifted = (
+            torch.where(owned[:, None], feats.ewma, zero),
+            torch.where(owned, feats.rate, zero),
+            (feats.rate_valid & owned).to(torch.int32),
+            torch.where(owned[:, None], feats.dev_attr + 1, 0),
+            feats.asset_attr + 1,
+        )
+        return shifted, trail
+
+    mapped = shard_map(local_prepare, mesh=mesh, in_specs=in_specs,
+                       out_specs=out_specs)
+
+    def prepare(*args):
+        (ewma, rate, rate_valid, dev_attr, asset_attr), trail = mapped(
+            *args)
+        feats = BatchFeatures(
+            ewma=ewma.shards[0], rate=rate.shards[0],
+            rate_valid=rate_valid.shards[0] > 0,
+            dev_attr=dev_attr.shards[0] - 1,
+            # the asset table is replicated: every shard contributes the
+            # same shifted row, so divide the sum back out
+            asset_attr=asset_attr.shards[0] // n_shards - 1)
+        return feats, trail
+
+    return prepare
+
+
 # -- the signature cache (the reference's trace cache) ------------------------
 
 _CACHE_LOCK = threading.Lock()
@@ -403,5 +473,6 @@ __all__ = [
     "GroupTables", "BatchFeatures", "rules_group_eval",
     "rules_prepare_batch", "kernel_for", "prepare_kernel",
     "compile_count", "structure_keys_compiled", "reset_trace_cache",
+    "sharded_prepare",
     "GEO_LANE_BUDGET_BYTES",
 ]

@@ -1,7 +1,10 @@
 """The rule-program runner: live evaluation of compiled tenant programs.
 
-Counterpart of ``sitewhere_tpu/rules/engine.py`` on one card, without
-its mesh half.  The dispatcher's egress hands every accepted enriched
+Counterpart of ``sitewhere_tpu/rules/engine.py``.  Given a ``mesh``
+(the reference's ``mesh=`` / ``rows_per_shard=``), the prepare pass runs
+sharded (``rules/compile.py sharded_prepare``) over a trail sharded by
+capacity; the ``Instance`` runs the engine unsharded, as the
+reference's does.  The dispatcher's egress hands every accepted enriched
 batch to :meth:`submit_live` (a non-blocking bounded offer), a single
 worker thread runs the prepare and group passes of ``rules/compile.py``,
 and fired programs become ALERT rows re-injected through the
@@ -87,10 +90,16 @@ class RuleEngineRunner(LifecycleComponent):
                  programs_per_tenant: int = 4,
                  max_programs: int = 262144,
                  queue_depth: int = 64,
+                 mesh=None, rows_per_shard: Optional[int] = None,
                  name: str = "rule-programs",
                  device: DeviceLike = None):
         super().__init__(name)
+        if mesh is not None and device is None:
+            device = mesh.shard_devices[0]
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.rows_per_shard = rows_per_shard
+        self._prepare_sharded = None
         self.capacity = int(capacity)
         self.n_mtype_slots = int(n_mtype_slots)
         self.overload = overload
@@ -310,10 +319,19 @@ class RuleEngineRunner(LifecycleComponent):
     def _prepare(self, bi, bf, acc, attrs):
         """Run the prepare pass; updates the trail in place and returns
         the per-row features."""
-        feats, self._trail = rcompile.prepare_kernel()(
-            *self._trail, attrs.device, attrs.asset,
-            bi["device_id"], bi["asset_id"], bi["ts_s"], bi["ts_ns"],
-            bi["mtype_id"], bf["value"], bi["event_type"], acc, self.taus)
+        args = (*self._trail, attrs.device, attrs.asset,
+                bi["device_id"], bi["asset_id"], bi["ts_s"], bi["ts_ns"],
+                bi["mtype_id"], bf["value"], bi["event_type"], acc,
+                self.taus)
+        if self.mesh is not None:
+            if self._prepare_sharded is None:
+                rows = (self.rows_per_shard
+                        or self.capacity // self.mesh.size)
+                self._prepare_sharded = rcompile.sharded_prepare(
+                    self.mesh, rows)
+            feats, self._trail = self._prepare_sharded(*args)
+        else:
+            feats, self._trail = rcompile.prepare_kernel()(*args)
         return feats
 
     def _eval_batch(self, batch: Dict[str, np.ndarray]) -> None:

@@ -18,8 +18,10 @@ dumps the in-flight records to the flight recorder (the card is slow);
 past the hard budget the device tier is marked unhealthy (the card is
 wedged).  The flag self-clears when every tracked dispatch drains.
 
-Both guards take an injectable ``clock``.  The reference's per-shard
-breaker bank (``ShardBreakers``) comes with the mesh slice.
+:class:`ShardBreakers` -- on a mesh, one breaker per shard, so a sick
+shard demotes its own rows without demoting the whole mesh.
+
+The guards take an injectable ``clock``.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ __all__ = [
     "BREAKER_LEVELS",
     "DeviceBreaker",
     "DeviceWatchdog",
+    "ShardBreakers",
 ]
 
 # Breaker ladder levels, most to least capable.
@@ -162,6 +165,136 @@ class DeviceBreaker:
                 "trips": self.trips,
                 "restores": self.restores,
             }
+
+
+class ShardBreakers:
+    """Per-shard breaker bank for mesh dispatch: one :class:`DeviceBreaker`
+    per mesh shard, so a sick chip demotes ITS shard without demoting the
+    whole mesh.
+
+    The fused chain is ONE SPMD program over every shard, so "demote a
+    shard" cannot mean "run the program without it" — the mesh shape is
+    fixed.  It means the dispatcher masks the demoted shard's batch rows
+    out of the chained dispatch and side-routes them (single-step, or the
+    CPU fallback once the shard's breaker reaches :data:`FALLBACK`),
+    while the healthy shards keep the full 1/K host-sync economy.  (On
+    a card the port's FALLBACK side route single-steps through the mesh:
+    the dispatcher never moves a card's state to the CPU.)  The
+    bank therefore answers two questions separately:
+
+    - :meth:`allow_chain` — may a chained dispatch run at all?  True
+      while ANY shard admits it (demoted shards ride masked); False only
+      when every shard is demoted and cooling.
+    - :meth:`demoted_shards` — which shards must be masked + side-routed
+      right now.  A shard whose cooldown expired half-opens here: it is
+      NOT reported demoted, so its rows rejoin the next chain as the
+      probe, and :meth:`record_success` for the participating shards
+      closes it (or a fault attributed back to it re-trips it).
+
+    ``record_fault(seq, shard=None)`` strikes one shard when the fault
+    is attributable (nonfinite rows land in a shard's batch segment) and
+    every shard when it is not — an unattributable chain fault must not
+    leave the tier un-guarded.  Callbacks carry the shard index:
+    ``on_trip(shard, level)`` / ``on_restore(shard)``.
+    """
+
+    def __init__(self, n_shards: int, threshold: int = 3,
+                 window_s: float = 60.0, cooldown_s: float = 30.0,
+                 clock: Callable[[], float] = time.monotonic,
+                 on_trip: Optional[Callable[[int, int], None]] = None,
+                 on_restore: Optional[Callable[[int], None]] = None):
+        self.n_shards = max(1, int(n_shards))
+        self.on_trip = on_trip
+        self.on_restore = on_restore
+        self._shards = [
+            DeviceBreaker(threshold, window_s, cooldown_s, clock,
+                          on_trip=self._make_trip(s),
+                          on_restore=self._make_restore(s))
+            for s in range(self.n_shards)
+        ]
+
+    def _make_trip(self, shard: int) -> Callable[[int], None]:
+        def fire(level: int, _shard=shard) -> None:
+            if self.on_trip is not None:
+                self.on_trip(_shard, level)
+        return fire
+
+    def _make_restore(self, shard: int) -> Callable[[], None]:
+        def fire(_shard=shard) -> None:
+            if self.on_restore is not None:
+                self.on_restore(_shard)
+        return fire
+
+    @property
+    def level(self) -> int:
+        """Worst (most-demoted) shard level — the tier-wide summary."""
+        return max(b.level for b in self._shards)
+
+    @property
+    def level_name(self) -> str:
+        return BREAKER_LEVELS[self.level]
+
+    @property
+    def trips(self) -> int:
+        return sum(b.trips for b in self._shards)
+
+    @property
+    def restores(self) -> int:
+        return sum(b.restores for b in self._shards)
+
+    def level_of(self, shard: int) -> int:
+        return self._shards[shard].level
+
+    def allow_chain(self) -> bool:
+        """True while at least one shard admits chained dispatch (the
+        others ride the chain masked, side-routed by the dispatcher)."""
+        return any(b.allow_chain() for b in self._shards)
+
+    def demoted_shards(self) -> tuple:
+        """Shards the next chained dispatch must mask + side-route.
+        Half-open probes are deliberately NOT demoted — their rows ride
+        the chain as the probe."""
+        return tuple(s for s, b in enumerate(self._shards)
+                     if not b.allow_chain())
+
+    def suspect_shards(self) -> tuple:
+        """Shards with an elevated level OR live strikes — the best
+        available attribution when something ELSE (the hung-step
+        watchdog) needs to name a culprit."""
+        return tuple(s for s, b in enumerate(self._shards)
+                     if b.level != CHAINED or b._strikes)
+
+    def record_fault(self, seq: int, shard: Optional[int] = None) -> bool:
+        """Strike ``shard`` (or ALL shards when unattributable)."""
+        if shard is not None:
+            return self._shards[shard].record_fault(seq)
+        tripped = False
+        for b in self._shards:
+            tripped = b.record_fault(seq) or tripped
+        return tripped
+
+    def record_success(self, chained: bool = False,
+                       shards: Optional[object] = None,
+                       masked: tuple = ()) -> None:
+        """A dispatch drained clean for ``shards`` (None = all except
+        ``masked``).  A chained success closes only the PARTICIPATING
+        shards' breakers — a masked shard proved nothing."""
+        if shards is None:
+            shards = [s for s in range(self.n_shards) if s not in masked]
+        for s in shards:
+            self._shards[s].record_success(chained)
+
+    def snapshot(self) -> dict:
+        shards = [b.snapshot() for b in self._shards]
+        return {
+            "level": max(s["level"] for s in shards),
+            "levelName": BREAKER_LEVELS[max(s["level"] for s in shards)],
+            "strikes": sum(s["strikes"] for s in shards),
+            "probing": any(s["probing"] for s in shards),
+            "trips": sum(s["trips"] for s in shards),
+            "restores": sum(s["restores"] for s in shards),
+            "shards": shards,
+        }
 
 
 class DeviceWatchdog:

@@ -84,6 +84,18 @@ first-class events, and the new state committed to the
   breaker's FALLBACK level fails closed the same way on a card, where the
   reference steps on the CPU; a dispatcher on the CPU steps there anyway
   and counts those steps in ``device.fault.cpu_fallback_steps``.
+- THE MESH (``mesh``, :mod:`~sitewhere_tpu_torch.parallel.mesh`): the
+  step, the packed step and the K-chain run over the shards
+  (:mod:`~sitewhere_tpu_torch.pipeline.sharded`), each plan staged as one
+  block per shard.  Faults are attributed to shards by the batch segment
+  of their NaN/Inf rows, and a
+  :class:`~sitewhere_tpu_torch.runtime.devguard.ShardBreakers` bank
+  demotes only the sick shard: its rows leave the chain through the
+  side route (:meth:`_sidecar_shard_rows`) while the healthy shards keep
+  chaining.  A shard at FALLBACK side-steps through the mesh on a card
+  (counted in ``sidecar_steps``), the reference's own branch for a host
+  without a CPU device; the process fails closed only when every shard
+  is at FALLBACK.
 
 Backend switches follow the reference's non-TPU branch until an H100
 measurement chooses: ``inflight_depth`` 1, ring depth
@@ -132,6 +144,8 @@ from sitewhere_tpu_torch.ingest.decoders import (
     RequestKind,
 )
 from sitewhere_tpu_torch.ingest.journal import Journal, JournalReader
+from sitewhere_tpu_torch.parallel.mesh import SHARD_AXIS, P, gather
+from sitewhere_tpu_torch.parallel.shmap import place_tree, tree_map
 from sitewhere_tpu_torch.pipeline.packed import (
     BATCH_F,
     BATCH_I,
@@ -146,6 +160,14 @@ from sitewhere_tpu_torch.pipeline.packed import (
     ring_depth_default,
     stage_packed_batch,
 )
+from sitewhere_tpu_torch.pipeline.sharded import (
+    build_sharded_packed_chain,
+    build_sharded_packed_step,
+    build_sharded_step,
+    place_packed_batch,
+    place_packed_tables,
+    unpack_sharded_state,
+)
 from sitewhere_tpu_torch.pipeline.step import pipeline_step
 from sitewhere_tpu_torch.runtime import faults
 from sitewhere_tpu_torch.runtime.devguard import (
@@ -153,6 +175,7 @@ from sitewhere_tpu_torch.runtime.devguard import (
     FALLBACK,
     DeviceBreaker,
     DeviceWatchdog,
+    ShardBreakers,
 )
 from sitewhere_tpu_torch.runtime.lifecycle import LifecycleComponent
 from sitewhere_tpu_torch.runtime.metrics import MetricsRegistry
@@ -416,10 +439,18 @@ class PipelineDispatcher(LifecycleComponent):
         breaker: Optional[DeviceBreaker] = None,
         watchdog: Optional[DeviceWatchdog] = None,
         device: DeviceLike = None,
+        mesh=None,
         name: str = "pipeline-dispatcher",
     ):
         super().__init__(name)
+        if mesh is not None and device is None:
+            device = mesh.shard_devices[0]
         self.device = resolve_device(device)
+        # On a mesh the step runs over the shards (the Kafka-partitioning
+        # analog): the batcher routes each row to the segment of the
+        # shard owning its registry block, and the packed step, the
+        # K-chain and the unpacked step are their sharded forms.
+        self.mesh = mesh
         self.batcher = batcher
         self.registry_provider = registry_provider
         self.rules_provider = rules_provider
@@ -448,9 +479,16 @@ class PipelineDispatcher(LifecycleComponent):
         self.overload = overload
         self.resolve_tenant = resolve_tenant or (lambda token: 0)
         self.max_replay_depth = max_replay_depth
-        self._step = pipeline_step
-        self._packed_step = packed_pipeline_step
+        if mesh is not None:
+            self._step = build_sharded_step(mesh)
+            self._packed_step = build_sharded_packed_step(mesh)
+        else:
+            self._step = pipeline_step
+            self._packed_step = packed_pipeline_step
         self._tables_cache: Optional[tuple] = None
+        # mesh-placed registry/rules/zones epochs of the unpacked step,
+        # keyed by the provider epoch's identity
+        self._placed_cache: Dict[int, tuple] = {}
         # Registration's re-decoded journal records, by offset: a line of
         # a record split across two plans is decoded once, not once per
         # plan (records are immutable; the decoded requests are only
@@ -610,11 +648,37 @@ class PipelineDispatcher(LifecycleComponent):
         # probe restores.  Watchdog: wall-clock budgets over in-flight
         # dispatches.  Callers may pass pre-configured guards; the
         # dispatcher attaches its handlers to any callbacks left unset.
-        self.breaker = breaker if breaker is not None else DeviceBreaker()
+        # On a mesh with a sharded batcher the bank holds one breaker per
+        # shard: a fault attributed to one shard's batch segment demotes
+        # that shard alone (side-routed, _sidecar_shard_rows) while the
+        # healthy shards keep chaining.
+        self._mesh_shards = (batcher.n_shards
+                             if mesh is not None and batcher.n_shards > 1
+                             else 0)
+        # batch rows of shard s live at [s*seg, (s+1)*seg)
+        self._shard_seg = (batcher.width // batcher.n_shards
+                           if self._mesh_shards else 0)
+        if breaker is not None:
+            self.breaker = breaker
+        elif self._mesh_shards:
+            self.breaker = ShardBreakers(self._mesh_shards)
+        else:
+            self.breaker = DeviceBreaker()
+        self._shard_breakers = hasattr(self.breaker, "demoted_shards")
         if self.breaker.on_trip is None:
-            self.breaker.on_trip = self._on_breaker_trip
+            self.breaker.on_trip = (self._on_shard_breaker_trip
+                                    if self._shard_breakers
+                                    else self._on_breaker_trip)
         if self.breaker.on_restore is None:
-            self.breaker.on_restore = self._on_breaker_restore
+            self.breaker.on_restore = (self._on_shard_breaker_restore
+                                       if self._shard_breakers
+                                       else self._on_breaker_restore)
+        # the breaker bank's suspect shards during a watchdog wedge
+        # (device_unhealthy_shards); cleared when the tier recovers
+        self._unhealthy_shards: tuple = ()
+        # side-route dispatches of demoted shards' rows (a FALLBACK shard
+        # on a card steps through the mesh; see _sidecar_shard_rows)
+        self.sidecar_steps = 0
         self.watchdog = (watchdog if watchdog is not None
                          else DeviceWatchdog())
         if self.watchdog.on_soft is None:
@@ -682,10 +746,10 @@ class PipelineDispatcher(LifecycleComponent):
 
     def _stage_plan(self, plan: BatchPlan) -> None:
         """Start the H2D copy of a plan: packed buffers through pinned
-        memory without blocking, or an unpacked plan's EventBatch."""
+        memory without blocking (on a mesh, one block per shard), or an
+        unpacked plan's EventBatch."""
         if plan.staged is None and plan.packed_i is not None:
-            plan.staged = stage_packed_batch(plan.packed_i, plan.packed_f,
-                                             self.device)
+            plan.staged = self._stage_packed(plan.packed_i, plan.packed_f)
             self._m_h2d_bytes.inc(
                 plan.packed_i.nbytes + plan.packed_f.nbytes)
         elif plan.packed_i is None and plan.batch is None \
@@ -693,6 +757,11 @@ class PipelineDispatcher(LifecycleComponent):
             t0 = time.perf_counter()
             plan.materialize_batch(self.device)
             self._m_stage["h2d"].observe(time.perf_counter() - t0)
+
+    def _stage_packed(self, bi, bf):
+        if self.mesh is not None:
+            return place_packed_batch(self.mesh, bi, bf)
+        return stage_packed_batch(bi, bf, self.device)
 
     # -- admission ----------------------------------------------------------
 
@@ -1059,9 +1128,9 @@ class PipelineDispatcher(LifecycleComponent):
         if space is not None:
             space.native_table()
         width = self.batcher.width
-        bi, bf = stage_packed_batch(
+        bi, bf = self._stage_packed(
             np.zeros((len(BATCH_I), width), np.int32),
-            np.zeros((len(BATCH_F), width), np.float32), self.device)
+            np.zeros((len(BATCH_F), width), np.float32))
         tables = self._tables_packed()
         with self._step_lock:
             if self.ring_depth:
@@ -1297,9 +1366,24 @@ class PipelineDispatcher(LifecycleComponent):
 
     # -- one step -----------------------------------------------------------
 
+    def _placed(self, obj, sharded: bool):
+        """A provider epoch placed on the mesh (the unpacked step's
+        registry sharded by capacity, its rules and zones replicated),
+        cached by the epoch's identity."""
+        c = self._placed_cache.get(id(obj))
+        if c is not None and c[0] is obj:
+            return c[1]
+        placed = place_tree(self.mesh, obj,
+                            P(SHARD_AXIS) if sharded else P())
+        if len(self._placed_cache) > 8:
+            self._placed_cache.clear()
+        self._placed_cache[id(obj)] = (obj, placed)
+        return placed
+
     def _tables_packed(self):
         """PackedTables for the current provider epochs, identity-cached
-        (re-packs only when a registry/rule/zone epoch changed)."""
+        (re-packs only when a registry/rule/zone epoch changed; on a mesh,
+        placed with the canonical placements)."""
         t0 = time.perf_counter()
         reg = self.registry_provider()
         t_reg = time.perf_counter() - t0
@@ -1312,6 +1396,8 @@ class PipelineDispatcher(LifecycleComponent):
             self._m_leg["registry_publish"].observe(t_reg)
         t0 = time.perf_counter()
         t = pack_tables(reg, rules, zones)
+        if self.mesh is not None:
+            t = place_packed_tables(self.mesh, t)
         self._m_leg["tables_repack"].observe(time.perf_counter() - t0)
         self._tables_cache = (reg, rules, zones, t)
         return t
@@ -1412,7 +1498,8 @@ class PipelineDispatcher(LifecycleComponent):
         """The K-step chain, built once per K."""
         chain = self._ring_chains.get(k)
         if chain is None:
-            chain = build_packed_chain(k)
+            chain = (build_sharded_packed_chain(self.mesh, k)
+                     if self.mesh is not None else build_packed_chain(k))
             self._ring_chains[k] = chain
         return chain
 
@@ -1433,6 +1520,14 @@ class PipelineDispatcher(LifecycleComponent):
         k = len(plans)
         chain = self._ring_chain(k)
         now = time.monotonic()
+        # per-shard containment (mesh): rows of the shards the breaker
+        # bank has demoted are side-routed and masked BEFORE the chain,
+        # so one sick shard degrades alone while the healthy shards keep
+        # the 1/K host-sync economy
+        demoted = (self.breaker.demoted_shards()
+                   if self._shard_breakers else ())
+        if demoted:
+            self._sidecar_shard_rows(plans, demoted)
         slots_i, slots_f = self._ring_slots_i, self._ring_slots_f
         for i, plan in enumerate(plans):
             self._m_stage["ring_wait"].observe(
@@ -1481,8 +1576,12 @@ class PipelineDispatcher(LifecycleComponent):
             self._m_assemble.observe(plan.max_wait_s)
             plan.dispatch_s = chain_dt / k   # per-slot share of the chain
             self._window_step(plan, RingStepView(fetch, slot), 0, trace)
-        # a clean CHAINED dispatch closes a half-open breaker probe
-        self.breaker.record_success(chained=True)
+        # a clean CHAINED dispatch closes a half-open breaker probe; on a
+        # mesh it vouches only for the shards that rode the chain
+        if demoted:
+            self.breaker.record_success(chained=True, masked=demoted)
+        else:
+            self.breaker.record_success(chained=True)
 
     def _host_copy(self, make, oi, metrics):
         """Start a step's device-to-host copy; a copy that cannot start
@@ -1530,7 +1629,10 @@ class PipelineDispatcher(LifecycleComponent):
                 "device-fault",
                 detail=f"chain of {len(plans)} failed: "
                        f"{type(exc).__name__}: {exc}")
-        self.breaker.record_fault(plans[0].seq)
+        # per-shard attribution on a mesh: NaN/Inf rows in a shard's
+        # batch segment strike THAT shard's breaker; an unattributable
+        # chain fault strikes every shard
+        self._record_device_fault(plans[0].seq, plans)
         # single-step re-dispatch in emission order; a plan that fails
         # AGAIN stays re-parked (front of the ring) and keeps the commit
         # gate closed: journal replay recovers it after a restart
@@ -1632,9 +1734,16 @@ class PipelineDispatcher(LifecycleComponent):
 
     def _on_watchdog_hard(self, payload, elapsed_s: float) -> None:
         self._m_fault["watchdog_hard_trips"].inc()
+        # shard-scoped wedge attribution (mesh): the bank's suspects,
+        # shards with live strikes or an elevated level; () = the whole
+        # tier is suspect
+        if self._shard_breakers:
+            self._unhealthy_shards = self.breaker.suspect_shards()
         logger.error("device tier unhealthy: dispatch wedged %.3fs "
-                     "(hard budget %.3fs)", elapsed_s,
-                     self.watchdog.hard_s)
+                     "(hard budget %.3fs)%s", elapsed_s,
+                     self.watchdog.hard_s,
+                     (f", suspect shards {self._unhealthy_shards}"
+                      if self._unhealthy_shards else ""))
         if self.flightrec is not None:
             self.flightrec.anomaly(
                 "device-wedged",
@@ -1642,12 +1751,143 @@ class PipelineDispatcher(LifecycleComponent):
                        f"(hard budget {self.watchdog.hard_s:.3f}s)")
 
     def _on_watchdog_recovered(self) -> None:
+        self._unhealthy_shards = ()
         logger.info("device tier recovered: in-flight dispatches drained")
 
     @property
     def device_unhealthy(self) -> bool:
         """True while the hung-step watchdog holds the tier unhealthy."""
         return self.watchdog.unhealthy
+
+    @property
+    def device_unhealthy_shards(self) -> tuple:
+        """Mesh refinement of :attr:`device_unhealthy`: the shards
+        suspected in the current wedge.  Empty while healthy, and when a
+        wedge cannot be attributed (then the whole tier is suspect)."""
+        if not self.watchdog.unhealthy:
+            return ()
+        return self._unhealthy_shards
+
+    def _on_shard_breaker_trip(self, shard: int, level: int) -> None:
+        """One mesh shard demoted (ShardBreakers callback): the gauge
+        tracks the WORST shard, the flight recorder names the sick one,
+        and the overload ladder engages only once NO shard can chain."""
+        self._m_fault["breaker_trips"].inc()
+        self._m_breaker_state.set(self.breaker.level)
+        logger.warning("device breaker tripped to %s for mesh shard %d "
+                       "(other shards keep chaining)",
+                       BREAKER_LEVELS[level], shard)
+        if self.flightrec is not None:
+            self.flightrec.anomaly(
+                "device-breaker",
+                detail=f"shard {shard} demoted to {BREAKER_LEVELS[level]}")
+        if (self.overload is not None
+                and not self.breaker.allow_chain()
+                and self.overload.state == OverloadState.NORMAL):
+            self.overload.force(OverloadState.DEGRADED,
+                                reason="device-breaker")
+
+    def _on_shard_breaker_restore(self, shard: int) -> None:
+        self._m_breaker_state.set(self.breaker.level)
+        logger.info("device breaker restored chained dispatch for "
+                    "mesh shard %d", shard)
+        if (self.breaker.level == 0
+                and self.overload is not None
+                and self.overload.state == OverloadState.DEGRADED
+                and getattr(self.overload, "last_driver", None)
+                == "device-breaker"):
+            self.overload.force(OverloadState.NORMAL,
+                                reason="device-breaker-recovered")
+
+    def _fault_shards(self, plans) -> Optional[set]:
+        """Attribute a mesh dispatch fault to shard(s): the retained HOST
+        batch buffers' NaN/Inf rows, each mapped by its batch position to
+        its shard segment.  None = unattributable (the caller strikes
+        every shard)."""
+        if not self._mesh_shards:
+            return None
+        shards: set = set()
+        for plan in plans:
+            if plan.packed_i is None:
+                continue
+            bf = np.asarray(plan.packed_f)
+            valid = np.asarray(plan.packed_i[0]) != 0
+            bad = valid & ~np.isfinite(bf).all(axis=0)
+            for row in np.nonzero(bad)[0]:
+                shards.add(int(row) // self._shard_seg)
+        return shards or None
+
+    def _record_device_fault(self, seq: int, plans) -> None:
+        """Route one device fault into the breaker: per shard when the
+        bank is shard-aware AND the fault attributes to segments,
+        tier-wide otherwise."""
+        if not self._shard_breakers:
+            self.breaker.record_fault(seq)
+            return
+        shards = self._fault_shards(plans)
+        if shards is None:
+            self.breaker.record_fault(seq)
+        else:
+            for s in sorted(shards):
+                self.breaker.record_fault(seq, shard=s)
+
+    def _tier_fallback(self) -> bool:
+        """Is the whole tier at FALLBACK?  On a mesh, only when every
+        shard is: a single FALLBACK shard side-steps through the mesh."""
+        if self._shard_breakers:
+            return all(self.breaker.level_of(s) >= FALLBACK
+                       for s in range(self.breaker.n_shards))
+        return self.breaker.level >= FALLBACK
+
+    def _sidecar_shard_rows(self, plans, demoted: tuple) -> None:
+        """Demoted-shard side route (mesh ring, under ``_step_lock``):
+        each ring plan's rows of the ``demoted`` shards go through the
+        containment subset path (one step over the mesh with only those
+        rows valid), then are masked out of the staged chain batch.  The
+        healthy shards keep the chain; the sick shard's rows still flow,
+        commit through the same read-epoch merge, and egress normally.
+
+        At FALLBACK the reference routes these rows through its CPU step.
+        A dispatcher on a card never moves the card's state to the CPU,
+        so it takes the reference's branch for a host without a CPU
+        device: the shard keeps single-stepping through the mesh,
+        counted in :attr:`sidecar_steps`, and the process does not exit
+        for one sick shard.  On the CPU the side steps count as CPU
+        fallback steps, as the reference's do.  A side dispatch that
+        FAILS leaves its rows in the chain on purpose: the chain fault
+        that follows re-enters :meth:`_recover_ring`'s containment."""
+        fallback = any(self.breaker.level_of(s) >= FALLBACK
+                       for s in demoted)
+        seg = self._shard_seg
+        for plan in plans:
+            if plan.packed_i is None:
+                continue
+            valid = np.asarray(plan.packed_i[0]) != 0
+            take = np.zeros(valid.shape[0], dtype=bool)
+            for s in demoted:
+                take[s * seg:(s + 1) * seg] = True
+            rows = np.nonzero(take & valid)[0]
+            if rows.size == 0:
+                continue
+            trace = self.tracer.trace("pipeline.shard-sidecar")
+            trace.record("shard.sidecar", 0.0, seq=plan.seq,
+                         rows=int(rows.size), shards=list(demoted))
+            if not self._try_subset(plan, rows, 0, trace):
+                logger.warning(
+                    "sidecar dispatch for demoted shard(s) %s failed "
+                    "(seq=%d); rows stay in the chain for containment",
+                    demoted, plan.seq)
+                continue
+            self.sidecar_steps += 1
+            if fallback and self.device.type == "cpu":
+                self._m_fault["cpu_fallback_steps"].inc()
+            # mask the side-routed rows out of the chained dispatch: a
+            # fresh host buffer (the retained original keeps its rows for
+            # bisect and dead-letter), restaged on the mesh
+            bi = np.array(plan.packed_i, copy=True)
+            bi[0][rows] = 0
+            plan.packed_i = bi
+            plan.staged = self._stage_packed(bi, plan.packed_f)
 
     def _wd_record(self, plan: BatchPlan,
                    slot: Optional[int] = None) -> dict:
@@ -1723,7 +1963,7 @@ class PipelineDispatcher(LifecycleComponent):
                 epoch = self.state_manager.current_packed
                 bi, bf = plan.staged
                 step_fn = self._packed_step
-                if self.breaker.level >= FALLBACK:
+                if self._tier_fallback():
                     step_fn = self._fallback_step(plan)
                 wd = self.watchdog.begin(plan)
                 self._wd_tokens[id(plan)] = wd
@@ -1748,11 +1988,25 @@ class PipelineDispatcher(LifecycleComponent):
             else:
                 batch = plan.batch
                 with trace.span("step.dispatch").tag("rows", plan.n_events):
-                    new_state, out = self._step(
-                        self.registry_provider(), self.state_manager.current,
-                        self.rules_provider(), self.zones_provider(), batch)
-                    self.state_manager.commit(new_state,
-                                              present_now=out.present_now)
+                    if self.mesh is not None:
+                        new_state, out = self._step(
+                            self._placed(self.registry_provider(), True),
+                            unpack_sharded_state(
+                                self.state_manager.current_packed),
+                            self._placed(self.rules_provider(), False),
+                            self._placed(self.zones_provider(), False),
+                            batch)
+                        self.state_manager.commit(
+                            new_state, present_now=out.present_now)
+                        out = tree_map(gather, out)
+                    else:
+                        new_state, out = self._step(
+                            self.registry_provider(),
+                            self.state_manager.current,
+                            self.rules_provider(), self.zones_provider(),
+                            batch)
+                        self.state_manager.commit(
+                            new_state, present_now=out.present_now)
                     # the packed output block: one egress for both forms
                     oi, metrics, present = pack_outputs(out, batch)
                 view = PackedView(oi, metrics, present,
@@ -1778,7 +2032,7 @@ class PipelineDispatcher(LifecycleComponent):
         if is_card_error(exc):
             self._fail_closed(exc, f"step seq={plan.seq}")
         self._m_fault["step_faults"].inc()
-        self.breaker.record_fault(plan.seq)
+        self._record_device_fault(plan.seq, (plan,))
         logger.warning("packed step failed for seq=%d (%d rows): %s; "
                        "bisecting", plan.seq, plan.n_events, exc)
         if self.flightrec is not None:
@@ -1841,7 +2095,7 @@ class PipelineDispatcher(LifecycleComponent):
             with self._lock:
                 self._plans_outstanding += 1
             try:
-                sbi, sbf = stage_packed_batch(bi, bf, self.device)
+                sbi, sbf = self._stage_packed(bi, bf)
                 new_ps, oi, metrics, present = self._packed_step(
                     tables, epoch, sbi, sbf)
                 if self.device.type == "cuda":

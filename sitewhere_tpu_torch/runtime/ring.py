@@ -5,6 +5,9 @@ Counterpart of the dispatcher's ring path in
 and the ring fetch at :1706-1737), as a thin runner rather than the
 dispatcher: stage K slots -> lease the carry -> run the chain -> commit
 the carry -> one :class:`RingFetch` -> K :class:`RingStepView`\\ s.
+On a mesh (``mesh=``) the chain is the sharded K-chain of
+:mod:`~sitewhere_tpu_torch.pipeline.sharded`: the slots are staged one
+block per shard, and the manager's epoch is sharded by capacity.
 """
 
 from __future__ import annotations
@@ -32,13 +35,23 @@ class RingRunner:
     """
 
     def __init__(self, state_manager: DeviceStateManager,
-                 tables: PackedTables, k: int):
+                 tables: PackedTables, k: int, mesh=None):
         if k < 1:
             raise ValueError(f"ring depth must be >= 1, got {k}")
         self.state_manager = state_manager
-        self.tables = tables
         self.k = k
-        self._chain = build_packed_chain(k)
+        self.mesh = mesh
+        if mesh is not None:
+            from sitewhere_tpu_torch.pipeline.sharded import (
+                build_sharded_packed_chain,
+                place_packed_tables,
+            )
+
+            self.tables = place_packed_tables(mesh, tables)
+            self._chain = build_sharded_packed_chain(mesh, k)
+        else:
+            self.tables = tables
+            self._chain = build_packed_chain(k)
         self.host_syncs = 0
         self.batches = 0
 
@@ -56,8 +69,17 @@ class RingRunner:
         the views' first read waits for the ring's outputs."""
         if len(batches) != self.k:
             raise ValueError(f"ring takes {self.k} batches, got {len(batches)}")
-        device = self.state_manager.device
-        staged = [stage_packed_batch(bi, bf, device) for bi, bf in batches]
+        if self.mesh is not None:
+            from sitewhere_tpu_torch.pipeline.sharded import (
+                place_packed_batch,
+            )
+
+            staged = [place_packed_batch(self.mesh, bi, bf)
+                      for bi, bf in batches]
+        else:
+            device = self.state_manager.device
+            staged = [stage_packed_batch(bi, bf, device)
+                      for bi, bf in batches]
         slots = [s[0] for s in staged] + [s[1] for s in staged]
         ps, token = self.state_manager.lease_packed()
         new_ps, ois, mets, present = self._chain(self.tables, ps, *slots)

@@ -10,6 +10,14 @@ the per-tenant partition views (:class:`TenantPartitions`, the
 reference's :53, attached through :meth:`attach_partitions`).  The
 migration import/export waits for the multi-host slice.
 
+On a mesh (``mesh=``) the packed epoch is sharded by capacity: each
+plane is a :class:`~sitewhere_tpu_torch.parallel.mesh.Sharded` with one
+block per shard, and its shard count is the mesh's.  The step paths read
+and commit it as is; the readers gather it (:attr:`current`, the tenant
+views and the checkpoint's host snapshot) or loop over its shards (the
+presence sweep, the single-device, missing, seen-since and summary
+queries).  In the reference GSPMD does this implicitly.
+
 Epochs are immutable: a commit or a sweep replaces the held tensors and
 never writes into them, so a snapshot taken under the lock stays valid
 after the lock is released.
@@ -28,10 +36,12 @@ import torch
 
 from sitewhere_tpu_torch.device import DeviceLike, resolve_device
 from sitewhere_tpu_torch.ids import NULL_ID, IdentityMap
+from sitewhere_tpu_torch.parallel.mesh import SHARD_AXIS, P, Placement, Sharded
 from sitewhere_tpu_torch.pipeline.packed import (
     PRESENCE_ROW,
     PackedState,
     pack_state,
+    packed_presence_sweep,
     unpack_state,
 )
 from sitewhere_tpu_torch.schema import DeviceState, EventBatch
@@ -201,15 +211,30 @@ class TenantPartitions:
             }
 
 
-def _merge_presence(new_si: torch.Tensor, cur_si: torch.Tensor,
-                    present_now: torch.Tensor) -> torch.Tensor:
+def _merge_presence(new_si, cur_si, present_now):
     """Packed-form presence reconciliation: a concurrent sweep's missing
-    flags survive unless the step merged an event for the device."""
+    flags survive unless the step merged an event for the device (shard
+    by shard on a mesh)."""
+    if isinstance(new_si, Sharded):
+        return Sharded([_merge_presence(n, c, p) for n, c, p in zip(
+            new_si.shards, cur_si.shards, present_now.shards)],
+            new_si.placement)
     merged = (new_si[PRESENCE_ROW] != 0) | (
         (cur_si[PRESENCE_ROW] != 0) & ~present_now)
     out = new_si.clone()
     out[PRESENCE_ROW] = merged.to(new_si.dtype)
     return out
+
+
+def _shards_of(ps: PackedState) -> List[PackedState]:
+    """A mesh-placed packed epoch as one PackedState per shard."""
+    return [ps.replace(si=si, sf=sf)
+            for si, sf in zip(ps.si.shards, ps.sf.shards)]
+
+
+def _gathered(ps: PackedState) -> PackedState:
+    """A mesh-placed packed epoch gathered whole on shard 0's device."""
+    return ps.replace(si=ps.si.gather(), sf=ps.sf.gather())
 
 
 def _host_fields(packed: PackedState, si: torch.Tensor,
@@ -236,7 +261,12 @@ class DeviceStateManager:
                  tenant_id_of_device: Optional[
                      Callable[[np.ndarray], np.ndarray]] = None,
                  num_ewma_scales: int = 3,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh=None):
+        # on a mesh the epoch lies on its shards' devices; ``device`` is
+        # shard 0's, where gathered readers and restores land
+        self.mesh = mesh
+        if mesh is not None and device is None:
+            device = mesh.shard_devices[0]
         self.device = resolve_device(device)
         self.identity = identity if identity is not None else IdentityMap()
         self._tenant_id_of_device = tenant_id_of_device
@@ -312,18 +342,36 @@ class DeviceStateManager:
 
     @property
     def current(self) -> DeviceState:
+        """The unpacked epoch (on a mesh: gathered whole on shard 0's
+        device, for the readers)."""
         with self._lock:
             if self._state is None:
-                self._state = unpack_state(self._packed)
+                packed = self._packed
+                if isinstance(packed.si, Sharded):
+                    packed = _gathered(packed)
+                self._state = unpack_state(packed)
             return self._state
 
     @property
     def current_packed(self) -> PackedState:
-        """The packed epoch (packed lazily after an unpacked commit)."""
+        """The packed epoch (packed lazily after an unpacked commit; on a
+        mesh, placed by capacity over the shards)."""
         with self._lock:
             if self._packed is None:
-                self._packed = pack_state(self.current)
+                self._packed = self._placed(pack_state(self.current))
             return self._packed
+
+    def _placed(self, packed: PackedState) -> PackedState:
+        if self.mesh is None:
+            return packed
+        from sitewhere_tpu_torch.pipeline.sharded import place_packed_state
+
+        placed = place_packed_state(self.mesh, packed)
+        if placed.si.n_shards != self.mesh.n_shards:
+            raise ValueError(
+                f"state of {placed.si.n_shards} shards on a mesh of "
+                f"{self.mesh.n_shards}")
+        return placed
 
     def lease_packed(self) -> Tuple[PackedState, DeviceState]:
         """Hand the packed epoch to a chain: ``(packed, lease_token)``.
@@ -338,10 +386,15 @@ class DeviceStateManager:
         """
         with self._lock:
             packed = self.current_packed
+            self.lease_generation += 1
+            if self.mesh is not None:
+                # the sharded epoch stays held (no step writes into it);
+                # readers gather it, so the lease materializes nothing and
+                # the token is the epoch itself
+                return packed, packed
             if self._state is None:
                 self._state = unpack_state(packed)
             self._packed = None
-            self.lease_generation += 1
             return packed, self._state
 
     def commit_packed(self, new_packed: PackedState,
@@ -359,9 +412,12 @@ class DeviceStateManager:
         the step started from, nothing intervened and the merge is
         skipped."""
         with self._lock:
+            new_packed = self._placed(new_packed)
             unchanged = (
                 (read_epoch is not None and self._packed is read_epoch)
-                or (lease_token is not None and self._state is lease_token))
+                or (lease_token is not None
+                    and (self._state is lease_token
+                         or self._packed is lease_token)))
             if not unchanged:
                 cur = self.current_packed
                 new_packed = new_packed.replace(
@@ -378,7 +434,12 @@ class DeviceStateManager:
         sweep's missing flags for devices the step did not merge: pass the
         step's ``present_now`` (``bool[capacity]``), or the ``batch`` it
         consumed plus its ``accepted`` mask to re-derive it; with neither,
-        no merge."""
+        no merge.  On a mesh ``new_state`` may be the sharded step's (one
+        block per shard in each field) or a whole one (a restore): either
+        is committed as the mesh-placed packed epoch."""
+        if self.mesh is not None:
+            self._commit_on_mesh(new_state, batch, accepted, present_now)
+            return
         with self._lock:
             current = self.current
             if current is not new_state and (
@@ -406,6 +467,36 @@ class DeviceStateManager:
             self._packed = None
             self._note_stream()
 
+    def _commit_on_mesh(self, new_state, batch, accepted,
+                        present_now) -> None:
+        if isinstance(new_state.last_event_ts_s, Sharded):
+            n = new_state.last_event_ts_s.n_shards
+            blocks = [pack_state(dataclasses.replace(new_state, **{
+                f.name: getattr(new_state, f.name).shards[k]
+                for f in dataclasses.fields(new_state)}))
+                for k in range(n)]
+            placement = Placement(self.mesh, P(None, SHARD_AXIS))
+            packed = blocks[0].replace(
+                si=Sharded([b.si for b in blocks], placement),
+                sf=Sharded([b.sf for b in blocks], placement))
+        else:
+            if present_now is None and batch is not None:
+                raise ValueError(
+                    "a mesh commit re-applies presence from present_now")
+            packed = pack_state(new_state)
+        if present_now is not None and not isinstance(present_now, Sharded):
+            present_now = Placement(self.mesh, P(SHARD_AXIS)).place(
+                present_now)
+        with self._lock:
+            packed = self._placed(packed)
+            if present_now is not None:
+                cur = self.current_packed
+                packed = packed.replace(
+                    si=_merge_presence(packed.si, cur.si, present_now))
+            self._packed = packed
+            self._state = None
+            self._note_stream()
+
     def snapshot_host(self) -> Dict[str, np.ndarray]:
         """The held epoch as host arrays, one per :class:`DeviceState`
         field (the checkpoint's ``state`` section).
@@ -418,6 +509,15 @@ class DeviceStateManager:
         keeps the epoch's blocks allocated until the copy is done."""
         with self._lock:
             packed, state, stream = self._packed, self._state, self._stream
+        if packed is not None and isinstance(packed.si, Sharded):
+            # block by block off each shard's device, joined on the host
+            from sitewhere_tpu_torch.pipeline.packed import HostCopy
+
+            with self._on_stream():
+                si, sf = HostCopy(packed.si, packed.sf).fetch()
+            return _host_fields(packed.replace(
+                si=packed.si.shards[0], sf=packed.sf.shards[0]),
+                torch.from_numpy(si), torch.from_numpy(sf))
         if self.device.type != "cuda":
             if packed is None:
                 packed = pack_state(state)
@@ -451,11 +551,19 @@ class DeviceStateManager:
         lock is released."""
         with self._on_stream():
             with self._lock:
-                new_state, newly_missing = presence_sweep(
-                    self.current, now_s, missing_after_s)
-                self._state = new_state
-                self._packed = None
-            idx = torch.nonzero(newly_missing).flatten().cpu().numpy()
+                packed = self._packed
+                if packed is not None and isinstance(packed.si, Sharded):
+                    idx = self._sweep_shards(packed, now_s, missing_after_s)
+                else:
+                    new_state, newly_missing = presence_sweep(
+                        self.current, now_s, missing_after_s)
+                    self._state = new_state
+                    self._packed = None
+                    idx = None
+            if idx is None:
+                idx = torch.nonzero(newly_missing).flatten().cpu().numpy()
+            else:
+                idx = torch.cat(idx).cpu().numpy()
         if idx.size == 0:
             return None
         idx = idx.astype(np.int32)
@@ -464,6 +572,35 @@ class DeviceStateManager:
         else:
             tenant_ids = np.zeros(idx.size, np.int32)
         return state_changes_for(idx, tenant_ids, now_s, device=self.device)
+
+    def _sweep_shards(self, packed: PackedState, now_s: int,
+                      missing_after_s: int) -> List[torch.Tensor]:
+        """The sweep shard by shard over a mesh-placed epoch (under the
+        lock): adopts the flagged epoch and returns each shard's newly
+        missing GLOBAL ids, still on its device."""
+        rows = packed.si.shards[0].shape[-1]
+        new_si, new_sf, ids = [], [], []
+        for k, ps in enumerate(_shards_of(packed)):
+            swept, newly = packed_presence_sweep(ps, now_s, missing_after_s)
+            new_si.append(swept.si)
+            new_sf.append(swept.sf)
+            ids.append(torch.nonzero(newly).flatten() + k * rows)
+        self._packed = packed.replace(
+            si=Sharded(new_si, packed.si.placement),
+            sf=Sharded(new_sf, packed.sf.placement))
+        self._state = None
+        return ids
+
+    def _epoch_blocks(self) -> List[Tuple[int, DeviceState]]:
+        """``(first global id, unpacked block)`` per shard of the held
+        epoch, or one whole block off a mesh (snapshot under the lock)."""
+        with self._lock:
+            packed = self._packed
+            if packed is None or not isinstance(packed.si, Sharded):
+                return [(0, self.current)]
+        rows = packed.si.shards[0].shape[-1]
+        return [(k * rows, unpack_state(ps))
+                for k, ps in enumerate(_shards_of(packed))]
 
     # -- queries -----------------------------------------------------------
 
@@ -474,15 +611,18 @@ class DeviceStateManager:
         return self.get_device_state_by_id(int(device_id))
 
     def get_device_state_by_id(self, device_id: int) -> Dict[str, object]:
-        """Last-known state for one device, as a host dict."""
-        with self._lock:
-            s = self.current
-        require(0 <= device_id < s.capacity,
+        """Last-known state for one device, as a host dict (on a mesh,
+        read from the shard that owns the device's row)."""
+        blocks = self._epoch_blocks()
+        rows = blocks[0][1].capacity
+        require(0 <= device_id < rows * len(blocks),
                 EntityNotFound(f"bad device id {device_id}"))
+        base, s = blocks[device_id // rows]
+        local = device_id - base
         # a REST handler's thread reads on the stream the epoch was
         # committed from, never on its own
         with self._on_stream():
-            r = {f: getattr(s, f)[device_id].cpu().numpy()
+            r = {f: getattr(s, f)[local].cpu().numpy()
                  for f in s.__dataclass_fields__}
         row = {
             "device_id": device_id,
@@ -513,10 +653,12 @@ class DeviceStateManager:
         runs outside it (epochs are immutable: a commit replaces, never
         mutates).  A scan must never hold the lock through a copy off the
         card: ``commit_packed`` takes it on every batch."""
-        with self._lock:
-            s = self.current
+        out: List[int] = []
         with self._on_stream():
-            return torch.nonzero(s.presence_missing).flatten().tolist()
+            for base, s in self._epoch_blocks():
+                out += (torch.nonzero(s.presence_missing).flatten()
+                        + base).tolist()
+        return out
 
     def missing_device_tokens(self) -> List[str]:
         """Missing devices as tokens, the cross-host form (dense ids mean
@@ -535,19 +677,19 @@ class DeviceStateManager:
         """Devices with any event at or after ``since_s``: snapshot under
         the lock, mask and copy outside it (see
         :meth:`missing_device_ids`)."""
-        with self._lock:
-            s = self.current
+        out: List[int] = []
         with self._on_stream():
-            mask = ((s.last_event_type != NULL_ID)
-                    & (s.last_event_ts_s >= since_s))
-            return torch.nonzero(mask).flatten().tolist()
+            for base, s in self._epoch_blocks():
+                mask = ((s.last_event_type != NULL_ID)
+                        & (s.last_event_ts_s >= since_s))
+                out += (torch.nonzero(mask).flatten() + base).tolist()
+        return out
 
     def summary(self) -> Dict[str, int]:
-        with self._lock:
-            s = self.current
+        with_state = missing = 0
         with self._on_stream():
-            return {
-                "devices_with_state": int(
-                    (s.last_event_type != NULL_ID).sum()),
-                "devices_missing": int(s.presence_missing.sum()),
-            }
+            for _, s in self._epoch_blocks():
+                with_state += int((s.last_event_type != NULL_ID).sum())
+                missing += int(s.presence_missing.sum())
+        return {"devices_with_state": with_state,
+                "devices_missing": missing}

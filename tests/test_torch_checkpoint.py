@@ -445,12 +445,16 @@ def test_rules_section_equals_the_reference(both_saved):
 
 def test_unsupported_config_is_refused(tmp_path):
     # the reference builds no connector from a config key either
-    for tree in ({"pipeline": {"n_shards": 2}},
-                 {"rpc": {"peers": ["a:1", "b:2"]}},
+    for tree in ({"rpc": {"peers": ["a:1", "b:2"]}},
                  {"outbound": {"connectors": [{"id": "x"}]}}):
         with pytest.raises(NotImplementedError):
             refuse_unsupported(Config(tree, apply_env=False))
     refuse_unsupported(config(tmp_path))
+    # the sharded pipeline and the step-interface switch are the
+    # Instance's since the mesh came
+    refuse_unsupported(Config({"pipeline": {"n_shards": 2,
+                                            "packed_step": False}},
+                              apply_env=False))
     # the control plane's sections are the Instance's since devguard and
     # the control plane came
     refuse_unsupported(Config({"overload": {"enabled": False},

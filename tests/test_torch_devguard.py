@@ -247,7 +247,38 @@ def test_guard_expectations_hold_in_the_port():
     assert soft_hard[7] is False
     assert _watchdog_calibrate(port_devguard)[:2] == [
         (0.25, 2.0), (pytest.approx(1.5), pytest.approx(12.0))]
-    assert not hasattr(port_devguard, "ShardBreakers")
+    # the per-shard bank came with the mesh: the same trace in both
+    assert _shard_bank_trace(port_devguard) == _shard_bank_trace(
+        ref_devguard)
+
+
+def _shard_bank_trace(mod):
+    """One fault/success/cooldown script through a 4-shard ShardBreakers
+    bank: levels, demoted and suspect shards, the callbacks, snapshots."""
+    now = [0.0]
+    events = []
+    bank = mod.ShardBreakers(4, threshold=2, window_s=60.0, cooldown_s=5.0,
+                             clock=lambda: now[0],
+                             on_trip=lambda s, lv: events.append(
+                                 ("trip", s, lv)),
+                             on_restore=lambda s: events.append(
+                                 ("restore", s)))
+    out = []
+    for seq in (1, 1, 2):
+        out.append(bank.record_fault(seq, shard=2))
+    out += [bank.level, bank.level_of(2), bank.demoted_shards(),
+            bank.allow_chain(), bank.suspect_shards()]
+    out.append(bank.record_fault(3))          # unattributable: every shard
+    out += [bank.suspect_shards(), bank.record_fault(4)]
+    out += [bank.demoted_shards(), bank.allow_chain()]
+    now[0] = 6.0
+    out += [bank.demoted_shards(), bank.allow_chain()]
+    bank.record_success(chained=True, masked=(2,))
+    out += [bank.level_of(2), bank.level, bank.demoted_shards()]
+    bank.record_success(chained=True)
+    out += [bank.level, bank.trips, bank.restores, events,
+            {k: v for k, v in bank.snapshot().items() if k != "shards"}]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -760,3 +791,30 @@ def test_sticky_error_exits_and_the_restart_recovers(tmp_path):
         assert c.get("device.fault.poison_rows", 0) == 0
     finally:
         inst.terminate()
+
+
+def test_shard_containment_equals_the_reference(tmp_path):
+    """The reference's ``shard_containment`` phase (4 shards of its
+    virtual CPU mesh) and the port's (4 shards on ``cpu``): the same
+    report, and the port's FALLBACK leg side-steps shard 2's rows
+    through the mesh while the healthy shards keep chaining."""
+    check, ref_fail = _checker()
+    try:
+        ref = ref_bench.phase_shard_containment(str(tmp_path / "jax"), check)
+    finally:
+        ref_faults.device_clear()
+    check, port_fail = _checker()
+    try:
+        got = port_bench.phase_shard_containment(str(tmp_path / "torch"),
+                                                 check, CPU)
+    finally:
+        port_faults.device_clear()
+    assert ref_fail == [] and port_fail == []
+    for key in ("n_shards", "ring_depth", "poison_rows", "stored",
+                "expected_stored", "shard_levels", "ring_chains",
+                "dead_letter_rows"):
+        assert got[key] == ref[key], key
+    assert got["flightrec_dump"] is not None
+    assert got["fallback_side_steps"] == 4 == got["cpu_fallback_steps"]
+    assert got["fallback_stored"] == 4 * port_bench.WIDTH
+    assert got["fallback_ring_chains"] == 2

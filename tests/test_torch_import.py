@@ -541,3 +541,45 @@ def test_standalone_tenant_engine_raises_without_a_card(monkeypatch):
     cpu.start()
     assert cpu.get_engine("acme").mirror.device == torch.device("cpu")
     cpu.stop()
+
+
+# The sharded slice: the mesh, the per-shard map and the sharded step,
+# each imported on its own with JAX and the reference blocked.
+MESH_MODULES = (
+    "parallel", "parallel.mesh", "parallel.shmap", "pipeline.sharded",
+)
+
+
+@pytest.fixture(scope="module")
+def mesh_imports():
+    import json
+
+    proc = subprocess.run(
+        [sys.executable, "-c", _ONE_BY_ONE, *MESH_MODULES], cwd=REPO,
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout.strip())
+
+
+@pytest.mark.parametrize("name", MESH_MODULES)
+def test_mesh_module_imports_without_jax(mesh_imports, name):
+    out, bad = mesh_imports
+    assert out[name] == "ok"
+    assert bad == []
+
+
+def test_sharded_instance_never_collapses_onto_fewer_cards(monkeypatch,
+                                                           tmp_path):
+    """``pipeline.n_shards: 8`` with no device named takes the cards, and
+    raises when fewer are visible; it never folds the shards onto one."""
+    from sitewhere_tpu_torch.instance import Instance
+    from sitewhere_tpu_torch.runtime.config import Config
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    cfg = Config({"instance": {"data_dir": str(tmp_path)},
+                  "pipeline": {"width": 64, "registry_capacity": 128,
+                               "n_shards": 8}}, apply_env=False)
+    with pytest.raises(ValueError, match="only 1 available"):
+        Instance(cfg)
+    assert not (tmp_path / "checkpoint").exists()

@@ -348,11 +348,23 @@ def test_materialized_batch_is_a_copy_on_the_named_device():
 
 
 def test_batcher_runs_one_shard_only():
-    with pytest.raises(NotImplementedError, match="sharded"):
-        tbatcher.Batcher(width=16, n_shards=2, registry_capacity=32,
-                         resolve_device=lambda t: 0,
-                         resolve_mtype=lambda n: 0,
-                         resolve_alert=lambda n: 0)
+    """Once a refusal of two shards; since the mesh, a 2-shard batcher
+    routes every row to the segment of the shard that owns its device
+    (``shard_for_device``), the reference's plan row for row."""
+    kw = dict(width=16, n_shards=2, registry_capacity=32,
+              resolve_device=lambda t: 0, resolve_mtype=lambda n: 0,
+              resolve_alert=lambda n: 0, emit_packed=True)
+    ids = np.array([3, 20, 31, 0, 17, -1, 40], np.int32)
+    plans = []
+    for b in (tbatcher.Batcher(**kw), jbatcher.Batcher(**kw)):
+        b.add_arrays(device_id=ids, value=np.arange(7, dtype=np.float32))
+        plans.append(b.flush())
+    got, ref = plans
+    assert got.packed_i.tobytes() == ref.packed_i.tobytes()
+    assert got.packed_f.tobytes() == ref.packed_f.tobytes()
+    dev, valid = got.packed_i[1], got.packed_i[0] != 0
+    for row in np.nonzero(valid & (dev >= 0))[0]:
+        assert row // 8 == tbatcher.shard_for_device(int(dev[row]), 32, 2)
     assert tbatcher.shard_for_device(70, 128, 2) == 1
     with pytest.raises(ValueError):
         tbatcher.shard_for_device(0, 3, 2)

@@ -283,8 +283,14 @@ def test_presence_path_streams(tmp_path, monkeypatch):
                                          "eventDate": t0 + dt}})
                  for i in range(N_DEV)
                  for dt, v in ((0, 50.0), (300, 1.0))]
+        # while the rows arrive the clock stands at the devices' last
+        # event, so the sweeps then flag nothing; once every row is
+        # committed the clock moves on, and the one sweep that reads it
+        # flags all N_DEV devices together, on the presence thread
+        now, clock[0] = clock[0], float(t0 + 300)
         disp.ingest_wire_lines("\n".join(lines).encode())
         disp.flush()
+        clock[0] = now
         deadline = time.monotonic() + 5
         while inst.presence.total_marked_missing < N_DEV \
                 and time.monotonic() < deadline:

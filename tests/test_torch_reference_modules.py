@@ -2,8 +2,8 @@
 
 The reference's own ``test_journal.py``, ``test_resilience.py``,
 ``test_event_store.py``, ``test_runtime.py``, ``test_mqtt.py``,
-``test_segment_store.py`` and the rest of ``test_checkpoint.py`` run
-against the port with their imports
+``test_segment_store.py`` and the rest of ``test_checkpoint.py`` (its
+8-shard mesh case included) run against the port with their imports
 rewritten (``tests/torch_parity.py port_test_module``), each port
 ``Instance`` on the CPU.  The cases left out are named with the reason.
 """
@@ -34,8 +34,6 @@ MODULES = {
         "test_replay_columnar_fast_path_matches_scalar_semantics":
             "elsewhere",
         "test_dedup_window_survives_restart": "elsewhere",
-        "test_kill_and_restart_on_mesh_restores_sharded_state":
-            "needs the 8-shard mesh (multi-device slice)",
         "test_analytics_partial_record_prefix_is_row_exact":
             "builds its QueryRunner on the default device, the card",
     },
@@ -51,12 +49,21 @@ MODULES = {
             "compiles its query on the default device, the card",
     },
 }
+# module -> source edits: a case reading a JAX sharding object reads the
+# port's counterpart (the sharded epoch's shard count; the port's shards
+# may share one device)
+EDITS = {
+    "test_checkpoint.py": (
+        ("assert len(st.last_event_ts_s.sharding.device_set) == 8",
+         "assert b.device_state.current_packed.si.n_shards == 8"),),
+}
 _NS = {}
 
 
 def _ns(module):
     if module not in _NS:
-        _NS[module] = port_test_module(os.path.join(TESTS, module))
+        _NS[module] = port_test_module(os.path.join(TESTS, module),
+                                       replace=EDITS.get(module, ()))
     return _NS[module]
 
 
@@ -71,7 +78,7 @@ def test_the_port_runs_the_reference_modules():
     assert by_module == {
         "test_journal.py": 16, "test_resilience.py": 31,
         "test_event_store.py": 31, "test_runtime.py": 6, "test_mqtt.py": 3,
-        "test_checkpoint.py": 12, "test_segment_store.py": 27}
+        "test_checkpoint.py": 13, "test_segment_store.py": 27}
 
 
 @pytest.mark.parametrize("module,case", CASES,

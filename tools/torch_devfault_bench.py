@@ -30,10 +30,15 @@ bench's sizes (width 64, 8 devices) and holds the containment contract:
   with one STATE_CHANGE through the normal egress;
 - ``watchdog``: a stalled dispatch trips the soft then the hard budget
   (flight-recorder anomalies; the tier reads unhealthy) and self-clears
-  when the dispatch drains.
-
-The reference's ``shard_containment`` phase needs the mesh, which the
-port does not have yet.
+  when the dispatch drains;
+- ``shard_containment``: the fused mesh ring (4 shards on the one
+  device, K=2) under a poison storm in shard 2's segment: only shard 2's
+  breaker demotes, the healthy shards keep chaining, the poison rows
+  dead-letter as ``device-poison``, no clean row is lost, and the
+  episode dumps the flight recorder.  Then shard 2 is driven to
+  FALLBACK: its rows side-step through the mesh while the others chain,
+  and the process does not exit (on a card ``cpu_fallback_steps`` stays
+  0; on the CPU each side step counts as one, as the reference's do).
 
 Usage, from the repository root::
 
@@ -56,6 +61,8 @@ import sys
 import tempfile
 import threading
 import time
+
+import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -688,6 +695,119 @@ def phase_watchdog(root, check, device):
     return report
 
 
+def phase_shard_containment(root, check, device, n_shards=4, k=2,
+                            capacity=32, width=WIDTH):
+    """Fused mesh ring under a one-shard poison storm, then that shard at
+    FALLBACK (see the module docstring)."""
+    from sitewhere_tpu_torch.runtime.devguard import FALLBACK
+
+    seg = width // n_shards
+    rps = capacity // n_shards
+    inst = make_instance(os.path.join(root, "shards"), device,
+                         n_shards=n_shards, ring_depth=k,
+                         deadline_ms=200.0, registry_capacity=capacity,
+                         width=width)
+    inst.start()
+    dm = inst.device_management
+    dm.create_device_type(token="sensor", name="Sensor")
+    for i in range(capacity):
+        dm.create_device(token=f"d-{i}", device_type="sensor")
+        dm.create_device_assignment(device=f"d-{i}")
+    handles = np.asarray(inst.identity.device.lookup_many(
+        [f"d-{i}" for i in range(capacity)]), np.int32)
+    by_shard = [handles[(handles // rps) == s] for s in range(n_shards)]
+    rng = np.random.default_rng(5)
+    poison_rounds, clean_rounds, ppr = 2 * k, 2 * k, 2
+
+    def rounds(n, r0, poison):
+        for r in range(r0, r0 + n):
+            # balanced shard-block-ordered full rounds: every emission is
+            # ring-eligible on every shard
+            dev = np.concatenate([rng.choice(by_shard[s], seg)
+                                  for s in range(n_shards)]).astype(np.int32)
+            value = rng.uniform(0, 100, width).astype(np.float32)
+            if poison:
+                value[2 * seg:2 * seg + ppr] = np.nan   # shard 2 only
+            inst.dispatcher.ingest_arrays(
+                device_id=dev, event_type=np.zeros(width, np.int32),
+                ts_s=np.full(width, TS0 + r, np.int32),
+                mtype_id=np.zeros(width, np.int32), value=value)
+
+    faults.device_inject("device.dispatch", times=None, when_nonfinite=True)
+    try:
+        rounds(poison_rounds, 0, True)
+        rounds(clean_rounds, poison_rounds, False)
+    finally:
+        faults.device_clear()
+    stored = settle(inst)
+    disp = inst.dispatcher
+    snap = disp.metrics_snapshot()
+    br = snap["device_fault"]["breaker"]
+    check(br["shards"][2]["level"] >= 1,
+          f"poisoned shard 2 never demoted: {br}")
+    healthy = [s for s in range(n_shards) if s != 2]
+    for s in healthy:
+        check(br["shards"][s]["level"] == 0,
+              f"healthy shard {s} was demoted with the sick one: {br}")
+    npoison = poison_rounds * ppr
+    letters = [d for d in inst.list_dead_letters(limit=100)
+               if d.get("kind") == "device-poison"]
+    dl_rows = sum(int(d.get("count", 0)) for d in letters)
+    check(dl_rows == npoison,
+          f"dead letters carry {dl_rows} rows, expected {npoison}")
+    total = (poison_rounds + clean_rounds) * width
+    check(stored == total - npoison,
+          f"clean-row loss: {total - npoison} expected, {stored} stored")
+    check(snap["ring_chains"] >= 1,
+          "healthy shards never chained while shard 2 was demoted")
+    dump = (inst.flightrec.snapshot("shard-containment")
+            if inst.flightrec is not None else None)
+    check(dump is not None, "no flight-recorder dump for the episode")
+
+    # shard 2 at FALLBACK: its rows side-step through the mesh
+    bank = disp.breaker
+    seq = 10_000
+    while bank.level_of(2) < FALLBACK:
+        bank.record_fault(seq, shard=2)
+        seq += 1
+    chains0, side0 = snap["ring_chains"], disp.sidecar_steps
+    fb0 = int(counters(inst).get("device.fault.cpu_fallback_steps", 0))
+    fb_rounds = 2 * k
+    rounds(fb_rounds, poison_rounds + clean_rounds, False)
+    stored_fb = settle(inst)
+    snap = disp.metrics_snapshot()
+    side = disp.sidecar_steps - side0
+    fb = int(counters(inst).get("device.fault.cpu_fallback_steps", 0)) - fb0
+    check(stored_fb == stored + fb_rounds * width,
+          f"FALLBACK shard lost rows: {stored_fb - stored} of "
+          f"{fb_rounds * width} stored")
+    check(side == fb_rounds, f"{side} side steps for {fb_rounds} plans")
+    check(snap["ring_chains"] - chains0 == fb_rounds // k,
+          "the healthy shards stopped chaining beside the FALLBACK shard")
+    check(all(bank.level_of(s) == 0 for s in healthy),
+          "a healthy shard left level 0")
+    check(fb == (side if inst.device.type == "cpu" else 0),
+          f"cpu_fallback_steps moved by {fb} on {inst.device.type}")
+    report = {
+        "n_shards": n_shards,
+        "ring_depth": k,
+        "poison_rows": npoison,
+        "stored": int(stored),
+        "expected_stored": total - npoison,
+        "shard_levels": [int(sh["level"]) for sh in br["shards"]],
+        "ring_chains": int(chains0),
+        "dead_letter_rows": dl_rows,
+        "flightrec_dump": dump,
+        "fallback_ring_chains": int(snap["ring_chains"] - chains0),
+        "fallback_side_steps": side,
+        "fallback_stored": int(stored_fb - stored),
+        "cpu_fallback_steps": fb,
+    }
+    inst.stop()
+    inst.terminate()
+    return report
+
+
 def run(device, check, root, on_phase=None):
     """Every phase in order; ``on_phase(name, report)`` sees each report
     as it lands.  Returns ``{phase: report}``."""
@@ -715,6 +835,8 @@ def run(device, check, root, on_phase=None):
                                   device)
         record("quarantine", phase_quarantine, inst, letters, check)
         record("watchdog", phase_watchdog, root, check, device)
+        record("shard_containment", phase_shard_containment, root, check,
+               device)
     finally:
         faults.device_clear()
         faults.clear()

@@ -31,7 +31,7 @@ script exits non-zero without printing a result:
    the event-family scanner for the 60/30/10 mix) equal, column for
    column, to the pure-Python decode of the same bytes, with each lane's
    ms per payload.  Then full-width payloads (131072 lines, 60/30/10
-   measurements/locations/alerts), 3 rings' worth, at the deployment's
+   measurements/locations/alerts), one ring's worth, at the deployment's
    5 ms batcher deadline with the ring at K=8 and with it off: events/s,
    latency per plan from the payload's receipt (before its decode) to
    egress, p50 and max, host ms per stage, bytes copied per event by
@@ -121,11 +121,11 @@ script exits non-zero without printing a result:
    types ``sensor`` and ``gateway`` with the commands ``ping`` and
    ``set-rate``, 1,000 assets and 20,000 devices ``c-*`` (every 20th a
    gateway) with their assignments, created through ``DeviceManagement``
-   (us per call); then ``device_services_wire``: the first 8 of
+   (us per call); then ``device_services_wire``: the first 4 of
    dispatcher_wire's 60/30/10 payloads (0.5% of lines from unknown
    ``x-*`` tokens, every 100th registered line from a ``c-*`` device, 64
    NDJSON command lines of ``c-*`` sensors in every third payload) while
-   1,000 ``create_command_invocation`` calls, to the first 1,000 ``c-*``
+   500 ``create_command_invocation`` calls, to the first 500 ``c-*``
    devices, arrive at 2,000/s on one thread and are served by 32 handler
    threads;
    sensors' commands go to a callback with the binary encoder, gateways'
@@ -182,9 +182,9 @@ script exits non-zero without printing a result:
    ``ingest/factory.py build_sources``, over the world checkpoint that
    device_services used (2^20 slots, 1,000,000 devices, width 131072, 5
    ms, ring off).  ``sources_wire``: one TCP source (length framing,
-   ``raw_wire``, decoder json); one sender connection sends 4 full-width
-   60/30/10 payloads, each as two frames of 65536 lines (a whole one
-   passes the receiver's 16 MiB frame cap), and 4 measurement-only ones,
+   ``raw_wire``, decoder json); one sender connection sends 1 full-width
+   60/30/10 payload as two frames of 65536 lines (a whole one passes the
+   receiver's 16 MiB frame cap), and 1 measurement-only one,
    each payload's devices distinct and disjoint from its neighbours'
    (so the device state cannot depend on where the deadline cuts
    plans), into a fresh ``Instance`` with ``ingest.decode_workers`` 2
@@ -297,7 +297,7 @@ script exits non-zero without printing a result:
    10-13: an ``Instance`` and a ``WebServer`` on 127.0.0.1 port 0; a JWT
    login as the template's admin; a device type, 256 devices and their
    assignments made over REST (us per device), and one small GET timed
-   over a kept-alive connection and over fresh ones; 1,024 event POSTs
+   over a kept-alive connection and over fresh ones; 256 event POSTs
    (60/30/10 measurements, locations and alerts to
    ``/api/assignments/{token}/{kind}``, each a ``DecodedRequest`` that
    ``dispatcher.ingest`` queues and ``flush()`` steps at full width) from
@@ -335,7 +335,7 @@ script exits non-zero without printing a result:
    syncs 1/8 on the chain, launches == steps x 8 on the sharded paths,
    the chain's last ring rerun from its carry with the plain geofence
    bitwise.  ``mesh_instance.wire``: the world checkpoint restored into
-   an ``Instance`` with ``n_shards: 8`` (re-placed on the mesh), 8 mixed
+   an ``Instance`` with ``n_shards: 8`` (re-placed on the mesh), 4 mixed
    payloads, ring off at 5 ms, through the batcher's counted gather
    lane, then ``checkpoint_full`` (the restored state on 8 shards,
    bitwise the saved one); checks as ``persist_throughput``'s, launches
@@ -349,7 +349,43 @@ script exits non-zero without printing a result:
    ``sharded_analytics``: ``build_window_grid_sharded`` over 1,000,000
    devices and 2^22 events against the unsharded grid: counts exact,
    means and variances within the reference test's bounds;
-17. a small input run on the card and on the CPU: identical int outputs.
+17. the multi-host fabric and the multi-process mesh (phase
+   ``multi_host``), each fleet host a ``tools/torch_fleet_host.py``
+   process on the card with its own data directory, its RPC server on
+   127.0.0.1 and the shared JWT secret.  ``fleet_wire``: two hosts at the
+   deployment's size, each holding only the devices it owns
+   (``owning_process(token, 2)``), 8 mixed payloads (4 into each host's
+   raw-wire TCP source, as two frames each), so rows cross both ways
+   through the forwarder's durable spools: the fleet's and each host's
+   events/s and steps, rows forwarded each way, forward batch ms and the
+   replicated ack's fsync ms (p50/p99), heartbeats, the straddled-record
+   refusals; checks: every stored row's device owned by its host, stored
+   == accepted == registered lines + derived alerts, the stored rows of
+   the lines sent equal to those lines by a fleet-wide checksum read
+   from the lines' text, each host's unregistered == the ghost lines it
+   owns, no forward dead letter, empty spools, launches == steps, one
+   step per host rerun with the plain geofence bitwise (as in every
+   run below).  ``peer_outage``: host 1
+   SIGKILLed after its second measurement payload while host 0 takes
+   one more (host 1's rows spool on host 0's disk; its table marks host
+   1 SUSPECT then DOWN), then host 1 restarts on its directory: host 0's
+   events/s during the outage, host 1's boot, restore, warm-up and
+   replay s, the seconds until host 0's spool is empty; checks: no row
+   lost, rows below host 1's committed offset at the kill stored once,
+   no dead letter, the table back to ALIVE.  ``membership`` (2^16
+   slots, 50,000 devices made through ``DeviceManagement``, width
+   4096): 2 hosts grown to 3 through ``POST
+   /api/instance/cluster/membership`` on each: devices migrated, ms of
+   each handoff, spool rows requeued; checks: each moved device's
+   records and state row (newest wins) on the new host equal to the old
+   owner's, the rows after the change once on their new owners, none
+   lost before it.  ``spmd_step``: ``parallel/multihost.py`` with 2
+   ranks x 4 shards on the card over gloo (each rank holding only its
+   shards' rows), 4 packed steps of the main path's world: ms per step
+   and the collective's ms per rank, 4 launches per rank per step; every
+   rank's rows, metrics and carry bitwise the one-process 8-shard
+   mesh's run with the plain geofence;
+18. a small input run on the card and on the CPU: identical int outputs.
 
 Every ``Instance`` run before ``control_plane`` turns the overload
 ladder and the SLO engine off (``instance_config``), as the reference's
@@ -400,9 +436,9 @@ M_SLOTS, K_SCALES, N_RULES = 8, 3, 64
 RING_K, TIMED_RINGS = 8, 16
 SEED = 20261016
 # the wire path (phase dispatcher_wire)
-# full-width payloads: 2 rings at K=8 (3 until the sharded_mesh phase
-# came: the script's time limit)
-WIRE_PAYLOADS = 2 * RING_K
+# full-width payloads: one ring at K=8 (3 until the sharded_mesh phase
+# came, 2 until the multi_host phase: the script's time limit)
+WIRE_PAYLOADS = RING_K
 # The Instance's 60/30/10 wire runs of persist_recover and byo_rules take
 # the first half ring of those payloads, streaming_analytics a ring of its
 # own: with registration composed each runs at 27k-47k events/s, and with
@@ -908,11 +944,14 @@ def tenant_token(k):
     return "default" if k == 0 else f"t-{k}"
 
 
-def populate_world(identity, mirror, rules, n_active, n_tenants=1):
+def populate_world(identity, mirror, rules, n_active, n_tenants=1,
+                   devices=None):
     """Write the deployment's devices (``n_active`` of them), zones and
     rules into the given identity map, registry mirror and rule manager.
     Device ``d-i`` belongs to tenant ``i % n_tenants`` (``tenant_token``);
-    with one tenant every device is the default tenant's."""
+    with one tenant every device is the default tenant's.  ``devices``,
+    when given, names the indices ``i`` written (a fleet host holds only
+    the devices it owns)."""
     import torch
 
     from sitewhere_tpu_torch.schema import (
@@ -924,7 +963,7 @@ def populate_world(identity, mirror, rules, n_active, n_tenants=1):
     for m in range(M_SLOTS):
         identity.mtype.mint(f"m{m}")
     active = int(AssignmentStatus.ACTIVE)
-    for i in range(n_active):
+    for i in (range(n_active) if devices is None else devices):
         d = identity.device.mint(f"d-{i}")
         mirror.set_device_row(
             d, active=True, tenant_id=i % n_tenants, device_type_id=i % 16,
@@ -1607,20 +1646,22 @@ def instance_config(data_dir, capacity, width, ring_depth, deadline_ms,
     }, apply_env=False)
 
 
-def world_checkpoint(device, root, size, n_tenants=1):
+def world_checkpoint(device, root, size, n_tenants=1, devices=None,
+                     name=None):
     """Write the deployment through an ``Instance``'s own identity, mirror
     and rules, save it as checkpoint generation 0 (empty device state) and
     return its directory: every later instance restores the world from a
     copy of it.  ``n_tenants`` > 1 spreads the devices over that many
-    tenants (``populate_world``)."""
+    tenants, ``devices`` names the device indices written
+    (``populate_world``)."""
     from sitewhere_tpu_torch.instance import Instance
 
     capacity, n_active, width = SIZES[size]
-    data_dir = os.path.join(root, f"world-{size}-{n_tenants}")
+    data_dir = os.path.join(root, name or f"world-{size}-{n_tenants}")
     inst = Instance(instance_config(data_dir, capacity, width, 0,
                                     WIRE_DEADLINE_MS), device=device)
     populate_world(inst.identity, inst.mirror, inst.rules, n_active,
-                   n_tenants)
+                   n_tenants, devices=devices)
     inst.checkpointer.save()
     inst.terminate()
     return os.path.join(data_dir, "checkpoint")
@@ -3251,14 +3292,16 @@ def phase_streaming_analytics(device, geo_cuda):
 # invocation and then flushes the dispatcher (the reference's design): one
 # full-width step and one offset commit per call, serialized on the step
 # lock, so the count is cut from one per device to what fits the phase
+# (1,000 until the multi_host phase came: the script's time limit)
 DS_DEVICES, DS_GATEWAY_EVERY = 20_000, 20
-DS_INVOCATIONS = 1_000
-# The phase takes the first 8 of the 24 wire payloads: where its plans
+DS_INVOCATIONS = 500
+# The phase takes the first 4 of the wire payloads: where its plans
 # split payloads, each split record's rows of devices that only the
 # mirror knows fail registration with a logged traceback (the
 # reference's), 10,000 or more per plan, and at 24 payloads the phase
-# alone took 151-233 s of the script's 1,200
-DS_PAYLOADS = 8
+# alone took 151-233 s of the script's 1,200 (8 until the multi_host
+# phase came, again for the script's time limit)
+DS_PAYLOADS = 4
 DS_RATE_PER_S = 2_000.0
 # arrivals are paced on one thread and served by a pool, as a REST front
 # end's handler threads serve them
@@ -3884,10 +3927,10 @@ def phase_device_services(device, geo_cuda, mixed, logs, world):
 # -- the ingest sources (phase ingest_sources) ----------------------------------
 
 IS_TS0_MS = WIRE_TS0_MS + 50_000_000
-# 2 mixed and 2 measurement-only payloads (8 and 8 until the
-# rest_gateway phase came, 4 and 4 until the sharded_mesh phase: the
-# script's time limit)
-IS_MIXED, IS_MEAS = 2, 2
+# 1 mixed and 1 measurement-only payload (8 and 8 until the
+# rest_gateway phase came, 4 and 4 until the sharded_mesh phase, 2 and 2
+# until the multi_host phase: the script's time limit)
+IS_MIXED, IS_MEAS = 1, 1
 # length_prefixed_frames refuses a frame over 16 MiB (the reference's cap,
 # kept); a full-width 60/30/10 payload is about 16.8 MB, so it goes as two
 # frames of 65536 lines, a measurement-only one (about 15.7 MB) as one
@@ -5983,7 +6026,9 @@ def phase_tenant_engines(device, geo_cuda):
 
 GW_TS0_S = (WIRE_TS0_MS + 80_000_000) // 1000
 GW_DEVICES = 256
-GW_POSTS = 1024
+# 256 POSTs (1,024 until the multi_host phase came, then 512: the
+# script's time limit)
+GW_POSTS = 256
 GW_CLIENTS = 8
 GW_KINDS = ("measurements", "locations", "alerts")
 GW_MIX = (0.6, 0.3, 0.1)
@@ -7269,7 +7314,9 @@ def phase_control_plane(device, geo_cuda):
 
 SM_SHARDS = 8
 SM_RINGS = 4                # timed rings of each mesh_chain path
-SM_WIRE_PAYLOADS = RING_K
+# half a ring of mixed payloads through the 8-shard Instance (a ring of 8
+# until the multi_host phase came: the script's time limit)
+SM_WIRE_PAYLOADS = RING_K // 2
 SM_RESERVATIONS = RING_K    # fill-direct reservations: one ring of K
 SM_CONTAIN = {"n_shards": SM_SHARDS, "k": 2, "width": 128, "capacity": 64}
 SM_AN_EVENTS = 1 << 22
@@ -7661,6 +7708,869 @@ def phase_sharded_mesh(device, geo_cuda, world, kernel_rec):
     return launches
 
 
+# -- phase multi_host: the fleet fabric and the multi-process mesh ----------
+
+MH_SECRET = "multi-host-fleet"
+# fleet_wire: full-width 60/30/10 payloads, half into each host's source
+MH_WIRE_PAYLOADS = 8
+# peer_outage: host 1 takes 2 measurement payloads and is killed; host 0
+# takes 1 more while host 1 is down
+MH_OUTAGE_BEFORE, MH_OUTAGE_DURING = 2, 1
+MH_OUTAGE_TS0_MS = WIRE_TS0_MS + 70_000_000_000
+# membership: the kill_recover small size (2^16 slots, 50,000 devices,
+# width 4096), listed in PERF.md's reduced cuts: migrate_out hands the
+# moving devices off in RPC calls of 256, each device's state row read
+# off the card on its own, which at 1,000,000 devices would not fit the
+# script's limit
+MH_MEMBER_TS0_MS = WIRE_TS0_MS + 90_000_000_000
+# spmd_step: 2 ranks x 4 shards on the one card (gloo), 4 packed steps
+MH_RANKS, MH_SHARDS, MH_STEPS = 2, 8, 4
+MH_TIMEOUT_S = 600.0
+FLEET_HOST = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "tools", "torch_fleet_host.py")
+# every fleet host process started; phase_multi_host kills the living
+MH_PROCS = []
+
+
+def mh_free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mh_owners(tokens, n_processes):
+    """Owner of each token under the fleet's rendezvous hash, through the
+    port's C owner scanner (the one the forwarder splits payloads
+    with)."""
+    from sitewhere_tpu_torch.native import load_swwire
+
+    payload = "\n".join('{"deviceToken":"%s"}' % t for t in tokens).encode()
+    owners = load_swwire().split_owner_lines(payload, n_processes)
+    check(owners is not None and len(owners) == len(tokens),
+          "the owner scanner refused the token list")
+    return np.asarray(owners, np.int8)
+
+
+class FleetHost:
+    """One ``tools/torch_fleet_host.py`` process: JSON commands on its
+    standard input, one JSON reply line each on its standard output.
+    ``sent`` counts the frames sent to its source."""
+
+    def __init__(self, name, spec, root):
+        import queue
+
+        self.name = name
+        self.spec = dict(spec, spawned_at=time.time())
+        self.sent = 0
+        self.lock = threading.Lock()
+        self.err_path = os.path.join(root, f"{name}.err")
+        self.lines = queue.Queue()
+        with open(self.err_path, "ab") as err:
+            self.proc = subprocess.Popen(
+                [sys.executable, FLEET_HOST, json.dumps(self.spec)],
+                stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=err,
+                cwd=os.path.dirname(os.path.abspath(__file__)), text=True,
+                bufsize=1)
+        MH_PROCS.append(self.proc)
+        threading.Thread(target=self._read, daemon=True,
+                         name=f"fleet-{name}").start()
+        self.ready = self._next(MH_TIMEOUT_S)
+        check(self.ready.get("event") == "ready",
+              f"fleet host {name}: no ready line: {self.ready}")
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.put(line)
+        self.lines.put(None)
+
+    def _tail(self):
+        with open(self.err_path, "rb") as f:
+            return f.read()[-3000:].decode(errors="replace")
+
+    def _next(self, timeout):
+        import queue
+
+        try:
+            line = self.lines.get(timeout=timeout)
+        except queue.Empty:
+            self.kill()
+            check(False, f"fleet host {self.name} timed out: {self._tail()}")
+        if line is None:
+            self.proc.wait()
+            check(False, f"fleet host {self.name} died (rc "
+                  f"{self.proc.returncode}): {self._tail()}")
+        return json.loads(line)
+
+    def call(self, cmd, timeout=MH_TIMEOUT_S, **kw):
+        with self.lock:
+            self.proc.stdin.write(json.dumps({"cmd": cmd, **kw}) + "\n")
+            self.proc.stdin.flush()
+            reply = self._next(timeout)
+        check(reply["ok"], f"fleet host {self.name} {cmd}: "
+              f"{reply.get('error')}")
+        return reply["result"]
+
+    def send(self, frames):
+        with socket.create_connection(
+                ("127.0.0.1", self.ready["source_port"]), timeout=60) as s:
+            for frame in frames:
+                s.sendall(struct.pack(">I", len(frame)) + frame)
+        self.sent += len(frames)
+
+    def intake(self, drain=True):
+        """Every frame sent so far routed (and, with ``drain``, every row
+        its forwarder spooled acked by its owner)."""
+        return self.call("intake", payloads=self.sent, drain=drain)
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGKILL)
+        self.proc.wait()
+
+    def stop(self):
+        self.call("stop")
+        self.proc.stdin.close()
+        check(self.proc.wait(timeout=120) == 0,
+              f"fleet host {self.name} exited {self.proc.returncode}: "
+              f"{self._tail()}")
+
+
+def mh_release(device):
+    """Hand the card blocks this process's allocator caches back to the
+    card: the fleet's hosts and ranks are processes of their own on it."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def mh_all(fns):
+    """Run the calls side by side; their results in order."""
+    with concurrent.futures.ThreadPoolExecutor(len(fns)) as pool:
+        futures = [pool.submit(fn) for fn in fns]
+        return [f.result() for f in futures]
+
+
+def mh_spec(device, root, name, p, peers, size, world_ckpt, **extra):
+    capacity, _, width = SIZES[size]
+    return {"data_dir": os.path.join(root, name), "process_id": p,
+            "peers": peers, "secret": MH_SECRET,
+            "device": None if device.type == "cuda" else str(device),
+            "capacity": capacity, "width": width,
+            "deadline_ms": WIRE_DEADLINE_MS, "mtype_slots": M_SLOTS,
+            "max_zones": FULL_Z, "max_zone_verts": FULL_V,
+            "asset_capacity": RULE_ASSET_CAPACITY,
+            "world_ckpt": world_ckpt, **extra}
+
+
+def mh_ghost_owners(payloads, n_processes):
+    """Per process, the lines of unregistered (``x-``) tokens it owns."""
+    out = np.zeros(n_processes, np.int64)
+    for payload, _ in payloads:
+        head = b'{"deviceToken":"'
+        toks = [ln[len(head):ln.index(b'"', len(head))].decode()
+                for ln in payload.split(b"\n") if ln.startswith(head + b"x-")]
+        if toks:
+            out += np.bincount(mh_owners(toks, n_processes),
+                               minlength=n_processes)
+    return out
+
+
+def mh_sent_checksum(payloads):
+    """``row_checksum`` of the rows the registered lines of ``payloads``
+    must store, by global device index and measurement type, read from
+    the lines' text."""
+    kinds = {"DeviceMeasurements": 0, "DeviceLocation": 1, "DeviceAlert": 2}
+    cols = {k: [] for k in ("device_id", "event_type", "ts_s", "ts_ns",
+                            "mtype_id", "value")}
+    for payload, _ in payloads:
+        for line in payload.split(b"\n"):
+            doc = json.loads(line)
+            if not doc["deviceToken"].startswith("d-"):
+                continue
+            req, kind = doc["request"], kinds[doc["type"]]
+            t = int(req["eventDate"])
+            cols["device_id"].append(int(doc["deviceToken"][2:]))
+            cols["event_type"].append(kind)
+            cols["ts_s"].append(t // 1000)
+            cols["ts_ns"].append((t % 1000) * 1_000_000)
+            cols["mtype_id"].append(int(req["name"][1:]) if kind == 0
+                                    else -1)
+            cols["value"].append(req["value"] if kind == 0 else 0.0)
+    arrays = {k: np.asarray(v, np.float32 if k == "value" else np.int64)
+              for k, v in cols.items()}
+    n, h = row_checksum(arrays)
+    return {"rows": n, "sum": h}
+
+
+def mh_wait_peer(host, peer, state, since, timeout_s=60.0):
+    """Poll ``host``'s health table until ``peer`` is in ``state``; the
+    table's verdicts on ``peer`` from wall time ``since`` on, each with
+    its seconds after ``since``."""
+    t0 = time.perf_counter()
+    while True:
+        health = host.call("health")
+        if health["peers"][str(peer)]["state"] == state:
+            return [(t["to"], t["at"] - since) for t in health["transitions"]
+                    if t["peer"] == peer and t["at"] >= since]
+        check(time.perf_counter() - t0 < timeout_s,
+              f"peer {peer} never reached {state}: {health}")
+        time.sleep(0.05)
+
+
+def mh_check_reruns(reruns, stats):
+    """Each host that stepped reran its captured step with the plain
+    geofence, bitwise equal and with no kernel launch."""
+    for p, (rr, st) in enumerate(zip(reruns, stats)):
+        check(st["steps"] == 0 or (rr["captured"] and rr["identical"]
+                                   and rr["kernel_launched"] == 0),
+              f"host {p}: a step != its plain-geofence rerun: {rr}")
+
+
+def mh_fleet_wire(device, root, owners, owners_path):
+    """Two full-size hosts, each holding only the devices it owns; 4 of
+    the mixed payloads into each host's TCP source, so rows cross in
+    both directions.  Returns the running hosts, their specs, the record
+    and the launches."""
+    t0 = time.perf_counter()
+    worlds = [world_checkpoint(
+        device, root, "full", devices=np.flatnonzero(owners == p).tolist(),
+        name=f"world-host{p}") for p in range(2)]
+    world_s = time.perf_counter() - t0
+    mh_release(device)
+    peers = [f"127.0.0.1:{mh_free_port()}" for _ in range(2)]
+    specs = [mh_spec(device, root, f"host{p}", p, peers, "full", worlds[p],
+                     capture_step=True) for p in range(2)]
+    hosts = mh_all([functools.partial(FleetHost, f"host{p}", specs[p], root)
+                    for p in range(2)])
+    rng = np.random.default_rng(SEED + 61)
+    payloads = wire_payloads(rng, MH_WIRE_PAYLOADS, FULL_B,
+                             WIRE_TS0_MS + 60_000_000)
+    ghosts = mh_ghost_owners(payloads, 2)
+    sent = mh_sent_checksum(payloads)
+    frames = [is_frames(payloads[p::2])[0] for p in range(2)]
+    lines = sum(p.count(b"\n") + 1 for p, _ in payloads)
+    registered = sum(r for _, r in payloads)
+
+    def feed(host):
+        host.send(frames[host.spec["process_id"]])
+        return host.intake()
+
+    t_send = time.perf_counter()
+    intake = mh_all([functools.partial(feed, h) for h in hosts])
+    flushed = mh_all([functools.partial(h.call, "flush") for h in hosts])
+    elapsed = time.perf_counter() - t_send
+    stats = mh_all([functools.partial(h.call, "stats") for h in hosts])
+    rows = mh_all([functools.partial(h.call, "rows", owners_path=owners_path)
+                   for h in hosts])
+    reruns = mh_all([functools.partial(h.call, "rerun_plain")
+                     for h in hosts])
+    detail = []
+    for p in range(2):
+        st, rw = stats[p], rows[p]
+        detail.append({
+            "process_id": p, "devices": int((owners == p).sum()),
+            "events_per_s": st["totals"]["processed"] / elapsed,
+            "totals": st["totals"], "steps": st["steps"],
+            "launches": st["launches"],
+            "rows_forwarded_out": st["forward"]["forwarded_rows"],
+            "rows_kept_local": st["forward"]["local_rows"],
+            "forward_batches": st["forward_batches"],
+            "forward_batch_ms_p50": st["forward_batch_ms_p50"],
+            "forward_batch_ms_p99": st["forward_batch_ms_p99"],
+            "ack_fsyncs": st["ack_fsyncs"],
+            "ack_fsync_ms_p50": st["ack_fsync_ms_p50"],
+            "ack_fsync_ms_p99": st["ack_fsync_ms_p99"],
+            "forward_send_attempts": st["forward"]["send_attempts"],
+            "spans_buffered": st["tracing"]["spans_buffered"],
+            "heartbeats": st["heartbeats_sent"],
+            "heartbeats_failed": st["heartbeats_failed"],
+            "straddled_refusals": st["registration_rejected"],
+            "ghost_lines_owned": int(ghosts[p]),
+            "rows_stored": rw["stored"]["rows"],
+            "intake_s": intake[p], "flush_s": flushed[p]["flush_s"],
+            "boot_s": hosts[p].ready["boot_s"],
+            "plain_rerun_identical": reruns[p].get("identical")})
+    emit({"phase": "multi_host", "run": "fleet_wire", "hosts": 2,
+          "capacity": CAPACITY, "devices": N_ACTIVE, "width": FULL_B,
+          "deadline_ms": WIRE_DEADLINE_MS, "payloads": len(payloads),
+          "frames": [len(f) for f in frames], "lines": lines,
+          "registered_lines": registered, "world_build_s": world_s,
+          "elapsed_s": elapsed, "events_per_s": lines / elapsed,
+          "by_host": detail})
+    launches = 0
+    for p in range(2):
+        st, rw, rr = stats[p], rows[p], reruns[p]
+        check(rw["foreign_rows"] == 0,
+              f"host {p} stored {rw['foreign_rows']} rows of devices it "
+              "does not own")
+        check(rw["stored"] == rw["appended"],
+              f"host {p}: stored {rw['stored']} != accepted rows "
+              f"{rw['appended']}: a row lost or stored twice")
+        check(rw["parked"] == 0 and rw["sealed_dead_lettered"] == 0,
+              f"host {p}: {rw['parked']} seal jobs parked")
+        check(st["totals"]["unregistered"] == ghosts[p],
+              f"host {p}: unregistered {st['totals']['unregistered']} != "
+              f"{ghosts[p]} ghost lines it owns")
+        check(st["forward"]["dead_lettered"] == 0
+              and st["forward"]["pending"] == 0,
+              f"host {p}: forward {st['forward']}")
+        check(st["cpu_fallback_steps"] == 0, f"host {p}: CPU steps")
+        check(rr["captured"], f"host {p} captured no step")
+        if device.type == "cuda":
+            check(st["launches"] == st["steps"] > 0,
+                  f"host {p}: kernel launched {st['launches']}x in "
+                  f"{st['steps']} steps")
+        check(st["forward"]["forwarded_rows"] > 0,
+              f"host {p} forwarded no row")
+        launches += st["launches"]
+    mh_check_reruns(reruns, stats)
+    accepted = sum(st["totals"]["accepted"] for st in stats)
+    derived = sum(st["totals"]["derived_alerts"] for st in stats)
+    stored = sum(rw["stored"]["rows"] for rw in rows)
+    check(stored == accepted == registered + derived,
+          f"fleet: stored {stored}, accepted {accepted}, registered "
+          f"{registered} + derived {derived}")
+    # the rows of the lines sent, each once, over both hosts' stores
+    inputs = {"rows": sum(rw["inputs"]["rows"] for rw in rows),
+              "sum": sum(rw["inputs"]["sum"] for rw in rows) % (1 << 64)}
+    check(sent["rows"] == registered and inputs == sent,
+          f"fleet: stored rows of the lines sent {inputs} != the "
+          f"{registered} registered lines sent {sent}")
+    return hosts, specs, launches
+
+
+def mh_peer_outage(device, root, hosts, specs, owners_path):
+    """Host 1 killed after its second payload while host 0 takes payloads
+    with rows host 1 owns: host 0 spools them on disk, its table marks
+    host 1 SUSPECT then DOWN; host 1 restarts on its directory and host
+    0's spool drains to it.  Returns the launches."""
+    saved = mh_all([functools.partial(h.call, "checkpoint") for h in hosts])
+    floor1 = saved[1]["journal_records"]
+    base = mh_all([functools.partial(h.call, "stats") for h in hosts])
+    # measurement lines of registered devices, each with its own second
+    rng = np.random.default_rng(SEED + 62)
+    payloads, keys = zip(*[mh_keyed(
+        rng.integers(0, N_ACTIVE, FULL_B).tolist(),
+        MH_OUTAGE_TS0_MS + 1000 * p * FULL_B, SEED + 62 + p)
+        for p in range(MH_OUTAGE_BEFORE + MH_OUTAGE_DURING)])
+    key_lo = MH_OUTAGE_TS0_MS // 1000
+    key_hi = key_lo + len(payloads) * FULL_B
+    frames = [is_frames([(p, 0)])[0] for p in payloads]
+    # the first is committed (flushed) before the second comes; the kill
+    # lands with the second's rows journaled and not yet sealed
+    for k in range(MH_OUTAGE_BEFORE):
+        hosts[1].send(frames[k])
+        hosts[1].intake()
+        if k < MH_OUTAGE_BEFORE - 1:
+            hosts[1].call("flush")
+    hosts[1].kill()
+    t_kill = time.time()
+    committed_at_kill = committed_offset(specs[1]["data_dir"])
+    during = [f for fr in frames[MH_OUTAGE_BEFORE:] for f in fr]
+    lines_during = sum(p.count(b"\n") + 1
+                       for p in payloads[MH_OUTAGE_BEFORE:])
+    t0 = time.perf_counter()
+    hosts[0].send(during)
+    hosts[0].intake(drain=False)
+    hosts[0].call("flush")
+    outage_s = time.perf_counter() - t0
+    spooled = hosts[0].call("stats")["forward"]["pending"]
+    seen = mh_wait_peer(hosts[0], 1, "DOWN", t_kill)
+    t_restart = time.perf_counter()
+    hosts[1] = FleetHost("host1-restart", specs[1], root)
+    hosts[1].sent = 0
+    drain = hosts[0].call("drain")
+    drained_s = time.perf_counter() - t_restart
+    mh_all([functools.partial(h.call, "flush") for h in hosts])
+    back = mh_wait_peer(hosts[0], 1, "ALIVE", t_kill)
+    below = os.path.join(root, "below.npy")
+    hosts[1].call("journal_keys", lo=floor1, hi=committed_at_kill, out=below)
+    outs = [os.path.join(root, f"keys{p}.npz") for p in range(2)]
+    rows = mh_all([functools.partial(
+        h.call, "rows", owners_path=owners_path, keys_out=outs[p],
+        key_lo=key_lo, key_hi=key_hi) for p, h in enumerate(hosts)])
+    stats = mh_all([functools.partial(h.call, "stats") for h in hosts])
+    reruns = mh_all([functools.partial(h.call, "rerun_plain")
+                     for h in hosts])
+    got = [np.load(o) for o in outs]
+    expected = np.unique(np.concatenate(keys))
+    must_once = np.unique(np.load(below))
+    union = np.union1d(got[0]["keys"], got[1]["keys"])
+    lost = np.setdiff1d(expected, union)
+    extra = np.setdiff1d(union, expected)
+    both = np.intersect1d(got[0]["keys"], got[1]["keys"])
+    twice0 = int((got[0]["counts"] > 1).sum())
+    once1 = dict(zip(got[1]["keys"].tolist(), got[1]["counts"].tolist()))
+    below_twice = sum(1 for k in must_once.tolist() if once1.get(k, 0) > 1)
+    below_missing = sum(1 for k in must_once.tolist() if k not in once1)
+    ready = hosts[1].ready
+    launches = [stats[0]["launches"] - base[0]["launches"],
+                stats[1]["launches"]]
+    steps = [stats[0]["steps"] - base[0]["steps"], stats[1]["steps"]]
+    rec = {"phase": "multi_host", "run": "peer_outage",
+           "payloads_before_kill": MH_OUTAGE_BEFORE,
+           "payloads_during_outage": MH_OUTAGE_DURING,
+           "host0_events_per_s_during_outage": lines_during / outage_s,
+           "rows_spooled_for_host1": spooled,
+           "health_after_kill": seen, "health_after_restart": back,
+           "host1_boot_s": ready["boot_s"],
+           "host1_restore_s": ready["restore_s"],
+           # Instance.start() less its replay: the lifecycle start with
+           # the warm-up dispatch
+           "host1_warmup_s": ready["start_s"] - ready["replay_s"],
+           "host1_replay_s": ready["replay_s"],
+           "host1_replay_events": ready["replay_events"],
+           "host1_committed_at_kill": committed_at_kill,
+           "host1_checkpoint_floor": floor1,
+           "seconds_restart_to_spool_empty": drained_s,
+           "spool_drain": drain,
+           "keys_expected": int(expected.size), "lost": int(lost.size),
+           "extra": int(extra.size), "keys_on_both_hosts": int(both.size),
+           "host0_stored_twice": twice0,
+           "host1_keys_below_committed": int(must_once.size),
+           "host1_below_committed_twice": below_twice,
+           "host1_above_committed_twice": int(
+               (got[1]["counts"] > 1).sum()) - below_twice,
+           "dead_lettered": [s["forward"]["dead_lettered"] for s in stats],
+           "steps": steps, "launches": launches,
+           "plain_rerun_identical": [r.get("identical") for r in reruns]}
+    emit(rec)
+    check([s for s, _ in seen] == ["SUSPECT", "DOWN"],
+          f"host 0's table did not mark host 1 SUSPECT then DOWN: {seen}")
+    check(back[-1][0] == "ALIVE", f"host 1 not back to ALIVE: {back}")
+    check(spooled > 0, "host 0 spooled no row for host 1")
+    check(lost.size == 0, f"{lost.size} rows lost across the outage")
+    check(extra.size == 0 and both.size == 0,
+          f"{extra.size} unknown keys, {both.size} on both hosts")
+    check(twice0 == 0, f"host 0 stored {twice0} rows twice")
+    check(must_once.size > 0 and below_twice == 0 and below_missing == 0,
+          f"host 1: {below_twice} rows below its committed offset stored "
+          f"twice, {below_missing} missing of {must_once.size}")
+    check(all(r["foreign_rows"] == 0 for r in rows),
+          "a host stored rows of devices it does not own")
+    check(all(s["forward"]["dead_lettered"] == 0
+              and s["forward"]["pending"] == 0 for s in stats),
+          f"forward dead letters or pending: {rec['dead_lettered']}")
+    if device.type == "cuda":
+        check(launches == steps, f"launches {launches} != steps {steps}")
+    check(all(s > 0 for s in steps), f"a host took no step: {steps}")
+    mh_check_reruns(reruns, stats)
+    return sum(launches)
+
+
+def mh_dm_world(device, root, name, tokens):
+    """A small world whose devices are made through ``DeviceManagement``
+    (migration hands off its records), saved as a checkpoint."""
+    from sitewhere_tpu_torch.instance import Instance
+
+    capacity, n_active, width = SIZES["small"]
+    data_dir = os.path.join(root, name)
+    inst = Instance(instance_config(data_dir, capacity, width, 0,
+                                    WIRE_DEADLINE_MS), device=device)
+    populate_world(inst.identity, inst.mirror, inst.rules, n_active,
+                   devices=[])
+    dm = inst.device_management
+    dm.create_device_type(token="sensor", name="Sensor")
+    for tok in tokens:
+        dm.create_device(token=tok, device_type="sensor")
+        dm.create_device_assignment(device=tok)
+    inst.checkpointer.save()
+    inst.terminate()
+    return os.path.join(data_dir, "checkpoint")
+
+
+def mh_keyed(devices, ts0_ms, seed):
+    """One measurement line per device in ``devices`` (global indices),
+    each with its own second of event time: ``(payload, keys)``."""
+    rng = np.random.default_rng(seed)
+    lo, hi = MEAS_VALUE_BAND
+    value = rng.uniform(lo, hi, len(devices))
+    ts = ts0_ms + 1000 * np.arange(len(devices))
+    payload = "\n".join(_M_LINE % (f"d-{d}", d % M_SLOTS, v, t) for d, v, t in
+                        zip(devices, value.tolist(), ts.tolist())).encode()
+    return payload, ts // 1000
+
+
+def mh_login(port):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    conn.request("POST", "/api/jwt", body=json.dumps(
+        {"username": "admin", "password": "password"}).encode())
+    resp = conn.getresponse()
+    body = json.loads(resp.read())
+    check(resp.status == 200, f"login: {resp.status} {body}")
+    return conn, body["token"]
+
+
+def mh_membership(device, root):
+    """Grow a small 2-host fleet to 3 through ``POST
+    /api/instance/cluster/membership`` on each host: the devices whose
+    owner moves hand off their records and state rows to the new host,
+    the spools requeue, and new rows of moved devices land on it.
+    Returns the launches."""
+    capacity, n_active, width = SIZES["small"]
+    tokens = [f"d-{i}" for i in range(n_active)]
+    own2, own3 = mh_owners(tokens, 2), mh_owners(tokens, 3)
+    owners_path = os.path.join(root, "owners3.npy")
+    np.save(owners_path, own3)
+    moved = np.flatnonzero(own3 != own2)
+    check(moved.size > 0 and (own3[moved] == 2).all(),
+          "growing the fleet moved devices to an old host")
+    t0 = time.perf_counter()
+    worlds = [mh_dm_world(device, root, f"mworld{p}",
+                          [tokens[i] for i in np.flatnonzero(own2 == p)])
+              for p in range(2)] + [mh_dm_world(device, root, "mworld2", [])]
+    world_s = time.perf_counter() - t0
+    mh_release(device)
+    peers = [f"127.0.0.1:{mh_free_port()}" for _ in range(3)]
+    specs = [mh_spec(device, root, f"member{p}", p, peers[:max(2, p + 1)],
+                     "small", worlds[p], web=True, capture_step=True)
+             for p in range(3)]
+    hosts = mh_all([functools.partial(FleetHost, f"member{p}", specs[p],
+                                      root) for p in range(3)])
+    # before: one payload into each old host, every device once
+    order = np.random.default_rng(SEED + 63).permutation(n_active)
+    before = [mh_keyed(order[p::2].tolist(), MH_MEMBER_TS0_MS
+                       + 1000 * p * n_active, SEED + 64 + p)
+              for p in range(2)]
+    for p in range(2):
+        hosts[p].send(is_frames([(before[p][0], 0)])[0])
+    mh_all([h.intake for h in hosts[:2]])
+    mh_all([functools.partial(h.call, "flush") for h in hosts[:2]])
+
+    def change(p):
+        conn, tok = mh_login(hosts[p].ready["web_port"])
+        t = time.perf_counter()
+        conn.request("POST", "/api/instance/cluster/membership",
+                     body=json.dumps({"peers": peers,
+                                      "processId": p}).encode(),
+                     headers={"Authorization": f"Bearer {tok}"})
+        resp = conn.getresponse()
+        body = json.loads(resp.read())
+        conn.close()
+        check(resp.status == 200, f"membership on host {p}: "
+              f"{resp.status} {body}")
+        return body, (time.perf_counter() - t) * 1e3
+
+    # apply_membership requeues every row pending in a spool at the change
+    requeued = [h.call("stats")["forward"]["pending"] for h in hosts]
+    changes = mh_all([functools.partial(change, p) for p in range(3)])
+    moved_tokens = [tokens[i] for i in moved]
+    new = hosts[2].call("state_rows", tokens=moved_tokens)
+    old = [hosts[p].call("state_rows", tokens=[
+        tokens[i] for i in moved if own2[i] == p]) for p in range(2)]
+    mismatched = [t for p in range(2) for t, row in old[p].items()
+                  if new[t] is None or new[t]["assignment"] is None
+                  or new[t]["state"] != row["state"]]
+    with_state = sum(1 for row in new.values()
+                     if row is not None and row["ts"] > 0)
+    # after: moved devices' rows and others', all into old host 0
+    pick = np.random.default_rng(SEED + 66)
+    after_devs = np.concatenate([
+        pick.choice(moved, min(moved.size, width // 2), replace=False),
+        pick.choice(np.setdiff1d(np.arange(n_active), moved),
+                    width // 2, replace=False)]).tolist()
+    after_ts0 = MH_MEMBER_TS0_MS + 1000 * 3 * n_active
+    after, after_keys = mh_keyed(after_devs, after_ts0, SEED + 67)
+    hosts[0].send(is_frames([(after, 0)])[0])
+    hosts[0].intake()
+    mh_all([functools.partial(h.call, "flush") for h in hosts])
+    key_lo = MH_MEMBER_TS0_MS // 1000
+    key_hi = after_ts0 // 1000 + len(after_devs)
+    outs = [os.path.join(root, f"mkeys{p}.npz") for p in range(3)]
+    mh_all([functools.partial(
+        h.call, "rows", owners_path=owners_path, keys_out=outs[p],
+        key_lo=after_ts0 // 1000, key_hi=key_hi)
+        for p, h in enumerate(hosts)])
+    stats = mh_all([functools.partial(h.call, "stats") for h in hosts])
+    reruns = mh_all([functools.partial(h.call, "rerun_plain")
+                     for h in hosts])
+    got = [np.load(o) for o in outs]
+    # every key of the after payload once, a moved device's on host 2
+    placed = {}
+    for p in range(3):
+        for k, c in zip(got[p]["keys"].tolist(),
+                        got[p]["counts"].tolist()):
+            placed.setdefault(k, []).extend([p] * c)
+    want = {int(k): int(own3[d]) for k, d in zip(after_keys, after_devs)}
+    wrong = sum(1 for k, p in want.items() if placed.get(k) != [p])
+    mh_all([functools.partial(
+        h.call, "rows", owners_path=owners_path,
+        keys_out=os.path.join(root, f"bkeys{p}.npz"), key_lo=key_lo,
+        key_hi=after_ts0 // 1000) for p, h in enumerate(hosts)])
+    bgot = [np.load(os.path.join(root, f"bkeys{p}.npz"))
+            for p in range(3)]
+    bkeys = np.concatenate([b["keys"] for b in bgot])
+    bcounts = np.concatenate([b["counts"] for b in bgot])
+    before_expected = np.concatenate([k for _, k in before])
+    summary = [c[0] for c in changes]
+    rec = {"phase": "multi_host", "run": "membership",
+           "capacity": capacity, "devices": n_active, "width": width,
+           "world_build_s": world_s, "hosts_before": 2,
+           "hosts_after": 3,
+           "devices_planned": sum(s["planned"] for s in summary),
+           "devices_migrated": sum(s["moved"] for s in summary),
+           "devices_failed": sum(s["failed"] for s in summary),
+           "moved_expected": int(moved.size),
+           "moved_with_state": with_state,
+           "handoff_ms": [c[1] for c in changes],
+           "spool_rows_requeued": requeued,
+           "plain_rerun_identical": [r.get("identical") for r in reruns],
+           "state_mismatched": len(mismatched),
+           "after_rows": len(after_devs),
+           "after_rows_misplaced": wrong,
+           "before_rows_lost": int(np.setdiff1d(
+               before_expected, bkeys).size),
+           "before_rows_twice": int((bcounts > 1).sum()),
+           "steps": [s["steps"] for s in stats],
+           "launches": [s["launches"] for s in stats]}
+    emit(rec)
+    check(rec["devices_planned"] == rec["devices_migrated"]
+          == moved.size and rec["devices_failed"] == 0,
+          f"migration: {summary} for {moved.size} moving devices")
+    check(not mismatched, f"{len(mismatched)} moved devices differ on "
+          f"their new owner, e.g. {mismatched[:3]}")
+    check(with_state > 0, "no moved device carried a state row")
+    check(wrong == 0, f"{wrong} rows after the change not once on "
+          "their new owner")
+    check(rec["before_rows_lost"] == 0 and rec["before_rows_twice"] == 0,
+          f"rows before the change: {rec['before_rows_lost']} lost, "
+          f"{rec['before_rows_twice']} twice")
+    check(all(s["forward"]["dead_lettered"] == 0
+              and s["forward"]["pending"] == 0 for s in stats),
+          "forward dead letters or pending after the change")
+    if device.type == "cuda":
+        check(rec["launches"] == rec["steps"],
+              f"launches {rec['launches']} != steps {rec['steps']}")
+    mh_check_reruns(reruns, stats)
+    mh_all([h.stop for h in hosts])
+    return sum(rec["launches"])
+
+
+def mh_spmd_inputs(device, root):
+    """The one-process 8-shard mesh's 4 packed steps (sharded_mesh's
+    path, with the plain geofence) on the main path's world and
+    shard-routed batches, then each
+    rank's input file (its shards' registry columns, the replicated
+    tables, its batch segments) and the digests its shards must
+    reproduce."""
+    import hashlib
+
+    import torch
+
+    from sitewhere_tpu_torch.parallel import make_mesh
+    from sitewhere_tpu_torch.pipeline.packed import (
+        pack_batch_host, pack_state, pack_tables)
+    from sitewhere_tpu_torch.pipeline.sharded import (
+        build_sharded_packed_step, place_packed_batch, place_packed_state,
+        place_packed_tables)
+    from sitewhere_tpu_torch.schema import DeviceState
+
+    mesh = make_mesh(devices=[device] * MH_SHARDS)
+    tables = pack_tables(*make_world(device, CAPACITY, N_ACTIVE, N_RULES,
+                                     FULL_Z, FULL_V, SEED + 1))
+    rng = np.random.default_rng(SEED + 68)
+    batches = [pack_batch_host(sm_routed_cols(
+        rng, FULL_B, N_ACTIVE, CAPACITY, 1_700_000_000 + s, MH_SHARDS),
+        FULL_B) for s in range(MH_STEPS)]
+    # the reference runs the plain geofence: each rank's kernel launches
+    # are held against it
+    step = build_sharded_packed_step(mesh, geofence=plain_chunked)
+    mtables = place_packed_tables(mesh, tables)
+    ps = place_packed_state(mesh, pack_state(DeviceState.empty(
+        CAPACITY, M_SLOTS, K_SCALES, device=device)))
+
+    def digest(t):
+        return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+
+    want = {"oi": [], "present": [], "metrics": []}
+    for bi, bf in batches:
+        sbi, sbf = place_packed_batch(mesh, bi, bf)
+        ps, oi, met, pres = step(mtables, ps, sbi, sbf)
+        want["oi"].append([digest(b) for b in oi.shards])
+        want["present"].append([digest(b) for b in pres.shards])
+        want["metrics"].append(met.shards[0].cpu().numpy().tolist())
+    want["si"] = [digest(b) for b in ps.si.shards]
+    want["sf"] = [digest(b) for b in ps.sf.shards]
+    per_rank = CAPACITY // MH_RANKS
+    seg = FULL_B // MH_RANKS
+    paths = []
+    for r in range(MH_RANKS):
+        cols = slice(r * per_rank, (r + 1) * per_rank)
+        flat = {"tables.reg_i": tables.reg_i[:, cols].cpu().numpy()}
+        for f in ("rules_i", "rules_f", "taus", "zones_i", "zones_v"):
+            flat[f"tables.{f}"] = getattr(tables, f).cpu().numpy()
+        for s, (bi, bf) in enumerate(batches):
+            flat[f"bi.{s}"] = bi[:, r * seg:(r + 1) * seg]
+            flat[f"bf.{s}"] = bf[:, r * seg:(r + 1) * seg]
+        path = os.path.join(root, f"spmd-in-{r}.npz")
+        np.savez(path, **flat)
+        paths.append(path)
+    return paths, want
+
+
+def mh_spmd_step(device, root):
+    """``parallel/multihost.py``: 2 ranks x 4 shards on the one card over
+    gloo, 4 packed steps, each rank holding only its shards' rows;
+    every rank's rows, metrics and carry bitwise the one-process 8-shard
+    mesh's.  Returns the launches."""
+    t0 = time.perf_counter()
+    paths, want = mh_spmd_inputs(device, root)
+    setup_s = time.perf_counter() - t0
+    port = mh_free_port()
+    procs = {}
+    for r in range(MH_RANKS):
+        spec = {"input": paths[r], "want": want, "device": str(device),
+                "capacity": CAPACITY, "width": FULL_B, "shards": MH_SHARDS,
+                "steps": MH_STEPS, "mtype_slots": M_SLOTS,
+                "ewma_scales": K_SCALES,
+                "result_out": os.path.join(root, f"spmd-{r}.json")}
+        env = dict(os.environ, SW_COORDINATOR=f"127.0.0.1:{port}",
+                   SW_NUM_PROCESSES=str(MH_RANKS), SW_PROCESS_ID=str(r))
+        env.pop("SW_CRASHPOINT", None)
+        with open(spec["result_out"] + ".err", "wb") as err:
+            proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--spmd-child",
+                 json.dumps(spec)], env=env, stdout=subprocess.DEVNULL,
+                stderr=err, cwd=os.path.dirname(os.path.abspath(__file__)))
+        proc.err_path = spec["result_out"] + ".err"
+        procs[r] = proc
+    t1 = time.perf_counter()
+    done = _wait_all(procs, 600)
+    ranks_s = time.perf_counter() - t1
+    results = []
+    for r, (rc, err) in done.items():
+        check(rc == 0, f"spmd rank {r} failed (rc {rc}): {err}")
+        results.append(_read_result(os.path.join(root, f"spmd-{r}.json")))
+    emit({"phase": "multi_host", "run": "spmd_step", "ranks": MH_RANKS,
+          "shards": MH_SHARDS, "shards_per_rank": MH_SHARDS // MH_RANKS,
+          "capacity": CAPACITY, "width": FULL_B,
+          "rows_per_shard": FULL_B // MH_SHARDS, "steps": MH_STEPS,
+          "setup_s": setup_s, "ranks_s": ranks_s, "by_rank": results})
+    launches = 0
+    for res in results:
+        check(res["backend"] == "gloo", f"backend {res['backend']}")
+        check(res["mismatches"] == [], f"rank {res['rank']}: "
+              f"{res['mismatches']} differ from the one-process mesh")
+        if device.type == "cuda":
+            check(res["launches"] == MH_STEPS * MH_SHARDS // MH_RANKS,
+                  f"rank {res['rank']}: {res['launches']} launches")
+        launches += res["launches"]
+    return launches
+
+
+def spmd_child(spec):
+    """``--spmd-child``: one rank of spmd_step."""
+    import torch
+
+    from sitewhere_tpu_torch.ops import geo_cuda
+    from sitewhere_tpu_torch.parallel import multihost
+    from sitewhere_tpu_torch.parallel.shmap import collective_stats
+    from sitewhere_tpu_torch.pipeline.packed import PackedTables, pack_state
+    from sitewhere_tpu_torch.pipeline.sharded import build_sharded_packed_step
+    from sitewhere_tpu_torch.schema import DeviceState
+
+    import hashlib
+
+    import torch.distributed as dist
+
+    device = torch.device(spec["device"])
+    capacity, width = spec["capacity"], spec["width"]
+    check(multihost.initialize_from_env(backend="gloo"), "no coordinator")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    mesh = multihost.make_process_mesh(spec["shards"], device=device)
+    mine = multihost.process_local_shards(mesh)
+    npz = np.load(spec["input"])
+    tables = PackedTables(**{f: torch.from_numpy(npz[f"tables.{f}"])
+                             for f in ("reg_i", "rules_i", "rules_f", "taus",
+                                       "zones_i", "zones_v")})
+    # this rank's carry: its shards' rows of the empty state
+    ps = pack_state(DeviceState.empty(capacity // world,
+                                      spec["mtype_slots"],
+                                      spec["ewma_scales"], device="cpu"))
+    gtables, gps = multihost.make_global_packed_inputs(
+        mesh, tables, ps, registry_capacity=capacity)
+    step = build_sharded_packed_step(mesh)
+
+    def digest(t):
+        return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    want = spec["want"]
+    mismatches, step_ms, coll_ms = [], [], []
+    sync()
+    geo_cuda.reset_launch_counts()
+    for s in range(spec["steps"]):
+        bi, bf = multihost.make_global_packed_batch(
+            mesh, npz[f"bi.{s}"], npz[f"bf.{s}"], width)
+        sync()
+        c0 = collective_stats()["seconds"]
+        t0 = time.perf_counter()
+        gps, oi, met, pres = step(gtables, gps, bi, bf)
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        coll_ms.append((collective_stats()["seconds"] - c0) * 1e3)
+        for k in mine:
+            if digest(oi.shards[k]) != want["oi"][s][k]:
+                mismatches.append(f"step {s} rows of shard {k}")
+            if digest(pres.shards[k]) != want["present"][s][k]:
+                mismatches.append(f"step {s} presence of shard {k}")
+            if met.shards[k].cpu().numpy().tolist() != want["metrics"][s]:
+                mismatches.append(f"step {s} metrics on shard {k}")
+    for k in mine:
+        if digest(gps.si.shards[k]) != want["si"][k]:
+            mismatches.append(f"int carry of shard {k}")
+        if digest(gps.sf.shards[k]) != want["sf"][k]:
+            mismatches.append(f"float carry of shard {k}")
+    out = {"rank": rank, "backend": dist.get_backend(), "shards": mine,
+           "step_ms": step_ms, "collective_ms": coll_ms,
+           "launches": geo_cuda.launch_counts["pip_parity"],
+           "mismatches": mismatches}
+    dist.destroy_process_group()
+    with open(spec["result_out"], "w") as f:
+        json.dump(out, f)
+
+
+def phase_multi_host(device, geo_cuda):
+    """The fleet fabric and the multi-process mesh on the one card:
+    fleet_wire, peer_outage, membership and spmd_step.  Returns the
+    kernel's launches by run."""
+    t0 = time.perf_counter()
+    mh_release(device)
+    root = tempfile.mkdtemp(prefix="fleet-", dir=geo_cuda.BUILD_DIR)
+    launches = {}
+    try:
+        owners = mh_owners([f"d-{i}" for i in range(N_ACTIVE)], 2)
+        owners_path = os.path.join(root, "owners2.npy")
+        np.save(owners_path, owners)
+        hosts, specs, launches["fleet_wire"] = mh_fleet_wire(
+            device, root, owners, owners_path)
+        launches["peer_outage"] = mh_peer_outage(device, root, hosts, specs,
+                                                 owners_path)
+        mh_all([h.stop for h in hosts])
+        launches["membership"] = mh_membership(device, root)
+        launches["spmd_step"] = mh_spmd_step(device, root)
+    finally:
+        # a failed check leaves hosts running: none outlives the phase
+        for proc in MH_PROCS:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+        MH_PROCS.clear()
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "multi_host", "run": "done",
+          "seconds": time.perf_counter() - t0, "launches": launches})
+    return launches
+
+
 def phase_small_reference(device):
     """A small deployment stepped on the card (kernel) and on the CPU
     (plain versions): int outputs and metrics identical, EWMAs close."""
@@ -7763,14 +8673,18 @@ def main() -> int:
         op_launches = phase_outbound_presence(device, geo_cuda, world)
         gw_launches = phase_rest_gateway(device, geo_cuda, world, rec)
         sm_launches = phase_sharded_mesh(device, geo_cuda, world, rec)
+        mh_launches = phase_multi_host(device, geo_cuda)
         te_launches = phase_tenant_engines(device, geo_cuda)
     finally:
         shutil.rmtree(world_root, ignore_errors=True)
     cp_launches = phase_control_plane(device, geo_cuda)
-    # this slice's path: the sharded pipeline's runs, each step one
-    # launch per shard at the shard's width
-    rec["launches"] = sum(sm_launches.values())
+    # this slice's path: the fleet's runs (one launch per fleet host's
+    # step at B=131072, or B=4096 in membership) and the multi-process
+    # mesh's (one per local shard per step at B=16384)
+    rec["launches"] = sum(mh_launches.values())
     rec["launches_by_path"] = {"main_path": main_launches,
+                               **{f"multi_host.{k}": v
+                                  for k, v in mh_launches.items()},
                                **{f"sharded_mesh.{k}": v
                                   for k, v in sm_launches.items()},
                                **{f"rest_gateway.{k}": v
@@ -7828,4 +8742,8 @@ def child_main(spec_json: str) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--kill-child"]:
         sys.exit(child_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--spmd-child"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        spmd_child(json.loads(sys.argv[2]))
+        sys.exit(0)
     sys.exit(main())

@@ -41,7 +41,15 @@ the analytics runner its matches; connectors are attached in code with
 ``outbound.add_connector``), the presence manager (``presence.*``: its
 sweeps flag devices silent past ``missing_after_s`` and their
 STATE_CHANGE rows re-enter through the dispatcher's ``inject_batch``),
-the ``"local"`` event search provider (``search_providers``), the
+the event search providers (``search_providers``: ``"local"``, and
+with peers a remote leg per peer and ``"federated"`` over all of them),
+the cross-host fabric (``rpc.*``: the ``RpcServer`` with the instance's
+domain surface when ``rpc.server.enabled`` is set or peers are listed;
+with two or more ``rpc.peers`` the ``HostForwarder``, which keeps the
+rows of locally-owned devices and ships the rest to their owning
+process over per-peer ``RpcDemux``es carrying the system JWT, through a
+durable per-peer spool, under the fleet heartbeat; membership changes
+through :meth:`apply_membership_change`), the
 device streams (``streams``, ``stream_manager``: host-plane stream
 create, data and send requests from the sources and the wire), the users
 and their JWTs (``users``, ``tokens``; ``security.jwt_secret``), the
@@ -60,21 +68,6 @@ their jobs and the batch command operations (``schedules``,
 file).  The attributes keep the reference's names, since the
 :class:`~sitewhere_tpu_torch.runtime.checkpoint.Checkpointer` reads
 them.
-
-Components the reference composes by default and this instance does NOT
-yet, so the port does less than the reference until their slices come
-(line numbers in ``sitewhere_tpu/instance.py`` unless named):
-
-- the fabric: :meth:`invoke_command` runs locally and has no peers to
-  route an unknown assignment to, the ``forward-shed`` requeue finds
-  no forwarder, and the federated and remote search providers
-  (:694-706) have no peers to search;
-- the mesh's per-shard breakers (``ShardBreakers``);
-- the profiler endpoints that calibrate the watchdog's budgets
-  (:1040-1060): the budgets stay at their defaults, soft 1 s, hard 10 s;
-- the forwarder, so the ``runtime`` section's ``spools`` stay empty,
-  and :meth:`topology` gives the local view only (no
-  ``cluster_topology``, no ``forwarding`` entry).
 
 The runner's ``outbound`` hook (its match fan-out), and its and the rule
 engine's ``overload``, ``usage_ledger`` and ``quotas``, are wired.
@@ -99,20 +92,21 @@ Lifecycle, as in the reference:
   sets the ``recovery.restore_s``, ``recovery.replay_s`` and
   ``recovery.replay_events`` gauges;
 - :meth:`stop` stops the sources, drains the decode pool, then stops
-  the other children in reverse: the presence thread, then the
-  dispatcher flushes (every row egressed and sealed, the offset
-  committed) while the rule engine, the analytics runner and the
-  outbound workers still run, then those stop (a connector worker drops
-  what is still queued, as in the reference: call ``outbound.drain``
-  first to deliver it), then the store; a final generation is saved.
+  the other children in reverse: the forwarder, the RPC server, the
+  presence thread, then the dispatcher flushes (every row egressed and
+  sealed, the offset committed) while the rule engine, the analytics
+  runner and the outbound workers still run, then those stop (a
+  connector worker drops what is still queued, as in the reference:
+  call ``outbound.drain`` first to deliver it), then the store; a final
+  generation is saved.
 
 Configuration: the reference's keys and defaults
 (:mod:`~sitewhere_tpu_torch.runtime.config`), plus two of the port's own,
 ``pipeline.max_zones`` and ``pipeline.max_zone_verts`` (the registry
 mirror's zone table; defaults 256 and 32, the reference mirror's).  The
-keys in :data:`HONOURED` drive the instance.  Sections whose components
-the port does not have yet (``rpc`` and the rest) are not composed: at
-their defaults the instance runs without them, and any other value
+keys in :data:`HONOURED` drive the instance.  Any other key (the
+``web`` section: the ``WebServer`` takes its host and port as
+arguments) is refused unless it is left at its default: another value
 raises :class:`NotImplementedError`.  The ``outbound`` section's ``connectors`` key is such a value: the
 reference builds no connector from config either.  Events arrive
 through the sources, or through ``instance.dispatcher``
@@ -171,10 +165,22 @@ from sitewhere_tpu_torch.labels.manager import LabelGeneratorManager
 from sitewhere_tpu_torch.outbound.manager import OutboundConnectorsManager
 from sitewhere_tpu_torch.outbound.search import (
     EventSearchProvider,
+    FederatedSearchProvider,
+    RemoteSearchProvider,
     SearchProvidersManager,
+    TokenSearchAdapter,
 )
 from sitewhere_tpu_torch.pipeline.packed import packed_env_override
 from sitewhere_tpu_torch.pipeline.rules import RuleManager
+from sitewhere_tpu_torch.rpc import (
+    HostForwarder,
+    RpcDemux,
+    RpcError,
+    RpcServer,
+    bind_instance,
+)
+from sitewhere_tpu_torch.rpc.migration import migrate_out
+from sitewhere_tpu_torch.rpc.wire import parse_endpoint
 from sitewhere_tpu_torch.rules.engine import RuleEngineRunner
 from sitewhere_tpu_torch.runtime.checkpoint import (
     Checkpointer,
@@ -240,12 +246,6 @@ from sitewhere_tpu_torch.store.segmented import SegmentStore
 logger = logging.getLogger("sitewhere_tpu_torch.instance")
 
 
-class MultiHostUnavailable(ServiceError):
-    """A call that needs the multi-host fabric (501 over REST)."""
-
-    http_status = 501
-
-
 #: Config keys this instance reads (dotted paths; a trailing ``.*`` takes
 #: the whole section).
 HONOURED = (
@@ -267,6 +267,7 @@ HONOURED = (
     "sources", "ingest.*", "presence.*",
     "security.jwt_secret", "batch.throttle_delay_ms",
     "telemetry.device_profile_on_start",
+    "rpc.*", "api.*",
 )
 
 
@@ -790,10 +791,26 @@ class Instance(LifecycleComponent):
         self.sources: List[LifecycleComponent] = []
         self._config_sources_built = False
 
-        # event search: the local store is the built-in index (the
-        # federated provider over peers waits for the fabric)
+        self._compose_fabric(jwt_secret)
+
+        # event search: the local store is the built-in index; with
+        # peers every peer's store is a remote index and "federated"
+        # fans a query out to all of them and merges newest first
         self.search_providers = SearchProvidersManager(
             [EventSearchProvider("local", self.event_store)])
+        if self._peer_demuxes:
+            local_adapter = TokenSearchAdapter(
+                "local", self.event_store, self.identity,
+                self.device_management)
+            legs = [local_adapter] + [
+                RemoteSearchProvider(f"peer-{p}", demux)
+                for p, demux in sorted(self._peer_demuxes.items())
+                if demux is not None
+            ]
+            for leg in legs[1:]:
+                self.search_providers.add_provider(leg)
+            self.search_providers.add_provider(
+                FederatedSearchProvider("federated", legs))
 
         # checkpoint/resume: restore the newest complete snapshot BEFORE
         # start, so identity, registry, rules and device state survive a
@@ -825,8 +842,9 @@ class Instance(LifecycleComponent):
                 snapshot_fn=self.rule_engine.snapshot_state,
                 restore_fn=self.rule_engine.restore_state,
                 version=1))
-        # the sources' dedup windows (and the forward-spool cursors,
-        # empty: the port has no forwarder)
+        # the sources' dedup windows and the forward-spool cursors (the
+        # spools are durable journals with their own offset files; the
+        # cursors are the recovery report's)
         self.checkpointer.register_provider(StateProvider(
             name="runtime",
             snapshot_fn=self._snapshot_runtime_state,
@@ -844,6 +862,181 @@ class Instance(LifecycleComponent):
                 restore_fn=self.usage_ledger.restore_payload,
                 version=1))
         self.restored = self.checkpointer.restore()
+
+    # -- the cross-host fabric ---------------------------------------------
+
+    def _compose_fabric(self, jwt_secret) -> None:
+        """The reference's :601-679: the RPC server publishing this
+        instance's domain surface, and with a 2+ entry peers list the
+        keyed forwarder, so every ingest row lands on the host that owns
+        its device (the Kafka partition-leadership analog)."""
+        self.rpc_server = None
+        self.forwarder = None
+        peers: List[str] = list(self.config.get("rpc.peers") or [])
+        if bool(self.config.get("rpc.server.enabled")) or peers:
+            self.rpc_server = self.add_child(RpcServer(
+                host=str(self.config.get("rpc.server.host", "127.0.0.1")),
+                port=int(self.config.get("rpc.server.port", 0)),
+                tokens=self.tokens, tracer=self.tracer,
+                metrics=self.metrics))
+            bind_instance(self.rpc_server, self)
+            if self.overload is not None:
+                # overload piggyback on every RPC response header
+                self.rpc_server.overload_provider = (
+                    lambda: (int(self.overload.state),
+                             self.overload.retry_after()))
+        self._peer_demuxes: Dict[int, Optional[RpcDemux]] = {}
+        if len(peers) > 1:
+            process_id = int(self.config.get("rpc.process_id", 0))
+            if not 0 <= process_id < len(peers):
+                raise ValueError(
+                    f"rpc.process_id {process_id} outside peers list")
+            if not jwt_secret:
+                # without a shared secret every forwarded batch would be
+                # rejected as unauthorized and dead-lettered: fail at
+                # boot, not silently at runtime
+                raise ValueError(
+                    "multi-host (rpc.peers) requires a shared "
+                    "security.jwt_secret so peers can verify each "
+                    "other's service tokens")
+            self._peer_demuxes = {
+                p: (None if p == process_id
+                    else RpcDemux([ep], token_provider=self._system_jwt))
+                for p, ep in enumerate(peers)
+            }
+            self.forwarder = self.add_child(HostForwarder(
+                self.dispatcher, process_id, self._peer_demuxes,
+                dead_letters=self.dead_letters,
+                deadline_ms=float(self.config.get(
+                    "rpc.forward_deadline_ms", 25.0)),
+                data_dir=self.data_dir,
+                tracer=self.tracer,
+                metrics=self.metrics,
+                overload=self.overload,
+                heartbeat_interval_s=float(self.config.get(
+                    "rpc.heartbeat_interval_s", 0.5)),
+                call_timeout_s=float(self.config.get(
+                    "rpc.call_timeout_s", 10.0)),
+                # the hung-step watchdog's flag on every beat, with the
+                # mesh-shard attribution: peers park forwards toward a
+                # host whose device tier is wedged
+                device_unhealthy=lambda: self.dispatcher.device_unhealthy,
+                device_unhealthy_shards=(
+                    lambda: self.dispatcher.device_unhealthy_shards)))
+        self._rpc_peers = list(peers)
+        if self._peer_demuxes:
+            # live endpoint reload: a peer that moved hosts or ports is
+            # picked up on config.reload(); a change of the NUMBER of
+            # peers moves device ownership and goes through
+            # apply_membership_change instead
+            self.config.on_change(self._on_peers_changed)
+
+    def _system_jwt(self) -> str:
+        """Service-to-service identity (the reference's
+        SystemUserRunnable)."""
+        return self.tokens.mint("system", ["ROLE_ADMIN"])
+
+    def _on_peers_changed(self, config) -> None:
+        new_peers = list(config.get("rpc.peers") or [])
+        # validate EVERY endpoint before touching any demux: a typo'd
+        # port must not leave the fleet half-updated
+        try:
+            for ep in new_peers:
+                parse_endpoint(str(ep))
+        except ValueError as e:
+            logger.error("rpc.peers reload rejected: %s", e)
+            return
+        old_peers = self._rpc_peers
+        if len(new_peers) != len(old_peers):
+            logger.error(
+                "rpc.peers count changed %d -> %d: device ownership "
+                "(rendezvous over P) would shift — restart required; "
+                "keeping the old endpoints",
+                len(old_peers), len(new_peers))
+            return
+        # a reorder of EXISTING endpoints rebinds process ids to other
+        # hosts, the same ownership shift as a count change
+        for p, ep in enumerate(new_peers):
+            if ep != old_peers[p] and ep in old_peers:
+                logger.error(
+                    "rpc.peers reorder detected (%s moved from index %d "
+                    "to %d): process-id/host binding would shift — "
+                    "restart required; keeping the old endpoints",
+                    ep, old_peers.index(ep), p)
+                return
+        for p, demux in self._peer_demuxes.items():
+            if demux is not None and demux.endpoints != [new_peers[p]]:
+                logger.info("peer %d endpoint -> %s", p, new_peers[p])
+                demux.set_endpoints([new_peers[p]])
+        self._rpc_peers = new_peers
+
+    def apply_membership_change(self, new_peers: List[str],
+                                process_id: Optional[int] = None) -> dict:
+        """Adopt a NEW peers list whose COUNT may differ: the ops path
+        for cluster grow and shrink (the reference's :842).
+
+        1. build demuxes for the new endpoints (reusing live channels
+           for endpoints that did not move);
+        2. requeue every pending forwarded row under the new ownership
+           (:meth:`HostForwarder.apply_membership`);
+        3. hand off locally-owned devices whose new owner is elsewhere
+           (:func:`~sitewhere_tpu_torch.rpc.migration.migrate_out`:
+           registry rows and newest-wins device state over
+           ``migration.import``).
+
+        Returns the handoff summary.  Every host of the fleet must apply
+        the SAME list (ownership is the rendezvous hash over it)."""
+        for ep in new_peers:
+            parse_endpoint(str(ep))
+        if process_id is None:
+            process_id = self._process_id()
+        old_n = max(len(self._rpc_peers), 1)
+        if not 0 <= process_id < len(new_peers):
+            raise ValueError(
+                f"process_id {process_id} outside new peers list")
+        old_by_endpoint = {}
+        for p, ep in enumerate(self._rpc_peers):
+            demux = self._peer_demuxes.get(p)
+            if demux is not None:
+                old_by_endpoint[ep] = demux
+        new_demuxes: Dict[int, Optional[RpcDemux]] = {}
+        for p, ep in enumerate(new_peers):
+            if p == process_id:
+                new_demuxes[p] = None
+            elif ep in old_by_endpoint:
+                new_demuxes[p] = old_by_endpoint.pop(ep)
+            else:
+                new_demuxes[p] = RpcDemux([ep],
+                                          token_provider=self._system_jwt)
+        if self.forwarder is not None:
+            self.forwarder.apply_membership(new_demuxes,
+                                            process_id=process_id)
+        elif len(new_peers) > 1:
+            # a standalone instance's sources are wired straight to the
+            # dispatcher: conjuring a forwarder now would leave them
+            # bypassing it and split device streams across hosts
+            raise ValidationError(
+                "this instance booted standalone (no rpc.peers); "
+                "restart it with rpc.peers + rpc.server.enabled to "
+                "join a fleet")
+        self._peer_demuxes = new_demuxes
+        self._rpc_peers = list(new_peers)
+        self.config.set("rpc.peers", list(new_peers))
+        self.config.set("rpc.process_id", process_id)
+        # the demuxes of endpoints that left the fleet
+        for demux in old_by_endpoint.values():
+            try:
+                demux.close()
+            except Exception:
+                logger.exception("old peer demux close failed")
+        summary = migrate_out(self, old_n, len(new_peers), process_id,
+                              new_demuxes)
+        logger.info("membership change to %d peers: %s",
+                    len(new_peers), summary)
+        return summary
+
+    def _process_id(self) -> int:
+        return int(self.config.get("rpc.process_id", 0))
 
     # -- bootstrap (service-instance-management) ----------------------------
 
@@ -983,6 +1176,13 @@ class Instance(LifecycleComponent):
             # release the pool's worker threads
             self.decode_pool.stop(timeout_s=2.0)
             self.decode_pool = None
+        if self._peer_demuxes:
+            # the Config can outlive this Instance: a stale listener would
+            # hold the whole graph and resurrect closed channels
+            self.config.remove_listener(self._on_peers_changed)
+        for demux in self._peer_demuxes.values():
+            if demux is not None:
+                demux.close()
         self.ingest_journal.close()
         self.dead_letters.close()
 
@@ -990,8 +1190,8 @@ class Instance(LifecycleComponent):
 
     def topology(self) -> dict:
         """The live component tree and counters of this host (the
-        reference's ``TopologyStateAggregator`` feed).  The port has no
-        fabric, so no ``forwarding`` entry."""
+        reference's ``TopologyStateAggregator`` feed), with the
+        forwarder's counters under ``forwarding`` on a fleet host."""
         topo = {
             "instance": self.instance_id,
             "bootstrapped": self.bootstrapped,
@@ -1015,21 +1215,32 @@ class Instance(LifecycleComponent):
             topo["flightrec"] = self.flightrec.stats()
         if self.slo is not None:
             topo["slo"] = self.slo.snapshot()
+        if self.forwarder is not None:
+            topo["forwarding"] = self.forwarder.metrics()
         return topo
 
     def cluster_topology(self) -> dict:
-        """Every host's topology (the reference's :1900).  The port runs
-        one host and polls no peers, so this is the single-host view."""
-        return {"local": self.topology(), "peers": {}}
+        """Every host's topology, aggregated over the fabric (the
+        reference's :1900).  The peers are polled concurrently, so k dead
+        peers cost one timeout; a peer that does not answer reports as
+        unreachable rather than failing the view."""
+        view = {"local": self.topology(), "peers": {}}
 
-    def apply_membership_change(self, new_peers: List[str],
-                                process_id: Optional[int] = None) -> dict:
-        """Cluster grow or shrink (the reference's :842) needs the
-        multi-host fabric, which the port does not compose yet: refused,
-        never a silent success."""
-        raise MultiHostUnavailable(
-            "cluster membership changes need the multi-host fabric, which "
-            "this instance does not have (ROADMAP.md queue 1 item 10)")
+        def poll(p, demux):
+            try:
+                body, _ = demux.call("instance.topology", timeout_s=2.0)
+                view["peers"][str(p)] = body
+            except Exception as e:   # a degraded view, not an error
+                view["peers"][str(p)] = {"unreachable": str(e)}
+
+        threads = [threading.Thread(target=poll, args=(p, d), daemon=True)
+                   for p, d in sorted(self._peer_demuxes.items())
+                   if d is not None]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=5.0)
+        return view
 
     # -- device telemetry (on-demand profiling) -------------------------------
 
@@ -1164,29 +1375,49 @@ class Instance(LifecycleComponent):
     # -- ingest sources -------------------------------------------------------
 
     def add_source(self, source: LifecycleComponent) -> LifecycleComponent:
-        """Attach an ingest source wired into the dispatcher (the
-        reference's single-host branch): requests to ``ingest`` /
-        ``ingest_many``, raw wire payloads to ``ingest_wire_lines`` with
-        its split halves for the decode pool, registrations, failed
-        decodes, host-plane requests, and the dedup window re-seeded from
-        the restored ``runtime`` section."""
-        d = self.dispatcher
-        source.on_event = d.ingest
-        if hasattr(source, "on_events"):
-            # batch forward: one columnar call per wire payload
-            source.on_events = d.ingest_many
-        if getattr(source, "raw_wire", False):
-            # raw lane: C columnar decode and in-scanner token
-            # resolution; decode errors come back to the source for its
-            # failure accounting
-            source.on_wire_payload = (
-                lambda p, sid: d.ingest_wire_lines(
-                    p, sid, raise_on_decode_error=True))
-            # split halves for the decode pool: decode on a worker,
-            # journal and batch in per-source order
-            source.on_wire_decode = d.decode_wire_lines
-            source.on_wire_decoded = d.ingest_wire_decoded
-        source.on_registration = d.ingest_registration
+        """Attach an ingest source wired into the dispatcher: requests to
+        ``ingest`` / ``ingest_many``, raw wire payloads to
+        ``ingest_wire_lines`` with its split halves for the decode pool,
+        registrations, failed decodes, host-plane requests, and the dedup
+        window re-seeded from the restored ``runtime`` section.  On a
+        fleet host (the reference's :1248) the source feeds the
+        forwarder instead, which keeps the rows of locally-owned devices
+        in-process and ships the rest to their owning host."""
+        d, fwd = self.dispatcher, self.forwarder
+        if fwd is not None:
+            source.on_event = (
+                lambda req, payload=b"": fwd.ingest_requests([req], payload))
+            if hasattr(source, "on_events"):
+                source.on_events = fwd.ingest_requests
+            if getattr(source, "raw_wire", False):
+                # raw lane, multi-host form: owner-split the NDJSON lines
+                # and ship the remote rows to their owning host; decode
+                # errors come back to the source
+                source.on_wire_payload = (
+                    lambda p, sid: fwd.ingest_payload(
+                        p, sid, raise_on_decode_error=True))
+            source.on_registration = fwd.ingest_registration
+            # stream requests route to the device's owning host, which
+            # handles them through its own _on_host_request
+            fwd.on_host_request = self._on_host_request
+            source.on_host_request = fwd.ingest_host_request
+        else:
+            source.on_event = d.ingest
+            if hasattr(source, "on_events"):
+                # batch forward: one columnar call per wire payload
+                source.on_events = d.ingest_many
+            if getattr(source, "raw_wire", False):
+                # raw lane: C columnar decode and in-scanner token
+                # resolution; decode errors come back to the source for
+                # its failure accounting
+                source.on_wire_payload = (
+                    lambda p, sid: d.ingest_wire_lines(
+                        p, sid, raise_on_decode_error=True))
+                # split halves for the decode pool: decode on a worker,
+                # journal and batch in per-source order
+                source.on_wire_decode = d.decode_wire_lines
+                source.on_wire_decoded = d.ingest_wire_decoded
+            source.on_registration = d.ingest_registration
         if self.decode_pool is not None and hasattr(source, "decode_pool"):
             # the source itself keeps ack-gated receivers synchronous
             source.decode_pool = self.decode_pool
@@ -1197,7 +1428,8 @@ class Instance(LifecycleComponent):
                 and hasattr(source.deduplicator, "import_keys"):
             source.deduplicator.import_keys(dedup_keys)
         source.on_failed_decode = d.ingest_failed_decode
-        if getattr(source, "on_host_request", None) is None:
+        if getattr(source, "on_host_request", None) is None \
+                and fwd is None:
             source.on_host_request = self._on_host_request
         self.sources.append(self.add_child(source))
         return source
@@ -1243,15 +1475,24 @@ class Instance(LifecycleComponent):
     def _snapshot_runtime_state(self):
         """The ``runtime`` section: each source's dedup LRU (so a restart
         does not re-admit the duplicates the window had caught) and the
-        forward-spool cursors, empty here.  The reference's payload, a
-        pickle of plain lists and ints, readable by either package."""
+        forward-spool committed cursors (informational: the spools are
+        durable journals with their own offset files).  The reference's
+        payload, a pickle of plain lists and ints, readable by either
+        package."""
         dedup: Dict[str, list] = {}
         for src in self.sources:
             d = getattr(src, "deduplicator", None)
             if d is not None and hasattr(d, "export_keys"):
                 dedup[src.name] = d.export_keys()
-        return (pickle.dumps({"dedup": dedup, "spools": {}}, protocol=4),
-                None)
+        spools: Dict[str, int] = {}
+        if self.forwarder is not None:
+            spools = {
+                str(p): int(r.committed)
+                for p, r in getattr(self.forwarder, "_spool_readers",
+                                    {}).items()
+            }
+        return (pickle.dumps({"dedup": dedup, "spools": spools},
+                             protocol=4), None)
 
     def _restore_runtime_state(self, header, payload) -> None:
         doc = pickle.loads(payload)
@@ -1371,7 +1612,9 @@ class Instance(LifecycleComponent):
         - ``device-poison``: rebuild the isolated rows from the columns
           the document carries and re-ingest them;
         - ``undelivered-command``: re-invoke the command;
-        - ``forward-shed``: refused here, the port has no forwarder.
+        - ``forward-shed``: re-route the remote-owned rows the
+          forwarder's memory-mode shed retention gave up on through the
+          forwarder (refused while the owner still sheds).
 
         Requeue granularity is the payload (at-least-once)."""
         try:
@@ -1389,8 +1632,20 @@ class Instance(LifecycleComponent):
                     "reason": "record was already requeued"}
         decoder = JsonLinesDecoder()
         if kind == "forward-shed" and "payload" in doc:
-            return {"requeued": False, "kind": kind,
-                    "reason": "no forwarder on this host"}
+            if self.forwarder is None:
+                return {"requeued": False, "kind": kind,
+                        "reason": "no forwarder on this host"}
+            payload = bytes.fromhex(doc["payload"])
+            try:
+                self.forwarder.ingest_payload(payload, source_id="requeue")
+            except OverloadShed as e:
+                # owner still shedding: the record stays un-requeued so
+                # the operator can retry after the fleet recovers
+                return {"requeued": False, "kind": kind,
+                        "reason": f"owner still shedding: {e}"}
+            self._mark_requeued(offset)
+            return {"requeued": True, "kind": kind,
+                    "rows": payload.count(b"\n") + 1}
         if kind in ("failed-decode", "failed-stream-request",
                     "intake-shed", "tenant-budget") and "payload" in doc:
             payload = bytes.fromhex(doc["payload"])
@@ -1630,14 +1885,46 @@ class Instance(LifecycleComponent):
                        initiator: str = "REST",
                        initiator_id: Optional[str] = None,
                        ts_s: Optional[int] = None) -> dict:
-        """The reference's federated invocation, on one instance: the
-        assignment must be local (``EntityNotFound`` otherwise, which the
-        reference answers only after asking its fabric peers; the port has
-        none yet)."""
-        return self.create_command_invocation(
-            assignment_token, command_token=command_token,
-            parameter_values=parameter_values, initiator=initiator,
-            initiator_id=initiator_id, ts_s=ts_s)
+        """Federated invocation (the reference's :1848): run locally when
+        this host holds the assignment, otherwise route over the fabric to
+        the peer that does.  An unreachable peer makes the outcome
+        AMBIGUOUS (it may have queued before dying): that surfaces as a
+        5xx-class ``ServiceError``, never a definitive 404 that would
+        invite a double-delivering retry."""
+        kwargs = dict(command_token=command_token,
+                      parameter_values=parameter_values,
+                      initiator=initiator, initiator_id=initiator_id,
+                      ts_s=ts_s)
+        try:
+            return self.create_command_invocation(assignment_token, **kwargs)
+        except EntityNotFound:
+            ambiguous = False
+            for _p, demux in sorted(self._peer_demuxes.items()):
+                if demux is None:
+                    continue
+                try:
+                    # a short per-peer timeout: one hung peer must not
+                    # stall the caller for the default times the fleet
+                    result, _ = demux.call("command.invoke", {
+                        "assignmentToken": assignment_token,
+                        "commandToken": command_token,
+                        "parameterValues": dict(parameter_values or {}),
+                        "initiator": initiator,
+                        "initiatorId": initiator_id,
+                        "ts": ts_s,
+                    }, timeout_s=5.0)
+                    return result
+                except RpcError as e:
+                    if e.error != "not_found":
+                        raise
+                except Exception:
+                    ambiguous = True   # the peer may have queued first
+            if ambiguous:
+                raise ServiceError(
+                    f"assignment {assignment_token} not found locally and "
+                    "a peer was unreachable — invocation state unknown; "
+                    "retrying may double-deliver")
+            raise
 
 
 __all__ = ["HONOURED", "Instance", "InstanceTemplate", "refuse_unsupported"]

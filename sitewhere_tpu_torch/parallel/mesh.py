@@ -15,7 +15,13 @@ Axes:
 
 A tensor placed on the mesh is a :class:`Sharded`: one block per shard,
 each on its shard's device, the counterpart of a JAX global array and its
-addressable shards.  :meth:`Sharded.gather` assembles the whole for the
+addressable shards.
+
+A mesh may span processes (``parallel/multihost.py``): each shard then
+has an owning rank (:attr:`Mesh.ranks`), a process holds only the blocks
+of its own shards (the other entries of a :class:`Sharded` are None, and
+the other shards' devices are ``meta``), and no process ever gathers a
+whole global tensor.  :meth:`Sharded.gather` assembles the whole for the
 readers that need it.  A :class:`Placement` (the counterpart of
 ``NamedSharding``) says how a tensor is laid out: a
 :class:`PartitionSpec` names, per tensor axis, the mesh axis it is split
@@ -69,14 +75,38 @@ P = PartitionSpec
 
 
 class Mesh:
-    """A ``(shard, model)`` grid of :class:`torch.device` entries."""
+    """A ``(shard, model)`` grid of :class:`torch.device` entries.
 
-    def __init__(self, grid: Sequence[Sequence[torch.device]]):
+    ``ranks`` (one per shard) and ``rank`` make it a mesh across
+    processes: shard ``k`` is this process's when ``ranks[k] == rank``;
+    its collectives run in the default ``torch.distributed`` group."""
+
+    def __init__(self, grid: Sequence[Sequence[torch.device]],
+                 ranks: Optional[Sequence[int]] = None, rank: int = 0):
         self.devices = np.empty((len(grid), len(grid[0])), dtype=object)
         for i, row in enumerate(grid):
             for j, dev in enumerate(row):
                 self.devices[i, j] = torch.device(dev)
         self.axis_names = (SHARD_AXIS, MODEL_AXIS)
+        if ranks is not None and len(ranks) != len(grid):
+            raise ValueError(f"{len(ranks)} ranks for {len(grid)} shards")
+        self.ranks = tuple(int(r) for r in ranks) if ranks else None
+        self.rank = int(rank)
+
+    @property
+    def multiprocess(self) -> bool:
+        """Does the mesh span more than one process?"""
+        return self.ranks is not None and len(set(self.ranks)) > 1
+
+    @property
+    def local_shards(self) -> Tuple[int, ...]:
+        """The shards this process holds, in shard order."""
+        if self.ranks is None:
+            return tuple(range(self.n_shards))
+        return tuple(k for k, r in enumerate(self.ranks) if r == self.rank)
+
+    def is_local(self, k: int) -> bool:
+        return self.ranks is None or self.ranks[k] == self.rank
 
     @property
     def shape(self) -> dict:
@@ -174,13 +204,16 @@ class Placement:
         if isinstance(x, np.ndarray):
             x = torch.from_numpy(np.ascontiguousarray(x))
         devs = self.mesh.shard_devices
+        local = self.mesh.is_local
         d = self.dim
         if d is None:
-            return Sharded([x.to(dev) for dev in devs], self)
+            return Sharded([x.to(dev) if local(k) else None
+                            for k, dev in enumerate(devs)], self)
         self.shard_shape(x.shape)
         blocks = torch.chunk(x, len(devs), dim=d)
-        return Sharded([b.to(dev).contiguous()
-                        for b, dev in zip(blocks, devs)], self)
+        return Sharded([b.to(dev).contiguous() if local(k) else None
+                        for k, (b, dev) in enumerate(zip(blocks, devs))],
+                       self)
 
     def __eq__(self, other) -> bool:
         return (isinstance(other, Placement) and other.mesh is self.mesh
@@ -196,7 +229,8 @@ class Placement:
 class Sharded:
     """A global tensor held as one block per shard, each on its shard's
     device (a replicated placement holds one full copy per shard; shards
-    on one device share it)."""
+    on one device share it).  On a mesh across processes the blocks of
+    the other processes' shards are None."""
 
     __slots__ = ("shards", "placement")
 
@@ -221,33 +255,49 @@ class Sharded:
         return len(self.shards)
 
     @property
+    def local_blocks(self) -> List[torch.Tensor]:
+        """The blocks this process holds, in shard order."""
+        return [s for s in self.shards if s is not None]
+
+    @property
     def dtype(self) -> torch.dtype:
-        return self.shards[0].dtype
+        return self.local_blocks[0].dtype
 
     @property
     def device(self) -> torch.device:
-        """Shard 0's device."""
-        return self.shards[0].device
+        """The device of this process's first shard (shard 0's)."""
+        return self.local_blocks[0].device
 
     @property
     def shape(self) -> torch.Size:
-        first = self.shards[0].shape
+        first = self.local_blocks[0].shape
         d = self.dim
         if d is None:
             return first
-        return torch.Size(first[:d] + (sum(s.shape[d] for s in self.shards),)
-                          + first[d + 1:])
+        if any(s is None for s in self.shards):
+            # across processes: every block of a placement has one shape
+            size = first[d] * self.n_shards
+        else:
+            size = sum(s.shape[d] for s in self.shards)
+        return torch.Size(first[:d] + (size,) + first[d + 1:])
 
     def gather(self, device=None) -> torch.Tensor:
-        """The whole tensor on ``device`` (default: shard 0's)."""
+        """The whole tensor on ``device`` (default: shard 0's).  A mesh
+        across processes never gathers a global tensor: raises."""
+        if any(s is None for s in self.shards):
+            raise ValueError(
+                "a tensor on a mesh across processes is not gathered: "
+                "this process holds only its own shards' blocks")
         dev = self.device if device is None else torch.device(device)
         if self.dim is None:
             return self.shards[0].to(dev)
         return torch.cat([s.to(dev) for s in self.shards], dim=self.dim)
 
     def map(self, fn) -> "Sharded":
-        """``fn`` applied to every block, same placement."""
-        return Sharded([fn(s) for s in self.shards], self.placement)
+        """``fn`` applied to every block this process holds, same
+        placement."""
+        return Sharded([fn(s) if s is not None else None
+                        for s in self.shards], self.placement)
 
     def __repr__(self) -> str:
         return (f"Sharded(shape={tuple(self.shape)}, dtype={self.dtype}, "

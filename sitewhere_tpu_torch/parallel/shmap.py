@@ -17,6 +17,15 @@ body once per shard, in shard order, on the shard's device:
 
 A spec may be a prefix of its argument's tree: one spec for a whole
 dataclass applies to each of its tensors.
+
+On a mesh across processes (``parallel/multihost.py``) each process runs
+the body for its own shards only.  :data:`PSUM` then all-gathers every
+shard's partial output to every rank and sums all of them in GLOBAL
+shard order on each rank, so the sum is bitwise the one-process mesh's
+(``all_reduce`` fixes no order of summation).  :func:`ppermute` sends a
+block to another rank point to point.  Under ``gloo`` a card's block is
+staged through the host for the collective; :func:`collective_stats`
+counts the collectives and their seconds.
 """
 
 from __future__ import annotations
@@ -24,7 +33,8 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import threading
-from typing import Callable
+import time
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -131,25 +141,115 @@ def _device_ctx(dev: torch.device):
     return contextlib.nullcontext()
 
 
+_STATS = {"collectives": 0, "seconds": 0.0}
+_STATS_LOCK = threading.Lock()
+
+
+def collective_stats() -> Dict[str, float]:
+    """The cross-rank collectives run so far in this process and their
+    wall seconds (host staging included)."""
+    with _STATS_LOCK:
+        return dict(_STATS)
+
+
+def _staged(t: torch.Tensor) -> torch.Tensor:
+    """``t`` where the process group's backend can send it: gloo moves card
+    tensors through the host."""
+    import torch.distributed as dist
+
+    if t.device.type == "cuda" and dist.get_backend() == "gloo":
+        return t.cpu()
+    return t
+
+
+def _all_shard_blocks(mesh: Mesh, blocks) -> List[torch.Tensor]:
+    """Every shard's block of one output, on this process's first
+    shard's device: this process's blocks and the other ranks' through
+    one all-gather.  Every rank holds the same number of shards."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    mine = [blocks[k] for k in mesh.local_shards]
+    dev = mine[0].device
+    stack = _staged(torch.stack(mine))
+    world = dist.get_world_size()
+    parts = [torch.empty_like(stack) for _ in range(world)]
+    dist.all_gather(parts, stack)
+    out: List[Optional[torch.Tensor]] = [None] * mesh.n_shards
+    for r in range(world):
+        owned = [k for k, owner in enumerate(mesh.ranks) if owner == r]
+        for i, k in enumerate(owned):
+            out[k] = parts[r][i].to(dev)
+    with _STATS_LOCK:
+        _STATS["collectives"] += 1
+        _STATS["seconds"] += time.perf_counter() - t0
+    return out
+
+
 def _assemble(mesh: Mesh, spec, *blocks):
     if isinstance(spec, _Psum):
         devs = mesh.shard_devices
-        total = blocks[0].to(devs[0])
+        if mesh.multiprocess:
+            blocks = _all_shard_blocks(mesh, blocks)
+            home = blocks[0].device
+        else:
+            home = devs[0]
+        # the shards' outputs summed in shard order, on every rank alike
+        total = blocks[0].to(home)
         for b in blocks[1:]:
-            total = total + b.to(devs[0])
-        return Sharded([total.to(d) for d in devs], Placement(mesh, P()))
+            total = total + b.to(home)
+        return Sharded([total.to(d) if mesh.is_local(k) else None
+                        for k, d in enumerate(devs)], Placement(mesh, P()))
     return Sharded(list(blocks), Placement(mesh, spec))
 
 
 def ppermute(x: Sharded, perm) -> Sharded:
     """The collective permute over the ``shard`` axis: block ``j`` of the
     result is ``x``'s block ``i`` (moved to shard ``j``'s device) for
-    each ``(i, j)`` in ``perm``, and zeros where no pair sends."""
-    devs = x.mesh.shard_devices
-    out = [torch.zeros_like(b) for b in x.shards]
+    each ``(i, j)`` in ``perm``, and zeros where no pair sends.  Across
+    processes a block whose shards lie on two ranks goes point to
+    point."""
+    mesh = x.mesh
+    devs = mesh.shard_devices
+    out = [torch.zeros_like(b) if b is not None else None
+           for b in x.shards]
+    if not mesh.multiprocess:
+        for i, j in perm:
+            out[j] = x.shards[i].to(devs[j])
+        return Sharded(out, x.placement)
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    ops, received = [], []
     for i, j in perm:
-        out[j] = x.shards[i].to(devs[j])
+        src, dst = mesh.ranks[i], mesh.ranks[j]
+        if src == dst == mesh.rank:
+            out[j] = x.shards[i].to(devs[j])
+        elif src == mesh.rank:
+            ops.append(dist.P2POp(dist.isend, _staged(x.shards[i]), dst,
+                                  tag=i * mesh.n_shards + j))
+        elif dst == mesh.rank:
+            buf = _staged(torch.empty_like(out[j]))
+            ops.append(dist.P2POp(dist.irecv, buf, src,
+                                  tag=i * mesh.n_shards + j))
+            received.append((j, buf))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    for j, buf in received:
+        out[j] = buf.to(devs[j])
+    with _STATS_LOCK:
+        _STATS["collectives"] += 1
+        _STATS["seconds"] += time.perf_counter() - t0
     return Sharded(out, x.placement)
+
+
+def _output_leaves(out, i: int, like):
+    """Output ``i`` of one shard's body, or, for a shard another process
+    runs, a tree shaped like ``like[i]`` with None at every leaf."""
+    if out is not None:
+        return out[i]
+    return tree_map(lambda _: None, like[i])
 
 
 def shard_map(f: Callable, *, mesh: Mesh, in_specs, out_specs):
@@ -165,30 +265,35 @@ def shard_map(f: Callable, *, mesh: Mesh, in_specs, out_specs):
                 f"expected {len(in_specs)} arguments, got {len(args)}")
         placed = tuple(place_tree(mesh, a, s)
                        for a, s in zip(args, in_specs))
-        outs = []
-        for k in range(n):
+        # this process's shards run their bodies; the others' outputs
+        # stay None here (every shard on a one-process mesh)
+        outs: List[Optional[tuple]] = [None] * n
+        for k in mesh.local_shards:
             local = local_block(placed, k)
             _LOCAL.index = k
             try:
                 with _device_ctx(devs[k]):
-                    outs.append(f(*local))
+                    outs[k] = f(*local)
             finally:
                 _LOCAL.index = None
         single = not isinstance(out_specs, tuple) or _is_spec(out_specs)
         if single:
-            outs = [(o,) for o in outs]
+            outs = [(o,) if o is not None else None for o in outs]
             specs = (out_specs,)
         else:
             specs = out_specs
+        first = outs[mesh.local_shards[0]]
         result = tuple(
             tree_map(lambda s, *blocks: _assemble(mesh, s, *blocks),
-                     broadcast_spec(spec, outs[0][i]),
-                     *(o[i] for o in outs), is_leaf=_is_spec)
+                     broadcast_spec(spec, first[i]),
+                     *(_output_leaves(o, i, first) for o in outs),
+                     is_leaf=_is_spec)
             for i, spec in enumerate(specs))
         return result[0] if single else result
 
     return mapped
 
 
-__all__ = ["PSUM", "axis_index", "broadcast_spec", "local_block", "place",
-           "place_tree", "ppermute", "shard_map", "tree_map"]
+__all__ = ["PSUM", "axis_index", "broadcast_spec", "collective_stats",
+           "local_block", "place", "place_tree", "ppermute", "shard_map",
+           "tree_map"]

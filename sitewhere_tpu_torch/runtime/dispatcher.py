@@ -714,6 +714,16 @@ class PipelineDispatcher(LifecycleComponent):
             "replayed": 0, "derived_alerts": 0, "commands": 0,
         }
 
+    def step_barrier(self):
+        """The lock serializing read-state → step → commit (the
+        reference's :647).  Out-of-band state writers (ownership migration
+        imports) hold it, so a step or a ring computed from the pre-write
+        epoch cannot drop their rows at its commit: every path (the
+        single step, the ring's lease to commit, the sharded step and the
+        mesh chain, the containment re-runs) holds it from its read of
+        the epoch to its commit."""
+        return self._step_lock
+
     # -- ingest entry points ------------------------------------------------
 
     def _take(self, intake: Callable[[], object]) -> List[BatchPlan]:

@@ -61,6 +61,12 @@ __all__ = [
     "arm_crosspoint",
     "disarm_crosspoint",
     "crosspoint_hits",
+    "net_inject",
+    "net_clear",
+    "net_active",
+    "net_drops",
+    "net_shape",
+    "net_injected",
     "device_inject",
     "device_clear",
     "device_active",
@@ -195,6 +201,122 @@ def injected(point: str, exc: ExcSpec = FaultInjected, *,
         yield
     finally:
         clear(point)
+
+
+# ---------------------------------------------------------------------------
+# network fault plane: injectable latency / drop / one-way partition
+# ---------------------------------------------------------------------------
+
+# The fleet-health contract (rpc/health.py) is only testable if the
+# fabric itself can misbehave on demand: added latency (deadline budget
+# burns in flight), symmetric partitions (connects and requests fail),
+# and ONE-WAY partitions (the request is delivered and may execute, the
+# reply is lost — the half-open link every distributed harness needs).
+# RpcChannel consults this plane at its connect / send / receive seams;
+# the disabled path is one module-global check, same contract as fire().
+
+
+class _NetRule:
+    __slots__ = ("latency_s", "jitter_s", "drop", "one_way", "rng",
+                 "hits", "dropped")
+
+    def __init__(self, latency_s: float, jitter_s: float, drop: float,
+                 one_way: bool, seed: Optional[int]):
+        self.latency_s = float(latency_s)
+        self.jitter_s = float(jitter_s)
+        self.drop = float(drop)
+        self.one_way = bool(one_way)
+        self.rng = random.Random(seed if seed is not None else 0)
+        self.hits = 0
+        self.dropped = 0
+
+
+_net_armed = False
+_net_rules: Dict[str, _NetRule] = {}    # endpoint ("host:port") or "*"
+
+
+def net_inject(endpoint: str, *, latency_s: float = 0.0,
+               jitter_s: float = 0.0, drop: float = 0.0,
+               one_way: bool = False, seed: Optional[int] = None) -> None:
+    """Shape the fabric toward ``endpoint`` (``"*"`` = every endpoint).
+
+    - ``latency_s`` (+ uniform ``jitter_s``) delays each request send —
+      real wall time, so propagated deadlines burn exactly as they
+      would behind a slow fabric.
+    - ``drop``: probability each connect/request is lost
+      (``1.0`` = full partition), drawn from a private
+      ``random.Random(seed)`` — reproducible.
+    - ``one_way=True`` moves the drop to the RESPONSE direction: the
+      request is delivered (the server may execute it!) but the reply
+      is lost and the caller times out — the half-open partition.
+    """
+    global _net_armed
+    with _lock:
+        _net_rules[endpoint] = _NetRule(latency_s, jitter_s, drop,
+                                        one_way, seed)
+        _net_armed = True
+
+
+def net_clear(endpoint: Optional[str] = None) -> None:
+    """Heal one endpoint's rule, or the whole fabric when None."""
+    global _net_armed
+    with _lock:
+        if endpoint is None:
+            _net_rules.clear()
+        else:
+            _net_rules.pop(endpoint, None)
+        _net_armed = bool(_net_rules)
+
+
+def net_active() -> bool:
+    return _net_armed
+
+
+def _net_rule(endpoint: str) -> Optional[_NetRule]:
+    rule = _net_rules.get(endpoint)
+    return rule if rule is not None else _net_rules.get("*")
+
+
+def net_shape(endpoint: str, direction: str) -> Tuple[bool, float]:
+    """``(drop, delay_s)`` for one traversal of ``direction``
+    (``"connect"`` / ``"request"`` / ``"response"``).  The disabled path
+    is one global check and allocates nothing."""
+    if not _net_armed:
+        return False, 0.0
+    with _lock:
+        rule = _net_rule(endpoint)
+        if rule is None:
+            return False, 0.0
+        rule.hits += 1
+        delay = 0.0
+        if direction == "request" and rule.latency_s > 0.0:
+            delay = rule.latency_s
+            if rule.jitter_s > 0.0:
+                delay += rule.rng.uniform(0.0, rule.jitter_s)
+        drop = False
+        if rule.drop > 0.0:
+            hit_direction = (direction == "response" if rule.one_way
+                             else direction in ("connect", "request"))
+            if hit_direction and (rule.drop >= 1.0
+                                  or rule.rng.random() < rule.drop):
+                drop = True
+                rule.dropped += 1
+        return drop, delay
+
+
+def net_drops(endpoint: str, direction: str) -> bool:
+    drop, _ = net_shape(endpoint, direction)
+    return drop
+
+
+@contextlib.contextmanager
+def net_injected(endpoint: str, **kw) -> Iterator[None]:
+    """Scoped :func:`net_inject` — heals the endpoint on exit, always."""
+    net_inject(endpoint, **kw)
+    try:
+        yield
+    finally:
+        net_clear(endpoint)
 
 
 # ---------------------------------------------------------------------------

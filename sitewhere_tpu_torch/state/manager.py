@@ -7,8 +7,9 @@ reconciliation on commit (``_merge_presence`` :198), the presence sweep
 with its tenant lookup, the single-device and summary queries, and the
 checkpoint's host snapshot of the epoch (:meth:`snapshot_host`), and
 the per-tenant partition views (:class:`TenantPartitions`, the
-reference's :53, attached through :meth:`attach_partitions`).  The
-migration import/export waits for the multi-host slice.
+reference's :53, attached through :meth:`attach_partitions`), and the
+migration's row export and newest-wins import (:meth:`export_row`,
+:meth:`import_row`, the reference's :475-520).
 
 On a mesh (``mesh=``) the packed epoch is sharded by capacity: each
 plane is a :class:`~sitewhere_tpu_torch.parallel.mesh.Sharded` with one
@@ -36,7 +37,13 @@ import torch
 
 from sitewhere_tpu_torch.device import DeviceLike, resolve_device
 from sitewhere_tpu_torch.ids import NULL_ID, IdentityMap
-from sitewhere_tpu_torch.parallel.mesh import SHARD_AXIS, P, Placement, Sharded
+from sitewhere_tpu_torch.parallel.mesh import (
+    SHARD_AXIS,
+    P,
+    Placement,
+    Sharded,
+    shard_for_device,
+)
 from sitewhere_tpu_torch.pipeline.packed import (
     PRESENCE_ROW,
     PackedState,
@@ -601,6 +608,97 @@ class DeviceStateManager:
         rows = packed.si.shards[0].shape[-1]
         return [(k * rows, unpack_state(ps))
                 for k, ps in enumerate(_shards_of(packed))]
+
+    # -- migration (ownership handoff; rpc/migration.py) --------------------
+
+    def _row_column(self, device_id: int):
+        """``(packed epoch, shard or None, local row, host row)``: the
+        device's column of the packed epoch (on a mesh, of the block of
+        the shard owning its row, ``shard_for_device``), copied off the
+        card in two transfers and unpacked on the host as a one-row
+        :class:`DeviceState`.  Called under the lock."""
+        packed = self.current_packed
+        if isinstance(packed.si, Sharded):
+            n = packed.si.n_shards
+            rows = packed.si.shards[0].shape[-1]
+            require(0 <= device_id < rows * n,
+                    EntityNotFound(f"bad device id {device_id}"))
+            k = shard_for_device(device_id, rows * n, n)
+            si, sf = packed.si.shards[k], packed.sf.shards[k]
+            local = device_id - k * rows
+        else:
+            require(0 <= device_id < packed.capacity,
+                    EntityNotFound(f"bad device id {device_id}"))
+            k, si, sf, local = None, packed.si, packed.sf, device_id
+        host = unpack_state(packed.replace(
+            si=si[:, local:local + 1].cpu(), sf=sf[:, local:local + 1].cpu()))
+        return packed, k, local, host
+
+    def export_row(self, device_id: int) -> Dict[str, object]:
+        """One device's FULL state row as a jsonable dict of Python
+        numbers (every field, plus the shape metadata the importer checks
+        fit against).  On a mesh it is read from the shard that owns the
+        device's row."""
+        # a handler thread reads on the stream the epoch was committed
+        # from, never on its own
+        with self._on_stream(), self._lock:
+            _, _, _, host = self._row_column(device_id)
+        out: Dict[str, object] = {
+            "_mtype_slots": host.num_mtype_slots,
+            "_ewma_scales": host.num_ewma_scales,
+        }
+        for fld in host.__dataclass_fields__:
+            v = getattr(host, fld)[0].numpy()
+            out[fld] = v.tolist() if v.ndim else v.item()
+        return out
+
+    def import_row(self, device_id: int, row: Dict[str, object]) -> bool:
+        """Adopt an exported row, NEWEST-WINS: applied only when the
+        incoming ``last_event_ts_s`` is newer than what this host holds
+        (a device that already re-registered and streamed here is never
+        rolled back).  Measurement-shape mismatches drop the per-slot
+        stats but keep the scalar columns.  Returns True if applied.
+
+        The caller holds the dispatcher's ``step_barrier()``, so no step
+        is between its read of the epoch and its commit.  The row is
+        merged on the host and written back as one packed column (on a
+        mesh, into the owning shard's block only)."""
+        with self._on_stream(), self._lock:
+            packed, k, local, cur = self._row_column(device_id)
+            incoming = int(row.get("last_event_ts_s") or 0)
+            if incoming <= int(cur.last_event_ts_s[0]):
+                return False
+            shapes_ok = (int(row.get("_mtype_slots") or 0)
+                         == cur.num_mtype_slots
+                         and int(row.get("_ewma_scales") or 0)
+                         == cur.num_ewma_scales)
+            updates = {}
+            for fld in cur.__dataclass_fields__:
+                if fld not in row:
+                    continue
+                col = getattr(cur, fld)
+                if col.ndim > 1 and not shapes_ok:
+                    continue
+                np_dtype = torch.empty(0, dtype=col.dtype).numpy().dtype
+                val = torch.from_numpy(np.array(row[fld], np_dtype))
+                if tuple(val.shape) != tuple(col.shape[1:]):
+                    continue
+                updates[fld] = val.reshape(col.shape)
+            column = pack_state(cur.replace(**updates))
+            si_block, sf_block = ((packed.si, packed.sf) if k is None else
+                                  (packed.si.shards[k], packed.sf.shards[k]))
+            si, sf = si_block.clone(), sf_block.clone()
+            si[:, local] = column.si[:, 0].to(si.device)
+            sf[:, local] = column.sf[:, 0].to(sf.device)
+            if k is not None:
+                si_blocks, sf_blocks = list(packed.si.shards), list(
+                    packed.sf.shards)
+                si_blocks[k], sf_blocks[k] = si, sf
+                si = Sharded(si_blocks, packed.si.placement)
+                sf = Sharded(sf_blocks, packed.sf.placement)
+            self._packed = packed.replace(si=si, sf=sf)
+            self._state = None
+        return True
 
     # -- queries -----------------------------------------------------------
 

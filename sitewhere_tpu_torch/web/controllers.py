@@ -13,10 +13,10 @@ rather than straight into storage — same as the reference where REST event
 creation flows into event management and the Kafka pipeline.
 
 Counterpart of ``sitewhere_tpu/web/controllers.py``, whole: the same
-routes, methods, authorities and order.  The port ``Instance`` answers
-``/api/instance/cluster`` with its single-host view and refuses a
-membership change (501), since it has no multi-host fabric yet.  Every
-route reads host values: the services copy card tensors off the card on
+routes, methods, authorities and order.  ``/api/instance/cluster``
+polls the port ``Instance``'s peers, a membership change reaches
+``apply_membership_change`` and ``/api/search/federated`` the federated
+provider over the fabric.  Every route reads host values: the services copy card tensors off the card on
 their own stream before they return.
 """
 

@@ -445,7 +445,7 @@ def test_rules_section_equals_the_reference(both_saved):
 
 def test_unsupported_config_is_refused(tmp_path):
     # the reference builds no connector from a config key either
-    for tree in ({"rpc": {"peers": ["a:1", "b:2"]}},
+    for tree in ({"web": {"port": 8081}},
                  {"outbound": {"connectors": [{"id": "x"}]}}):
         with pytest.raises(NotImplementedError):
             refuse_unsupported(Config(tree, apply_env=False))
@@ -480,9 +480,13 @@ def test_unsupported_config_is_refused(tmp_path):
     refuse_unsupported(Config({"security": {"jwt_secret": "s3cret"},
                                "batch": {"throttle_delay_ms": 5}},
                               apply_env=False))
-    for tree in ({"rpc": {"server": {"enabled": True}}},
-                 {"api": {"port": 9090}},
-                 {"web": {"port": 8080}}):
+    # the rpc and api sections are the Instance's since the multi-host
+    # fabric came
+    refuse_unsupported(Config({"rpc": {"server": {"enabled": True},
+                                       "peers": ["a:1", "b:2"]},
+                               "api": {"port": 9090}}, apply_env=False))
+    for tree in ({"web": {"port": 8080}},
+                 {"metrics": {"report_interval_s": 5.0}}):
         with pytest.raises(NotImplementedError):
             refuse_unsupported(Config(tree, apply_env=False))
 

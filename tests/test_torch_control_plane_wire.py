@@ -147,12 +147,13 @@ def test_control_plane_can_be_turned_off(tmp_path):
 
 
 # (the presence section is honoured since the outbound, search and
-# presence slice; the ``api`` section has no reader in either package,
-# the WebServer takes its host and port as arguments)
+# presence slice, the ``rpc`` and ``api`` sections since the multi-host
+# fabric; the ``web`` keys have no reader, the WebServer takes its host
+# and port as arguments, and the metrics reporter is not composed)
 @pytest.mark.parametrize("section", [
-    {"api": {"port": 9090}},
+    {"web": {"port": 8080}},
     {"outbound": {"connectors": [{"id": "x"}]}},
-    {"rpc": {"process_id": 1}},
+    {"metrics": {"report_interval_s": 5.0}},
 ])
 def test_uncomposed_sections_still_refuse(tmp_path, section):
     with pytest.raises(NotImplementedError):

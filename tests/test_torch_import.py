@@ -583,3 +583,67 @@ def test_sharded_instance_never_collapses_onto_fewer_cards(monkeypatch,
     with pytest.raises(ValueError, match="only 1 available"):
         Instance(cfg)
     assert not (tmp_path / "checkpoint").exists()
+
+
+# The multi-host slice: the fabric and the multi-process mesh, each
+# imported on its own with JAX and the reference blocked.
+FABRIC_MODULES = (
+    "rpc", "rpc.wire", "rpc.channel", "rpc.server", "rpc.health",
+    "rpc.domains", "rpc.services", "rpc.forward", "rpc.migration",
+    "parallel.multihost",
+)
+
+
+@pytest.fixture(scope="module")
+def fabric_imports():
+    import json
+
+    proc = subprocess.run(
+        [sys.executable, "-c", _ONE_BY_ONE, *FABRIC_MODULES], cwd=REPO,
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout.strip())
+
+
+@pytest.mark.parametrize("name", FABRIC_MODULES)
+def test_fabric_module_imports_without_jax(fabric_imports, name):
+    out, bad = fabric_imports
+    assert out[name] == "ok"
+    assert bad == []
+
+
+def test_fleet_host_without_a_card_raises(monkeypatch, tmp_path):
+    """A fleet host built with no device named takes the card, and raises
+    when there is none; only ``device="cpu"`` runs it on the CPU."""
+    from sitewhere_tpu_torch.instance import Instance
+    from sitewhere_tpu_torch.runtime.config import Config
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = Config({"instance": {"data_dir": str(tmp_path)},
+                  "pipeline": {"width": 64, "registry_capacity": 128},
+                  "rpc": {"server": {"enabled": True}, "process_id": 0,
+                          "peers": ["127.0.0.1:1", "127.0.0.1:2"]},
+                  "security": {"jwt_secret": "s"}}, apply_env=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Instance(cfg)
+
+
+def test_named_backend_that_cannot_run_raises(monkeypatch):
+    import torch.distributed
+
+    from sitewhere_tpu_torch.parallel.multihost import choose_backend
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert choose_backend(2) == "gloo"
+    with pytest.raises(RuntimeError, match="nccl"):
+        choose_backend(2, "nccl")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.distributed, "is_nccl_available", lambda: True)
+    # two ranks on one card: gloo, never nccl
+    assert choose_backend(2) == "gloo"
+    assert choose_backend(1) == "nccl"
+    with pytest.raises(RuntimeError, match="one rank on each card"):
+        choose_backend(2, "nccl")
+    with pytest.raises(RuntimeError, match="unknown backend"):
+        choose_backend(2, "mpi")

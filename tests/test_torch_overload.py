@@ -32,9 +32,8 @@ torch.set_num_threads(1)
 TESTS = os.path.dirname(os.path.abspath(__file__))
 REF = os.path.join(TESTS, "test_overload.py")
 
-# cases needing a component the port does not compose yet: the RPC
-# fabric, and the reference's overload bench
-SKIP = ("TestOverloadBenchSmoke", "TestRpcBackpressure")
+# the reference's overload bench drives the JAX package
+SKIP = ("TestOverloadBenchSmoke",)
 CASES = reference_cases(REF, skip=SKIP)
 
 

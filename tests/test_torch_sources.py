@@ -6,8 +6,8 @@
   ``test_checkpoint.py::test_dedup_window_survives_restart`` and the
   batch-payload source case of ``test_instance.py``, run against the port
   with their imports rewritten (``tests/torch_parity.py
-  port_test_module``).  Left out: the script decoder (the port has no
-  script manager) and the multi-host raw lane (no forwarder).
+  port_test_module``), the multi-host raw lane's owner split included.
+  Left out: the script decoder (the port has no script manager).
 - ``stable_hash64`` gives the same value in both packages.
 - The ``Instance``: ``decode_backlog`` is the pool's depth over its bound;
   a stream request a source decodes routes to the device streams (a
@@ -47,11 +47,10 @@ def _ref(name):
 MODULES = {
     "test_sources.py": ((), ()),
     "test_decoders.py": ((), ()),
-    # a script decoder needs the script manager, the raw lane's owner
-    # split the forwarder: neither is in the port yet
+    # a script decoder needs the script manager, which is not wired to
+    # the factory here
     "test_source_factory.py": (
-        ("test_factory_rejects_non_decoder_script",
-         "test_raw_wire_source_owner_splits_in_multihost"), ()),
+        ("test_factory_rejects_non_decoder_script",), ()),
     # the decode pool and the pooled fill-direct lane; the rest of the
     # module is the dispatcher's, held by tests/test_torch_dispatcher.py
     "test_host_pipeline.py": (

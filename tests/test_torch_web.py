@@ -287,6 +287,10 @@ def test_no_tensor_crosses_the_rest_boundary():
 
 
 def test_cluster_view_is_single_host_and_membership_is_refused(tmp_path):
+    """A standalone instance: the cluster view has no peers, and a
+    membership change that would make it a fleet is refused with the
+    reference's 400 (it must boot with ``rpc.peers``); the fabric's own
+    membership cases run in ``tests/test_torch_migration.py``."""
     import http.client
     import json
 
@@ -307,8 +311,9 @@ def test_cluster_view_is_single_host_and_membership_is_refused(tmp_path):
         assert view["local"]["instance"] == "test-instance"
         status, body = _request(web.port, "POST",
                                 "/api/instance/cluster/membership",
-                                {"peers": ["a:1", "b:2"]}, tok)
-        assert status == 501 and "multi-host" in body["error"]
+                                {"peers": ["127.0.0.1:1", "127.0.0.1:2"]},
+                                tok)
+        assert status == 400 and "booted standalone" in body["error"]
         # an operator's bad body is still a 400, as in the reference
         conn = http.client.HTTPConnection("127.0.0.1", web.port, timeout=10)
         conn.request("POST", "/api/instance/cluster/membership",

@@ -618,14 +618,17 @@ def _param_values(value, n_names):
 def run_port_case(ns, case, tmp_path, fixtures=None):
     """Run one reference case from a :func:`port_test_module` namespace;
     ``tmp_path`` and ``fixtures`` (name -> value) fill its parameters, a
-    ``[i]`` suffix picks a parameter set, and the module's own fixtures
-    (generators too, torn down afterwards) fill the rest."""
+    ``[i]`` suffix picks a parameter set, and the fixtures of the case's
+    class, then the module's own (generators too, torn down afterwards),
+    fill the rest."""
     import inspect
 
     case, _, index = case.partition("[")
+    owner = None
     if "." in case:
         cls, method = case.split(".")
-        fn = getattr(ns[cls](), method)
+        owner = ns[cls]()
+        fn = getattr(owner, method)
     else:
         fn = ns[case]
     params = _param_sets(fn)[int(index[:-1])] if index else {}
@@ -641,7 +644,12 @@ def run_port_case(ns, case, tmp_path, fixtures=None):
             elif fixtures and param in fixtures:
                 args[param] = fixtures[param]
             else:
-                fixture = ns[param].__wrapped__
+                # a fixture of the case's own class binds to its instance
+                if owner is not None and hasattr(type(owner), param):
+                    fixture = getattr(type(owner), param).__wrapped__
+                    fixture = fixture.__get__(owner)
+                else:
+                    fixture = ns[param].__wrapped__
                 value = fixture(**resolve(fixture, {}))
                 if inspect.isgenerator(value):
                     teardown.append(value)

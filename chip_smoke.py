@@ -54,7 +54,7 @@ script exits non-zero without printing a result:
    rows of unknown devices are re-decoded and rejected, as in the
    reference), under a temporary directory that is removed afterwards.
    ``persist_throughput``: the same two kinds of full-width payloads (the
-   first 8 of each),
+   first 2 of each),
    ring off at 5 ms, with the real store: events/s, latency, persist ms
    per plan, ``flush`` ms per commit, segments sealed, bytes on disk and
    the step span; checks: rows stored == rows accepted (registered lines
@@ -67,10 +67,11 @@ script exits non-zero without printing a result:
    (``crash.mid_egress`` at full size; ``crash.mid_ring``,
    ``crash.post_journal``, ``crash.mid_seal`` and ``crash.pre_manifest``
    at 2^16 slots, 50,000 devices, width 4096) run measurement payloads
-   with a checkpoint every 8, the killed ones under
-   ``SW_CRASHPOINT=<point>:<n>``; a fresh process restarts on each
-   survivor's directory and completes the workload; checks: no journaled
-   row lost, rows below the committed offset at the kill stored once,
+   (16 at full size, 24 at the small one) with a checkpoint every 8,
+   the killed ones under ``SW_CRASHPOINT=<point>:<n>``; a fresh process
+   restarts on each survivor's directory and completes the workload
+   (these child processes run on beside phases 8-9); checks: no
+   journaled row lost, rows below the committed offset at the kill stored once,
    the device state equal to the golden run's (ints exact, EWMA within 4
    ULPs of the value scale, other floats bitwise), kernel launches ==
    steps; reports the boot, restore, warm-up and replay seconds;
@@ -80,8 +81,8 @@ script exits non-zero without printing a result:
    keys (c2p4, c2p4g, c4p4, c4p4g, c4p8) for each of the 8 world
    tenants, set to fire on about 1% of rows, the device ``tier`` of
    every active device and the ``grade`` of every asset, and a
-   population of 20,000 programs from ``tools/rulebench.py``'s mix over
-   5,000 more tenants; 24 full-width 60/30/10 batches straight into
+   population of 5,000 programs from ``tools/rulebench.py``'s mix over
+   1,250 more tenants; 24 full-width 60/30/10 batches straight into
    ``_eval_batch``: ms per batch of the prepare pass and of each group
    pass (CUDA events), each pass's transient peak, engine events/s, and
    6 more under the profiler for the card's busy share; checks at 8192
@@ -125,7 +126,7 @@ script exits non-zero without printing a result:
    dispatcher_wire's 60/30/10 payloads (0.5% of lines from unknown
    ``x-*`` tokens, every 100th registered line from a ``c-*`` device, 64
    NDJSON command lines of ``c-*`` sensors in every third payload) while
-   500 ``create_command_invocation`` calls, to the first 500 ``c-*``
+   250 ``create_command_invocation`` calls, to the first 250 ``c-*``
    devices, arrive at 2,000/s on one thread and are served by 32 handler
    threads;
    sensors' commands go to a callback with the binary encoder, gateways'
@@ -165,7 +166,7 @@ script exits non-zero without printing a result:
    ``sticky_child``: a ``--kill-child`` process whose step triggers a real
    device-side assert must exit with the dispatcher's STICKY_EXIT_CODE,
    dead-letter nothing and never step on the CPU; a fresh child recovers
-   every sent row.  ``overload``: the paced region (width 4096, 3.5 ms)
+   every sent row (both run beside ``containment_full``).  ``overload``: the paced region (width 4096, 3.5 ms)
    through an ``Instance`` with the ladder, metering, the SLO engine and
    the flight recorder at their defaults, over the deployment's registry
    spread over 8 tenants (the default tenant noisy, 4 of every
@@ -211,16 +212,17 @@ script exits non-zero without printing a result:
    resent payloads, all 65,536 lines, storing nothing twice;
 13. outbound, search, presence and device streams (phase
    ``outbound_presence``), over the same world checkpoint.
-   ``outbound_wire``: 8 mixed and 8 measurement-only payloads of 131072
+   ``outbound_wire``: 4 mixed and 4 measurement-only payloads of 131072
    lines (each payload's devices a block of a permutation of the fleet,
    as in ``sources_wire``) through ``ingest_wire_lines`` into a fresh
    ``Instance`` with one window query (m0, 1 s mean over 99), ``off``
    with no connectors and ``on`` with six: ``tap`` (a callback keeping
    every row's columns), ``alerts`` (ALERT rows as JSON lines, priority),
    ``webhook`` (HTTP to a loopback ``ThreadingHTTPServer``, 4,096
-   devices), ``index`` (bulk pushes of 500 rows or 0.5 s, the same
-   devices), ``mqtt`` (the port's ``MqttClient`` into its hosted
-   ``MqttBroker``, routed by device type, 1,024 devices, a subscriber
+   devices spread over every payload's block), ``index`` (bulk pushes of
+   500 rows or 0.5 s, the same devices), ``mqtt`` (the port's
+   ``MqttClient`` into its hosted ``MqttBroker``, routed by device type,
+   256 of those devices, a subscriber
    counting) and ``dead`` (HTTP to a path answering 500, with a circuit
    breaker and the instance's dead letters); the runs drain the
    dispatcher, the runner and the connectors before anything stops.
@@ -335,7 +337,7 @@ script exits non-zero without printing a result:
    syncs 1/8 on the chain, launches == steps x 8 on the sharded paths,
    the chain's last ring rerun from its carry with the plain geofence
    bitwise.  ``mesh_instance.wire``: the world checkpoint restored into
-   an ``Instance`` with ``n_shards: 8`` (re-placed on the mesh), 4 mixed
+   an ``Instance`` with ``n_shards: 8`` (re-placed on the mesh), 2 mixed
    payloads, ring off at 5 ms, through the batcher's counted gather
    lane, then ``checkpoint_full`` (the restored state on 8 shards,
    bitwise the saved one); checks as ``persist_throughput``'s, launches
@@ -354,7 +356,7 @@ script exits non-zero without printing a result:
    process on the card with its own data directory, its RPC server on
    127.0.0.1 and the shared JWT secret.  ``fleet_wire``: two hosts at the
    deployment's size, each holding only the devices it owns
-   (``owning_process(token, 2)``), 8 mixed payloads (4 into each host's
+   (``owning_process(token, 2)``), 4 mixed payloads (2 into each host's
    raw-wire TCP source, as two frames each), so rows cross both ways
    through the forwarder's durable spools: the fleet's and each host's
    events/s and steps, rows forwarded each way, forward batch ms and the
@@ -372,8 +374,8 @@ script exits non-zero without printing a result:
    events/s during the outage, host 1's boot, restore, warm-up and
    replay s, the seconds until host 0's spool is empty; checks: no row
    lost, rows below host 1's committed offset at the kill stored once,
-   no dead letter, the table back to ALIVE.  ``membership`` (2^16
-   slots, 50,000 devices made through ``DeviceManagement``, width
+   no dead letter, the table back to ALIVE.  ``membership`` (2^14
+   slots, 12,500 devices made through ``DeviceManagement``, width
    4096): 2 hosts grown to 3 through ``POST
    /api/instance/cluster/membership`` on each: devices migrated, ms of
    each handoff, spool rows requeued; checks: each moved device's
@@ -385,11 +387,39 @@ script exits non-zero without printing a result:
    and the collective's ms per rank, 4 launches per rank per step; every
    rank's rows, metrics and carry bitwise the one-process 8-shard
    mesh's run with the plain geofence;
-18. a small input run on the card and on the CPU: identical int outputs.
+18. phase ``tooling``, after multi_host: ``swlint``, the port's static
+   suite (``sitewhere_tpu_torch/analysis``) over the package under
+   ``tools/torch_swlint_baseline.json``: findings by pass and rule,
+   suppressed, unsuppressed and stale (both must be 0).  On multi_host's
+   living two-host fleet (host 0 the frontend, host 1 the sick host),
+   ``fleet_chaos``: the reference's fleet chaos script (baseline, host 1
+   forced into SHEDDING, host 1's endpoint partitioned from host 0, both
+   healed), one full-width keyed payload into host 0's source per stage,
+   each stage after the state its setup must produce: host 0's goodput,
+   its ingest attempts to host 1 against the paced-probe budget, host 1's
+   state and overload in host 0's table and the table's transitions with
+   their seconds, the edge's refusal of a pure host-1 payload while it
+   sheds; checks: no collapse below a quarter of the baseline goodput,
+   attempts within budget, no dead letter, the spool empty, no row
+   lost.  ``kill_points``: ``crash.mid_forward`` on host 0 (restarted
+   with the crosspoint armed, SIGKILLed between its spool poll and host
+   1's ack, restarted again: its spool replays to host 1), and
+   ``crash.mid_compact`` and ``crash.mid_checkpoint`` through
+   ``--kill-child`` processes at the kill_recover small size (each save
+   followed by a compaction round), run meanwhile; each reports boot,
+   restore and replay s and rows lost (0).  Every fleet host and every
+   restarted child holds its first real step bitwise against the plain
+   geofence with no launch.  ``native_ab``: one full-width measurement
+   payload through the dispatcher with fill-direct on and with
+   ``SW_NATIVE_FILL=0``: the plan's packed columns bitwise equal, the ms
+   of each;
+19. a small input run on the card and on the CPU: identical int outputs.
 
 Every ``Instance`` run before ``control_plane`` turns the overload
 ladder and the SLO engine off (``instance_config``), as the reference's
-zero-loss benches do; the ``guards`` line sums each phase's
+zero-loss benches do (the fleet hosts keep the ladder on with every
+watermark out of reach, so only the chaos script's forced states move
+it); the ``guards`` line sums each phase's
 ``device.fault.*`` counters (``cpu_fallback_steps`` must be 0 in every
 one: on the card no step runs on the CPU).
 
@@ -406,6 +436,7 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import contextlib
+import faulthandler
 import functools
 import json
 import math
@@ -444,9 +475,10 @@ WIRE_PAYLOADS = RING_K
 # own: with registration composed each runs at 27k-47k events/s, and with
 # 16 (24 for analytics_wire) the whole script took 1,195.6 s of its 1,200
 # on a slow H100 host once tenant_engines joined it; with 8 (until the
-# sharded_mesh phase came) 1,161.2 s on another
-INSTANCE_WIRE_PAYLOADS = RING_K // 2
-AN_WIRE_PAYLOADS = RING_K
+# sharded_mesh phase came) 1,161.2 s on another; with 4 and 8 (until PR
+# 15) it overran the 1,200 s on a slow host once the tooling phase came
+INSTANCE_WIRE_PAYLOADS = RING_K // 4
+AN_WIRE_PAYLOADS = RING_K // 2
 WIRE_GHOSTS = 0.005               # share of lines from unregistered tokens
 # The deployment's batcher deadline (README.md:99-105).  A ring lingers
 # one deadline at most, and even the native decode takes far longer than
@@ -458,8 +490,9 @@ WIRE_DEADLINE_MS = 5.0
 RING_DIAG_DEADLINE_MS = 60_000.0
 PACED_WIDTH, PACED_LINES, PACED_DEADLINE_MS = 4096, 1024, 3.5
 PACED_PAYLOADS, PACED_BURST, PACED_UTIL = 128, 32, 0.5
-# payloads of the profiled reruns (the card's kernel and copy time)
-PROFILED_PAYLOADS, PROFILED_PACED = RING_K, 32
+# payloads of the profiled reruns (the card's kernel and copy time; 8
+# until PR 15: the script's time limit)
+PROFILED_PAYLOADS, PROFILED_PACED = RING_K // 2, 32
 WIRE_TS0_MS = 1_700_000_000_000
 WIRE_STAGES = ("decode", "batch", "dispatch", "ring_dispatch", "egress")
 # Measurement values of the measurement-only run: a band where no rule of
@@ -472,10 +505,11 @@ MEAS_VALUE_BAND = (20.0, 40.0)
 # RULE_PER_KEY programs of each structure key RULEBENCH_r01.json lists,
 # which fills every group's S = 4 slots for every row; on top, a
 # population from tools/rulebench.py's mix, cut from that tool's 100,000
-# programs over 25,000 tenants
+# programs over 25,000 tenants (20,000 over 5,000 until PR 15: each load
+# and each restore of the population took 6-11 s, three times over)
 RULE_KEYS = ("c2p4", "c2p4g", "c4p4", "c4p4g", "c4p8")
 RULE_PER_KEY = 4
-RULE_POP_PROGRAMS, RULE_POP_TENANTS = 20_000, 5_000
+RULE_POP_PROGRAMS, RULE_POP_TENANTS = 5_000, 1_250
 RULE_ASSET_CAPACITY = 8192        # the world's 5000 assets, pow2
 RULE_BATCHES, RULE_PROFILED = 24, 6
 RULE_CPU_ROWS, RULE_INTERP_ROWS = 8192, 2048
@@ -520,8 +554,27 @@ PIP_FLOAT_PER_TEST = 6
 PIP_LOGIC_PER_TEST = 2
 
 
+_EMIT_LOCK = threading.Lock()
+# the main process's start (set by main): each record's phase and run also
+# go to stderr with the seconds since, so a run stopped by its time limit
+# shows where it was
+_T_START = None
+# seconds after the start at which every thread's stack goes to stderr:
+# a run still going then is near the 1,200 s limit
+STACK_DUMP_S = 1140
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    """One JSON line, whole, whichever thread prints it."""
+    line = json.dumps(obj) + "\n"
+    with _EMIT_LOCK:
+        sys.stdout.write(line)
+        sys.stdout.flush()
+        if _T_START is not None and "phase" in obj:
+            sys.stderr.write(
+                f"chip_smoke {time.perf_counter() - _T_START:.1f}s "
+                f"{obj['phase']} {obj.get('run', '')}\n")
+            sys.stderr.flush()
 
 
 # the device guards' counters of every dispatcher a phase ran, summed by
@@ -1057,7 +1110,7 @@ def measurement_payloads(rng, n_payloads, lines, ts0_ms, devices=None):
 
 
 def make_wire_dispatcher(device, world, width, ring_depth, deadline_ms,
-                         journal_dir):
+                         journal_dir, capacity=CAPACITY):
     """A started dispatcher over the world's epochs, with its own state,
     journal and store (start() runs the warm-up dispatch)."""
     from sitewhere_tpu_torch.ingest.batcher import Batcher
@@ -1067,11 +1120,11 @@ def make_wire_dispatcher(device, world, width, ring_depth, deadline_ms,
 
     identity, mirror, rules = world
     state = DeviceStateManager(
-        CAPACITY, identity, num_mtype_slots=M_SLOTS,
+        capacity, identity, num_mtype_slots=M_SLOTS,
         tenant_id_of_device=lambda ids: mirror.tenant_id[ids],
         num_ewma_scales=K_SCALES, device=device)
     batcher = Batcher(
-        width=width, n_shards=1, registry_capacity=CAPACITY,
+        width=width, n_shards=1, registry_capacity=capacity,
         resolve_device=identity.device.lookup,
         resolve_mtype=identity.mtype.mint,
         resolve_alert=identity.alert_type.mint,
@@ -1593,7 +1646,10 @@ def phase_dispatcher_wire(device, geo_cuda):
 # phase stays within a few minutes: 2^16 registry slots, 50,000 devices,
 # width 4096, 24 payloads of 4096 lines (same rules and zones).
 SMALL_CAPACITY, SMALL_ACTIVE, SMALL_WIDTH = 1 << 16, 50_000, 4096
-KILL_PAYLOADS, KILL_SAVE_EVERY = 24, 8
+# payloads of each kill child by size (the full-size ones took 24 until
+# PR 15: the script's time limit; every kill hit still comes before
+# the last payload)
+KILL_PAYLOADS, KILL_SAVE_EVERY = {"full": 16, "small": 24}, 8
 KILL_TS0_MS = WIRE_TS0_MS + 30_000_000
 # (point, hit, size, ring depth, deadline ms): where each child dies
 KILLS = (
@@ -1603,8 +1659,12 @@ KILLS = (
     ("crash.mid_seal", 12, "small", 0, WIRE_DEADLINE_MS),
     ("crash.pre_manifest", 3, "small", 0, WIRE_DEADLINE_MS),
 )
+# "member": multi_host's membership fleet (the small size until PR 15;
+# each moved device's handoff is a Python call and two card syncs, so
+# the handoff's time follows the device count: the script's time limit)
 SIZES = {"full": (CAPACITY, N_ACTIVE, FULL_B),
-         "small": (SMALL_CAPACITY, SMALL_ACTIVE, SMALL_WIDTH)}
+         "small": (SMALL_CAPACITY, SMALL_ACTIVE, SMALL_WIDTH),
+         "member": (1 << 14, 12_500, SMALL_WIDTH)}
 EWMA_MAX_ULP, EWMA_SCALE = 4.0, 128.0
 
 
@@ -2207,7 +2267,8 @@ def kill_child(spec):
     capacity, n_active, width = spec["capacity"], spec["n_active"], \
         spec["width"]
     ring, deadline = spec["ring_depth"], spec["deadline_ms"]
-    payloads, keys = keyed_payloads(KILL_PAYLOADS, width, n_active,
+    payloads, keys = keyed_payloads(KILL_PAYLOADS[spec["size"]], width,
+                                    n_active,
                                     KILL_TS0_MS, SEED + 7)
     out = {"role": spec["role"], "point": spec.get("point"),
            "boot_s": boot_s}
@@ -2216,6 +2277,12 @@ def kill_child(spec):
                                    capacity, width, ring, deadline)
         inst.start()
         disp = inst.dispatcher
+        if spec.get("compact"):
+            # every pair of sealed segments a compaction candidate,
+            # whatever sizes the seal timing gave them: the round after
+            # the second save always merges
+            comp = inst.event_store.compactor
+            comp.min_rows = comp.target_rows
         disp.flush()
         inst.checkpointer.save()
         for k, payload in enumerate(payloads):
@@ -2223,6 +2290,11 @@ def kill_child(spec):
             if (k + 1) % KILL_SAVE_EVERY == 0:
                 disp.flush()
                 inst.checkpointer.save()
+                if spec.get("compact"):
+                    # one background-compaction round after each save (as
+                    # the crashrec bench drives it), so crash.mid_compact
+                    # is crossed mid-workload
+                    inst.event_store.compactor.run_once()
         disp.flush()
         np.savez(spec["state_out"], **inst.device_state.snapshot_host())
         out["guards"] = fault_counters(inst.metrics)
@@ -2245,13 +2317,15 @@ def kill_child(spec):
                                     deadline), device=device)
     construct_s = time.perf_counter() - t0
     check(inst.restored, "restart restored no checkpoint")
+    first = (fleet_host_module().FirstStep(inst.dispatcher)
+             if spec.get("plain_rerun") else None)
     launches0 = geo_cuda.launch_counts["pip_parity"]
     t0 = time.perf_counter()
     inst.start()
     start_s = time.perf_counter() - t0
     disp = inst.dispatcher
     gauges = inst.metrics.snapshot()["gauges"]
-    missing = [k for k in range(KILL_PAYLOADS) if k not in journaled]
+    missing = [k for k in range(len(payloads)) if k not in journaled]
     for k in missing:
         disp.ingest_wire_lines(payloads[k])
     disp.flush()
@@ -2287,6 +2361,8 @@ def kill_child(spec):
         "dedup_floor_after": disp.store_dedup_floor,
         "guards": fault_counters(inst.metrics),
     })
+    if first is not None:
+        out["plain_rerun"] = first.rerun()
     np.savez(spec["state_out"], **inst.device_state.snapshot_host())
     inst.stop()
     inst.terminate()
@@ -2294,9 +2370,43 @@ def kill_child(spec):
         json.dump(out, f)
 
 
+# every --kill-child process started; main kills any still running when it
+# ends, whatever ended it, and no child starts after that
+KILL_PROCS = []
+_STOPPING = threading.Event()
+KILL_THREADS = ("persist-kills", "tooling-kills", "sticky-child")
+
+
+def background(name, fn, *args, **kw):
+    """Run ``fn(*args, **kw)`` on a thread named ``name`` (one of
+    KILL_THREADS: its child processes run beside the phases that follow);
+    the returned ``join()`` waits for it and returns its result or raises
+    what it raised."""
+    out = []
+
+    def target():
+        try:
+            out.append((True, fn(*args, **kw)))
+        except BaseException as e:   # re-raised by join()
+            out.append((False, e))
+
+    thread = threading.Thread(target=target, name=name)
+    thread.start()
+
+    def join():
+        thread.join()
+        ok, value = out[0]
+        if not ok:
+            raise value
+        return value
+
+    return join
+
+
 def _spawn(spec, env_extra=None):
     """Start one ``--kill-child`` process; its stderr goes to a file next
     to its result (a pipe nobody reads could fill and stall it)."""
+    check(not _STOPPING.is_set(), "the script is stopping")
     spec = dict(spec, spawned_at=time.time())
     env = dict(os.environ)
     env.pop("SW_CRASHPOINT", None)
@@ -2307,6 +2417,7 @@ def _spawn(spec, env_extra=None):
              json.dumps(spec)], env=env, stdout=subprocess.DEVNULL,
             stderr=err, cwd=os.path.dirname(os.path.abspath(__file__)))
     proc.err_path = spec["result_out"] + ".err"
+    KILL_PROCS.append(proc)
     return proc
 
 
@@ -2366,11 +2477,13 @@ def committed_offset(data_dir):
         return 0
 
 
-def kill_recover(device, worlds, root):
+def kill_recover(device, worlds, root, kills=KILLS,
+                 phase="persist_recover", **extra):
     """Golden children and one killed child per crash point, then one
     restart per kill on the survivor's directory (crashrec's protocol).
     The small children run side by side; the full-size restart runs
-    alone, so its recovery times are those users would see."""
+    alone, so its recovery times are those users would see.  ``extra``
+    goes into every child's spec (``compact``, ``plain_rerun``)."""
     def spec(role, name, size, ring, deadline, **kw):
         d = os.path.join(root, name)
         capacity, n_active, width = SIZES[size]
@@ -2379,61 +2492,82 @@ def kill_recover(device, worlds, root):
                     deadline_ms=deadline, data_dir=d,
                     world_ckpt=worlds[size], device=str(device),
                     state_out=os.path.join(root, f"{name}-state.npz"),
-                    result_out=os.path.join(root, f"{name}.json"), **kw)
+                    result_out=os.path.join(root, f"{name}.json"),
+                    **extra, **kw)
 
     os.makedirs(root, exist_ok=True)
     specs, procs = {}, {}
-    for size in ("full", "small"):
+    for size in sorted({k[2] for k in kills}):
         name = f"golden-{size}"
         specs[name] = spec("golden", name, size, 0, WIRE_DEADLINE_MS)
         procs[name] = _spawn(specs[name])
-    for point, hit, size, ring, deadline in KILLS:
+    for point, hit, size, ring, deadline in kills:
         name = f"kill-{point.split('.')[1]}"
         specs[name] = spec("kill", name, size, ring, deadline, point=point)
         procs[name] = _spawn(specs[name],
                              {"SW_CRASHPOINT": f"{point}:{hit}"})
     t0 = time.perf_counter()
-    done = _wait_all(procs, 600)
-    children_s = time.perf_counter() - t0
-    for name, (rc, err) in done.items():
-        if name.startswith("golden"):
-            check(rc == 0, f"{name} failed (rc {rc}): {err}")
-            add_guards("persist_recover",
-                       _read_result(specs[name]["result_out"])["guards"])
-        else:
-            check(rc == -signal.SIGKILL,
-                  f"{name} was not killed at its point (rc {rc}): {err}")
-    # restarts: the small ones side by side, then the full-size one alone
     verify = {}
-    for point, hit, size, ring, deadline in KILLS:
-        kname = f"kill-{point.split('.')[1]}"
-        d = specs[kname]["data_dir"]
-        verify[kname] = spec("verify", f"verify-{kname}", size, ring,
-                             deadline, point=point,
-                             committed_at_kill=committed_offset(d))
-        verify[kname]["data_dir"] = d
-    order = ([k for k in verify if specs[k]["size"] == "small"],
-             [k for k in verify if specs[k]["size"] == "full"])
-    for group in order:
-        procs = {k: _spawn(verify[k]) for k in group}
-        for name, (rc, err) in _wait_all(procs, 600).items():
+
+    def children_done(size):
+        """Check the golden and killed children of one size; returns their
+        restarts' specs."""
+        group = {n: p for n, p in procs.items()
+                 if specs[n]["size"] == size}
+        for name, (rc, err) in _wait_all(group, 600).items():
+            if name.startswith("golden"):
+                check(rc == 0, f"{name} failed (rc {rc}): {err}")
+                add_guards(phase,
+                           _read_result(specs[name]["result_out"])["guards"])
+            else:
+                check(rc == -signal.SIGKILL,
+                      f"{name} was not killed at its point (rc {rc}): {err}")
+        out = {}
+        for point, hit, k_size, ring, deadline in kills:
+            kname = f"kill-{point.split('.')[1]}"
+            if k_size != size:
+                continue
+            d = specs[kname]["data_dir"]
+            out[kname] = spec("verify", f"verify-{kname}", size, ring,
+                              deadline, point=point,
+                              committed_at_kill=committed_offset(d))
+            out[kname]["data_dir"] = d
+        verify.update(out)
+        return out
+
+    # restarts: the small ones side by side as soon as their children are
+    # done (beside the full-size children), then the full-size one alone
+    restarts = {}
+    try:
+        small = children_done("small")
+        restarts = {k: _spawn(v) for k, v in small.items()}
+        full = children_done("full")
+        children_s = time.perf_counter() - t0
+        for name, (rc, err) in _wait_all(restarts, 600).items():
             check(rc == 0, f"restart after {name} failed (rc {rc}): {err}")
+        restarts = {k: _spawn(v) for k, v in full.items()}
+        for name, (rc, err) in _wait_all(restarts, 600).items():
+            check(rc == 0, f"restart after {name} failed (rc {rc}): {err}")
+    finally:
+        for proc in [*procs.values(), *restarts.values()]:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     runs = []
-    for point, hit, size, ring, deadline in KILLS:
+    for point, hit, size, ring, deadline in kills:
         kname = f"kill-{point.split('.')[1]}"
         res = _read_result(verify[kname]["result_out"])
-        add_guards("persist_recover", res["guards"])
+        add_guards(phase, res["guards"])
         unequal, ulp = _state_close(specs[f"golden-{size}"]["state_out"],
                                     verify[kname]["state_out"])
         capacity, n_active, width = SIZES[size]
         res.update({"kill_hit": hit, "size": size, "capacity": capacity,
                     "devices": n_active, "width": width,
-                    "payloads": KILL_PAYLOADS, "ring_depth": ring,
+                    "payloads": KILL_PAYLOADS[size], "ring_depth": ring,
                     "deadline_ms": deadline,
                     "state_unequal_fields": unequal,
                     "ewma_max_ulp_of_scale": ulp})
-        emit({"phase": "persist_recover", "run": f"kill_recover.{point}",
-              **res})
+        emit({"phase": phase, "run": f"kill_recover.{point}", **res})
         runs.append(res)
         check(res["lost"] == 0, f"{point}: {res['lost']} committed rows lost")
         check(res["extra"] == 0 and res["rows_not_measurements"] == 0,
@@ -2449,7 +2583,11 @@ def kill_recover(device, worlds, root):
               f"{point}: kernel launched {res['pip_launches']}x in "
               f"{res['steps']} steps")
         check(not unequal, f"{point}: state differs from golden: {unequal}")
-    emit({"phase": "persist_recover", "run": "kill_recover.done",
+        rr = res.get("plain_rerun")
+        check(rr is None or (rr["captured"] and rr["identical"]
+                             and rr["kernel_launched"] == 0),
+              f"{point}: the restart's first step != its plain rerun: {rr}")
+    emit({"phase": phase, "run": "kill_recover.done",
           "children_s": children_s, "kills": len(runs)})
     return runs
 
@@ -2458,8 +2596,10 @@ def phase_persist_recover(device, geo_cuda, mixed, meas):
     """Persistence and restart on the wire path: the throughput runs with
     the real segment store over the payloads of ``dispatcher_wire``
     (``mixed``, ``meas``), one full-size checkpoint save and restore, and
-    kill -9 recovery at five crash points.  Returns the kernel's launches
-    in each throughput run, by run name."""
+    kill -9 recovery at five crash points.  The kill runs go on on a
+    thread beside the phases that follow; the returned ``finish()`` joins
+    them and returns the kernel's launches in each throughput run, by run
+    name."""
     t0 = time.perf_counter()
     root = tempfile.mkdtemp(prefix="persist-", dir=geo_cuda.BUILD_DIR)
     launches = {}
@@ -2476,12 +2616,22 @@ def phase_persist_recover(device, geo_cuda, mixed, meas):
                                  "measurements_ring0", meas=True)
         launches["persist_throughput.measurements_ring0"] = \
             rec["pip_launches"]
-        kill_recover(device, worlds, os.path.join(root, "kills"))
-    finally:
+    except BaseException:
         shutil.rmtree(root, ignore_errors=True)
-    emit({"phase": "persist_recover", "run": "done",
-          "seconds": time.perf_counter() - t0})
-    return launches
+        raise
+    kills = background("persist-kills", kill_recover, device, worlds,
+                       os.path.join(root, "kills"))
+
+    def finish():
+        try:
+            kills()
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        emit({"phase": "persist_recover", "run": "done",
+              "seconds": time.perf_counter() - t0})
+        return launches
+
+    return finish
 
 
 # -- bring-your-own rule programs ------------------------------------------------
@@ -3292,9 +3442,10 @@ def phase_streaming_analytics(device, geo_cuda):
 # invocation and then flushes the dispatcher (the reference's design): one
 # full-width step and one offset commit per call, serialized on the step
 # lock, so the count is cut from one per device to what fits the phase
-# (1,000 until the multi_host phase came: the script's time limit)
+# (1,000 until the multi_host phase came, 500 until PR 15: the script's
+# time limit)
 DS_DEVICES, DS_GATEWAY_EVERY = 20_000, 20
-DS_INVOCATIONS = 500
+DS_INVOCATIONS = 250
 # The phase takes the first 4 of the wire payloads: where its plans
 # split payloads, each split record's rows of devices that only the
 # mirror knows fail registration with a logged traceback (the
@@ -4498,11 +4649,15 @@ def phase_ingest_sources(device, geo_cuda, world):
 # -- outbound, search, presence and device streams -------------------------------
 
 OP_TS0_MS = WIRE_TS0_MS + 60_000_000
-OP_MIXED, OP_MEAS = 8, 8
+# payloads of each outbound_wire run (8 + 8 until PR 15: the script's
+# time limit)
+OP_MIXED, OP_MEAS = 4, 4
 # the webhook's and the index's devices, and the MQTT connector's; only
 # devices without an m0 measurement slot (d % 8 != 0), so the window
 # query's match rows (all m0) pass none of their filters
-OP_HOOK_DEVICES, OP_MQTT_DEVICES = 4096, 1024
+# (1,024 MQTT devices until PR 15: the connector publishes row by row at
+# 120-300 rows/s, the script's time limit)
+OP_HOOK_DEVICES, OP_MQTT_DEVICES = 4096, 256
 OP_MISSING_AFTER_S = 3600
 # matches on about 1% of the 1 s windows of m0 (values uniform in 0-100)
 OP_QUERY = {"kind": "window", "name": "hot", "mtype": "m0", "agg": "mean",
@@ -5345,9 +5500,15 @@ def phase_outbound_presence(device, geo_cuda, world):
             devices=lambda p: block(OP_MIXED + p))
         payloads = mixed + meas
         del mixed, meas
-        free = perm[perm % M_SLOTS != 0]
-        blocks = {"hook": np.sort(free[:OP_HOOK_DEVICES]),
-                  "mqtt": np.sort(free[:OP_MQTT_DEVICES]),
+        # spread over every block the payloads cover, so each plan offers
+        # the connectors rows of theirs (the dead one's breaker needs
+        # more failed calls than the block-0 payloads alone make)
+        covered = perm[:IS_BLOCKS * FULL_B]
+        free = covered[covered % M_SLOTS != 0]
+        hook = np.sort(free[::len(free) // OP_HOOK_DEVICES]
+                       [:OP_HOOK_DEVICES])
+        blocks = {"hook": hook,
+                  "mqtt": hook[::OP_HOOK_DEVICES // OP_MQTT_DEVICES],
                   "rearm": np.sort(block(0)),
                   "concurrent": [block(1 + p) for p in range(OP_CONCURRENT)]}
         emit({"phase": "outbound_presence", "run": "setup",
@@ -7299,9 +7460,15 @@ def phase_control_plane(device, geo_cuda):
         launches["devfault"] = geo_cuda.launch_counts["pip_parity"] - l0
         # one world, its devices over CP_TENANTS tenants, for every run
         world = world_checkpoint(device, root, "full", CP_TENANTS)
-        for k, v in cp_containment(device, geo_cuda, world, root).items():
-            launches[f"containment_full.{k}"] = v
-        cp_sticky(device, world, root)
+        # the sticky child's two processes run beside containment_full
+        # (no check of either is timed); overload runs alone after them
+        sticky = background("sticky-child", cp_sticky, device, world, root)
+        try:
+            for k, v in cp_containment(device, geo_cuda, world,
+                                       root).items():
+                launches[f"containment_full.{k}"] = v
+        finally:
+            sticky()
         launches["overload"] = cp_overload(device, geo_cuda, world, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -7314,9 +7481,10 @@ def phase_control_plane(device, geo_cuda):
 
 SM_SHARDS = 8
 SM_RINGS = 4                # timed rings of each mesh_chain path
-# half a ring of mixed payloads through the 8-shard Instance (a ring of 8
-# until the multi_host phase came: the script's time limit)
-SM_WIRE_PAYLOADS = RING_K // 2
+# a quarter ring of mixed payloads through the 8-shard Instance (a ring of
+# 8 until the multi_host phase came, half a ring until PR 15: the script's
+# time limit)
+SM_WIRE_PAYLOADS = RING_K // 4
 SM_RESERVATIONS = RING_K    # fill-direct reservations: one ring of K
 SM_CONTAIN = {"n_shards": SM_SHARDS, "k": 2, "width": 128, "capacity": 64}
 SM_AN_EVENTS = 1 << 22
@@ -7712,13 +7880,15 @@ def phase_sharded_mesh(device, geo_cuda, world, kernel_rec):
 
 MH_SECRET = "multi-host-fleet"
 # fleet_wire: full-width 60/30/10 payloads, half into each host's source
-MH_WIRE_PAYLOADS = 8
+# (8 until PR 15: the script's time limit)
+MH_WIRE_PAYLOADS = 4
 # peer_outage: host 1 takes 2 measurement payloads and is killed; host 0
 # takes 1 more while host 1 is down
 MH_OUTAGE_BEFORE, MH_OUTAGE_DURING = 2, 1
 MH_OUTAGE_TS0_MS = WIRE_TS0_MS + 70_000_000_000
-# membership: the kill_recover small size (2^16 slots, 50,000 devices,
-# width 4096), listed in PERF.md's reduced cuts: migrate_out hands the
+# membership: SIZES["member"] (2^14 slots, 12,500 devices, width 4096;
+# the kill_recover small size, 50,000 devices, until PR 15), listed in
+# PERF.md's reduced cuts: migrate_out hands the
 # moving devices off in RPC calls of 256, each device's state row read
 # off the card on its own, which at 1,000,000 devices would not fit the
 # script's limit
@@ -7730,6 +7900,17 @@ FLEET_HOST = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "tools", "torch_fleet_host.py")
 # every fleet host process started; phase_multi_host kills the living
 MH_PROCS = []
+
+
+def fleet_host_module():
+    """``tools/torch_fleet_host.py`` as a module (its ``FirstStep``)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("torch_fleet_host",
+                                                  FLEET_HOST)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def mh_free_port():
@@ -7756,7 +7937,7 @@ class FleetHost:
     standard input, one JSON reply line each on its standard output.
     ``sent`` counts the frames sent to its source."""
 
-    def __init__(self, name, spec, root):
+    def __init__(self, name, spec, root, env=None):
         import queue
 
         self.name = name
@@ -7765,12 +7946,15 @@ class FleetHost:
         self.lock = threading.Lock()
         self.err_path = os.path.join(root, f"{name}.err")
         self.lines = queue.Queue()
+        child_env = dict(os.environ)
+        child_env.pop("SW_CRASHPOINT", None)
+        child_env.update(env or {})
         with open(self.err_path, "ab") as err:
             self.proc = subprocess.Popen(
                 [sys.executable, FLEET_HOST, json.dumps(self.spec)],
                 stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=err,
                 cwd=os.path.dirname(os.path.abspath(__file__)), text=True,
-                bufsize=1)
+                bufsize=1, env=child_env)
         MH_PROCS.append(self.proc)
         threading.Thread(target=self._read, daemon=True,
                          name=f"fleet-{name}").start()
@@ -7854,6 +8038,23 @@ def mh_all(fns):
         return [f.result() for f in futures]
 
 
+def mh_settle(hosts, rounds=10):
+    """Drain every host's forward spools and flush its dispatcher until a
+    round adds no journal record anywhere.  A host's flush returns once
+    the rows it had taken are stored, but a peer's egress can still
+    forward it rows after that, which wait in its journal for its next
+    flush; a count of stored rows read before then misses them."""
+    seen = None
+    for _ in range(rounds):
+        mh_all([functools.partial(h.call, "drain") for h in hosts])
+        now = [(r["journal_records"], r["pending"]) for r in mh_all(
+            [functools.partial(h.call, "flush") for h in hosts])]
+        if now == seen and not any(p for _, p in now):
+            return
+        seen = now
+    check(False, f"the fleet did not settle in {rounds} rounds: {seen}")
+
+
 def mh_spec(device, root, name, p, peers, size, world_ckpt, **extra):
     capacity, _, width = SIZES[size]
     return {"data_dir": os.path.join(root, name), "process_id": p,
@@ -7913,9 +8114,12 @@ def mh_wait_peer(host, peer, state, since, timeout_s=60.0):
     t0 = time.perf_counter()
     while True:
         health = host.call("health")
-        if health["peers"][str(peer)]["state"] == state:
-            return [(t["to"], t["at"] - since) for t in health["transitions"]
-                    if t["peer"] == peer and t["at"] >= since]
+        seen = [(t["to"], t["at"] - since) for t in health["transitions"]
+                if t["peer"] == peer and t["at"] >= since]
+        # the sampler (every 10 ms) must have recorded the verdict too
+        if health["peers"][str(peer)]["state"] == state and seen \
+                and seen[-1][0] == state:
+            return seen
         check(time.perf_counter() - t0 < timeout_s,
               f"peer {peer} never reached {state}: {health}")
         time.sleep(0.05)
@@ -7963,6 +8167,7 @@ def mh_fleet_wire(device, root, owners, owners_path):
     intake = mh_all([functools.partial(feed, h) for h in hosts])
     flushed = mh_all([functools.partial(h.call, "flush") for h in hosts])
     elapsed = time.perf_counter() - t_send
+    mh_settle(hosts)
     stats = mh_all([functools.partial(h.call, "stats") for h in hosts])
     rows = mh_all([functools.partial(h.call, "rows", owners_path=owners_path)
                    for h in hosts])
@@ -8085,7 +8290,7 @@ def mh_peer_outage(device, root, hosts, specs, owners_path):
     hosts[1].sent = 0
     drain = hosts[0].call("drain")
     drained_s = time.perf_counter() - t_restart
-    mh_all([functools.partial(h.call, "flush") for h in hosts])
+    mh_settle(hosts)
     back = mh_wait_peer(hosts[0], 1, "ALIVE", t_kill)
     below = os.path.join(root, "below.npy")
     hosts[1].call("journal_keys", lo=floor1, hi=committed_at_kill, out=below)
@@ -8167,7 +8372,7 @@ def mh_dm_world(device, root, name, tokens):
     (migration hands off its records), saved as a checkpoint."""
     from sitewhere_tpu_torch.instance import Instance
 
-    capacity, n_active, width = SIZES["small"]
+    capacity, n_active, width = SIZES["member"]
     data_dir = os.path.join(root, name)
     inst = Instance(instance_config(data_dir, capacity, width, 0,
                                     WIRE_DEADLINE_MS), device=device)
@@ -8213,7 +8418,7 @@ def mh_membership(device, root):
     owner moves hand off their records and state rows to the new host,
     the spools requeue, and new rows of moved devices land on it.
     Returns the launches."""
-    capacity, n_active, width = SIZES["small"]
+    capacity, n_active, width = SIZES["member"]
     tokens = [f"d-{i}" for i in range(n_active)]
     own2, own3 = mh_owners(tokens, 2), mh_owners(tokens, 3)
     owners_path = os.path.join(root, "owners3.npy")
@@ -8229,7 +8434,7 @@ def mh_membership(device, root):
     mh_release(device)
     peers = [f"127.0.0.1:{mh_free_port()}" for _ in range(3)]
     specs = [mh_spec(device, root, f"member{p}", p, peers[:max(2, p + 1)],
-                     "small", worlds[p], web=True, capture_step=True)
+                     "member", worlds[p], web=True, capture_step=True)
              for p in range(3)]
     hosts = mh_all([functools.partial(FleetHost, f"member{p}", specs[p],
                                       root) for p in range(3)])
@@ -8279,7 +8484,7 @@ def mh_membership(device, root):
     after, after_keys = mh_keyed(after_devs, after_ts0, SEED + 67)
     hosts[0].send(is_frames([(after, 0)])[0])
     hosts[0].intake()
-    mh_all([functools.partial(h.call, "flush") for h in hosts])
+    mh_settle(hosts)
     key_lo = MH_MEMBER_TS0_MS // 1000
     key_hi = after_ts0 // 1000 + len(after_devs)
     outs = [os.path.join(root, f"mkeys{p}.npz") for p in range(3)]
@@ -8539,9 +8744,11 @@ def spmd_child(spec):
         json.dump(out, f)
 
 
-def phase_multi_host(device, geo_cuda):
+def phase_multi_host(device, geo_cuda, between=None):
     """The fleet fabric and the multi-process mesh on the one card:
-    fleet_wire, peer_outage, membership and spmd_step.  Returns the
+    fleet_wire, peer_outage, membership and spmd_step.  ``between(hosts,
+    specs, root, owners, owners_path)`` runs on the living two-host fleet
+    after peer_outage (the tooling phase's fleet runs).  Returns the
     kernel's launches by run."""
     t0 = time.perf_counter()
     mh_release(device)
@@ -8555,6 +8762,8 @@ def phase_multi_host(device, geo_cuda):
             device, root, owners, owners_path)
         launches["peer_outage"] = mh_peer_outage(device, root, hosts, specs,
                                                  owners_path)
+        if between is not None:
+            between(hosts, specs, root, owners, owners_path)
         mh_all([h.stop for h in hosts])
         launches["membership"] = mh_membership(device, root)
         launches["spmd_step"] = mh_spmd_step(device, root)
@@ -8569,6 +8778,438 @@ def phase_multi_host(device, geo_cuda):
     emit({"phase": "multi_host", "run": "done",
           "seconds": time.perf_counter() - t0, "launches": launches})
     return launches
+
+
+# -- phase tooling: the static suite, fleet chaos, kill points, native A/B ---
+
+# kill points the card had not run before (persist_recover covers five):
+# (point, hit, size, ring depth, deadline ms).  mid_compact dies in the
+# first merge (the compaction round after the second quiesced save at
+# the latest), mid_checkpoint in the second save (the anchor is the
+# first)
+TL_KILLS = (
+    ("crash.mid_compact", 1, "small", 0, WIRE_DEADLINE_MS),
+    ("crash.mid_checkpoint", 2, "small", 0, WIRE_DEADLINE_MS),
+)
+# the chaos script's stages, one full-width keyed payload each into host
+# 0's source (host 1 is the sick host)
+TL_STAGES = ("baseline", "shed", "partition", "recover")
+TL_CHAOS_TS0_MS = WIRE_TS0_MS + 110_000_000_000
+TL_FORWARD_TS0_MS = WIRE_TS0_MS + 130_000_000_000
+TL_NATIVE_TS0_MS = WIRE_TS0_MS + 150_000_000_000
+# the health table's probe pacing: one probe per 2 heartbeats (0.5 s)
+TL_PROBE_INTERVAL_S = 1.0
+TL_COLLAPSE_FRAC = 0.25
+TL_BARRIER_S = 120.0
+
+
+def tl_swlint():
+    """The port's static suite over ``sitewhere_tpu_torch/`` under its
+    checked-in baseline (host only)."""
+    from sitewhere_tpu_torch.analysis import (
+        Baseline, Project, default_baseline_path, run_suite)
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    pkg = os.path.join(repo, "sitewhere_tpu_torch")
+    t0 = time.perf_counter()
+    project = Project.from_paths([pkg], root=repo)
+    findings = run_suite([pkg], project=project)
+    unsuppressed, suppressed, stale = Baseline.load(
+        default_baseline_path()).apply(findings)
+    by_rule = collections.Counter(f"{f.pass_id}/{f.rule}" for f in findings)
+    rec = {"phase": "tooling", "run": "swlint",
+           "modules": len(project.modules),
+           "functions": len(project.functions),
+           "findings": len(findings), "by_pass_rule": dict(sorted(
+               by_rule.items())),
+           "suppressed": len(suppressed), "unsuppressed": len(unsuppressed),
+           "stale": len(stale), "seconds": time.perf_counter() - t0}
+    emit(rec)
+    check(not unsuppressed, "swlint: unsuppressed findings: " + "; ".join(
+        f.format() for f in unsuppressed[:5]))
+    check(not stale, f"swlint: {len(stale)} stale baseline entries")
+    return rec
+
+
+def tl_wait(what, cond, poll_s=0.05):
+    """Poll ``cond()`` until it holds (the chaos script's barriers)."""
+    t0 = time.perf_counter()
+    while not cond():
+        check(time.perf_counter() - t0 < TL_BARRIER_S, f"never {what}")
+        time.sleep(poll_s)
+    return time.perf_counter() - t0
+
+
+def tl_fleet_chaos(device, root, hosts, specs, owners, owners_path):
+    """The reference fleet chaos script on the living two-host fleet at
+    the deployment's width: host 0 the frontend, host 1 the sick host.
+    Each stage waits for the state its setup must produce, then sends one
+    full-width keyed payload into host 0's source and ends when host 0
+    has stepped its own rows.  Returns the kernel's launches."""
+    h0, h1 = hosts
+    ep1 = specs[1]["peers"][1]
+    h0.call("ingest_attempts", peer=1)
+    base = mh_all([functools.partial(h.call, "stats") for h in hosts])
+    rng = np.random.default_rng(SEED + 71)
+    sick_tokens = [f"d-{d}" for d in np.flatnonzero(owners == 1)[:4]]
+    edge_lines = [_M_LINE % (t, 0, 30.0, TL_CHAOS_TS0_MS - 1000 * (k + 1))
+                  for k, t in enumerate(sick_tokens)]
+
+    def peer1():
+        return h0.call("health")["peers"]["1"]
+
+    stages, keys, edge = {}, [], None
+    t_script = time.time()
+    setups = {
+        "baseline": (None, None),
+        "shed": (lambda: h1.call("overload", state="SHEDDING"),
+                 lambda: peer1()["overload"] == "SHEDDING"),
+        "partition": (lambda: h0.call("net", endpoint=ep1, drop=1.0),
+                      lambda: peer1()["state"] != "ALIVE"),
+        "recover": (lambda: (h0.call("net", endpoint=ep1, drop=0.0),
+                             h1.call("overload", state="NORMAL")),
+                    lambda: peer1()["state"] == "ALIVE"
+                    and peer1()["overload"] == "NORMAL"),
+    }
+    for k, name in enumerate(TL_STAGES):
+        setup, ready = setups[name]
+        if setup is not None:
+            setup()
+        ready_s = tl_wait(f"{name}: the fleet's state", ready) \
+            if ready is not None else 0.0
+        payload, key = mh_keyed(
+            rng.integers(0, N_ACTIVE, FULL_B).tolist(),
+            TL_CHAOS_TS0_MS + 1000 * k * FULL_B, SEED + 72 + k)
+        keys.append(key)
+        s0 = h0.call("stats")
+        c0 = h0.call("ingest_attempts", peer=1)["attempts"]
+        t0 = time.perf_counter()
+        h0.send(is_frames([(payload, 0)])[0])
+        h0.intake(drain=name == "baseline")
+        h0.call("flush")
+        wall = time.perf_counter() - t0
+        s1 = h0.call("stats")
+        attempts = h0.call("ingest_attempts", peer=1)["attempts"] - c0
+        p1 = peer1()
+        stage = {"ready_s": ready_s, "wall_s": wall,
+                 "host0_accepted": s1["totals"]["accepted"]
+                 - s0["totals"]["accepted"],
+                 "host0_goodput_rows_s": (s1["totals"]["accepted"]
+                                          - s0["totals"]["accepted"]) / wall,
+                 "sick_ingest_attempts": attempts,
+                 "pending_to_sick": s1["forward"]["pending"],
+                 "sick_state": p1["state"], "sick_overload": p1["overload"]}
+        if name in ("shed", "partition"):
+            stage["attempt_budget"] = math.ceil(
+                wall / TL_PROBE_INTERVAL_S) + 8
+        stages[name] = stage
+        if name == "shed":
+            edge = h0.call("edge_check", lines=edge_lines)
+    drain = h0.call("drain")
+    mh_settle(hosts)
+    health = h0.call("health")
+    seen = [(t["to"], t["at"] - t_script) for t in health["transitions"]
+            if t["peer"] == 1 and t["at"] >= t_script]
+    key_lo = TL_CHAOS_TS0_MS // 1000
+    key_hi = key_lo + len(TL_STAGES) * FULL_B
+    outs = [os.path.join(root, f"chaos-keys{p}.npz") for p in range(2)]
+    mh_all([functools.partial(h.call, "rows", owners_path=owners_path,
+                              keys_out=outs[p], key_lo=key_lo,
+                              key_hi=key_hi)
+            for p, h in enumerate(hosts)])
+    stats = mh_all([functools.partial(h.call, "stats") for h in hosts])
+    reruns = mh_all([functools.partial(h.call, "rerun_plain")
+                     for h in hosts])
+    got = [np.load(o) for o in outs]
+    expected = np.unique(np.concatenate(keys))
+    union = np.union1d(got[0]["keys"], got[1]["keys"])
+    lost = np.setdiff1d(expected, union)
+    sick_keys = got[1]["keys"]
+    steps = [stats[p]["steps"] - base[p]["steps"] for p in range(2)]
+    launches = [stats[p]["launches"] - base[p]["launches"] for p in range(2)]
+    floor = TL_COLLAPSE_FRAC * stages["baseline"]["host0_goodput_rows_s"]
+    rec = {"phase": "tooling", "run": "fleet_chaos", "hosts": 2,
+           "width": FULL_B, "payloads_per_stage": 1, "stages": stages,
+           "edge_refusal": edge, "health_transitions": seen,
+           "spool_drain": drain,
+           "dead_lettered": [st["forward"]["dead_lettered"] for st in stats],
+           "pending_after_recovery": stats[0]["forward"]["pending"],
+           "keys_expected": int(expected.size), "lost": int(lost.size),
+           "sick_keys_stored": int(sick_keys.size),
+           "steps": steps, "launches": launches,
+           "plain_rerun_identical": [r.get("identical") for r in reruns]}
+    emit(rec)
+    check(stages["shed"]["sick_overload"] == "SHEDDING",
+          "host 0's table never learned host 1's SHEDDING")
+    check(edge["refused"], f"the edge took a pure sick-owner payload: {edge}")
+    check(stages["partition"]["sick_state"] in ("SUSPECT", "DOWN"),
+          f"partitioned host 1 still {stages['partition']['sick_state']}")
+    for name in ("shed", "partition"):
+        st = stages[name]
+        check(st["sick_ingest_attempts"] <= st["attempt_budget"],
+              f"{name}: {st['sick_ingest_attempts']} attempts to the sick "
+              f"host (budget {st['attempt_budget']})")
+    for name in TL_STAGES[1:]:
+        check(stages[name]["host0_goodput_rows_s"] >= floor,
+              f"{name}: host 0's goodput collapsed: {stages[name]}")
+    check(all(d == 0 for d in rec["dead_lettered"]),
+          f"forward dead letters {rec['dead_lettered']}")
+    check(rec["pending_after_recovery"] == 0, "spool not drained")
+    check(lost.size == 0, f"{lost.size} chaos rows lost")
+    check(len(seen) <= 8, f"the health table flapped: {seen}")
+    if device.type == "cuda":
+        check(launches == steps and all(s > 0 for s in steps),
+              f"chaos launches {launches} != steps {steps}")
+    mh_check_reruns(reruns, stats)
+    return sum(launches)
+
+
+def tl_kill_forward(device, root, hosts, specs, owners_path):
+    """crash.mid_forward on a fleet host: host 0 restarted with the
+    crosspoint armed takes one full-width keyed payload and is SIGKILLed
+    between its spool poll and host 1's ack; restarted again, its spool
+    replays to host 1.  Returns the kernel's launches."""
+    floor = hosts[0].call("checkpoint")["journal_records"]
+    base1 = hosts[1].call("stats")
+    hosts[0].stop()
+    rng = np.random.default_rng(SEED + 81)
+    payload, keys = mh_keyed(rng.integers(0, N_ACTIVE, FULL_B).tolist(),
+                             TL_FORWARD_TS0_MS, SEED + 82)
+    key_lo = TL_FORWARD_TS0_MS // 1000
+    crash = FleetHost("host0-crash", specs[0], root,
+                      env={"SW_CRASHPOINT": "crash.mid_forward:1"})
+    crash.send(is_frames([(payload, 0)])[0])
+    rc = crash.proc.wait(timeout=MH_TIMEOUT_S)
+    check(rc == -signal.SIGKILL,
+          f"host 0 was not killed at crash.mid_forward (rc {rc}): "
+          f"{crash._tail()}")
+    # what was durable at the kill: the rows spooled toward host 1 and
+    # the rows in host 0's own journal (the rest the device would resend:
+    # nothing acknowledged them)
+    d0 = specs[0]["data_dir"]
+    spooled = tl_journal_keys(d0, "forward-1", 0, key_lo, key_lo + FULL_B)
+    journaled = tl_journal_keys(d0, "ingest", floor, key_lo,
+                                key_lo + FULL_B)
+    durable = np.union1d(spooled, journaled)
+    t0 = time.perf_counter()
+    hosts[0] = FleetHost("host0-recover", specs[0], root)
+    hosts[0].sent = 0
+    drain = hosts[0].call("drain")
+    drained_s = time.perf_counter() - t0
+    mh_settle(hosts)
+    outs = [os.path.join(root, f"fwd-keys{p}.npz") for p in range(2)]
+    rows = mh_all([functools.partial(
+        h.call, "rows", owners_path=owners_path, keys_out=outs[p],
+        key_lo=key_lo, key_hi=key_lo + FULL_B) for p, h in enumerate(hosts)])
+    stats = mh_all([functools.partial(h.call, "stats") for h in hosts])
+    reruns = mh_all([functools.partial(h.call, "rerun_plain")
+                     for h in hosts])
+    got = [np.load(o) for o in outs]
+    union = np.union1d(got[0]["keys"], got[1]["keys"])
+    lost = np.setdiff1d(durable, union)
+    both = np.intersect1d(got[0]["keys"], got[1]["keys"])
+    ready = hosts[0].ready
+    steps = [stats[0]["steps"], stats[1]["steps"] - base1["steps"]]
+    launches = [stats[0]["launches"],
+                stats[1]["launches"] - base1["launches"]]
+    rec = {"phase": "tooling", "run": "kill_points.crash.mid_forward",
+           "width": FULL_B, "killed": True,
+           "restart_boot_s": ready["boot_s"],
+           "restore_s": ready["restore_s"], "replay_s": ready["replay_s"],
+           "replay_events": ready["replay_events"],
+           "seconds_restart_to_spool_empty": drained_s,
+           "spool_drain": drain, "keys_sent": int(np.unique(keys).size),
+           "keys_spooled_at_kill": int(spooled.size),
+           "keys_journaled_at_kill": int(journaled.size),
+           "lost": int(lost.size), "keys_on_both_hosts": int(both.size),
+           "host1_keys": int(got[1]["keys"].size),
+           "dead_lettered": [s["forward"]["dead_lettered"] for s in stats],
+           "steps": steps, "launches": launches,
+           "plain_rerun_identical": [r.get("identical") for r in reruns]}
+    emit(rec)
+    check(spooled.size > 0, "mid_forward: nothing spooled at the kill: "
+          "the crosspoint fired too early to test anything")
+    check(lost.size == 0, f"mid_forward: {lost.size} durable rows lost")
+    check(both.size == 0, f"mid_forward: {both.size} rows on both hosts")
+    check(np.setdiff1d(spooled, got[1]["keys"]).size == 0,
+          "mid_forward: spooled rows missing on host 1")
+    check(all(r["foreign_rows"] == 0 for r in rows),
+          "mid_forward: a host stored rows of devices it does not own")
+    check(all(s["forward"]["dead_lettered"] == 0
+              and s["forward"]["pending"] == 0 for s in stats),
+          f"mid_forward: dead letters or pending {rec['dead_lettered']}")
+    if device.type == "cuda":
+        check(launches == steps, f"mid_forward launches {launches} != "
+              f"steps {steps}")
+    mh_check_reruns(reruns, stats)
+    return sum(launches)
+
+
+def tl_journal_keys(data_dir, name, lo, key_lo, key_hi):
+    """The event seconds in ``[key_lo, key_hi)`` of every registered
+    (``d-``) device's line in a dead host's journal ``name``, from record
+    ``lo`` on (unique, sorted)."""
+    import re
+
+    from sitewhere_tpu_torch.ingest.journal import Journal
+
+    if not os.path.isdir(os.path.join(data_dir, name)):
+        return np.zeros(0, np.int64)
+    pat = re.compile(rb'"deviceToken":"d-\d+"[^\n]*?"eventDate":(\d+)')
+    journal = Journal(data_dir, name=name)
+    keys = []
+    try:
+        for _, payload in journal.scan(lo):
+            keys.extend(int(v) // 1000 for v in pat.findall(payload))
+    finally:
+        journal.close()
+    k = np.unique(np.asarray(keys, np.int64))
+    return k[(k >= key_lo) & (k < key_hi)]
+
+
+def tl_native_ab(device, geo_cuda):
+    """One full-width measurement payload through the dispatcher with
+    fill-direct on and with ``SW_NATIVE_FILL=0``: the packed columns of
+    its plan bitwise equal, the ms of each.  Returns the launches."""
+    import torch
+
+    from sitewhere_tpu_torch.ids import IdentityMap
+    from sitewhere_tpu_torch.pipeline.rules import RuleManager
+    from sitewhere_tpu_torch.services.device_management import (
+        RegistryMirror)
+
+    identity = IdentityMap()
+    mirror = RegistryMirror(SMALL_CAPACITY, max_zones=FULL_Z,
+                            max_verts=FULL_V, device=device)
+    rules = RuleManager(identity, capacity=N_RULES, device=device)
+    populate_world(identity, mirror, rules, SMALL_ACTIVE)
+    world = (identity, mirror, rules)
+    (payload,), _ = keyed_payloads(1, FULL_B, SMALL_ACTIVE,
+                                   TL_NATIVE_TS0_MS, SEED + 91)
+    root = tempfile.mkdtemp(prefix="native-ab-", dir=geo_cuda.BUILD_DIR)
+    runs, launches = {}, 0
+    try:
+        for name, fill in (("fill_on", "1"), ("fill_off", "0")):
+            prev = os.environ.get("SW_NATIVE_FILL")
+            os.environ["SW_NATIVE_FILL"] = fill
+            try:
+                disp = make_wire_dispatcher(
+                    device, world, FULL_B, 0, WIRE_DEADLINE_MS,
+                    os.path.join(root, name), capacity=SMALL_CAPACITY)
+            finally:
+                if prev is None:
+                    os.environ.pop("SW_NATIVE_FILL", None)
+                else:
+                    os.environ["SW_NATIVE_FILL"] = prev
+            staged = []
+            real = disp._stage_packed
+
+            def capture(bi, bf, _real=real, _staged=staged):
+                _staged.append((np.array(bi, copy=True),
+                                np.array(bf, copy=True)))
+                return _real(bi, bf)
+
+            disp._stage_packed = capture
+            decode0 = disp.metrics.counter(
+                "pipeline.bytes_copied.decode").value
+            launches0 = geo_cuda.launch_counts["pip_parity"]
+            steps0 = disp.steps
+            t0 = time.perf_counter()
+            disp.ingest_wire_lines(payload, "native-ab")
+            ingest_ms = (time.perf_counter() - t0) * 1e3
+            disp.flush()
+            torch.cuda.synchronize()
+            total_ms = (time.perf_counter() - t0) * 1e3
+            runs[name] = {
+                "fill_direct": disp._fill_enabled,
+                "ingest_ms": ingest_ms, "ingest_to_flushed_ms": total_ms,
+                "decode_bytes_copied": int(disp.metrics.counter(
+                    "pipeline.bytes_copied.decode").value - decode0),
+                "plans": len(staged), "steps": disp.steps - steps0,
+                "launches": geo_cuda.launch_counts["pip_parity"]
+                - launches0, "staged": staged}
+            launches += runs[name]["launches"]
+            disp.stop()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    on, off = runs["fill_on"], runs["fill_off"]
+    equal = (on["plans"] == off["plans"] > 0 and all(
+        a.tobytes() == c.tobytes() and b.tobytes() == d.tobytes()
+        for (a, b), (c, d) in zip(on.pop("staged"), off.pop("staged"))))
+    rec = {"phase": "tooling", "run": "native_ab", "lines": FULL_B,
+           "packed_bitwise_equal": equal, **runs}
+    emit(rec)
+    check(on["fill_direct"] and not off["fill_direct"],
+          "SW_NATIVE_FILL did not switch fill-direct")
+    check(equal, "fill-direct and SW_NATIVE_FILL=0 packed columns differ")
+    check(on["decode_bytes_copied"] == 0 < off["decode_bytes_copied"],
+          f"decode copies: fill on {on['decode_bytes_copied']}, off "
+          f"{off['decode_bytes_copied']}")
+    if device.type == "cuda":
+        check(on["launches"] == on["steps"] and off["launches"]
+              == off["steps"], f"native_ab launches {runs}")
+    return launches
+
+
+class Tooling:
+    """Phase ``tooling``: the static suite; the chaos script and
+    crash.mid_forward on multi_host's living fleet (``on_fleet``, its
+    ``between`` hook); crash.mid_compact and crash.mid_checkpoint through
+    ``--kill-child`` processes that run meanwhile; the fill-direct A/B."""
+
+    def __init__(self, device, geo_cuda):
+        self.device, self.geo_cuda = device, geo_cuda
+        self.launches = {}
+        self.seconds = 0.0
+        self.root = tempfile.mkdtemp(prefix="tooling-",
+                                     dir=geo_cuda.BUILD_DIR)
+        self.kills = None
+
+    def _kill_points(self, world):
+        try:
+            runs = kill_recover(self.device, {"small": world},
+                                os.path.join(self.root, "kills"),
+                                kills=TL_KILLS, phase="tooling",
+                                compact=True, plain_rerun=True)
+            self.kills = ("ok", runs)
+        except BaseException as e:   # re-raised by finish()
+            self.kills = ("error", e)
+
+    def on_fleet(self, hosts, specs, root, owners, owners_path):
+        t0 = time.perf_counter()
+        world = world_checkpoint(self.device, self.root, "small")
+        self.kill_thread = threading.Thread(
+            target=self._kill_points, args=(world,), name="tooling-kills")
+        self.kill_thread.start()
+        self.launches["fleet_chaos"] = tl_fleet_chaos(
+            self.device, root, hosts, specs, owners, owners_path)
+        self.launches["kill_mid_forward"] = tl_kill_forward(
+            self.device, root, hosts, specs, owners_path)
+        self.seconds += time.perf_counter() - t0
+
+    def finish(self):
+        t0 = time.perf_counter()
+        try:
+            tl_swlint()
+            self.launches["native_ab"] = tl_native_ab(self.device,
+                                                      self.geo_cuda)
+            check(self.kills is not None or self.kill_thread.is_alive(),
+                  "the kill points never ran")
+            self.kill_thread.join()
+            status, runs = self.kills
+            if status == "error":
+                raise runs
+            self.launches["kill_points"] = sum(r["pip_launches"]
+                                               for r in runs)
+            for r in runs:
+                check(r["resumed_payloads"] > 0 or r["replay_events"] > 0,
+                      f"{r['point']}: the restart had nothing to recover")
+        finally:
+            shutil.rmtree(self.root, ignore_errors=True)
+        self.seconds += time.perf_counter() - t0
+        emit({"phase": "tooling", "run": "done", "seconds": self.seconds,
+              "launches": self.launches})
+        return self.launches
 
 
 def phase_small_reference(device):
@@ -8613,7 +9254,27 @@ def phase_small_reference(device):
           "steps": 3, "ewma_max_ulp_of_scale": worst})
 
 
+def _stop_children() -> None:
+    for proc in KILL_PROCS:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
 def main() -> int:
+    try:
+        return run()
+    finally:
+        # a failed check can leave kill runs going on their threads
+        _STOPPING.set()
+        _stop_children()
+        for t in threading.enumerate():
+            if t.name in KILL_THREADS:
+                t.join(60)
+        _stop_children()
+
+
+def run() -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -8623,7 +9284,9 @@ def main() -> int:
     from sitewhere_tpu_torch.device import resolve_device
     from sitewhere_tpu_torch.ops import geo_cuda
 
-    t_start = time.perf_counter()
+    global _T_START
+    t_start = _T_START = time.perf_counter()
+    faulthandler.dump_traceback_later(STACK_DUMP_S, exit=False)
     device = resolve_device()
     geo_cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     logs = LogTally(os.path.join(geo_cuda.BUILD_DIR,
@@ -8652,13 +9315,16 @@ def main() -> int:
     rec = phase_kernel(device, geo_cuda)
     main_launches = phase_main_path(device, geo_cuda)
     wire_launches, mixed, meas = phase_dispatcher_wire(device, geo_cuda)
-    persist_launches = phase_persist_recover(
+    # persist_recover's kill runs (child processes) go on beside
+    # byo_rules and streaming_analytics
+    persist_finish = phase_persist_recover(
         device, geo_cuda, mixed[:INSTANCE_WIRE_PAYLOADS],
         meas[:INSTANCE_WIRE_PAYLOADS])
     del meas
     rules_launches = phase_byo_rules(device, geo_cuda,
                                      mixed[:INSTANCE_WIRE_PAYLOADS])
     an_launches = phase_streaming_analytics(device, geo_cuda)
+    persist_launches = persist_finish()
     # one world checkpoint of the deployment (one tenant) serves
     # device_services, ingest_sources and outbound_presence
     world_root = tempfile.mkdtemp(prefix="world-", dir=geo_cuda.BUILD_DIR)
@@ -8673,16 +9339,22 @@ def main() -> int:
         op_launches = phase_outbound_presence(device, geo_cuda, world)
         gw_launches = phase_rest_gateway(device, geo_cuda, world, rec)
         sm_launches = phase_sharded_mesh(device, geo_cuda, world, rec)
-        mh_launches = phase_multi_host(device, geo_cuda)
+        tooling = Tooling(device, geo_cuda)
+        mh_launches = phase_multi_host(device, geo_cuda,
+                                       between=tooling.on_fleet)
+        tl_launches = tooling.finish()
         te_launches = phase_tenant_engines(device, geo_cuda)
     finally:
         shutil.rmtree(world_root, ignore_errors=True)
     cp_launches = phase_control_plane(device, geo_cuda)
-    # this slice's path: the fleet's runs (one launch per fleet host's
-    # step at B=131072, or B=4096 in membership) and the multi-process
-    # mesh's (one per local shard per step at B=16384)
-    rec["launches"] = sum(mh_launches.values())
+    # this slice's path: the tooling phase's runs (one launch per fleet
+    # host's step at B=131072 through the chaos script and the
+    # mid_forward kill, per kill-recovery child's step at B=4096, per
+    # native A/B step at B=131072)
+    rec["launches"] = sum(tl_launches.values())
     rec["launches_by_path"] = {"main_path": main_launches,
+                               **{f"tooling.{k}": v
+                                  for k, v in tl_launches.items()},
                                **{f"multi_host.{k}": v
                                   for k, v in mh_launches.items()},
                                **{f"sharded_mesh.{k}": v
@@ -8719,6 +9391,7 @@ def main() -> int:
                           {"count": c, "first": logs.first[(n, lv, tb)]}
                           for (n, lv, tb), c in sorted(logs.counts.items())},
           "log_bytes": logs.bytes})
+    faulthandler.cancel_dump_traceback_later()
     emit({"kernels": [rec]})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

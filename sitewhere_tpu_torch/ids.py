@@ -178,7 +178,9 @@ class HandleSpace:
             if self._native is not None:
                 from sitewhere_tpu_torch.native import load_swwire
 
-                self._native = self._filled_table(load_swwire())
+                mod = load_swwire()
+                self._native = (self._filled_table(mod) if mod is not None
+                                else None)
 
 
 class IdentityMap:

@@ -124,8 +124,13 @@ def n_rows(columns: Dict[str, object]) -> int:
 
 def fill_direct_ready(payload) -> bool:
     """The gate of every C lane, cheap enough to run before allocating a
-    reservation: NDJSON bytes (a JSON array decodes in Python)."""
-    return isinstance(payload, bytes) and payload[:1] != b"["
+    reservation: NDJSON bytes (a JSON array decodes in Python), with the
+    native tier on (``SW_NATIVE=0`` sends every payload to the
+    pure-Python lane)."""
+    from sitewhere_tpu_torch import native
+
+    return isinstance(payload, bytes) and payload[:1] != b"[" \
+        and native.enabled()
 
 
 def decode_fill_direct(payload: bytes, device_space: HandleSpace,

@@ -15,6 +15,21 @@ boot.  A failed build raises :class:`NativeBuildError` with the
 compiler's output: the port has no pure-Python fallback for a missing
 tier.  (Payload shapes the scanners do not take still decode in Python:
 that is the scanners' strictness contract, not a fallback.)
+
+Switches, read at each call (the reference's names):
+
+- ``SW_NATIVE=0`` turns the whole tier off: :func:`load_swwire` returns
+  None, :func:`enabled` is False, and every wire decode takes the
+  pure-Python lane the columnar decoders keep for the shapes the
+  scanners refuse.
+- ``SW_NATIVE_LIB=<path>`` loads a prebuilt library instead of the
+  hash-keyed build (how ``tools/torch_native_sanitize.sh`` runs the suite
+  on its ASan/UBSan build).  A missing path raises
+  :class:`NativeBuildError`: unlike the reference, which falls back to
+  the Python lane there, the port never silently runs without the
+  library it was told to load.
+- ``SW_NATIVE_FILL=0`` (read by the dispatcher) keeps the scanners but
+  turns the fill-direct path off.
 """
 
 from __future__ import annotations
@@ -80,21 +95,36 @@ def _compile(out: Path) -> None:
     os.replace(tmp, out)
 
 
+def enabled() -> bool:
+    """False under ``SW_NATIVE=0``: the C lanes are off."""
+    return os.environ.get("SW_NATIVE", "1") != "0"
+
+
 def load_swwire():
-    """The ``_swwire_torch`` module, built on first use; raises
+    """The ``_swwire_torch`` module, built on first use (or the prebuilt
+    ``SW_NATIVE_LIB``); None under ``SW_NATIVE=0``.  Raises
     :class:`NativeBuildError` if it cannot be built or loaded.  A caller
     that arrives while another thread builds waits for that build."""
     global _swwire, build_seconds, library_path
+    if not enabled():
+        return None
     if _swwire is not None:
         return _swwire
     with _load_lock:
         if _swwire is not None:
             return _swwire
-        path = build_path()
-        t0 = time.perf_counter()
-        if not path.exists():
-            _compile(path)
-            build_seconds = time.perf_counter() - t0
+        override = os.environ.get("SW_NATIVE_LIB")
+        if override:
+            path = Path(override)
+            if not path.exists():
+                raise NativeBuildError(
+                    f"SW_NATIVE_LIB={override}: no such library")
+        else:
+            path = build_path()
+            t0 = time.perf_counter()
+            if not path.exists():
+                _compile(path)
+                build_seconds = time.perf_counter() - t0
         spec = importlib.util.spec_from_file_location(MODULE, path)
         mod = importlib.util.module_from_spec(spec)
         try:

@@ -599,6 +599,9 @@ class PipelineDispatcher(LifecycleComponent):
         # tier (``native.build_fallbacks``; 0 in the port, whose build
         # blocks), sampled by the loop thread
         self._m_native_fb = metrics.gauge("native.build_fallbacks")
+        # SW_NATIVE_FILL=0 keeps the C scanners but turns the fill-direct
+        # decode off (the A/B switch; SW_NATIVE=0 turns the whole tier off)
+        self._fill_enabled = os.environ.get("SW_NATIVE_FILL", "1") != "0"
         self._m_ring_chains = metrics.counter("pipeline.ring_chains")
         self._m_ring_flushes = metrics.counter("pipeline.ring_flushes")
         self._m_host_copy_err = metrics.counter("pipeline.host_copy_errors")
@@ -986,7 +989,8 @@ class PipelineDispatcher(LifecycleComponent):
         result, errors included."""
         with self._m_stage["decode"].time():
             space = space_of(self.batcher.resolve_device)
-            if space is not None and fill_direct_ready(payload):
+            if space is not None and self._fill_enabled \
+                    and fill_direct_ready(payload):
                 res = self.batcher.reserve(payload.count(b"\n") + 1)
                 if res is not None and decode_fill_direct(
                         payload, space, res,
@@ -1135,7 +1139,7 @@ class PipelineDispatcher(LifecycleComponent):
         state manager still holding the pre-boot epoch."""
         native.load_swwire()
         space = space_of(self.batcher.resolve_device)
-        if space is not None:
+        if space is not None and native.enabled():
             space.native_table()
         width = self.batcher.width
         bi, bf = self._stage_packed(

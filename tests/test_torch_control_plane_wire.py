@@ -3,9 +3,10 @@
 - The reference's own ``tests/test_flightrec.py`` cases for the flight
   recorder, the SLO burn-rate engine, anomaly tail retention, the latency
   buckets, the zero-sync acceptance through an ``Instance``, the
-  OpenMetrics exposition of the new families and the REST surface (the
-  timeline renderer is a reference tool), run against the port with their
-  imports rewritten.
+  OpenMetrics exposition of the new families, the REST surface and the
+  timeline renderer, run against the port with their imports rewritten
+  (the renderer case drives the port's
+  ``tools/torch_flightrec_timeline.py``).
 - The ``Instance`` honours every key of the ``overload``, ``metering``,
   ``slo``, ``flightrec`` and ``tenants`` sections and
   ``state.partition_min_capacity``, and still refuses the sections it
@@ -33,28 +34,31 @@ torch.set_num_threads(1)
 TESTS = os.path.dirname(os.path.abspath(__file__))
 REF = os.path.join(TESTS, "test_flightrec.py")
 
-# the timeline renderer is a reference tool; the packed-telemetry block
-# is held against the reference by tests/test_torch_step.py; the families
-# round trip ends in the swlint metric_names lint, which the port lacks
-SKIP = ("TestTimelineRenderer", "TestPackedTelemetryBlock",
-        "test_device_slo_flightrec_families_round_trip")
+# the packed-telemetry block is held against the reference by
+# tests/test_torch_step.py
+SKIP = ("TestPackedTelemetryBlock",)
 CASES = reference_cases(REF, skip=SKIP)
+# the timeline renderer case drives the port's renderer
+REPLACE = (('"tools", "flightrec_timeline.py")',
+            '"tools", "torch_flightrec_timeline.py")'),)
 
 
 @pytest.fixture(scope="module")
 def port_ns():
-    return port_test_module(REF)
+    return port_test_module(REF, replace=REPLACE)
 
 
 def test_the_port_runs_the_reference_control_plane_cases():
     assert len(CASES) >= 30
+    assert "TestTimelineRenderer.test_renders_a_snapshot" in CASES
     assert "TestTelemetryZeroSyncAcceptance.test_host_syncs_stay_one_" \
         "per_chain_with_telemetry_on" in CASES
 
 
 @pytest.mark.parametrize("case", CASES)
-def test_reference_flightrec_case_on_the_port(port_ns, case, tmp_path):
-    run_port_case(port_ns, case, tmp_path)
+def test_reference_flightrec_case_on_the_port(port_ns, case, tmp_path,
+                                              capsys):
+    run_port_case(port_ns, case, tmp_path, fixtures={"capsys": capsys})
 
 
 # ---------------------------------------------------------------------------

@@ -464,7 +464,10 @@ ROW_COUNTERS = ("rows", "state_writes", "nonfinite_rows", "shed_rows",
 
 
 def _run_schedule(pkg, root, faults_mod):
-    inst = _instance(pkg, root / pkg)
+    # a deadline no ingest gap reaches: each flush() cuts the plans, so
+    # both packages see the same plans however slow the host is (at 5 ms
+    # a loaded host cut the poison payloads into two plans)
+    inst = _instance(pkg, root / pkg, deadline_ms=60_000.0)
     inst.start()
     try:
         dm = inst.device_management

@@ -647,3 +647,71 @@ def test_named_backend_that_cannot_run_raises(monkeypatch):
         choose_backend(2, "nccl")
     with pytest.raises(RuntimeError, match="unknown backend"):
         choose_backend(2, "mpi")
+
+
+#: the static-analysis suite's modules
+ANALYSIS_MODULES = tuple(
+    f"sitewhere_tpu_torch.analysis.{m}" for m in (
+        "core", "suite", "metric_names", "locks", "hotpath",
+        "trace_purity", "donation", "markers"))
+#: the port's tools (tools/torch_*): every import, function-local ones
+#: included, is checked in their source
+PORT_TOOLS = sorted(p.name for p in (REPO / "tools").glob("torch_*.py"))
+
+
+@pytest.mark.parametrize("module", ANALYSIS_MODULES)
+def test_analysis_modules_import_without_jax_or_reference(module):
+    probe = (
+        "import importlib, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['sitewhere_tpu'] = None\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = sorted(m for m, mod in sys.modules.items() if mod is not None"
+        " and (m == 'jax' or m.startswith(('jax.', 'jaxlib', 'sitewhere_tpu.'))"
+        " or m == 'sitewhere_tpu'))\n"
+        "print(bad)\n")
+    proc = subprocess.run([sys.executable, "-c", probe], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+
+
+def _imports(path):
+    import ast
+
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("tool", PORT_TOOLS)
+def test_port_tools_import_no_jax_and_no_reference(tool):
+    names = set(_imports(REPO / "tools" / tool))
+    bad = sorted(n for n in names if n == "jax" or n.startswith("jax.")
+                 or n == "sitewhere_tpu" or n.startswith("sitewhere_tpu."))
+    assert bad == [], (tool, bad)
+
+
+def test_this_slices_tools_are_listed():
+    assert {"torch_swlint.py", "torch_fleet_chaos_bench.py",
+            "torch_crashrec_bench.py", "torch_store_bench.py",
+            "torch_flightrec_timeline.py"} <= set(PORT_TOOLS)
+
+
+def test_swlint_cli_runs_without_jax_or_reference():
+    """The CLI's own process, with both blocked, lints a fixture."""
+    fixture = REPO / "tests" / "fixtures" / "torch_swlint" / "donation" \
+        / "tp_write_into_carry.py"
+    probe = (
+        "import runpy, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['sitewhere_tpu'] = None\n"
+        f"sys.argv = ['torch_swlint.py', {str(fixture)!r}, '--no-baseline']\n"
+        "runpy.run_path('tools/torch_swlint.py', run_name='__main__')\n")
+    proc = subprocess.run([sys.executable, "-c", probe], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 1, proc.stderr
+    assert "DN001" in proc.stdout

@@ -40,22 +40,21 @@ MODULES = {
     "test_segment_store.py": {
         "test_scan_packed_blocks":
             "scan_packed, the packed hot tier's scan, is not ported",
-        "test_store_metric_family_lints_clean":
-            "needs the swlint metric_names lint, which the port lacks",
-        "test_store_bench_smoke":
-            "drives the reference's tools/store_bench.py over the JAX "
-            "package; the port has no store bench",
         "test_compiled_query_matches_live_evaluation":
             "compiles its query on the default device, the card",
     },
 }
 # module -> source edits: a case reading a JAX sharding object reads the
 # port's counterpart (the sharded epoch's shard count; the port's shards
-# may share one device)
+# may share one device), a case driving a reference tool drives the
+# port's
 EDITS = {
     "test_checkpoint.py": (
         ("assert len(st.last_event_ts_s.sharding.device_set) == 8",
          "assert b.device_state.current_packed.si.n_shards == 8"),),
+    # the store bench case drives the port's bench
+    "test_segment_store.py": (
+        ('"tools", "store_bench.py")', '"tools", "torch_store_bench.py")'),),
 }
 _NS = {}
 
@@ -78,7 +77,7 @@ def test_the_port_runs_the_reference_modules():
     assert by_module == {
         "test_journal.py": 16, "test_resilience.py": 31,
         "test_event_store.py": 31, "test_runtime.py": 6, "test_mqtt.py": 3,
-        "test_checkpoint.py": 13, "test_segment_store.py": 27}
+        "test_checkpoint.py": 13, "test_segment_store.py": 29}
 
 
 @pytest.mark.parametrize("module,case", CASES,

@@ -2,9 +2,8 @@
 
 - The reference's own ``tests/test_rpc.py``, run on the port with its
   imports rewritten (``torch_parity.port_test_module``), every
-  ``Instance`` on the CPU.  One case is left out by name:
-  ``test_forward_metric_names_pass_the_lint`` needs the swlint
-  ``metric_names`` lint, which the port does not have yet.
+  ``Instance`` on the CPU, every case of it (the forward metric names
+  through the port's own swlint ``metric_names`` lint).
 """
 
 from __future__ import annotations
@@ -26,9 +25,7 @@ torch.set_num_threads(1)
 TESTS = os.path.dirname(os.path.abspath(__file__))
 REF = os.path.join(TESTS, "test_rpc.py")
 
-# the swlint metric_names lint is not ported yet
-SKIP = ("test_forward_metric_names_pass_the_lint",)
-CASES = reference_cases(REF, skip=SKIP)
+CASES = reference_cases(REF)
 
 
 # the Instance import carries a lint marker the CPU swap does not match
@@ -42,7 +39,8 @@ def port_ns():
 
 
 def test_the_port_runs_every_reference_fabric_case():
-    assert len(CASES) == len(reference_cases(REF)) - 1
+    assert "TestPeerHealthTable.test_forward_metric_names_pass_the_lint" \
+        in CASES
 
 
 @pytest.mark.parametrize("case", CASES)

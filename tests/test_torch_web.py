@@ -34,9 +34,7 @@ TESTS = os.path.dirname(os.path.abspath(__file__))
 # module -> {case left out: why}; every other case of the module runs
 MODULES = {
     "test_web.py": {},
-    "test_observability.py": {
-        "test_instance_metric_names_follow_dotted_convention":
-            "needs the swlint metric_names lint, which the port lacks"},
+    "test_observability.py": {},
 }
 # module -> the cases that run (its other cases belong to other slices)
 ONLY = {
@@ -66,7 +64,7 @@ def test_the_port_runs_the_reference_web_cases():
     by_module = {}
     for module, _ in CASES:
         by_module[module] = by_module.get(module, 0) + 1
-    assert by_module == {"test_web.py": 25, "test_observability.py": 20,
+    assert by_module == {"test_web.py": 25, "test_observability.py": 21,
                          "test_charts.py": 5}
     # every case of test_charts.py that starts a WebServer runs here
     import re

@@ -17,8 +17,10 @@ restores its devices, zones and rules from it).  Devices are named
 ``d-<i>``: ``i`` is the device's global index, which the ownership check
 and the fleet-wide row checksums use.  Optional: ``web`` (serve the
 REST gateway on 127.0.0.1, port 0) and ``capture_step`` (keep the
-inputs and outputs of the first packed step after boot, and after each
-plain rerun, for a plain-geofence rerun).
+inputs and outputs of the first packed step with a valid row, a
+restart's recovery replay included, and after each plain rerun, for a
+plain-geofence rerun).  The overload ladder moves only by the
+``overload`` command.
 
 Each host takes NDJSON frames (``struct.pack(">I", len) + payload``) on
 a config-declared raw-wire TCP source on 127.0.0.1 and routes them
@@ -33,8 +35,9 @@ standard output: ``intake`` (wait for N payloads taken by the source,
 then until its forward spools are empty), ``flush`` (the dispatcher's
 flush: every row egressed, sealed, committed), ``stats``, ``rows``
 (stored-row checks, key counts written to a file), ``rerun_plain``,
-``checkpoint``, ``journal_keys``, ``state_rows``, ``health`` and
-``stop``.  Logging goes
+``checkpoint``, ``journal_keys``, ``state_rows``, ``health``, the chaos
+script's ``overload`` (force the ladder), ``net`` (drop packets to a
+peer), ``ingest_attempts`` and ``edge_check``, and ``stop``.  Logging goes
 to ``host.log`` in the data directory.
 """
 
@@ -84,6 +87,65 @@ def _pct(values, q):
     return float(np.percentile(values, q)) if values else None
 
 
+class FirstStep:
+    """The first packed step with a valid row that a dispatcher runs (the
+    boot's warm-up step has none), kept for a rerun from its carry with
+    the plain geofence; each rerun arms the capture again."""
+
+    def __init__(self, disp):
+        self.captured = None
+        step = disp._packed_step
+
+        def capturing(tables, ps, bi, bf):
+            # row 0 of the packed batch is ``valid``; the read syncs only
+            # while the capture is armed
+            if self.captured is not None or not bool(bi[0].any()):
+                return step(tables, ps, bi, bf)
+            clone = (lambda t: t.clone())
+            inputs = (dataclasses.replace(tables, **{
+                f.name: clone(getattr(tables, f.name))
+                for f in dataclasses.fields(tables)}),
+                ps.replace(si=clone(ps.si), sf=clone(ps.sf)),
+                clone(bi), clone(bf))
+            out = step(tables, ps, bi, bf)
+            k_ps, oi, met, present = out
+            self.captured = (*inputs, (
+                k_ps.replace(si=clone(k_ps.si), sf=clone(k_ps.sf)),
+                clone(oi), clone(met), clone(present)))
+            return out
+
+        disp._packed_step = capturing
+
+    def rerun(self):
+        """The captured step again with the plain geofence: bitwise equal,
+        and no kernel launch."""
+        import torch
+
+        from sitewhere_tpu_torch.ops import geo_cuda
+        from sitewhere_tpu_torch.ops.geo import points_in_polygons
+        from sitewhere_tpu_torch.pipeline.packed import packed_pipeline_step
+
+        if self.captured is None:
+            return {"captured": False}
+        tables, ps, bi, bf, (k_ps, k_oi, k_met, k_present) = self.captured
+
+        def plain(points, verts, rows=8192):
+            return torch.cat([points_in_polygons(points[i:i + rows], verts)
+                              for i in range(0, points.shape[0], rows)])
+
+        before = geo_cuda.launch_counts["pip_parity"]
+        p_ps, p_oi, p_met, p_present = packed_pipeline_step(
+            tables, ps, bi, bf, plain)
+        same = (torch.equal(p_oi, k_oi) and torch.equal(p_met, k_met)
+                and torch.equal(p_present, k_present)
+                and torch.equal(p_ps.si, k_ps.si)
+                and torch.equal(p_ps.sf, k_ps.sf))
+        self.captured = None
+        return {"captured": True, "identical": bool(same),
+                "kernel_launched": geo_cuda.launch_counts["pip_parity"]
+                - before}
+
+
 class Host:
     def __init__(self, spec):
         self.spec = spec
@@ -100,7 +162,6 @@ class Host:
         t0 = time.perf_counter()
         self.inst.start()
         self.start_s = time.perf_counter() - t0
-        self.capture_armed = bool(spec.get("capture_step"))
         # steps and launches count from here: the boot's warm-up step and
         # the recovery replay are the ready line's
         from sitewhere_tpu_torch.ops import geo_cuda
@@ -135,9 +196,15 @@ class Host:
             "checkpoint": {"interval_s": 0},
             "rules": {"asset_capacity": s.get("asset_capacity", 1024)},
             # the runs count every line (stored == accepted across a
-            # kill): the ladder and the SLO engine off, as in the
-            # reference's zero-loss benches
-            "overload": {"enabled": False},
+            # kill), so nothing but a forced state (the chaos script's
+            # ``overload`` command) moves the ladder: every watermark out
+            # of reach, a cooldown longer than any run; the SLO engine
+            # off, as in the reference's zero-loss benches
+            "overload": {"enabled": True, "cooldown_s": 3600.0,
+                         "watermarks": {name: [1e9, 2e9, 3e9] for name in (
+                             "seal_lag_s", "decode_backlog",
+                             "egress_inflight", "batcher_backlog",
+                             "fsync_latency_s")}},
             "slo": {"enabled": False},
             # no live queries, as the reference's fleet crash bench
             # (tools/crashrec_bench.py _forward_config): a restored
@@ -212,33 +279,10 @@ class Host:
             return out
 
         store.append_columns = append
-        # armed once start() has returned, so the step captured carries
-        # rows (the boot's warm-up dispatch is all-invalid); re-armed by
-        # each plain rerun
-        self.captured = []
-        self.capture_armed = False
-        disp = inst.dispatcher
-        if self.spec.get("capture_step"):
-            step = disp._packed_step
-
-            def capturing(tables, ps, bi, bf):
-                if not self.capture_armed:
-                    return step(tables, ps, bi, bf)
-                self.capture_armed = False
-                clone = (lambda t: t.clone())
-                inputs = (dataclasses.replace(tables, **{
-                    f.name: clone(getattr(tables, f.name))
-                    for f in dataclasses.fields(tables)}),
-                          ps.replace(si=clone(ps.si), sf=clone(ps.sf)),
-                          clone(bi), clone(bf))
-                out = step(tables, ps, bi, bf)
-                k_ps, oi, met, present = out
-                self.captured.append((*inputs, (
-                    k_ps.replace(si=clone(k_ps.si), sf=clone(k_ps.sf)),
-                    clone(oi), clone(met), clone(present))))
-                return out
-
-            disp._packed_step = capturing
+        # armed before start(), so a restarted host's first replayed
+        # step is the one captured
+        self.first = (FirstStep(inst.dispatcher)
+                      if self.spec.get("capture_step") else None)
         # the health table's verdicts on each peer, with their wall-clock
         # times, sampled from its snapshot every 10 ms
         self.transitions = []
@@ -324,7 +368,9 @@ class Host:
     def cmd_flush(self):
         t0 = time.perf_counter()
         self.inst.dispatcher.flush()
-        return {"flush_s": time.perf_counter() - t0}
+        return {"flush_s": time.perf_counter() - t0,
+                "journal_records": self.inst.ingest_journal.end_offset,
+                "pending": self.inst.forwarder.metrics()["pending"]}
 
     def cmd_stats(self):
         inst = self.inst
@@ -438,34 +484,11 @@ class Host:
         return {"keys": len(keys)}
 
     def cmd_rerun_plain(self):
-        """The captured first step again from its carry with the plain
-        geofence on the card: bitwise equal, and no kernel launch."""
-        import torch
-
-        from sitewhere_tpu_torch.ops import geo_cuda
-        from sitewhere_tpu_torch.ops.geo import points_in_polygons
-        from sitewhere_tpu_torch.pipeline.packed import packed_pipeline_step
-
-        if not self.captured:
+        """The captured step again from its carry with the plain geofence
+        on the card: bitwise equal, and no kernel launch."""
+        if self.first is None:
             return {"captured": False}
-        tables, ps, bi, bf, (k_ps, k_oi, k_met, k_present) = self.captured[0]
-
-        def plain(points, verts, rows=8192):
-            return torch.cat([points_in_polygons(points[i:i + rows], verts)
-                              for i in range(0, points.shape[0], rows)])
-
-        before = geo_cuda.launch_counts["pip_parity"]
-        p_ps, p_oi, p_met, p_present = packed_pipeline_step(
-            tables, ps, bi, bf, plain)
-        same = (torch.equal(p_oi, k_oi) and torch.equal(p_met, k_met)
-                and torch.equal(p_present, k_present)
-                and torch.equal(p_ps.si, k_ps.si)
-                and torch.equal(p_ps.sf, k_ps.sf))
-        self.captured = []
-        self.capture_armed = True
-        return {"captured": True, "identical": bool(same),
-                "kernel_launched": geo_cuda.launch_counts["pip_parity"]
-                - before}
+        return self.first.rerun()
 
     def cmd_checkpoint(self):
         t0 = time.perf_counter()
@@ -501,6 +524,56 @@ class Host:
     def cmd_health(self):
         return {"peers": self.inst.forwarder.health.snapshot(),
                 "transitions": list(self.transitions)}
+
+    def cmd_overload(self, state, reason="fleet-chaos"):
+        """Force the overload ladder to ``state`` (a state name)."""
+        from sitewhere_tpu_torch.runtime.overload import OverloadState
+
+        self.inst.overload.force(OverloadState[state], reason=reason)
+        return {"state": self.inst.overload.state.name}
+
+    def cmd_net(self, endpoint, drop=0.0):
+        """Drop ``drop`` of this host's packets to ``endpoint`` (0 heals
+        it): the partition of the chaos script."""
+        from sitewhere_tpu_torch.runtime import faults
+
+        if drop:
+            faults.net_inject(endpoint, drop=float(drop))
+        else:
+            faults.net_clear(endpoint)
+        return {"endpoint": endpoint, "drop": float(drop)}
+
+    def cmd_ingest_attempts(self, peer):
+        """``events.ingest`` calls this host has made to ``peer`` since
+        the first ask (the counting wrapper goes on at the first ask)."""
+        counts = getattr(self, "_ingest_calls", None)
+        if counts is None:
+            counts = self._ingest_calls = {}
+        if peer not in counts:
+            demux = self.inst._peer_demuxes[peer]
+            counts[peer] = 0
+            real = demux.call
+
+            def counted(method, *a, _peer=peer, **kw):
+                if method == "events.ingest":
+                    counts[_peer] += 1
+                return real(method, *a, **kw)
+
+            demux.call = counted
+        return {"peer": peer, "attempts": counts[peer]}
+
+    def cmd_edge_check(self, lines):
+        """Route one payload of ``lines`` through the forwarder's edge
+        gate: refused (with the owner's Retry-After hint) or taken."""
+        from sitewhere_tpu_torch.runtime.overload import OverloadShed
+
+        try:
+            self.inst.forwarder.ingest_payload("\n".join(lines).encode(),
+                                               source_id="edge-check")
+        except OverloadShed as e:
+            return {"refused": True, "retry_after_s": e.retry_after_s,
+                    "state": e.state.name}
+        return {"refused": False}
 
     def cmd_stop(self):
         if self.web is not None:

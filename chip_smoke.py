@@ -413,7 +413,26 @@ script exits non-zero without printing a result:
    payload through the dispatcher with fill-direct on and with
    ``SW_NATIVE_FILL=0``: the plan's packed columns bitwise equal, the ms
    of each;
-19. a small input run on the card and on the CPU: identical int outputs.
+19. phase ``reference_tools``, after control_plane: the port's twins of
+   the reference's last nine tools, on the card.  Four of them run as
+   child processes (``--kill-child`` with role ``tool``) beside the rest:
+   ``overload_bench``, ``tenant_fairness_bench`` and ``obs_smoke`` at
+   their ``--smoke`` sizes and ``chaos_smoke`` on a fixed seed (its
+   two-host phase included); each child holds its own launches against
+   the plain geofence.  In this process: ``width_sweep`` at widths
+   16384, 65536 and 131072 over the deployment's registry (2^20 slots,
+   1,000,000 devices), ``profile_step`` at width 131072, ``hostpath_bench``
+   on one full-width payload of 131072 lines, ``rulebench`` on byo_rules'
+   population (5,000 programs over 1,250 tenants) and ``analytics_bench``
+   at width 131072 over 1,000,000 devices.  Every geofence launch of the
+   phase is recorded (its inputs and output copied on the launching
+   stream) and, after each tool, held against the plain geofence on the
+   same inputs, bitwise; checks: each tool's own invariants (no alert
+   shed and no collapse, the fairness floor and no row lost, clean
+   recovery with no row lost, every scrape check, at most
+   ``MAX_STRUCTURE_KEYS`` compiled shapes and no recompile across swaps,
+   five CEP matches), and the launches each tool's path must make;
+20. a small input run on the card and on the CPU: identical int outputs.
 
 Every ``Instance`` run before ``control_plane`` turns the overload
 ladder and the SLO engine off (``instance_config``), as the reference's
@@ -9212,6 +9231,285 @@ class Tooling:
         return self.launches
 
 
+# -- phase reference_tools ----------------------------------------------------
+
+RT_WIDTHS = (16_384, 65_536, FULL_B)
+RT_CHAIN_K = 16
+RT_PROFILE_ITERS, RT_PROFILE_REPEATS = 16, 3
+RT_HOSTPATH_ITERS, RT_HOSTPATH_RING_K = 4, RING_K
+RT_AN_BATCHES = 8
+RT_CHAOS_SEED = 20261018
+RT_CHILD_TIMEOUT_S = 600.0
+# (name, tool file, arguments before the result path's flag, that flag)
+RT_CHILDREN = (
+    ("overload_bench", "torch_overload_bench.py", ["--smoke"], "--out"),
+    ("tenant_fairness_bench", "torch_tenant_fairness_bench.py",
+     ["--smoke"], "--out"),
+    ("chaos_smoke", "torch_chaos_smoke.py", [str(RT_CHAOS_SEED)], "--json"),
+    ("obs_smoke", "torch_obs_smoke.py", [], "--json"),
+)
+TOOLS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tools")
+
+
+def load_tool(name):
+    """``tools/<name>.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(TOOLS_DIR, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class KernelAudit:
+    """Every geofence launch made while the audit is entered, held
+    against the plain version on the same inputs, bitwise.  The wrapper
+    copies each launch's points, polygons and output on the launching
+    stream; :meth:`verify` runs the plain version on each copy afterwards,
+    so no timed region of a tool holds a plain run.  ``launches`` counts
+    what the kernel's own counter counted in the region."""
+
+    MAX_PENDING_BYTES = 6 << 30
+
+    def __init__(self, geo_cuda):
+        self.geo_cuda = geo_cuda
+        self.real = geo_cuda.points_in_polygons_cuda
+        self.lock = threading.Lock()
+        self.pending, self.pending_bytes = [], 0
+        self.checked = self.mismatches = self.launches = 0
+        self.shapes = collections.Counter()
+
+    def __enter__(self):
+        self.count0 = self.geo_cuda.launch_counts["pip_parity"]
+        self.geo_cuda.points_in_polygons_cuda = self._launch
+        return self
+
+    def __exit__(self, *exc):
+        self.geo_cuda.points_in_polygons_cuda = self.real
+        self.launches += (self.geo_cuda.launch_counts["pip_parity"]
+                          - self.count0)
+        return False
+
+    def _launch(self, points, verts):
+        out = self.real(points, verts)
+        if out.numel():
+            rec = (points.detach().clone(), verts.detach().clone(),
+                   out.clone())
+            nbytes = sum(t.numel() * t.element_size() for t in rec)
+            with self.lock:
+                self.pending.append(rec)
+                self.pending_bytes += nbytes
+                self.shapes[f"{points.shape[0]}x{verts.shape[0]}"
+                            f"x{verts.shape[1]}"] += 1
+                full = self.pending_bytes > self.MAX_PENDING_BYTES
+            if full:
+                self.verify()
+        return out
+
+    def verify(self):
+        """Hold every pending launch against the plain geofence; returns
+        the mismatching cells so far."""
+        import torch
+
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        with self.lock:
+            pending, self.pending, self.pending_bytes = self.pending, [], 0
+        for points, verts, out in pending:
+            ref = plain_chunked(points, verts)
+            self.mismatches += int((ref != out).sum())
+            self.checked += 1
+        return self.mismatches
+
+    def record(self):
+        return {"launches": self.launches, "checked": self.checked,
+                "mismatches": self.mismatches, "shapes": dict(self.shapes)}
+
+
+def tool_child(spec):
+    """``--kill-child`` with role ``tool``: one port tool's ``main`` on
+    the card, its stdout to ``spec["log"]``, every geofence launch held
+    against the plain version; writes ``spec["result_out"]``."""
+    import torch
+
+    from sitewhere_tpu_torch.ops import geo_cuda
+
+    if torch.cuda.is_available():
+        geo_cuda.library()      # built by the parent; loaded here
+    mod = load_tool(spec["tool"])
+    t0 = time.perf_counter()
+    with open(spec["log"], "w") as log, contextlib.redirect_stdout(log):
+        with KernelAudit(geo_cuda) as audit:
+            rc = mod.main(spec["argv"])
+    seconds = time.perf_counter() - t0
+    audit.verify()
+    with open(spec["result_out"], "w") as f:
+        json.dump({"rc": rc, "seconds": seconds, **audit.record()}, f)
+
+
+def rt_children(device, root):
+    """Start the four child tools on ``device``; returns ``{name: (proc,
+    the tool's JSON path, the child's result path)}``."""
+    procs = {}
+    for name, tool, args, flag in RT_CHILDREN:
+        out = os.path.join(root, f"{name}.json")
+        spec = {"role": "tool", "tool": tool[:-3],
+                "argv": [*args, "--device", device.type, flag, out],
+                "log": os.path.join(root, f"{name}.log"),
+                "result_out": os.path.join(root, f"{name}.result.json")}
+        procs[name] = (_spawn(spec), out, spec["result_out"])
+    return procs
+
+
+def rt_child_checks(name, doc, res):
+    """Each child tool's own invariants, on its JSON and its child's
+    result (exit status, launches)."""
+    check(res["rc"] == 0, f"{name} exited {res['rc']}: {doc}")
+    check(res["launches"] > 0, f"{name}: no geofence launch on the card")
+    if name == "overload_bench":
+        for row in doc["rows"]:
+            check(row["alert_sheds"] == 0 and row["alerts_offered"] > 0,
+                  f"overload_bench {row['multiplier']}x: {row}")
+            check(row["goodput_rows_per_s"] > 0,
+                  f"overload_bench {row['multiplier']}x: no goodput")
+    elif name == "tenant_fairness_bench":
+        failed = [c for c in doc["checks"] if not c["pass"]]
+        check(doc["ok"] and not failed, f"tenant_fairness_bench: {failed}")
+    elif name == "chaos_smoke":
+        # at least once: every ingested row stored, or shed (and
+        # dead-lettered) by the ladder during the storm
+        shed = doc["overload"].get("shed_total", 0)
+        check(doc["ok"] and not doc["failures"]
+              and doc["stored"] + shed >= doc["ingested"]
+              and doc["fleet"].get("pending_after_recovery") == 0,
+              f"chaos_smoke: {doc}")
+    else:
+        check(doc["ok"] and not doc["failures"], f"obs_smoke: {doc}")
+
+
+def rt_in_process(device, geo_cuda, root):
+    """The five tools run in this process, each under its own audit.
+    Returns ``{name: launches}``."""
+    launches = {}
+
+    def audited(name, fn, expect_launches=None):
+        t0 = time.perf_counter()
+        with KernelAudit(geo_cuda) as audit:
+            result = fn()
+        seconds = time.perf_counter() - t0
+        audit.verify()
+        rec = audit.record()
+        emit({"phase": "reference_tools", "run": name, "seconds": seconds,
+              "audit": rec, **result})
+        check(rec["mismatches"] == 0,
+              f"{name}: {rec['mismatches']} cells differ from the plain "
+              f"geofence")
+        check(rec["checked"] == rec["launches"],
+              f"{name}: {rec['launches']} launches, {rec['checked']} held")
+        if expect_launches is not None:
+            check(rec["launches"] == expect_launches,
+                  f"{name}: {rec['launches']} launches, expected "
+                  f"{expect_launches}")
+        launches[name] = rec["launches"]
+        return result
+
+    sweep = audited(
+        "width_sweep",
+        lambda: load_tool("torch_width_sweep").run(
+            RT_WIDTHS, capacity=CAPACITY, active=N_ACTIVE,
+            chain_k=RT_CHAIN_K, device=device),
+        expect_launches=len(RT_WIDTHS) * (4 * RT_CHAIN_K + 3))
+    for w in sweep["widths"]:
+        check(w["step_ms"] > 0 and w["h2d_ms"] > 0 and w["d2h_ms"] > 0,
+              f"width_sweep {w}")
+    prof = audited(
+        "profile_step",
+        lambda: load_tool("torch_profile_step").run(
+            width=FULL_B, capacity=CAPACITY, active=N_ACTIVE,
+            iters=RT_PROFILE_ITERS, repeats=RT_PROFILE_REPEATS,
+            device=device),
+        expect_launches=2 * RT_PROFILE_ITERS * (RT_PROFILE_REPEATS + 1))
+    check(all(prof[f"{s}_ms"] > 0 for s in
+              ("validate", "rules", "zones", "state", "full")),
+          f"profile_step {prof}")
+    dwell = max(2, RT_HOSTPATH_ITERS // 4)
+    hp = audited(
+        "hostpath_bench",
+        lambda: load_tool("torch_hostpath_bench").run(
+            width=FULL_B, iters=RT_HOSTPATH_ITERS, capacity=CAPACITY,
+            ring_k=RT_HOSTPATH_RING_K,
+            data_dir=os.path.join(root, "hostpath"), device=device),
+        expect_launches=(1 + RT_HOSTPATH_ITERS
+                         + RT_HOSTPATH_RING_K * (1 + dwell)
+                         + RT_HOSTPATH_ITERS))
+    for key in ("decode_s", "batch_s", "dispatch_s", "egress_s",
+                "h2d_stage_s", "d2h_fetch_s", "host_rtt_s", "seal_s",
+                "serial_s", "pipeline_bound_s", "seal_perceived_s",
+                "seal_background_s", "device_dwell_s"):
+        check(hp[key] > 0.0, f"hostpath_bench {key} = {hp[key]}")
+    check(hp["fill_direct"] and hp["bytes_copied_per_event_fill_total"]
+          == 0.0 and hp["seal_background_segments"] > 0,
+          f"hostpath_bench fill-direct and seal split: {hp}")
+    rb = audited(
+        "rulebench",
+        lambda: load_tool("torch_rulebench").run(
+            n_programs=RULE_POP_PROGRAMS, n_tenants=RULE_POP_TENANTS,
+            device=device),
+        expect_launches=0)
+    check(rb["programs_loaded"] > 0 and rb["shapes_within_bound"]
+          and rb["compiled_shapes"] <= rb["max_structure_keys"]
+          and rb["swaps_applied"] >= 1
+          and rb["recompiles_during_swaps"] == 0
+          and rb["eval_events_per_s"] > 0
+          and rb["builtin_events_per_s"] > 0, f"rulebench {rb}")
+    an = audited(
+        "analytics_bench",
+        lambda: load_tool("torch_analytics_bench").run(
+            n_devices=N_ACTIVE, n_events=RT_AN_BATCHES * FULL_B,
+            batch=FULL_B, device=device),
+        expect_launches=0)
+    check(an["cep_matches"] == 5 and an["grid_events_per_s"] > 0
+          and an["window_query_events_per_s"] > 0
+          and an["cep_match_latency_ms"] > 0, f"analytics_bench {an}")
+    return launches
+
+
+def phase_reference_tools(device, geo_cuda):
+    """The nine ported tools on the card: four in child processes beside
+    five in this one.  Returns ``{tool: launches}``."""
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="reference-tools-",
+                            dir=geo_cuda.BUILD_DIR)
+    try:
+        children = rt_children(device, root)
+        try:
+            launches = rt_in_process(device, geo_cuda, root)
+        finally:
+            done = _wait_all({n: c[0] for n, c in children.items()},
+                             RT_CHILD_TIMEOUT_S)
+        for name, (rc, err) in done.items():
+            check(rc == 0, f"{name} child exited {rc}: {err}")
+            _, out, result_out = children[name]
+            res = _read_result(result_out)
+            doc = _read_result(out)
+            emit({"phase": "reference_tools", "run": name,
+                  "seconds": res["seconds"],
+                  "audit": {k: res[k] for k in ("launches", "checked",
+                                                "mismatches", "shapes")},
+                  **doc})
+            check(res["mismatches"] == 0 and res["checked"]
+                  == res["launches"], f"{name}: audit {res}")
+            rt_child_checks(name, doc, res)
+            launches[name] = res["launches"]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "reference_tools", "run": "done",
+          "seconds": time.perf_counter() - t0, "launches": launches})
+    return launches
+
+
 def phase_small_reference(device):
     """A small deployment stepped on the card (kernel) and on the CPU
     (plain versions): int outputs and metrics identical, EWMAs close."""
@@ -9347,12 +9645,15 @@ def run() -> int:
     finally:
         shutil.rmtree(world_root, ignore_errors=True)
     cp_launches = phase_control_plane(device, geo_cuda)
-    # this slice's path: the tooling phase's runs (one launch per fleet
-    # host's step at B=131072 through the chaos script and the
-    # mid_forward kill, per kill-recovery child's step at B=4096, per
-    # native A/B step at B=131072)
-    rec["launches"] = sum(tl_launches.values())
+    # this slice's path: the reference_tools phase's runs (the width
+    # sweep's and the step profile's steps at B=16384-131072, the host-path
+    # bench's dispatch, dwell and fetch steps at B=131072, and every step
+    # of the child tools' Instances)
+    rt_launches = phase_reference_tools(device, geo_cuda)
+    rec["launches"] = sum(rt_launches.values())
     rec["launches_by_path"] = {"main_path": main_launches,
+                               **{f"reference_tools.{k}": v
+                                  for k, v in rt_launches.items()},
                                **{f"tooling.{k}": v
                                   for k, v in tl_launches.items()},
                                **{f"multi_host.{k}": v
@@ -9401,11 +9702,13 @@ def run() -> int:
 
 
 def child_main(spec_json: str) -> int:
-    """``--kill-child``: one instance life of the kill_recover runs, or of
-    the control_plane's sticky runs."""
+    """``--kill-child``: one instance life of the kill_recover runs, of
+    the control_plane's sticky runs, or one tool of reference_tools."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     spec = json.loads(spec_json)
-    if spec["role"].startswith("sticky"):
+    if spec["role"] == "tool":
+        tool_child(spec)
+    elif spec["role"].startswith("sticky"):
         sticky_child(spec)
     else:
         kill_child(spec)

@@ -17,13 +17,13 @@ DeviceLike = Union[str, torch.device, None]
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """``device`` as a :class:`torch.device`; ``None`` means ``cuda:0``.
 
-    Raises :class:`RuntimeError` when ``None`` is given and no CUDA card
-    is present.
+    Raises :class:`RuntimeError` when the device is a CUDA one (``None``
+    included) and no CUDA card is present.
     """
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
+    dev = torch.device("cuda", 0) if device is None else torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "sitewhere_tpu_torch runs on a CUDA card and none is present; "
-            "pass device='cpu' explicitly to run the plain versions")
-    return torch.device("cuda", 0)
+            f"sitewhere_tpu_torch runs on a CUDA card ({dev}) and no CUDA "
+            "card is present; pass device='cpu' (--device cpu) explicitly "
+            "to run the plain versions")
+    return dev

@@ -27,7 +27,7 @@ import struct
 from collections import OrderedDict
 from typing import List, Optional, Tuple
 
-from sitewhere_tpu_torch.ingest.sources import Receiver
+from sitewhere_tpu_torch.ingest.sources import Receiver, close_waking
 from sitewhere_tpu_torch.runtime.overload import OverloadShed
 
 logger = logging.getLogger("sitewhere_tpu_torch.ingest.coap")
@@ -222,7 +222,7 @@ class CoapServerReceiver(Receiver):
     def stop(self) -> None:
         self._alive = False
         if self._sock is not None:
-            self._sock.close()
+            close_waking(self._sock)
             self._sock = None
         self._stop_supervisor()
         super().stop()

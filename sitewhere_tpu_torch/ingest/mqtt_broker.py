@@ -58,7 +58,7 @@ from sitewhere_tpu_torch.ingest.mqtt import (
     read_packet,
     write_publish,
 )
-from sitewhere_tpu_torch.ingest.sources import Receiver, logger
+from sitewhere_tpu_torch.ingest.sources import Receiver, close_waking, logger
 
 
 def topic_matches(filt: str, topic: str) -> bool:
@@ -154,10 +154,7 @@ class MqttBroker:
     def stop(self) -> None:
         self._alive = False
         if self._srv is not None:
-            try:
-                self._srv.close()
-            except OSError:
-                pass
+            close_waking(self._srv)     # wakes the accept loop
             self._srv = None
         with self._lock:
             sessions = list(self._sessions.values())

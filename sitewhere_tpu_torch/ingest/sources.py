@@ -542,6 +542,24 @@ class Receiver(LifecycleComponent):
         self.supervisor = None
 
 
+def close_waking(sock: socket.socket) -> None:
+    """Close a socket another thread may be blocked on.
+
+    ``close`` alone does not wake a thread blocked in ``recvfrom`` or
+    ``accept`` on Linux: it stays blocked, holding the port, and a
+    supervisor's join of it waits out its whole timeout.  ``shutdown``
+    wakes it (a datagram reader with an empty datagram, an acceptor with
+    an error; an unconnected socket also raises ``ENOTCONN``, ignored)."""
+    try:
+        sock.shutdown(socket.SHUT_RDWR)
+    except OSError:
+        pass
+    try:
+        sock.close()
+    except OSError:
+        pass
+
+
 def length_prefixed_frames(conn: socket.socket, emit: Callable[[bytes], None]) -> None:
     """Framing: u32-be length + body (the default interaction handler)."""
     buf = b""
@@ -712,18 +730,9 @@ class TcpReceiver(Receiver):
             self.port = sock.getsockname()[1]
 
     def _close_listener(self) -> None:
-        # shutdown BEFORE close: close() alone does not wake a thread
-        # blocked in accept() on Linux — the loop would hang forever
         sock, self._sock = self._sock, None
         if sock is not None:
-            try:
-                sock.shutdown(socket.SHUT_RDWR)
-            except OSError:
-                pass
-            try:
-                sock.close()
-            except OSError:
-                pass
+            close_waking(sock)
 
     def start(self) -> None:
         self._bind()
@@ -881,7 +890,7 @@ class UdpReceiver(Receiver):
     def stop(self) -> None:
         self._alive = False
         if self._sock is not None:
-            self._sock.close()
+            close_waking(self._sock)
             self._sock = None
         self._stop_supervisor()
         super().stop()

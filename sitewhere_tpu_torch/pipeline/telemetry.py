@@ -243,6 +243,12 @@ class ProfilerCapture:
     come from the CUDA activity trace, whichever thread launched them.
     A stop that fails leaves the capture running, so it can be retried."""
 
+    # seconds to wait for the capture thread to start the session, and
+    # to stop it and write the trace; past them the caller gets an error
+    # naming the wait (the thread, a daemon, is left to finish or hang)
+    START_TIMEOUT_S = 120.0
+    STOP_TIMEOUT_S = 600.0
+
     def __init__(self, trace_dir: str, cuda: bool):
         self.trace_dir = trace_dir
         self._cuda = cuda
@@ -251,10 +257,18 @@ class ProfilerCapture:
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="profiler-capture")
         self._thread.start()
-        err = self._replies.get()
+        err = self._reply("start", self.START_TIMEOUT_S)
         if err is not None:
-            self._thread.join()
+            self._thread.join(self.START_TIMEOUT_S)
             raise err
+
+    def _reply(self, what: str, timeout_s: float) -> Optional[BaseException]:
+        try:
+            return self._replies.get(timeout=timeout_s)
+        except queue.Empty:
+            raise TimeoutError(
+                f"profiler capture: the capture thread did not {what} the "
+                f"session within {timeout_s:.0f} s") from None
 
     def _profile(self):
         import torch.profiler as tp
@@ -300,10 +314,10 @@ class ProfilerCapture:
         """Stop the capture and write its trace (raises if that fails;
         the capture then keeps running)."""
         self._requests.put("stop")
-        err = self._replies.get()
+        err = self._reply("stop", self.STOP_TIMEOUT_S)
         if err is not None:
             raise err
-        self._thread.join()
+        self._thread.join(self.STOP_TIMEOUT_S)
 
 
 __all__ = [

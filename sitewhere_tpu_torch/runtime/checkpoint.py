@@ -130,6 +130,12 @@ class SnapshotCorrupt(Exception):
     generation is torn; restore falls back to the previous one."""
 
 
+def _remote(obj) -> bool:
+    """True for a RemoteDomain facade (``rpc/domains.py``): its domain
+    lives on, and is checkpointed by, the owning host."""
+    return bool(getattr(obj, "_remote_facade_", False))
+
+
 def _copy_val(v):
     """Deep-copy store containers under the owning lock: entities are
     mutated IN PLACE (``update_fields``) and carry mutable sub-containers
@@ -353,10 +359,14 @@ class Checkpointer(LifecycleComponent):
                 with lock if lock is not None else contextlib.nullcontext():
                     return {k: _copy_val(getattr(obj, k)) for k in keys}
 
+            # A gateway instance serves some domains through RemoteDomain
+            # facades (rpc/domains.py): the owner checkpoints those
+            # stores; a facade holds nothing to snapshot.
             stores: Dict[str, Dict[str, object]] = {
                 attr: snap_store(getattr(inst, attr), keys)
                 for attr, keys in _STORE_ATTRS.items()
                 if getattr(inst, attr, None) is not None
+                and not _remote(getattr(inst, attr))
             }
             # the non-default tenant engines' façades (the default
             # engine's are the instance's own, above)
@@ -401,14 +411,16 @@ class Checkpointer(LifecycleComponent):
             offsets["mirror"] = committed
 
             # 3. device-state tensors: the epoch copied off the card (two
-            # packed buffers through pinned memory), split on the host
-            t0 = time.perf_counter()
-            state_arrays = inst.device_state.snapshot_host()
-            stats["state_d2h_s"] = time.perf_counter() - t0
-            names["state"] = f"state-{gen:08d}.npz"
-            timed_write("state", lambda path: _atomic_write(
-                path, lambda f: np.savez(f, **state_arrays)))
-            offsets["state"] = committed
+            # packed buffers through pinned memory), split on the host; a
+            # remoted device_state belongs to the owner's checkpoints
+            if not _remote(inst.device_state):
+                t0 = time.perf_counter()
+                state_arrays = inst.device_state.snapshot_host()
+                stats["state_d2h_s"] = time.perf_counter() - t0
+                names["state"] = f"state-{gen:08d}.npz"
+                timed_write("state", lambda path: _atomic_write(
+                    path, lambda f: np.savez(f, **state_arrays)))
+                offsets["state"] = committed
 
             # 4. identity map LAST (see module docstring: a token minted
             # mid-save must never be dangling in the restored identity)
@@ -642,6 +654,8 @@ class Checkpointer(LifecycleComponent):
                     logger.info("checkpoint store %s has no component in "
                                 "this instance; skipped", attr)
                     continue
+                if _remote(obj):
+                    continue  # domain remoted since the snapshot
                 merge_store(obj, values)
             if hasattr(inst.rules, "_dirty"):
                 inst.rules._dirty = True
@@ -667,7 +681,7 @@ class Checkpointer(LifecycleComponent):
         # mismatched fields keep their empty init rather than crashing
         # every subsequent step
         z = sections.get("state")
-        if z is not None:
+        if z is not None and not _remote(inst.device_state):
             manager = inst.device_state
             current = manager.current
             known = {

@@ -7,9 +7,11 @@ zone-map/Bloom-pruned, row-filtered column stream of
 - **hot-tier fast path**: a segment resident in the hot tier yields its
   column dict as zero-copy views over the packed block;
 - **promote-on-scan**: a demoted segment a selective scan materialized
-  is re-packed into the tier (budget permitting).  (The reference's
-  packed scan, ``scan_packed``, comes with its caller, the retrospective
-  analytics.)
+  is re-packed into the tier (budget permitting);
+- **packed scan** (:func:`scan_packed`): the raw ``([Ci, n] int32,
+  [Cf, n] float32)`` block pairs, the form a batch is staged to the card
+  in, so a retrospective query can copy a sealed segment over exactly as
+  the live dispatcher stages a batch.
 
 Segments stream in catalog scan order (``order_key``: append order,
 stable under compaction), so per-device row order matches what live
@@ -18,7 +20,7 @@ evaluation saw.
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -27,6 +29,7 @@ from sitewhere_tpu_torch.store.segment import (
     Segment,
     SegmentPruned,
     bloom_probe,
+    pack_cols,
     segment_pruned,
     unpack_cols,
 )
@@ -154,4 +157,48 @@ def iter_segment_cols(
             yield {k: v[mask] for k, v in cols.items()}
 
 
-__all__ = ["iter_segment_cols", "filters_active", "row_mask"]
+def scan_packed(
+    store,
+    *,
+    event_type: Optional[int] = None,
+    mtype_id: Optional[int] = None,
+    device_id: Optional[int] = None,
+    tenant_id: Optional[int] = None,
+    start_s: Optional[int] = None,
+    end_s: Optional[int] = None,
+) -> Iterator[Tuple[np.ndarray, np.ndarray, Segment]]:
+    """Pruned segments as packed ``(ints, flts, segment)`` blocks, the
+    staging form.  A hot segment no row filter touches yields its
+    resident block as is (no copy); a filtered or cold segment is packed
+    on the fly from the rows that survive the filters only."""
+    store.flush()
+    with store._lock:
+        segments = list(store._chunks)
+    active = filters_active(event_type, mtype_id, device_id, tenant_id)
+    probes = {
+        name: bloom_probe(want) for name, want in active
+        if name in BLOOM_COLUMNS
+    }
+    for seg in segments:
+        if segment_pruned(seg, active, probes, start_s, end_s):
+            continue
+        pair = store.hot.get(seg.seq)
+        if pair is not None:
+            cols = unpack_cols(pair[0], pair[1])
+        else:
+            cols, _remapped = _segment_cols(store, seg)
+            if cols is None:
+                continue  # retention expired it mid-scan
+        mask = row_mask(seg, cols, active, start_s, end_s)
+        if mask is None or mask.all():
+            if pair is not None:
+                yield pair[0], pair[1], seg
+            else:
+                ints, flts = pack_cols(cols)
+                yield ints, flts, seg
+        elif mask.any():
+            ints, flts = pack_cols({k: v[mask] for k, v in cols.items()})
+            yield ints, flts, seg
+
+
+__all__ = ["iter_segment_cols", "scan_packed", "filters_active", "row_mask"]

@@ -360,6 +360,7 @@ def test_dispatcher_needs_a_card_unless_cpu_is_named(monkeypatch):
 def test_backend_switches_on_the_card_follow_the_non_tpu_branch(
         monkeypatch):
     monkeypatch.delenv("SW_TPU_RING_DEPTH", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     batcher = Batcher(width=8, n_shards=1, registry_capacity=16,
                       resolve_device=lambda t: -1, resolve_mtype=lambda n: 0,
                       resolve_alert=lambda n: 0, emit_packed=True)

@@ -715,3 +715,54 @@ def test_swlint_cli_runs_without_jax_or_reference():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 1, proc.stderr
     assert "DN001" in proc.stdout
+
+
+#: the port's twins of the reference's last nine tools
+REFERENCE_TOOL_PORTS = (
+    "torch_profile_step", "torch_width_sweep", "torch_hostpath_bench",
+    "torch_rulebench", "torch_analytics_bench", "torch_overload_bench",
+    "torch_tenant_fairness_bench", "torch_chaos_smoke", "torch_obs_smoke")
+
+_TOOL_PROBE = """
+import importlib, importlib.util, json, sys
+sys.modules["jax"] = None
+sys.modules["sitewhere_tpu"] = None
+out = {}
+for tool, deps in json.loads(sys.argv[1]).items():
+    try:
+        spec = importlib.util.spec_from_file_location(tool, f"tools/{tool}.py")
+        spec.loader.exec_module(importlib.util.module_from_spec(spec))
+        for dep in deps:   # the tool's function-local imports of the port
+            importlib.import_module(dep)
+        out[tool] = "ok"
+    except BaseException as e:
+        out[tool] = repr(e)
+bad = sorted(m for m, mod in sys.modules.items() if mod is not None
+             and (m in ("jax", "sitewhere_tpu")
+                  or m.startswith(("jax.", "jaxlib", "sitewhere_tpu."))))
+print(json.dumps([out, bad]))
+"""
+
+
+@pytest.fixture(scope="module")
+def reference_tool_imports():
+    import json
+
+    deps = {t: sorted({n for n in _imports(REPO / "tools" / f"{t}.py")
+                       if n.startswith("sitewhere_tpu_torch")})
+            for t in REFERENCE_TOOL_PORTS}
+    proc = subprocess.run(
+        [sys.executable, "-c", _TOOL_PROBE, json.dumps(deps)], cwd=REPO,
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout.strip())
+
+
+@pytest.mark.parametrize("tool", REFERENCE_TOOL_PORTS)
+def test_reference_tool_port_imports_without_jax(reference_tool_imports,
+                                                 tool):
+    """Each tool, and every port module it imports inside its functions,
+    imported in a process where ``jax`` and ``sitewhere_tpu`` cannot be."""
+    out, bad = reference_tool_imports
+    assert out[tool] == "ok"
+    assert bad == []

@@ -32,14 +32,19 @@ torch.set_num_threads(1)
 TESTS = os.path.dirname(os.path.abspath(__file__))
 REF = os.path.join(TESTS, "test_overload.py")
 
-# the reference's overload bench drives the JAX package
-SKIP = ("TestOverloadBenchSmoke",)
-CASES = reference_cases(REF, skip=SKIP)
+CASES = reference_cases(REF)
+# the overload bench case drives the port's bench, on the CPU
+EDITS = (
+    ('"tools", "overload_bench.py")', '"tools", "torch_overload_bench.py")'),
+    ("result = mod.run(width=64, duration_s=0.2, multipliers=(1.0, 4.0),",
+     "result = mod.run(device='cpu', width=64, duration_s=0.2, "
+     "multipliers=(1.0, 4.0),"),
+)
 
 
 @pytest.fixture(scope="module")
 def port_ns():
-    return port_test_module(REF)
+    return port_test_module(REF, replace=EDITS)
 
 
 def test_the_port_runs_the_reference_admission_cases():
@@ -48,6 +53,8 @@ def test_the_port_runs_the_reference_admission_cases():
                for c in CASES) == 6
     assert "TestDispatcherAdmission.test_full_shed_raises_dead_letters_" \
         "and_skips_journal" in CASES
+    assert "TestOverloadBenchSmoke.test_tool_reports_curve_and_never_" \
+        "sheds_alerts" in CASES
 
 
 @pytest.mark.parametrize("case", CASES)

@@ -49,6 +49,10 @@ def config(pkg, data_dir, **extra):
                      "adaptive_deadline": False, "ring_depth": 0},
         "checkpoint": {"interval_s": 0},
         "events": {"compact_interval_s": 0},
+        # no overload ladder: a busy host's seal lag would shed telemetry
+        # in one package's run and not the other's, and nothing here is
+        # about shedding
+        "overload": {"enabled": False},
         **extra,
     }
     if pkg == "jax":

@@ -51,12 +51,18 @@ MODULES = {
     # the factory here
     "test_source_factory.py": (
         ("test_factory_rejects_non_decoder_script",), ()),
-    # the decode pool and the pooled fill-direct lane; the rest of the
-    # module is the dispatcher's, held by tests/test_torch_dispatcher.py
+    # the decode pool, the pooled fill-direct lane and the host-path
+    # bench (the port's, on the CPU); the rest of the module is the
+    # dispatcher's, held by tests/test_torch_dispatcher.py
     "test_host_pipeline.py": (
         ("TestEgressOffload", "TestDeviceResidentRing", "TestStartHostCopy",
-         "TestRingEndToEnd", "TestHostpathBenchSmoke", "TestStageOverlap",
-         "test_fill_path_runs_wire_to_egress_with_zero_copies"), ()),
+         "TestRingEndToEnd", "TestStageOverlap",
+         "test_fill_path_runs_wire_to_egress_with_zero_copies"),
+        (('"tools", "hostpath_bench.py")',
+          '"tools", "torch_hostpath_bench.py")'),
+         ("r = mod.run(width=128, iters=2, capacity=1024, ring_k=2,",
+          "r = mod.run(device='cpu', width=128, iters=2, capacity=1024, "
+          "ring_k=2,"))),
 }
 ONLY = {
     "test_checkpoint.py": {"test_dedup_window_survives_restart"},
@@ -101,6 +107,8 @@ def test_the_port_runs_the_reference_source_cases():
     assert ("test_host_pipeline.py", "TestFillDirectEndToEnd.test_fill_"
             "path_through_decode_pool_source") in CASES
     assert sum(1 for m, c in CASES if c.startswith("TestDecodePool.")) >= 6
+    assert ("test_host_pipeline.py", "TestHostpathBenchSmoke.test_tool_"
+            "reports_every_stage") in CASES
 
 
 @pytest.mark.parametrize("module,case", CASES,

@@ -119,7 +119,9 @@ def _capture_sequence(inst, break_stop):
     t = threading.Thread(target=lambda: out.append(
         call(inst.start_profiler_capture)))
     t.start()
-    t.join()
+    t.join(120)
+    assert not t.is_alive(), "start_profiler_capture on a thread: no " \
+        "answer within 120 s"
     out.append(call(inst.start_profiler_capture))
     with break_stop():
         out.append(call(inst.stop_profiler_capture))

@@ -620,7 +620,9 @@ def run_port_case(ns, case, tmp_path, fixtures=None):
     ``tmp_path`` and ``fixtures`` (name -> value) fill its parameters, a
     ``[i]`` suffix picks a parameter set, and the fixtures of the case's
     class, then the module's own (generators too, torn down afterwards),
-    fill the rest."""
+    fill the rest.  As under pytest, the module's autouse fixtures run
+    around the case, as do its class's ``setup_method`` and
+    ``teardown_method``."""
     import inspect
 
     case, _, index = case.partition("[")
@@ -658,7 +660,33 @@ def run_port_case(ns, case, tmp_path, fixtures=None):
         return args
 
     try:
-        fn(**resolve(fn, params))
+        for obj in list(ns.values()):
+            marker = getattr(obj, "_fixture_function_marker", None)
+            if marker is not None and marker.autouse:
+                fixture = obj.__wrapped__
+                value = fixture(**resolve(fixture, {}))
+                if inspect.isgenerator(value):
+                    teardown.append(value)
+                    next(value)
+        _call_method_hook(owner, "setup_method", fn)
+        try:
+            fn(**resolve(fn, params))
+        finally:
+            _call_method_hook(owner, "teardown_method", fn)
     finally:
         for gen in reversed(teardown):
             next(gen, None)
+
+
+def _call_method_hook(owner, name, fn):
+    """``owner.<name>()``, with the test method when it takes one (as
+    pytest calls ``setup_method`` / ``teardown_method``)."""
+    import inspect
+
+    hook = getattr(owner, name, None)
+    if hook is None:
+        return
+    if inspect.signature(hook).parameters:
+        hook(fn)
+    else:
+        hook()

@@ -14,7 +14,11 @@ script exits non-zero without printing a result:
    (``native/swwire.c``) with ``cc``;
 3. hold the kernel against its plain PyTorch version, bitwise, at the main
    path's shape (B=131072 points, Z=512 zones, V=16) and at edge shapes,
-   and time both with CUDA events;
+   and time both with CUDA events; the kernel alone at B=4096, 16384 and
+   131072 against its bound, each timed launch bitwise the plain version;
+   its registers, spills and SASS instructions per edge test
+   (``tools/torch_pip_sass.py``), and its launch plan (blocks per SM,
+   grid, waves) at the full width and a shard's;
 4. the main path at full size: a registry of 2^20 slots with 1,000,000
    assigned devices over 8 tenants, 64 rules, 512 zones, batches of
    131072 events, rings of K=8 through ``runtime/ring.py``; events/s,
@@ -566,11 +570,17 @@ AN_QUERIES = (
      "steps": [{"windowCross": True},
                {"eventType": "alert", "withinS": 60}]},
 )
-# instructions per edge test in the kernel: float32 - 2 compares
-# (straddle), sub, mul, add, 1 compare (px < x_cross); logic - the
-# straddle xor and the and-xor into the parity
-PIP_FLOAT_PER_TEST = 6
-PIP_LOGIC_PER_TEST = 2
+# the least instructions an edge test needs: float32 - d = py - y, the
+# crossing's own subtraction, whose sign is the compare y > py (one per
+# vertex: the plain version's (y2 > py) of edge v is its (y1 > py) of edge
+# v + 1, bit for bit), the mul and the add of x_cross, and e = px -
+# x_cross, whose sign is the compare px < x_cross; logic - one 3-input op
+# for (d_v ^ d_v+1) & e, and half of one to xor two edges into the parity
+PIP_FLOAT_PER_TEST = 4
+PIP_LOGIC_PER_TEST = 1.5
+# the batch sizes of the kernel's sweep at Z=512, V=16: below a shard's
+# step, a shard's (16384) and the full width
+PIP_SWEEP_B = (4096, 16384, 131072)
 
 
 _EMIT_LOCK = threading.Lock()
@@ -693,7 +703,38 @@ def edge_cases(gen, device):
     p = pts(2000, -25, 25)
     p[:100] = 0.0
     cases.append(("degenerate_zones", p, verts))
+    # one point against the main path's zones; one vertex past a 32-edge
+    # chunk (the kernel's chunk carry)
+    cases.append(("B1_Z512_V16", pts(1, -10, 10),
+                  random_polygons(gen, 512, 16, -10, 10, 5, 20, device)))
+    cases.append(("B200_Z9_V33", pts(200, -60, 60),
+                  random_polygons(gen, 9, 33, -50, 50, 10, 40, device)))
+    cases.append(("nonfinite_signed_zeros", *nonfinite_case(device)))
     return cases
+
+
+def nonfinite_case(device):
+    """Points and rings with -0, subnormals, infinities and NaN, and edges
+    whose slope overflows to infinity where d == 0 (inf * 0): the kernel
+    decides compares by the signs of rounded differences."""
+    import torch
+
+    from sitewhere_tpu_torch.ops.geo import pad_polygon
+
+    inf, nan = math.inf, math.nan
+    xs = [-inf, -3.0, -0.0, 0.0, 0.5, 1.0, 2.0, 3.0, inf, nan]
+    ys = [-inf, -1.0, -0.0, 0.0, 1e-45, 0.5, 1.0, 2.0, inf, nan]
+    points = np.array([(x, y) for x in xs for y in ys], np.float32)
+    rings = [[[-0.0, -0.0], [3, -0.0], [3, 2], [-0.0, 2]],
+             [[0, 0], [2, 1e-45], [2, 2], [0, 2]],
+             [[0, 0], [inf, 1], [0, 2]],
+             [[0, 0], [2, nan], [2, 2], [0, 2]],
+             [[-1, -inf], [1, 0], [0, 1]],
+             [[-0.0, 0.5], [1, -0.0], [2, 0.5], [1, 1]],
+             [[0, 0], [2, 1e30], [2, 2], [0, 1e-30]]]
+    verts = np.stack([pad_polygon(r, 8) for r in rings])
+    return (torch.from_numpy(points).to(device),
+            torch.from_numpy(verts).to(device))
 
 
 def make_world(device, capacity, n_active, n_rules, n_zones, n_verts, seed):
@@ -847,21 +888,20 @@ def phase_kernel(device, geo_cuda):
         edge[name] = int((k != r).sum())
         check(edge[name] == 0, f"kernel != plain at {name}: {edge[name]}")
 
-    # ``ms``: the kernel alone, on inputs laid out in advance;
-    # ``wrapper_ms``: the wrapper's whole call (edge planes, point columns)
-    px, py = points[:, 0].contiguous(), points[:, 1].contiguous()
-    planes = geo_cuda.edge_planes(verts)
+    # ``ms``: the kernel alone, its output allocated in advance;
+    # ``wrapper_ms``: the wrapper's whole call (checks, ``out``, launch)
     out = torch.empty((FULL_B, FULL_Z), dtype=torch.bool, device=device)
-    ms = cuda_ms(lambda: geo_cuda.launch_pip(px, py, planes, out), 50)
+    ms = cuda_ms(lambda: geo_cuda.launch_pip(points, verts, out), 50)
     check(torch.equal(out, ref), "timed launch != plain")
     wrapper_ms = cuda_ms(
         lambda: geo_cuda.points_in_polygons_cuda(points, verts), 50)
     plain_ms = cuda_ms(lambda: plain_chunked(points, verts), 3)
     tests = FULL_B * FULL_Z * FULL_V
-    bytes_moved = FULL_B * 2 * 4 + 4 * FULL_V * FULL_Z * 4 + FULL_B * FULL_Z
-    ops_ms = max(PIP_FLOAT_PER_TEST * tests / PEAK_FP32_INSTR,
-                 PIP_LOGIC_PER_TEST * tests / PEAK_INT32_INSTR) * 1e3
-    bytes_ms = bytes_moved / PEAK_HBM_BYTES * 1e3
+    ops_ms, bytes_ms = pip_bound_ms(FULL_B, FULL_Z, FULL_V)
+    sweep = pip_sweep(device, geo_cuda, gen)
+    code = pip_code(geo_cuda)
+    plans = {str(b): pip_plan(geo_cuda, b, FULL_Z, FULL_V, device)
+             for b in (FULL_B, FULL_B // SM_SHARDS)}
     rec = {
         "name": "pip_parity", "route": "cuda",
         "source": "sitewhere_tpu_torch/csrc/pip_kernel.cu",
@@ -869,15 +909,84 @@ def phase_kernel(device, geo_cuda):
         "max_abs_err": float(mismatches), "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "library_ms": None,
+        "library_ms": None, "wrapper_ms": wrapper_ms,
+        "registers": (code["registers"]
+                      or plans[str(FULL_B)]["regs"]),
+        "spill_bytes": code["spill_bytes"],
+        "sass_per_test": code["per_test"], "plans": plans, "sweep": sweep,
     }
     emit({"phase": "kernel_vs_plain", "shape": [FULL_B, FULL_Z, FULL_V],
           "mismatches": mismatches, "inside_share": float(ref.float().mean()),
           "edge_shapes": edge, "ms": ms, "wrapper_ms": wrapper_ms,
           "plain_ms": plain_ms,
           "bound_ms": rec["bound_ms"], "ops_bound_ms": ops_ms,
-          "bytes_bound_ms": bytes_ms, "edge_tests": tests})
+          "bytes_bound_ms": bytes_ms, "edge_tests": tests, "code": code,
+          "plans": plans, "sweep": sweep})
     return rec
+
+
+def pip_bound_ms(b, z, v):
+    """The geofence's least time at (B, Z, V): (operations, bytes) ms.
+    Bytes: the points and the rings read once, ``out`` written once."""
+    tests = b * z * v
+    ops_ms = max(PIP_FLOAT_PER_TEST * tests / PEAK_FP32_INSTR,
+                 PIP_LOGIC_PER_TEST * tests / PEAK_INT32_INSTR) * 1e3
+    bytes_ms = (b * 2 * 4 + z * v * 2 * 4 + b * z) / PEAK_HBM_BYTES * 1e3
+    return ops_ms, bytes_ms
+
+
+def pip_plan(geo_cuda, b, z, v, device):
+    """The kernel's launch at (B, Z, V): blocks per SM, grid, ``waves``
+    (grid over the blocks the card holds at once) and ``group_fill`` (the
+    groups of 32 points over what the busiest warp's count allows)."""
+    p = geo_cuda.launch_plan(b, z, v, device)
+    per_warp = -(-p["groups"] // p["warps_per_tile"])
+    return {**p, "waves": p["grid"] / (p["blocks_per_sm"] * p["sms"]),
+            "group_fill": p["groups"] / (p["warps_per_tile"] * per_warp)}
+
+
+def pip_sweep(device, geo_cuda, gen):
+    """The kernel alone at Z=512, V=16 and each B of ``PIP_SWEEP_B``: ms,
+    the share of its bound, every timed launch bitwise the plain
+    version."""
+    import torch
+
+    verts = random_polygons(gen, FULL_Z, FULL_V, -50, 50, 1, 20, device)
+    rows = []
+    for b in PIP_SWEEP_B:
+        points = (-60 + 120 * torch.rand((b, 2), generator=gen,
+                                         device=device)).contiguous()
+        ref = plain_chunked(points, verts)
+        out = torch.empty((b, FULL_Z), dtype=torch.bool, device=device)
+        launches = [0]
+
+        def launch():
+            geo_cuda.launch_pip(points, verts, out)
+            launches[0] += 1
+
+        ms = cuda_ms(launch, 50)
+        check(torch.equal(out, ref), f"sweep launch != plain at B={b}")
+        bound = max(pip_bound_ms(b, FULL_Z, FULL_V))
+        rows.append({"b": b, "ms": ms, "bound_ms": bound,
+                     "bound_share": bound / ms, "launches": launches[0],
+                     "mismatches": int((out != ref).sum())})
+    return rows
+
+
+def pip_code(geo_cuda):
+    """The main path's instantiation of the kernel (V=16, one chunk): its
+    registers and spilled bytes from this process's ``-Xptxas -v`` build
+    log (None when the library was built before it) and its SASS
+    instructions per edge test, by ``tools/torch_pip_sass.py``."""
+    kernels = load_tool("torch_pip_sass").count(
+        geo_cuda.library_path(), geo_cuda.build_log.get("pip_kernel", ""))
+    main = next(k for name, k in kernels.items()
+                if "pip_parity_kernelILi16ELb1E" in name)
+    check(main["loop"] is not None, "no edge-test loop in the kernel's SASS")
+    spills = [main[k] for k in ("spill_stores", "spill_loads") if k in main]
+    return {"registers": main.get("registers"),
+            "spill_bytes": sum(spills) if spills else None,
+            "per_test": main["loop"]["per_test"], "kernels": kernels}
 
 
 def phase_main_path(device, geo_cuda):
@@ -7539,18 +7648,12 @@ def sm_kernel_per_shard(device, geo_cuda, rec):
     points = (-60 + 120 * torch.rand((b, 2), generator=gen,
                                      device=device)).contiguous()
     ref = plain_chunked(points, verts)
-    px, py = points[:, 0].contiguous(), points[:, 1].contiguous()
-    planes = geo_cuda.edge_planes(verts)
     out = torch.empty((b, FULL_Z), dtype=torch.bool, device=device)
-    ms = cuda_ms(lambda: geo_cuda.launch_pip(px, py, planes, out), 50)
+    ms = cuda_ms(lambda: geo_cuda.launch_pip(points, verts, out), 50)
     mismatches = int((out != ref).sum())
     check(mismatches == 0, f"kernel != plain at B={b}: {mismatches}")
     plain_ms = cuda_ms(lambda: plain_chunked(points, verts), 3)
-    tests = b * FULL_Z * FULL_V
-    bytes_moved = b * 2 * 4 + 4 * FULL_V * FULL_Z * 4 + b * FULL_Z
-    ops_ms = max(PIP_FLOAT_PER_TEST * tests / PEAK_FP32_INSTR,
-                 PIP_LOGIC_PER_TEST * tests / PEAK_INT32_INSTR) * 1e3
-    bytes_ms = bytes_moved / PEAK_HBM_BYTES * 1e3
+    ops_ms, bytes_ms = pip_bound_ms(b, FULL_Z, FULL_V)
     shard = {"shape": [b, FULL_Z, FULL_V], "ms": ms, "plain_ms": plain_ms,
              "bound_ms": max(ops_ms, bytes_ms),
              "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",

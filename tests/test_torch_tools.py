@@ -381,12 +381,36 @@ def test_overload_bench_keys_equal_the_reference():
         assert row["alert_sheds"] == 0 and row["alerts_offered"] > 0
 
 
+#: every overload watermark out of reach: a loaded host's seal lag or
+#: fsync latency cannot move the ladder, whose forced states the chaos
+#: smokes check (the obs smoke sets the same in its own config)
+CALM_WATERMARKS = {name: [1e9, 2e9, 3e9] for name in (
+    "seal_lag_s", "decode_backlog", "egress_inflight", "batcher_backlog",
+    "fsync_latency_s")}
+#: the reference tool run unchanged, in a child whose reference config
+#: defaults hold CALM_WATERMARKS
+_CALM_REFERENCE = """
+import json, runpy, sys
+from sitewhere_tpu.runtime import config
+config.DEFAULTS["overload"]["watermarks"] = json.loads(sys.argv[1])
+sys.argv = sys.argv[2:]
+runpy.run_path(sys.argv[0], run_name="__main__")
+"""
+
+
 @pytest.mark.parametrize("name,must_have,argv", [
     ("chaos_smoke", "fault_hits", ["7"]),
     ("obs_smoke", "histograms_populated", []),
 ])
 def test_smoke_reports_carry_the_reference_keys(name, must_have, argv,
-                                                tmp_path):
+                                                tmp_path, monkeypatch):
+    from sitewhere_tpu_torch.runtime import config
+
+    # both chaos smokes run with their ladders pinned (the tools' forced
+    # SHEDDING and NORMAL still run): under a loaded tier-1 run the
+    # default watermarks could shed the unguarded device-fault phase
+    monkeypatch.setitem(config.DEFAULTS["overload"], "watermarks",
+                        CALM_WATERMARKS)
     out = tmp_path / "report.json"
     printed = io.StringIO()
     with contextlib.redirect_stdout(printed):
@@ -402,8 +426,10 @@ def test_smoke_reports_carry_the_reference_keys(name, must_have, argv,
         # rows (how often a probabilistic point fires races the deadline
         # loop, so only the points are compared)
         ref = subprocess.run(
-            [sys.executable, os.path.join(TOOLS, "chaos_smoke.py"), *argv],
-            capture_output=True, text=True, timeout=240,
+            [sys.executable, "-c", _CALM_REFERENCE,
+             json.dumps(CALM_WATERMARKS),
+             os.path.join(TOOLS, "chaos_smoke.py"), *argv],
+            capture_output=True, text=True, timeout=240, cwd=REPO,
             env={**os.environ, "JAX_PLATFORMS": "cpu"})
         assert ref.returncode == 0, ref.stderr[-2000:]
         ref_doc = json.loads(ref.stdout[ref.stdout.index("{"):

@@ -27,13 +27,19 @@ device.  :meth:`Batcher.reserve` hands the fill-direct wire scanner a
 plan's packed buffers when they fill a batch alone; a sharded batcher
 commits a segment-ordered reservation as per-shard views of its buffers,
 so a full-width one is adopted with no copy too.
+
+Instants (a chunk's arrival, a plan's ``created_at`` and ``received_at``)
+are on the batcher's ``clock``, by default the span clock of
+``runtime/tracing.py``, so a plan's wait lies on the same axis as its
+spans.  Each chunk carries its rows' origin (``stream``, or the
+re-injection that produced them, with the seq of the plan whose egress
+did), and a plan carries its oldest row's.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
-import time
 from typing import Callable, Deque, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -45,6 +51,7 @@ from sitewhere_tpu_torch.ids import NULL_ID
 from sitewhere_tpu_torch.ingest.decoders import DecodedRequest, RequestKind
 from sitewhere_tpu_torch.parallel.mesh import shard_for_device
 from sitewhere_tpu_torch.pipeline.packed import BATCH_F, BATCH_I
+from sitewhere_tpu_torch.runtime.tracing import _NOOP_TRACE, span_clock
 from sitewhere_tpu_torch.schema import EventBatch
 
 _FIELDS = (
@@ -110,6 +117,11 @@ class _Chunk:
     # commits enqueue per-shard VIEWS of one buffer; adoption needs each
     # view to sit exactly at its shard's segment).
     res_off: int = 0
+    # where the rows came from ("stream", "derived", "quarantine",
+    # "replay", ...) and, for a re-injection, the seq of the plan whose
+    # egress re-injected them (-1 otherwise)
+    origin: str = "stream"
+    origin_seq: int = -1
 
     @property
     def capacity(self) -> int:
@@ -316,7 +328,8 @@ class BatchPlan:
 
     __slots__ = ("_batch", "n_events", "width", "created_at", "max_wait_s",
                  "host_cols", "packed_i", "packed_f", "staged", "seq",
-                 "reason", "received_at", "dispatch_s")
+                 "reason", "received_at", "dispatch_s", "origin",
+                 "origin_seq", "trace", "windowed_at", "stage_marks")
 
     def __init__(
         self,
@@ -342,6 +355,9 @@ class BatchPlan:
         # its decode (the start of the plan's end-to-end latency); None =
         # when that row entered the batcher.
         received_at: Optional[float] = None,
+        # the oldest row's origin and source plan (see ``_Chunk``)
+        origin: str = "stream",
+        origin_seq: int = -1,
     ):
         self._batch = batch
         self.n_events = n_events
@@ -359,6 +375,15 @@ class BatchPlan:
         # host seconds of the plan's dispatch (the flight recorder's
         # stage attribution; a ring slot gets its share of the chain)
         self.dispatch_s = 0.0
+        self.origin = origin
+        self.origin_seq = origin_seq
+        # the dispatcher's bookkeeping for the plan's trace: the trace
+        # (a no-op one until the dispatcher takes the plan), when it
+        # entered the in-flight window, and its step's device-stage marks
+        # (sampled steps only)
+        self.trace = _NOOP_TRACE
+        self.windowed_at = 0.0
+        self.stage_marks = None
 
     def materialize_batch(self, device: DeviceLike = None
                           ) -> Optional[EventBatch]:
@@ -479,7 +504,7 @@ class Batcher:
         invocations=None,  # HandleSpace-like (mint/lookup) for
                            # invocation-token correlation
         deadline_ms: float = 5.0,
-        clock: Callable[[], float] = time.monotonic,
+        clock: Callable[[], float] = span_clock,
         emit_packed: bool = False,
         metrics=None,
         controller: Optional[AdaptiveBatchController] = None,
@@ -544,14 +569,17 @@ class Batcher:
     # -- intake: scalar paths ------------------------------------------------
 
     def add(self, req: DecodedRequest, tenant_id: int,
-            payload_ref: int) -> Optional[BatchPlan]:
-        """Queue one decoded event; returns a plan if the segment filled."""
+            payload_ref: int, origin: str = "stream",
+            origin_seq: int = -1) -> Optional[BatchPlan]:
+        """Queue one decoded event; returns a plan if the segment filled.
+        ``origin``/``origin_seq`` as in :meth:`add_arrays`."""
         et = req.event_type
         if et is None:
             raise ValueError(
                 f"{req.kind.name} is a host-plane request, not a pipeline event"
             )
         return self._enqueue_row(
+            origin, origin_seq,
             device_id=self.resolve_device(req.device_token),
             tenant_id=tenant_id,
             event_type=int(et),
@@ -571,7 +599,8 @@ class Batcher:
             update_state=bool(req.update_state),
         )
 
-    def _enqueue_row(self, **values) -> Optional[BatchPlan]:
+    def _enqueue_row(self, origin: str, origin_seq: int,
+                     **values) -> Optional[BatchPlan]:
         """Routing/append/deadline/emit tail of the scalar path."""
         device_id = values["device_id"]
         if 0 <= device_id < self.capacity:
@@ -582,11 +611,14 @@ class Batcher:
         now = self.clock()
         q = self._pending[shard]
         tail = q[-1] if q else None
-        if tail is None or tail.length >= tail.capacity:
+        if (tail is None or tail.length >= tail.capacity
+                or tail.origin != origin or tail.origin_seq != origin_seq):
             tail = _Chunk(
                 cols={f: np.empty(self.seg, _DTYPE[f]) for f in _COL_FIELDS},
                 length=0,
                 arrival=now,
+                origin=origin,
+                origin_seq=origin_seq,
             )
             q.append(tail)
         i = tail.length
@@ -604,6 +636,7 @@ class Batcher:
 
     def add_arrays(self, _copy: bool = True,
                    received_at: Optional[float] = None,
+                   origin: str = "stream", origin_seq: int = -1,
                    **columns) -> List[BatchPlan]:
         """Columnar intake: queue N pre-resolved rows from 1-D arrays.
 
@@ -615,6 +648,10 @@ class Batcher:
         ``received_at`` (on :attr:`clock`) is when the rows' payload was
         received, before its decode; a plan's ``received_at`` is its
         oldest row's.  Omitted, it is the time of this call.
+
+        ``origin`` names where the rows come from (``stream``, or the
+        re-injection that made them) and ``origin_seq`` the seq of the
+        plan whose egress re-injected them.
 
         ``_copy=False`` is for internal callers that hand over freshly
         built arrays they will never touch again; external callers keep
@@ -677,8 +714,9 @@ class Batcher:
                     f: (np.array(c, copy=True) if f in copied else c)
                     for f, c in cols.items()
                 }
-            self._pending[0].append(_Chunk(cols=cols, length=n, arrival=now,
-                                           received=received_at))
+            self._pending[0].append(_Chunk(
+                cols=cols, length=n, arrival=now, received=received_at,
+                origin=origin, origin_seq=origin_seq))
             self._counts[0] += n
         else:
             for s in range(self.n_shards):
@@ -688,7 +726,8 @@ class Batcher:
                     continue
                 self._pending[s].append(_Chunk(
                     cols={f: cols[f][m] for f in _COL_FIELDS},
-                    length=c, arrival=now, received=received_at))
+                    length=c, arrival=now, received=received_at,
+                    origin=origin, origin_seq=origin_seq))
                 self._count_copied(c * (_ROW_BYTES - 1))  # mask gathers
                 self._counts[s] += c
         if self._oldest is None:
@@ -862,6 +901,7 @@ class Batcher:
         res = None
         n = 0
         received = None
+        oldest = None
         for s in range(self.n_shards):
             ch = self._pending[s].popleft()
             res = ch.reserved
@@ -869,6 +909,8 @@ class Batcher:
             self._counts[s] -= ch.length
             got = ch.arrival if ch.received is None else ch.received
             received = got if received is None else min(received, got)
+            if oldest is None or ch.arrival < oldest.arrival:
+                oldest = ch
         host_cols = res.finalize_adopted(n)
         now, wait = self._emit_tail(n, reason)
         return BatchPlan(
@@ -876,7 +918,8 @@ class Batcher:
             max_wait_s=wait, host_cols=host_cols,
             packed_i=res.ibuf, packed_f=res.fbuf,
             seq=self.emitted_batches - 1, reason=reason,
-            received_at=received,
+            received_at=received, origin=oldest.origin,
+            origin_seq=oldest.origin_seq,
         )
 
     @hot_path
@@ -894,6 +937,7 @@ class Batcher:
         ibuf, fbuf, out = self._assemble_buffers()
         n = 0
         received = None
+        oldest = None
         for s in range(self.n_shards):
             base = s * self.seg
             filled = 0
@@ -902,6 +946,8 @@ class Batcher:
                 ch = q[0]
                 got = ch.arrival if ch.received is None else ch.received
                 received = got if received is None else min(received, got)
+                if oldest is None or ch.arrival < oldest.arrival:
+                    oldest = ch
                 take = min(ch.length - ch.start, self.seg - filled)
                 lo, hi = base + filled, base + filled + take
                 for f in _COL_FIELDS:
@@ -919,6 +965,8 @@ class Batcher:
         self._count_copied(n * _ROW_BYTES)
 
         now, wait = self._emit_tail(n, reason)
+        origin, origin_seq = ((oldest.origin, oldest.origin_seq)
+                              if oldest is not None else ("stream", -1))
         if self.emit_packed:
             ibuf[BATCH_I.index("valid")] = out["valid"]
             ibuf[BATCH_I.index("update_state")] = out["update_state"]
@@ -927,7 +975,7 @@ class Batcher:
                 batch=None, n_events=n, width=self.width, created_at=now,
                 max_wait_s=wait, host_cols=out, packed_i=ibuf, packed_f=fbuf,
                 seq=self.emitted_batches - 1, reason=reason,
-                received_at=received,
+                received_at=received, origin=origin, origin_seq=origin_seq,
             )
         # No device work here: _emit runs under the dispatcher's intake
         # lock, so the EventBatch is materialized later, off the lock.
@@ -935,5 +983,5 @@ class Batcher:
             batch=None, n_events=n, width=self.width, created_at=now,
             max_wait_s=wait, host_cols=out,
             seq=self.emitted_batches - 1, reason=reason,
-            received_at=received,
+            received_at=received, origin=origin, origin_seq=origin_seq,
         )

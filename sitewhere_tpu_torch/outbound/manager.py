@@ -28,7 +28,7 @@ import numpy as np
 
 from sitewhere_tpu_torch.outbound.connectors import OutboundConnector
 from sitewhere_tpu_torch.runtime.lifecycle import LifecycleComponent
-from sitewhere_tpu_torch.runtime.tracing import _NOOP_TRACE
+from sitewhere_tpu_torch.runtime.tracing import _NOOP_TRACE, span_clock
 
 logger = logging.getLogger("sitewhere_tpu_torch.outbound")
 
@@ -77,10 +77,11 @@ class OutboundConnectorsManager(LifecycleComponent):
         backpressure stays local, like an overwhelmed consumer group).
 
         ``trace`` is the originating plan's trace (delivery spans join
-        it); ``ingest_t0`` is the monotonic receive time of the plan's
-        oldest row, for the ingest→outbound-ack watermark gauge."""
+        it); ``ingest_t0`` is the receive time of the plan's oldest row,
+        on the batcher's clock (the span clock), for the
+        ingest→outbound-ack watermark gauge."""
         item = (cols, mask, trace or _NOOP_TRACE, ingest_t0,
-                time.monotonic())
+                span_clock())
         offered = 0
         for worker in self._workers.values():
             if (self.overload is not None
@@ -210,7 +211,7 @@ class _Worker:
                     # error and informed the connector's breaker
                     logger.exception("connector %s failed on batch",
                                      self.connector.connector_id)
-                now = time.monotonic()
+                now = span_clock()
                 if self._m_ack is not None:
                     if delivered:
                         # a failed batch is NOT an ack — recording it

@@ -465,6 +465,12 @@ class PackedView:
     def _fetch(self) -> None:
         self._oi, self._metrics_host = self._copy.fetch()
 
+    def fetch(self) -> None:
+        """Wait for the step's outputs and take them to the host, once:
+        every read after it is host work."""
+        if self._oi is None:
+            self._fetch()
+
     @property
     def oi(self) -> np.ndarray:
         if self._oi is None:

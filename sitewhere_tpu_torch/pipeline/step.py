@@ -11,11 +11,18 @@ Counterpart of ``sitewhere_tpu/pipeline/step.py``, stage for stage:
 
 Every function is a plain function of tensors and runs on the device its
 inputs lie on.  Nothing here updates an input in place.
+
+A sampled served step marks its stage boundaries
+(``pipeline/telemetry.py`` ``StageMarks``, installed for the launching
+thread by :func:`marking_stages`); an unsampled one pays one branch a
+stage.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -41,6 +48,37 @@ NUM_EVENT_TYPES = 6
 
 # (points float32[B, 2], verts float32[Z, V, 2]) -> bool[B, Z]
 GeofenceFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+# The stage marks of the steps being marked, by launching thread; None
+# while no thread marks a step.  Replaced whole under the lock, so a
+# reader sees a complete dict.
+_stage_marks: Optional[Dict[int, object]] = None
+_stage_marks_lock = threading.Lock()
+
+
+@contextlib.contextmanager
+def marking_stages(marks):
+    """Mark the stage boundaries of the steps this thread runs in the
+    block on ``marks`` (an object with ``mark()``)."""
+    global _stage_marks
+    tid = threading.get_ident()
+    with _stage_marks_lock:
+        _stage_marks = {**(_stage_marks or {}), tid: marks}
+    try:
+        yield marks
+    finally:
+        with _stage_marks_lock:
+            rest = {k: v for k, v in _stage_marks.items() if k != tid}
+            _stage_marks = rest or None
+
+
+def _mark_stage() -> None:
+    """The end of a stage, for the thread's marks if it has any."""
+    marks = _stage_marks
+    if marks is not None:
+        mine = marks.get(threading.get_ident())
+        if mine is not None:
+            mine.mark()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -382,10 +420,16 @@ def pipeline_step(
               & torch.isfinite(batch.lon) & torch.isfinite(batch.elevation))
     nonfinite = batch.valid & ~finite
     clean = accepted & finite
+    if _stage_marks is not None:
+        _mark_stage()                                   # validate
     rule_fired, rule_id, ewma_candidates = eval_threshold_rules(
         rules, state, batch, clean)
+    if _stage_marks is not None:
+        _mark_stage()                                   # rules
     zone_fired, zone_id = eval_zone_rules(
         zones, batch, clean, enrich["area_id"], geofence)
+    if _stage_marks is not None:
+        _mark_stage()                                   # zones
     new_state, present_now = update_device_state(
         state, batch, clean, ewma_candidates)
     # per-device NaN/Inf strikes: one scatter-add with a dump slot
@@ -397,6 +441,8 @@ def pipeline_step(
     nf = nf.index_add(0, nf_idx.to(torch.int64),
                       torch.ones_like(nf_idx))[:cap]
     new_state = new_state.replace(nonfinite_count=nf)
+    if _stage_marks is not None:
+        _mark_stage()                                   # state
     derived = _build_derived_alerts(batch, rules, zones, rule_id, zone_id)
 
     metrics = StepMetrics(
@@ -408,6 +454,8 @@ def pipeline_step(
         zone_alerts=_i32(zone_fired.sum()),
         by_type=bincount_fixed(batch.event_type, accepted, NUM_EVENT_TYPES),
     )
+    if _stage_marks is not None:
+        _mark_stage()                                   # derived
     outputs = PipelineOutputs(
         accepted=accepted,
         unregistered=unregistered,

@@ -23,6 +23,10 @@ card at B=width, Z=zone capacity, V=the zone table's vertex count.
 ``start_profiler_capture`` / ``stop_profiler_capture`` (``jax.profiler``
 in the reference).
 
+:class:`StageMarks` times the same stages on the served path: the
+boundaries of one sampled step of the dispatcher, read once its outputs
+are on the host.
+
 ``xla_cost_analysis`` and ``record_cost_metrics`` (the reference's :229
 and :253) read the flops and bytes of a compiled XLA program; torch
 compiles no program to ask, so the port has no ``device.cost.*`` gauges
@@ -35,7 +39,7 @@ import contextlib
 import queue
 import threading
 import time
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -54,12 +58,62 @@ from sitewhere_tpu_torch.schema import (
 DEVICE_STAGES: Tuple[str, ...] = (
     "validate", "rules", "zones", "state", "full")
 
+# The stages of a served step that :class:`StageMarks` times, in order:
+# the probed stages' names where they match, then the derived alerts with
+# the step metrics, then the packing of the state and outputs.
+SERVED_STAGES: Tuple[str, ...] = (
+    "validate", "rules", "zones", "state", "derived", "pack")
+
 # Millisecond-scale buckets for the device stage histograms: a step of a
 # few milliseconds and its sub-millisecond stages must not collapse into
 # one bucket (the default latency buckets are seconds-denominated).
 DEVICE_STAGE_MS_BUCKETS: Tuple[float, ...] = (
     0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 25.0,
     50.0, 100.0)
+
+
+class StageMarks:
+    """The stage boundaries of one served step: a ``torch.cuda.Event``
+    recorded on the launching stream at each (the host clock on the CPU,
+    as :func:`profile_device_stages` does), read after the step's outputs
+    were fetched, so reading adds no host sync."""
+
+    __slots__ = ("_stream", "_stamps")
+
+    def __init__(self, device: DeviceLike = None):
+        dev = resolve_device(device)
+        self._stream = (torch.cuda.current_stream(dev)
+                        if dev.type == "cuda" else None)
+        self._stamps: List[object] = []
+
+    def mark(self) -> None:
+        if self._stream is None:
+            self._stamps.append(time.perf_counter())
+            return
+        event = torch.cuda.Event(enable_timing=True)
+        event.record(self._stream)
+        self._stamps.append(event)
+
+    def run(self, step, *args):
+        """``step(*args)`` with its boundaries marked: its start, the ends
+        of the stages ``pipeline_step`` marks, and its end."""
+        from sitewhere_tpu_torch.pipeline.step import marking_stages
+
+        with marking_stages(self):
+            self.mark()
+            out = step(*args)
+            self.mark()
+        return out
+
+    def stage_ms(self) -> Optional[List[float]]:
+        """Each of :data:`SERVED_STAGES`' ms, once the step's outputs are
+        on the host; None unless the step marked every boundary."""
+        st = self._stamps
+        if len(st) != len(SERVED_STAGES) + 1:
+            return None
+        if self._stream is None:
+            return [(b - a) * 1e3 for a, b in zip(st, st[1:])]
+        return [a.elapsed_time(b) for a, b in zip(st, st[1:])]
 
 
 def measure_rtt(samples: int = 7, device: DeviceLike = None) -> float:

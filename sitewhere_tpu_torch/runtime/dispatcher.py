@@ -169,6 +169,7 @@ from sitewhere_tpu_torch.pipeline.sharded import (
     unpack_sharded_state,
 )
 from sitewhere_tpu_torch.pipeline.step import pipeline_step
+from sitewhere_tpu_torch.pipeline.telemetry import SERVED_STAGES, StageMarks
 from sitewhere_tpu_torch.runtime import faults
 from sitewhere_tpu_torch.runtime.devguard import (
     BREAKER_LEVELS,
@@ -190,7 +191,11 @@ from sitewhere_tpu_torch.runtime.resilience import (
     Supervisor,
     dead_letter,
 )
-from sitewhere_tpu_torch.runtime.tracing import _NOOP_TRACE, Tracer
+from sitewhere_tpu_torch.runtime.tracing import (
+    _NOOP_TRACE,
+    Tracer,
+    span_clock,
+)
 from sitewhere_tpu_torch.schema import EventBatch, EventType
 from sitewhere_tpu_torch.state.presence import (
     STATE_CHANGE_QUARANTINED,
@@ -204,6 +209,15 @@ logger = logging.getLogger("sitewhere_tpu_torch.dispatcher")
 # touches at most two records of a full-width payload stream, the next
 # plan one of the same two
 _REDECODED_RECORDS = 2
+
+# The span names of a sampled step's device stages
+_DEVICE_SPANS = tuple(f"device.{stage}" for stage in SERVED_STAGES)
+
+
+def _plan_span(trace, name: str, plan: BatchPlan):
+    """A span of the plan's trace, tagged with its seq and rows."""
+    return trace.span(name).tag("seq", plan.seq).tag("rows", plan.n_events)
+
 
 # Exit status of a process that failed closed on a card fault
 # (EX_SOFTWARE): the restart recovers through the journal
@@ -733,7 +747,7 @@ class PipelineDispatcher(LifecycleComponent):
         """Run a batcher intake under the lock, counting every emitted plan
         as outstanding until its egress completes (the commit gate's
         accounting, see :meth:`_maybe_commit_offset`)."""
-        t0 = time.perf_counter()
+        t0 = span_clock()
         with self._lock:
             out = intake()
             if out is None:
@@ -744,8 +758,28 @@ class PipelineDispatcher(LifecycleComponent):
                 plans = [out]
             self._plans_outstanding += len(plans)
         if plans:
-            self._m_stage["batch"].observe(time.perf_counter() - t0)
+            t1 = span_clock()
+            self._m_stage["batch"].observe(t1 - t0)
+            for plan in plans:
+                self._open_trace(plan, t0, t1)
         return plans
+
+    def _open_trace(self, plan: BatchPlan, t0: float, t1: float) -> None:
+        """The plan's trace, rooted at its oldest row's receipt: the
+        batcher's wait (that row's entry to the emission; tagged with the
+        row's origin and, for a re-injected row, the plan whose egress
+        re-injected it) and the intake call ``[t0, t1]`` that emitted
+        it.  Its root closes at the end of the plan's egress."""
+        trace = self.tracer.trace("pipeline.plan", start=plan.received_at)
+        plan.trace = trace
+        if not trace.recording:
+            return
+        seq, rows = plan.seq, plan.n_events
+        trace.root.tag("seq", seq).tag("rows", rows)
+        trace.record("batch.wait", plan.created_at - plan.max_wait_s,
+                     plan.created_at, seq=seq, rows=rows,
+                     origin=plan.origin, source_seq=plan.origin_seq)
+        trace.record("batch.intake", t0, t1, seq=seq, rows=rows)
 
     def _run_plans(self, plans: List[BatchPlan],
                    replay_depth: int = 0) -> None:
@@ -761,15 +795,22 @@ class PipelineDispatcher(LifecycleComponent):
         """Start the H2D copy of a plan: packed buffers through pinned
         memory without blocking (on a mesh, one block per shard), or an
         unpacked plan's EventBatch."""
+        trace = plan.trace
         if plan.staged is None and plan.packed_i is not None:
+            t0 = span_clock() if trace.recording else 0.0
             plan.staged = self._stage_packed(plan.packed_i, plan.packed_f)
             self._m_h2d_bytes.inc(
                 plan.packed_i.nbytes + plan.packed_f.nbytes)
         elif plan.packed_i is None and plan.batch is None \
                 and plan.host_cols:
-            t0 = time.perf_counter()
+            t0 = span_clock()
             plan.materialize_batch(self.device)
-            self._m_stage["h2d"].observe(time.perf_counter() - t0)
+            self._m_stage["h2d"].observe(span_clock() - t0)
+        else:
+            return
+        if trace.recording:
+            trace.record("stage.h2d", t0, span_clock(), seq=plan.seq,
+                         rows=plan.n_events)
 
     def _stage_packed(self, bi, bf):
         if self.mesh is not None:
@@ -1503,7 +1544,7 @@ class PipelineDispatcher(LifecycleComponent):
             return
         with self._step_lock:
             due = bool(self._ring) and (
-                time.monotonic() - self._ring[0].created_at
+                self.batcher.clock() - self._ring[0].created_at
                 >= self.batcher.deadline_s)
         if due:
             self._flush_ring()
@@ -1533,7 +1574,7 @@ class PipelineDispatcher(LifecycleComponent):
         del self._ring[:self.ring_depth]
         k = len(plans)
         chain = self._ring_chain(k)
-        now = time.monotonic()
+        now = self.batcher.clock()
         # per-shard containment (mesh): rows of the shards the breaker
         # bank has demoted are side-routed and masked BEFORE the chain,
         # so one sick shard degrades alone while the healthy shards keep
@@ -1582,11 +1623,10 @@ class PipelineDispatcher(LifecycleComponent):
         self._m_stage["ring_dispatch"].observe(chain_dt)
         self._m_ring_chains.inc()
         for slot, plan in enumerate(plans):
-            trace = self.tracer.trace("pipeline.plan")
-            trace.record("batch.assemble", plan.max_wait_s,
-                         rows=plan.n_events, fill=round(plan.fill, 3))
-            trace.record("ring.slot", max(0.0, now - plan.created_at),
-                         slot=slot, seq=plan.seq, chain_k=k)
+            trace = plan.trace
+            if trace.recording:
+                trace.record("ring.slot", plan.created_at, now, slot=slot,
+                             seq=plan.seq, rows=plan.n_events, chain_k=k)
             self._m_assemble.observe(plan.max_wait_s)
             plan.dispatch_s = chain_dt / k   # per-slot share of the chain
             self._window_step(plan, RingStepView(fetch, slot), 0, trace)
@@ -1884,7 +1924,8 @@ class PipelineDispatcher(LifecycleComponent):
             if rows.size == 0:
                 continue
             trace = self.tracer.trace("pipeline.shard-sidecar")
-            trace.record("shard.sidecar", 0.0, seq=plan.seq,
+            t = span_clock()
+            trace.record("shard.sidecar", t, t, seq=plan.seq,
                          rows=int(rows.size), shards=list(demoted))
             if not self._try_subset(plan, rows, 0, trace):
                 logger.warning(
@@ -1966,9 +2007,7 @@ class PipelineDispatcher(LifecycleComponent):
             # submits) skip the wait: the worker never blocks on itself
             self._stall_for_egress_room()
         self._stage_plan(plan)
-        trace = self.tracer.trace("pipeline.plan")
-        trace.record("batch.assemble", plan.max_wait_s,
-                     rows=plan.n_events, fill=round(plan.fill, 3))
+        trace = plan.trace
         self._m_assemble.observe(plan.max_wait_s)
         t_dispatch = time.perf_counter()
         with self._step_lock:
@@ -1987,21 +2026,29 @@ class PipelineDispatcher(LifecycleComponent):
                         faults.device_fire("device.dispatch",
                                            values=plan.packed_f,
                                            valid=plan.packed_i[0] != 0)
-                    with trace.span("step.dispatch").tag(
-                            "rows", plan.n_events):
-                        new_ps, oi, metrics, present = step_fn(
-                            tables, epoch, bi, bf)
+                    with _plan_span(trace, "step.dispatch", plan):
+                        if trace.recording and step_fn is self._packed_step \
+                                and self.mesh is None:
+                            # a sampled step marks its device stages
+                            plan.stage_marks = StageMarks(self.device)
+                            new_ps, oi, metrics, present = \
+                                plan.stage_marks.run(step_fn, tables, epoch,
+                                                     bi, bf)
+                        else:
+                            new_ps, oi, metrics, present = step_fn(
+                                tables, epoch, bi, bf)
                         self.state_manager.commit_packed(
                             new_ps, present_now=present, read_epoch=epoch)
                 except Exception as e:
                     self._wd_end(plan)
+                    plan.stage_marks = None
                     self._contain_step_failure(plan, e, replay_depth, trace)
                     return
                 view = PackedView(None, None, present, copy=self._host_copy(
                     HostCopy, oi, metrics))
             else:
                 batch = plan.batch
-                with trace.span("step.dispatch").tag("rows", plan.n_events):
+                with _plan_span(trace, "step.dispatch", plan):
                     if self.mesh is not None:
                         new_state, out = self._step(
                             self._placed(self.registry_provider(), True),
@@ -2188,6 +2235,8 @@ class PipelineDispatcher(LifecycleComponent):
         """Window the dispatched step in flight.  Offloaded: hand it to
         the egress worker and return.  Inline: egress the oldest plans
         beyond the window on this thread.  Called under _step_lock."""
+        if trace.recording:
+            plan.windowed_at = span_clock()
         self.steps += 1
         self._m_steps.inc()
         self._inflight.append((plan, out, replay_depth, trace))
@@ -2283,14 +2332,21 @@ class PipelineDispatcher(LifecycleComponent):
         # chaos hook: an egress failure mid-window; the plan has stepped
         # but never completes, so the offset never commits past it
         faults.fire("dispatcher.egress")
-        t_egress = time.perf_counter()
+        t_egress = span_clock()
         if trace is None:
             trace = _NOOP_TRACE
         host_cols = plan.host_cols
-        with trace.span("egress.fetch-outputs"):
-            m = out.metrics
-            accepted = out.accepted
-            cols = EgressColumns(host_cols, out)
+        if trace.recording:
+            trace.record("window.wait", plan.windowed_at, t_egress,
+                         seq=plan.seq, rows=plan.n_events)
+        # the blocking wait for the step's outputs and their copy
+        with _plan_span(trace, "egress.fetch-outputs", plan):
+            out.fetch()
+        if plan.stage_marks is not None:
+            self._record_device_stages(plan, trace)
+        m = out.metrics
+        accepted = out.accepted
+        cols = EgressColumns(host_cols, out)
         for key in ("processed", "accepted", "unregistered", "unassigned",
                     "threshold_alerts", "zone_alerts"):
             count = int(getattr(m, key))
@@ -2312,7 +2368,8 @@ class PipelineDispatcher(LifecycleComponent):
         nf = int(telemetry["rows_nonfinite"])
         if nf:
             self._m_quar_rows.inc(nf)
-            self._scan_quarantine(plan, replay_depth)
+            with _plan_span(trace, "egress.quarantine", plan):
+                self._scan_quarantine(plan, replay_depth)
         # tenant metering: the packed tenant block of the same fetched
         # metrics vector (no extra host sync)
         if self.usage_ledger is not None:
@@ -2334,10 +2391,10 @@ class PipelineDispatcher(LifecycleComponent):
             store_mask = accepted & ((refs == NULL_ID)
                                      | (refs >= self.store_dedup_floor))
         if self.event_store is not None and store_mask.any():
-            with trace.span("egress.persist").tag(
-                    "rows", int(store_mask.sum())):
+            with _plan_span(trace, "egress.persist", plan).tag(
+                    "stored", int(store_mask.sum())):
                 self.event_store.append_columns(cols, mask=store_mask)
-            self._m_seal.set(time.monotonic() - ingest_t0)
+            self._m_seal.set(self.batcher.clock() - ingest_t0)
         elif accepted.any() and (self.outbound is not None
                                  or self.analytics is not None):
             # the store path would have fetched the enrichment columns
@@ -2352,7 +2409,7 @@ class PipelineDispatcher(LifecycleComponent):
         # 1a. enriched fan-out to the outbound connectors; the trace rides
         # along so each async delivery span joins it
         if self.outbound is not None and accepted.any():
-            with trace.span("egress.outbound"), \
+            with _plan_span(trace, "egress.outbound", plan), \
                     self._m_leg["egress_outbound"].time():
                 self.outbound.submit(cols, accepted, trace=trace,
                                      ingest_t0=ingest_t0)
@@ -2363,7 +2420,7 @@ class PipelineDispatcher(LifecycleComponent):
         # queue order guarantees every batch carrying rows of records
         # below it was offered before this one.
         if self.analytics is not None and accepted.any():
-            with trace.span("egress.analytics"):
+            with _plan_span(trace, "egress.analytics", plan):
                 self.analytics.submit_live(
                     cols, accepted, trace=trace,
                     committed=(int(self.journal_reader.committed)
@@ -2373,7 +2430,7 @@ class PipelineDispatcher(LifecycleComponent):
         # 1c. tenant rule programs: the same accepted enriched batch,
         # evaluated on the engine's own worker (non-blocking offer)
         if self.rules_engine is not None and accepted.any():
-            with trace.span("egress.rules"):
+            with _plan_span(trace, "egress.rules", plan):
                 self.rules_engine.submit_live(cols, accepted)
 
         # 2. command invocations (command delivery, synchronous on this
@@ -2382,25 +2439,26 @@ class PipelineDispatcher(LifecycleComponent):
                                == EventType.COMMAND_INVOCATION)
         if self.on_command_rows is not None and cmd_mask.any():
             self.totals["commands"] += int(cmd_mask.sum())
-            with trace.span("egress.commands"), \
+            with _plan_span(trace, "egress.commands", plan), \
                     self._m_leg["egress_commands"].time():
                 self.on_command_rows(cols, cmd_mask, trace=trace)
 
         # 3. auto-registration + replay
         if int(m.unregistered) > 0:
-            with trace.span("egress.registration"), \
+            with _plan_span(trace, "egress.registration", plan), \
                     self._m_leg["egress_registration"].time():
-                self._handle_unregistered(host_cols, out, replay_depth)
+                self._handle_unregistered(host_cols, out, replay_depth,
+                                          plan.seq)
 
         # 4. derived alerts re-injection, read only when rules fired
         if int(m.threshold_alerts) + int(m.zone_alerts) > 0:
-            with trace.span("egress.derived-alerts"):
+            with _plan_span(trace, "egress.derived-alerts", plan):
                 self._reinject_derived(plan, out, replay_depth)
 
         # Egress complete: record the plan's end-to-end latency and
         # release it from the commit gate.  On an exception above the
         # count stays elevated: commits stop (fail closed).
-        lat = max(0.0, time.monotonic() - ingest_t0)
+        lat = max(0.0, self.batcher.clock() - ingest_t0)
         with self._lock:
             self.latencies_s.append(lat)
             self._plans_outstanding -= 1
@@ -2409,11 +2467,26 @@ class PipelineDispatcher(LifecycleComponent):
             lat, trace_id=(trace.trace_id if trace.sampled else None))
         self._m_queue.set(self.batcher.pending)
         self._m_inflight.set(len(self._inflight))
-        egress_dt = time.perf_counter() - t_egress
+        egress_dt = span_clock() - t_egress
         self._m_stage["egress"].observe(egress_dt)
         if self.flightrec is not None:
             self._flight_record(plan, out, replay_depth, commit="ok",
                                 e2e_s=lat, egress_s=egress_dt, trace=trace)
+
+    def _record_device_stages(self, plan: BatchPlan, trace) -> None:
+        """The sampled step's device stages as ``device.<stage>`` spans
+        carrying ``device_ms``.  Read after the output fetch, whose wait
+        covered every stage event.  Their lengths are the card's; they
+        are laid end to end, the last ending as the fetch returned."""
+        ms = plan.stage_marks.stage_ms()
+        plan.stage_marks = None
+        if ms is None:
+            return
+        t = span_clock() - sum(ms) * 1e-3
+        for name, dt in zip(_DEVICE_SPANS, ms):
+            trace.record(name, t, t + dt * 1e-3, seq=plan.seq,
+                         rows=plan.n_events, device_ms=dt)
+            t += dt * 1e-3
 
     def _meter_plan(self, out, host_cols: Dict[str, np.ndarray]) -> None:
         """Bill one egressed plan to its tenants.  The step bucketed the
@@ -2483,9 +2556,11 @@ class PipelineDispatcher(LifecycleComponent):
                 int(time.time()), device=self.device,
                 code=STATE_CHANGE_QUARANTINED)
             self.inject_batch(batch, np.ones(len(newly), dtype=bool),
-                              replay_depth + 1)
+                              replay_depth + 1, origin="quarantine",
+                              origin_seq=plan.seq)
 
-    def _handle_unregistered(self, host_cols, out, replay_depth: int) -> None:
+    def _handle_unregistered(self, host_cols, out, replay_depth: int,
+                             source_seq: int = -1) -> None:
         mask = np.asarray(out.unregistered)
         if not mask.any():
             return
@@ -2546,7 +2621,9 @@ class PipelineDispatcher(LifecycleComponent):
                         if req.metadata else "default"
                     )
                     plan = self.batcher.add(req, tenant_id=tenant_id,
-                                            payload_ref=NULL_ID)
+                                            payload_ref=NULL_ID,
+                                            origin="replay",
+                                            origin_seq=source_seq)
                     if plan is not None:
                         out.append(plan)
                 return out
@@ -2582,13 +2659,17 @@ class PipelineDispatcher(LifecycleComponent):
         self.totals["derived_alerts"] += int(rows.size)
         cols = out.derived_cols(plan.host_cols, rows)
         self._run_plans(self._take(
-            lambda: self.batcher.add_arrays(_copy=False, **cols)),
+            lambda: self.batcher.add_arrays(_copy=False, **cols,
+                                            origin="derived",
+                                            origin_seq=plan.seq)),
             replay_depth + 1)
 
     def inject_batch(self, batch: EventBatch, mask: np.ndarray,
-                     replay_depth: int = 0) -> None:
-        """Re-inject an already-dense event batch (derived alerts, presence
-        STATE_CHANGEs) through the pipeline as first-class events."""
+                     replay_depth: int = 0, origin: str = "presence",
+                     origin_seq: int = -1) -> None:
+        """Re-inject an already-dense event batch (presence and quarantine
+        STATE_CHANGEs) through the pipeline as first-class events;
+        ``origin``/``origin_seq`` as in ``Batcher.add_arrays``."""
         rows = np.nonzero(np.asarray(mask))[0]
         if rows.size == 0:
             return
@@ -2596,7 +2677,9 @@ class PipelineDispatcher(LifecycleComponent):
                 for f in _COL_FIELDS}
         # fancy-indexed gathers above are fresh arrays: skip the copy
         self._run_plans(self._take(
-            lambda: self.batcher.add_arrays(_copy=False, **cols)),
+            lambda: self.batcher.add_arrays(_copy=False, **cols,
+                                            origin=origin,
+                                            origin_seq=origin_seq)),
             replay_depth)
 
     def inject_rule_alerts(self, cols: Dict[str, np.ndarray]) -> int:
@@ -2618,7 +2701,8 @@ class PipelineDispatcher(LifecycleComponent):
         self.totals["rule_program_alerts"] = (
             self.totals.get("rule_program_alerts", 0) + n)
         self._run_plans(self._take(
-            lambda: self.batcher.add_arrays(_copy=False, **cols)))
+            lambda: self.batcher.add_arrays(_copy=False, **cols,
+                                            origin="rules")))
         return n
 
     def requeue_rows(self, cols: Dict[str, np.ndarray]) -> int:
@@ -2629,7 +2713,8 @@ class PipelineDispatcher(LifecycleComponent):
         if n == 0:
             return 0
         self._run_plans(self._take(
-            lambda: self.batcher.add_arrays(_copy=False, **cols)))
+            lambda: self.batcher.add_arrays(_copy=False, **cols,
+                                            origin="requeue")))
         return n
 
     def oldest_unsealed_wait_s(self) -> float:
@@ -2640,7 +2725,7 @@ class PipelineDispatcher(LifecycleComponent):
         if self.steps == 0:
             # warm-up gate: before the first step rows wait on the boot
             return 0.0
-        now = time.monotonic()
+        now = self.batcher.clock()
         wait = 0.0
         oldest = self.batcher._oldest
         if oldest is not None and self.batcher.pending > 0:

@@ -4,10 +4,18 @@ Reference: OpenTracing + Jaeger with a 1% probabilistic sampler
 (``microservice/MicroserviceConfiguration.java:53-57``), spans around
 lifecycle ops and gRPC client/server interceptors
 (``grpc/client/common/tracing/ClientTracingInterceptor.java``).  The
-pipeline here is one process per host, so spans are the host stages
-wrapped around the one device program: batch assemble (batcher wait),
-step dispatch, and each egress leg — plus the RPC legs when a trace
-crosses hosts.
+pipeline here is one process per host, so a plan's trace is the host
+stages around the one device program (the batcher's wait and intake,
+staging, dispatch, the in-flight window, the output fetch and each egress
+leg), the step's device stages when it is sampled, plus the RPC legs when
+a trace crosses hosts.
+
+One clock: every instant a span holds is :data:`span_clock`
+(``time.perf_counter``), the clock a device trace is aligned to and the
+batcher's default clock, so a span, a plan's ``received_at`` and a
+profiler's timeline lie on one axis.  Wall time appears only at export:
+:meth:`Span.to_dict` maps an instant through the tracer's wall anchor,
+taken when the tracer is built.
 
 Two samplers compose:
 
@@ -41,6 +49,9 @@ from typing import Dict, List, Optional
 TRACE_ID_HEADER = "trace-id"
 PARENT_ID_HEADER = "parent-id"
 TRACE_SAMPLED_HEADER = "trace-sampled"
+
+# The clock of every span instant (and the batcher's default clock).
+span_clock = time.perf_counter
 
 _ids = random.Random()
 _ids_lock = threading.Lock()
@@ -78,8 +89,11 @@ _NOOP = _NoopSpan()
 
 
 class Span:
+    """One timed stage: ``start_s`` and ``end_s`` on :data:`span_clock`,
+    and the thread it ran on (``threading.get_ident()``)."""
+
     __slots__ = ("tracer", "trace_id", "span_id", "parent_id", "name",
-                 "start_s", "duration_s", "tags", "error", "trace", "_t0")
+                 "start_s", "end_s", "tags", "error", "trace", "thread")
 
     def __init__(self, tracer: "Tracer", trace_id: str, name: str,
                  parent_id: Optional[str] = None,
@@ -89,36 +103,42 @@ class Span:
         self.span_id = _new_id()
         self.parent_id = parent_id
         self.name = name
-        self.start_s = time.time()
-        self.duration_s: Optional[float] = None
+        self.start_s = span_clock()
+        self.end_s: Optional[float] = None
         self.tags: Dict[str, object] = {}
         self.error: Optional[str] = None
         self.trace = trace
+        self.thread = threading.get_ident()
+
+    @property
+    def duration_s(self) -> Optional[float]:
+        return None if self.end_s is None else self.end_s - self.start_s
 
     def tag(self, key: str, value) -> "Span":
         self.tags[key] = value
         return self
 
     def __enter__(self) -> "Span":
-        self._t0 = time.perf_counter()  # type: ignore[attr-defined]
+        self.start_s = span_clock()
         return self
 
     def __exit__(self, exc_type, exc, tb):
-        self.duration_s = time.perf_counter() - self._t0  # type: ignore
+        self.end_s = span_clock()
         if exc is not None:
             self.error = f"{exc_type.__name__}: {exc}"
         self.tracer._finish(self)
         return False
 
     def to_dict(self) -> dict:
+        duration = self.duration_s
         return {
             "trace_id": self.trace_id,
             "span_id": self.span_id,
             "parent_id": self.parent_id,
             "name": self.name,
-            "start_s": round(self.start_s, 6),
-            "duration_ms": (round(self.duration_s * 1e3, 3)
-                            if self.duration_s is not None else None),
+            "start_s": round(self.tracer.wall_time(self.start_s), 6),
+            "duration_ms": (round(duration * 1e3, 3)
+                            if duration is not None else None),
             "tags": self.tags,
             "error": self.error,
         }
@@ -131,9 +151,17 @@ class Trace:
     here, or upstream on the propagating side): spans flush straight to
     the finished ring.  ``sampled=False`` means the trace is a
     tail-sampling candidate: spans buffer until :meth:`end` decides.
+
+    ``root`` is the trace's own root span when the caller gave the
+    trace a start (:meth:`Tracer.trace`): its children hang off it, and
+    :meth:`end` closes and records it.
     """
 
-    __slots__ = ("tracer", "trace_id", "root_id", "sampled", "decided")
+    __slots__ = ("tracer", "trace_id", "root_id", "sampled", "decided",
+                 "root")
+
+    # spans are recorded (callers guard their clock reads on this)
+    recording = True
 
     def __init__(self, tracer: "Tracer", trace_id: str,
                  root_id: Optional[str], sampled: bool = True):
@@ -146,6 +174,7 @@ class Trace:
         # — guarded by the tracer's lock, so a late async span can
         # never re-open a decided trace's pending entry
         self.decided = sampled
+        self.root: Optional[Span] = None
 
     def span(self, name: str, parent: Optional[Span] = None):
         return Span(self.tracer, self.trace_id, name,
@@ -153,12 +182,19 @@ class Trace:
                                else self.root_id),
                     trace=self)
 
-    def record(self, name: str, duration_s: float, **tags) -> None:
-        """Record an already-measured stage (e.g. batcher wait) as a span."""
+    def record(self, name: str, start: float, end: Optional[float] = None,
+               **tags) -> None:
+        """Record an already-measured stage as a span from ``start`` to
+        ``end`` (instants on :data:`span_clock`).  Without ``end``,
+        ``start`` is the stage's length and the stage ends now (the
+        reference package's form, for callers that measured a length)."""
         span = Span(self.tracer, self.trace_id, name, parent_id=self.root_id,
                     trace=self)
-        span.start_s = time.time() - duration_s
-        span.duration_s = duration_s
+        if end is None:
+            end = span_clock()
+            start = end - start
+        span.start_s = start
+        span.end_s = end
         span.tags.update(tags)
         self.tracer._finish(span)
 
@@ -176,14 +212,19 @@ class Trace:
         return headers
 
     def end(self) -> None:
-        """Close the trace: applies the tail-sampling retention decision
-        for pending traces (no-op for head-sampled ones).  Safe to call
+        """Close the trace: records the root span, if any, once, then
+        applies the tail-sampling retention decision for pending traces
+        (no-op for head-sampled ones).  Safe to call
         once per trace from the side that created it; spans finished
         AFTER end() (async egress legs) go straight to the ring when the
         trace was retained and are discarded when it was dropped — they
         never re-open the pending entry.  Exception: a late ERRORED span
         (with ``tail_errors`` on) re-opens retention, so an async
         delivery failure is never invisible."""
+        root = self.root
+        if root is not None and root.end_s is None:
+            root.end_s = span_clock()
+            self.tracer._finish(root)
         self.tracer._end_trace(self)
 
 
@@ -193,11 +234,13 @@ class _NoopTrace:
     trace_id = None
     sampled = False
     decided = True
+    recording = False
+    root = None
 
     def span(self, name: str, parent=None):
         return _NOOP
 
-    def record(self, name: str, duration_s: float, **tags) -> None:
+    def record(self, name: str, start: float, end=None, **tags) -> None:
         pass
 
     def propagate(self, headers: Dict[str, str], parent=None) -> Dict[str, str]:
@@ -211,11 +254,10 @@ _NOOP_TRACE = _NoopTrace()
 
 
 class _PendingTrace:
-    __slots__ = ("spans", "started")
+    __slots__ = ("spans",)
 
     def __init__(self):
         self.spans: List[Span] = []
-        self.started = time.monotonic()
 
 
 class Tracer:
@@ -231,6 +273,9 @@ class Tracer:
 
     With both tail knobs off (the default), unsampled traces cost one
     branch — exactly the old head-only behavior.
+
+    The finished ring holds ``capacity`` spans; :attr:`spans_evicted`
+    counts those it dropped to make room.
     """
 
     def __init__(self, sample_rate: float = 0.01, capacity: int = 2048,
@@ -255,6 +300,10 @@ class Tracer:
         self.anomalies_noted = 0
         self.retained_anomaly = 0
         self._spans: collections.deque = collections.deque(maxlen=capacity)
+        self.spans_evicted = 0
+        # export anchor: span instants map to wall time through it
+        self._wall0 = time.time()
+        self._clock0 = span_clock()
         self._pending: "collections.OrderedDict[str, _PendingTrace]" = \
             collections.OrderedDict()
         self._lock = threading.Lock()
@@ -270,31 +319,46 @@ class Tracer:
         return (self.tail_errors or self.tail_latency_s is not None
                 or bool(self._anomalies))
 
+    def wall_time(self, t: float) -> float:
+        """The wall-clock time (``time.time`` space) of span instant ``t``."""
+        return self._wall0 + (t - self._clock0)
+
     def note_anomaly(self, ts: Optional[float] = None) -> None:
-        """Stamp an anomaly moment (wall-clock ``time.time`` space, the
-        same clock spans carry): tail candidates overlapping the
-        retention window from this stamp are ALWAYS kept.  Called by the
-        overload controller on every state transition and by the SLO
+        """Stamp an anomaly moment (an instant on :data:`span_clock`, the
+        clock spans carry; now by default): tail candidates overlapping
+        the retention window from this stamp are ALWAYS kept.  Called by
+        the overload controller on every state transition and by the SLO
         burn engine on alert."""
         with self._lock:
-            self._anomalies.append(time.time() if ts is None else ts)
+            self._anomalies.append(span_clock() if ts is None else ts)
             self.anomalies_noted += 1
 
-    def trace(self, name: str):
+    def trace(self, name: str, start: Optional[float] = None):
         """Trace root: head-sample, else tail-candidate, else no-op.
 
         The head decision is per-trace (reference: Jaeger probabilistic
         1%, ``MicroserviceConfiguration.java:55``) so sampled traces
         carry every stage span; with tail sampling on, unsampled traces
         still buffer pending the end-of-trace retention decision.
+
+        With ``start`` (an instant on :data:`span_clock`) the trace gets
+        a root span ``name`` from ``start`` to :meth:`Trace.end`, and its
+        spans are the root's children.
         """
         self.started += 1
         if self._rng.random() < self.sample_rate:
             self.sampled += 1
-            return Trace(self, _new_id(), None, sampled=True)
-        if not self._tail_enabled:
+            trace = Trace(self, _new_id(), None, sampled=True)
+        elif not self._tail_enabled:
             return _NOOP_TRACE
-        return Trace(self, _new_id(), None, sampled=False)
+        else:
+            trace = Trace(self, _new_id(), None, sampled=False)
+        if start is not None:
+            root = Span(self, trace.trace_id, name, trace=trace)
+            root.start_s = start
+            trace.root = root
+            trace.root_id = root.span_id
+        return trace
 
     def join(self, headers: Optional[Dict[str, str]]):
         """Continue a propagated trace from ``headers``; None when no
@@ -319,12 +383,12 @@ class Tracer:
         trace = span.trace
         if trace is None or trace.sampled:
             with self._lock:
-                self._spans.append(span)
+                self._keep_locked((span,))
             return
         with self._lock:
             if trace.sampled:
                 # retention decided between the check above and the lock
-                self._spans.append(span)
+                self._keep_locked((span,))
                 return
             if trace.decided:
                 # decided-and-dropped: late async spans drop too — EXCEPT
@@ -334,7 +398,7 @@ class Tracer:
                 # on (the pre-decision clean spans are already gone)
                 if self.tail_errors and span.error:
                     trace.sampled = True
-                    self._spans.append(span)
+                    self._keep_locked((span,))
                     self.retained_tail += 1
                     self.dropped_tail -= 1
                 return
@@ -374,12 +438,13 @@ class Tracer:
         if not keep and spans and (self.tail_latency_s is not None
                                    or self._anomalies):
             starts = [s.start_s for s in spans]
-            ends = [s.start_s + (s.duration_s or 0.0) for s in spans]
+            ends = [s.start_s if s.end_s is None else s.end_s
+                    for s in spans]
             if self.tail_latency_s is not None:
                 keep = (max(ends) - min(starts)) >= self.tail_latency_s
             if not keep and self._anomalies:
                 # expire stamps whose retention window closed long ago
-                horizon = time.time() - 2 * self.tail_anomaly_window_s
+                horizon = span_clock() - 2 * self.tail_anomaly_window_s
                 while self._anomalies and self._anomalies[0] < horizon:
                     self._anomalies.popleft()
                 # overlap: the trace's span extent intersects
@@ -390,7 +455,7 @@ class Tracer:
                     keep = True
                     self.retained_anomaly += 1
         if keep:
-            self._spans.extend(spans)
+            self._keep_locked(spans)
             self.retained_tail += 1
         else:
             self.dropped_tail += 1
@@ -399,12 +464,26 @@ class Tracer:
             spans[0].trace.decided = True
         return keep
 
+    def _keep_locked(self, spans) -> None:
+        """Append finished spans to the ring, counting what it evicts.
+        Caller holds ``_lock``."""
+        over = len(self._spans) + len(spans) - self._spans.maxlen
+        if over > 0:
+            self.spans_evicted += over
+        self._spans.extend(spans)
+
     # -- read side ------------------------------------------------------------
 
     def recent(self, limit: int = 100) -> List[dict]:
         with self._lock:
             spans = list(self._spans)[-limit:]
         return [s.to_dict() for s in spans]
+
+    def finished(self) -> List[Span]:
+        """The finished ring's spans, oldest first (instants on
+        :data:`span_clock`)."""
+        with self._lock:
+            return list(self._spans)
 
     def stats(self) -> dict:
         with self._lock:
@@ -420,5 +499,6 @@ class Tracer:
             "traces_dropped_tail": self.dropped_tail,
             "traces_pending": pending,
             "spans_buffered": buffered,
+            "spans_evicted": self.spans_evicted,
             "anomalies_noted": self.anomalies_noted,
         }

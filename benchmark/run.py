@@ -136,7 +136,7 @@ def main(argv=None, root: Path = ROOT) -> int:
     import numpy as np
     import torch
 
-    from benchmark import devtrace, driver
+    from benchmark import devtrace, driver, host
     from benchmark.reference import compare, plain
     from benchmark.sink import Sink
 
@@ -261,6 +261,7 @@ def main(argv=None, root: Path = ROOT) -> int:
         result["breakdown"] = {"device_ops": trace["device_ops"],
                                "idle_gaps": trace["idle_gaps"]}
     result["card"] = card_line() if on_card else "cpu"
+    result["host"] = host.placement()
     result["checks"] = checks
 
     found = forbidden_modules()
@@ -275,6 +276,11 @@ def main(argv=None, root: Path = ROOT) -> int:
     late = int(np.count_nonzero(stream_plans[1:, 1] < stream_plans[:-1, 2]))
     pct = (np.percentile(lat, [50, 90, 99, 100]) * 1e3 if lat.size
            else [float("nan")] * 4)
+    # within-run drift: the rate of rows handed over in each fifth
+    fifth = (t_end - t0) / 5
+    fifths = np.bincount(
+        np.minimum(((handover[n0:n1] - t0) // fifth).astype(np.int64), 4),
+        minlength=5) * width / fifth
     derived = int(plans[:, 6].sum())
     zone_fired = int(np.isin(exp.alerts[:, 1],
                              world_host["zones"]["alert_code"]).sum())
@@ -292,7 +298,8 @@ def main(argv=None, root: Path = ROOT) -> int:
           f"quiesced {quiesced}; plans stepped before an earlier plan "
           f"{late}, sampled rows stepped before an earlier row of their "
           f"device {inversions}; latency p50/p90/p99/max ms "
-          f"{' '.join(f'{x:.1f}' for x in pct)}"
+          f"{' '.join(f'{x:.1f}' for x in pct)}; M events/s handed over "
+          f"by fifth of the window {' '.join(f'{x / 1e6:.3f}' for x in fifths)}"
           + (f"; trace stop {trace['stop_s']:.2f} s, markers "
              f"{trace['markers']}, aligned {trace['aligned']}" if trace
              else "")
